@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``tianshou_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run:
+
+1. Require CUDA; print the card's name and power limit and the TF32 settings.
+2. Build every hand-written kernel from the sources in the checkout.
+3. Kernel phase: hold each kernel bit-exact against its plain PyTorch
+   version on the card, and time the kernel, the plain version and one
+   PyTorch library call with CUDA events: device time per call from a
+   replayed CUDA graph of 20 calls, and eager time of single calls, each the
+   median of 60 runs after a warm-up.
+4. Main path: the DQN-on-pixels pipeline of ``bench.py``
+   (``_build_atari_pipeline`` / ``bench_atari_cnn``) at its widths:
+   ``FrameStack(SyntheticAtari(), 4)`` over 256 envs, a uint8 replay of
+   256*512 frames per ring with ``stack_num=4`` and ``save_only_last_obs``,
+   and ``DQN(DQNet(6))`` with n=3, gamma 0.99, target sync every 500 steps,
+   eps 0.05 and Adam at lr 1e-4, trained by ``OffPolicyTrainer`` for a random
+   prefill chunk plus three chunks of T=16 steps with update_per_step 0.1 and
+   batch 32 (410 updates a chunk). Launch counters are zeroed just before
+   and read just after; the gather kernel must run exactly twice per update.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it is
+the card's name and power limit, and the one before that the per-kernel
+JSON record.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+# the main path's widths and depth (bench.py's pixel pipeline)
+E = 256        # envs
+SLOTS = 512    # ring slots per env
+CHUNKS = 3     # training chunks after the prefill chunk
+T = 16         # env steps per chunk
+BATCH = 32
+SEED = 0
+
+
+def _smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, warmup: int = 10, runs: int = 60, per_graph: int = 20) -> tuple[float, float]:
+    """(device ms, eager ms) of one call of ``fn``, each a median over ``runs``.
+
+    Device time: ``per_graph`` calls captured in a CUDA graph, replayed
+    between two CUDA events, so that no host launch gap is counted. Eager
+    time: CUDA events around one ordinary call, which includes the gap when
+    the host launches slower than the device runs.
+    """
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    eager = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        eager.append(a.elapsed_time(b))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    device = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        device.append(a.elapsed_time(b) / per_graph)
+    del graph
+    return statistics.median(device), statistics.median(eager)
+
+
+# ---------------------------------------------------------------------------
+# the bench.py pixel env, batched (bench.py:86-117)
+# ---------------------------------------------------------------------------
+def make_synthetic_atari():
+    from typing import NamedTuple
+
+    import torch
+
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.env.core import Box, Discrete, Env, EnvStep
+
+    class PixState(NamedTuple):
+        pos: torch.Tensor  # [E] int32
+        t: torch.Tensor    # [E] int32
+
+    class SyntheticAtari(Env):
+        """84x84 uint8 frames from a cheap position-dependent pattern, ~500-step
+        episodes; obs synthesis is negligible next to the CNN and the replay."""
+
+        max_episode_steps = 108_000
+
+        def __init__(self) -> None:
+            self.observation_space = Box(low=0, high=255, shape=(84, 84, 1))
+            self.action_space = Discrete(6)
+
+        @staticmethod
+        def _obs(s: PixState) -> torch.Tensor:
+            row = torch.arange(84, dtype=torch.int32, device=s.pos.device)[:, None]
+            col = torch.arange(84, dtype=torch.int32, device=s.pos.device)[None, :]
+            img = (row * 7 + col * 13)[None] + s.pos[:, None, None]
+            return (img % 251).to(torch.uint8)[..., None]
+
+        def reset(self, num_envs, generator, device):
+            z = torch.zeros(num_envs, dtype=torch.int32, device=device)
+            s = PixState(z, z.clone())
+            return s, self._obs(s)
+
+        def step(self, state, action, generator):
+            pos = state.pos + action.to(torch.int32) + 1
+            t = state.t + 1
+            terminated = torch.rand(pos.shape, generator=generator, device=pos.device) < 0.002
+            s = PixState(pos, t)
+            return EnvStep(
+                state=s, obs=self._obs(s),
+                reward=(action == pos % 6).to(torch.float32),
+                terminated=terminated,
+                truncated=(t >= self.max_episode_steps) & ~terminated,
+                info=Batch(),
+            )
+
+    return SyntheticAtari()
+
+
+# ---------------------------------------------------------------------------
+def kernel_phase(torch, gather) -> tuple[dict, list[str]]:
+    """Bit-exactness on the card at the main path's and edge-case shapes, timing at the
+    main path's shape. Returns (JSON record without launches, report lines)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    lines = []
+    n, row = 131072, 7056  # the main path's obs ring: 256 envs x 512 slots of 84*84*1 B
+    src = torch.randint(0, 256, (n, row), dtype=torch.uint8, device="cuda", generator=g)
+    cases = []
+    for rows in (128, 4096):
+        idx = torch.randint(0, n, (rows,), device="cuda", generator=g)
+        cases += [(f"uint8[{n},{row}] x {rows} rows int64", src, idx),
+                  (f"uint8[{n},{row}] x {rows} rows int32", src, idx.to(torch.int32))]
+    f32 = torch.randn(1024, 5, device="cuda", generator=g)
+    cases.append(("float32[1024,5] x 300 rows", f32, torch.randint(0, 1024, (300,), device="cuda", generator=g)))
+    rag = torch.randint(0, 256, (513, 3), dtype=torch.uint8, device="cuda", generator=g)
+    cases.append(("uint8[513,3] x 1000 rows", rag, torch.randint(0, 513, (1000,), device="cuda", generator=g)))
+    rep = torch.tensor([5, 5, 5, 0, 512, 512, 7, 5, -4, 10_000], device="cuda")
+    cases.append(("uint8[513,3] repeated and out-of-range indices", rag, rep))
+    cases.append(("uint8 main ring, repeated indices", src, torch.full((128,), 77, device="cuda")))
+    max_err = 0.0
+    for name, s, i in cases:
+        out = gather.gather_rows(s, i)
+        ref = gather.gather_rows_reference(s, i)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"gather_rows differs from its plain version: {name}")
+        max_err = max(max_err, float((out.double() - ref.double()).abs().max()))
+        lines.append(f"gather_rows bit-exact: {name}")
+
+    timings = {}
+    count = gather.launch_count()  # timing launches are not the main path's
+    for rows in (128, 4096):
+        idx = torch.randint(0, n, (rows,), device="cuda", generator=g)
+        kern, kern_e = _time_ms(lambda: gather.gather_rows(src, idx))
+        plain, plain_e = _time_ms(lambda: gather.gather_rows_reference(src, idx))
+        lib, lib_e = _time_ms(lambda: src[idx])
+        bound = (2 * rows * row + idx.numel() * idx.element_size()) / H100_HBM_BYTES_PER_S * 1e3
+        timings[rows] = (kern, plain, lib, bound)
+        lines.append(
+            f"gather_rows {rows} rows x {row} B, device us (CUDA graph): kernel {kern * 1e3:.3f} "
+            f"plain {plain * 1e3:.3f} library(src[idx]) {lib * 1e3:.3f} bound {bound * 1e3:.3f}; "
+            f"eager us per call: kernel {kern_e * 1e3:.2f} plain {plain_e * 1e3:.2f} library {lib_e * 1e3:.2f}"
+        )
+    if gather.launch_count() == count:
+        raise AssertionError("the timed gather_rows calls did not launch the kernel")
+    kern, plain, lib, bound = timings[128]  # 32 samples x 4 frames on the main path
+    record = {
+        "name": "gather_rows", "route": "cuda",
+        "source": "tianshou_tpu_torch/ops/kernels/csrc/gather.cu",
+        "replaces": "tianshou_tpu/ops/pallas/gather.py:79",
+        "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": lib,
+    }
+    return record, lines
+
+
+def build_pipeline(torch):
+    """The bench.py pipeline (``_build_atari_pipeline``) in the port:
+    returns (algo, train state, buffer, buffer state, collector)."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.wrappers import FrameStack
+    from tianshou_tpu_torch.models.atari import DQNet
+
+    device = "cuda"
+    torch.manual_seed(SEED)
+    env = FrameStack(make_synthetic_atari(), 4)
+    algo = DQN(
+        model=DQNet(action_dim=6),
+        action_space=env.action_space,
+        optim=AdamOptimizerFactory(lr=1e-4),
+        gamma=0.99, n_step_return_horizon=3, target_update_freq=500, eps_training=0.05,
+    )
+    ts = algo.init(device)
+    buffer = VectorReplayBuffer(total_size=E * SLOTS, buffer_num=E, stack_num=4, save_only_last_obs=True)
+    buf_state = buffer.init(Batch(
+        obs=torch.zeros((84, 84, 1), dtype=torch.uint8), act=torch.tensor(0), rew=torch.tensor(0.0),
+        terminated=torch.tensor(False), truncated=torch.tensor(False),
+        obs_next=torch.zeros((84, 84, 1), dtype=torch.uint8),
+    ), device=device)
+    coll = DeviceCollector(VectorDeviceEnv(env, E, device=device), algo, buffer)
+    return algo, ts, buffer, buf_state, coll
+
+
+def main_path(torch):
+    """Train the bench.py pipeline; returns (result, gather launches, report lines)."""
+    from tianshou_tpu_torch.ops.kernels import gather
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    algo, ts, buffer, buf_state, coll = build_pipeline(torch)
+    init_params = [p.detach().clone() for p in ts.model.parameters()]
+    params = OffPolicyTrainerParams(
+        max_epochs=1, epoch_num_steps=CHUNKS * T * E, batch_size=BATCH,
+        collection_step_num_env_steps=T, update_per_step=0.1, start_steps=T * E, verbose=False,
+    )
+    trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    gather.reset_launch_count()
+    res = trainer.run(ts, buf_state, gen)
+    launches = gather.launch_count()
+
+    lines = []
+    ts, bs = res.train_state, res.buf_state
+    tensors = [*ts.model.parameters(), *ts.target.parameters(), bs.cursor, bs.size, bs.last_idx,
+               *bs.data.values()]
+    if not all(t.device.type == "cuda" for t in tensors):
+        raise AssertionError("a tensor of the main path left the device")
+    loss = res.last_chunk_stats.loss
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"non-finite loss in the last chunk: {loss}")
+    if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()):
+        raise AssertionError("non-finite parameters after training")
+    if all(torch.equal(a, b) for a, b in zip(init_params, ts.model.parameters())):
+        raise AssertionError("training left the parameters unchanged")
+    expect_updates = CHUNKS * max(1, round(0.1 * T * E))
+    if res.gradient_step != expect_updates:
+        raise AssertionError(f"{res.gradient_step} updates, expected {expect_updates}")
+    if bs.size.min().item() != min(SLOTS, (CHUNKS + 1) * T):
+        raise AssertionError(f"ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
+    train_s = res.timing["collect"] + res.timing["update"]
+    lines.append(
+        f"main path: E={E} T={T} chunks={CHUNKS} updates={res.gradient_step} batch={BATCH} "
+        f"ring uint8 {tuple(bs.data.obs.shape)} x2 ({bs.data.obs.numel() / 1e9:.3f} GB each)"
+    )
+    lines.append(
+        f"main path: env_steps_per_s {CHUNKS * T * E / train_s:.1f} ms_per_chunk {train_s / CHUNKS * 1e3:.1f} "
+        f"(collect {res.timing['collect'] / CHUNKS * 1e3:.1f} ms, update {res.timing['update'] / CHUNKS * 1e3:.1f} ms "
+        f"= {res.timing['update'] / res.gradient_step * 1e3:.3f} ms/update; prefill {res.timing['prefill'] * 1e3:.1f} ms) "
+        f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches}"
+    )
+    return res, launches, lines
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU", file=sys.stderr)
+        return 1
+    from tianshou_tpu_torch.ops.kernels import _build, gather
+
+    # float32 matmuls and convolutions in full precision (the net computes in bf16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    smi = _smi()
+    print(f"device: {smi} ({torch.cuda.get_device_name(0)})", flush=True)
+    t0 = time.perf_counter()
+    _build.build("gather")
+    print(f"build: {time.perf_counter() - t0:.2f} s for the gather kernel library", flush=True)
+
+    t0 = time.perf_counter()
+    record, lines = kernel_phase(torch, gather)
+    print("\n".join(lines), f"\nkernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    res, launches, lines = main_path(torch)
+    print("\n".join(lines), f"\nmain path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    if launches != 2 * res.gradient_step:
+        raise AssertionError(f"gather_rows launched {launches} times for {res.gradient_step} updates, expected 2 per update")
+    record["launches"] = launches
+
+    print(json.dumps({"kernels": [record]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
