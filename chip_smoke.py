@@ -12,7 +12,7 @@ Phases, each of which fails the run:
    PyTorch library call with CUDA events: device time per call from a
    replayed CUDA graph of 20 calls, and eager time of single calls, each the
    median of 60 runs after a warm-up.
-4. Main path: the DQN-on-pixels pipeline of ``bench.py``
+4. DQN path: the DQN-on-pixels pipeline of ``bench.py``
    (``_build_atari_pipeline`` / ``bench_atari_cnn``) at its widths:
    ``FrameStack(SyntheticAtari(), 4)`` over 256 envs, a uint8 replay of
    256*512 frames per ring with ``stack_num=4`` and ``save_only_last_obs``,
@@ -21,6 +21,15 @@ Phases, each of which fails the run:
    prefill chunk plus three chunks of T=16 steps with update_per_step 0.1 and
    batch 32 (410 updates a chunk). Launch counters are zeroed just before
    and read just after; the gather kernel must run exactly twice per update.
+5. Rainbow path: the same pixel pipeline with the two parts of the
+   ``examples/atari/atari_rainbow.py`` configuration exchanged: a
+   prioritized replay (``PrioritizedVectorReplayBuffer``, alpha 0.6, beta
+   0.4, a sum tree of 131072 leaves) and ``RainbowDQN`` over the noisy
+   dueling ``RainbowAtariNet(6, 51 atoms)`` with Adam at lr 6.25e-5, at the
+   same depth. Counters are zeroed and read around it in the same way: the
+   sum-tree kernel must run once and the gather kernel twice per update, the
+   final tree must hold ``node = left + right`` exactly at every internal
+   node, with zero leaves at never-written slots.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the per-kernel
@@ -36,6 +45,7 @@ import sys
 import time
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+H100_FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores, same sheet
 
 # the main path's widths and depth (bench.py's pixel pipeline)
 E = 256        # envs
@@ -147,7 +157,7 @@ def make_synthetic_atari():
 
 
 # ---------------------------------------------------------------------------
-def kernel_phase(torch, gather) -> tuple[dict, list[str]]:
+def gather_phase(torch, gather) -> tuple[dict, list[str]]:
     """Bit-exactness on the card at the main path's and edge-case shapes, timing at the
     main path's shape. Returns (JSON record without launches, report lines)."""
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -203,29 +213,145 @@ def kernel_phase(torch, gather) -> tuple[dict, list[str]]:
     return record, lines
 
 
-def build_pipeline(torch):
-    """The bench.py pipeline (``_build_atari_pipeline``) in the port:
-    returns (algo, train state, buffer, buffer state, collector)."""
+def _touched_nodes(tree, values, depth: int) -> int:
+    """Number of distinct tree nodes the descents of ``values`` read."""
+    import torch
+
+    idx = torch.ones(values.shape, dtype=torch.int64, device=values.device)
+    read = []
+    for _ in range(depth):
+        left = tree[2 * idx]
+        go_right = left < values
+        read.append(2 * idx)
+        values = torch.where(go_right, values - left, values)
+        idx = 2 * idx + go_right.to(torch.int64)
+    return int(torch.unique(torch.cat(read)).numel()) if read else 0
+
+
+def sumtree_phase(torch, sumtree) -> tuple[dict, list[str]]:
+    """Exact equality of the sum-tree descent kernel and its plain version on the card at the
+    main path's and edge-case shapes, timing at the main path's shape (131072 leaves, 32
+    stratified queries) and at 4096 queries. Returns (JSON record without launches, lines)."""
+    from tianshou_tpu_torch.ops.segtree import SegmentTree
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lines = []
+
+    def rand(n):
+        return torch.rand(n, device="cuda", generator=g)
+
+    def filled(size, zero_share=0.0):
+        st = SegmentTree(size)
+        vals = rand(size) + 1e-3
+        if zero_share:
+            vals = torch.where(rand(size) < zero_share, 0.0, vals)
+        return st, st.update(st.init("cuda"), torch.arange(size, device="cuda"), vals)
+
+    def edge_values(st, tree):
+        """Every prefix sum of the first leaves (a value equal to one goes left), 0, the total,
+        values above it and a negative one."""
+        total = st.total(tree)
+        cum = torch.cumsum(tree[st.bound:st.bound + min(st.size, 256)], 0)
+        return torch.cat([cum, torch.stack([total * 0, total, total * 1.5, total + 1e9, -total - 1])])
+
+    cases = []
+    for size, batches in ((131072, (32, 4096)), (100000, (32,)), (16384, (257,)), (1, (5,))):
+        st, tree = filled(size)
+        for b in batches:
+            cases.append((f"size {size} (bound {st.bound}) x {b} uniform values", st, tree, rand(b) * st.total(tree)))
+        cases.append((f"size {size}: prefix sums, 0, total and beyond", st, tree, edge_values(st, tree)))
+    st, tree = filled(100000, zero_share=0.5)
+    cases.append(("size 100000, half the leaves at priority 0", st, tree,
+                  torch.cat([rand(4096) * st.total(tree), edge_values(st, tree)])))
+    st = SegmentTree(131072)
+    cases.append(("size 131072, all-zero tree", st, st.init("cuda"), torch.cat([rand(32), torch.zeros(3, device="cuda")])))
+    # a tree built by update with duplicate (the last write wins) and -1 / out-of-range indices
+    st = SegmentTree(131072)
+    idx = torch.randint(-1, 131072, (300000,), device="cuda", generator=g)
+    idx[::1000] = 131072 + 5
+    tree = st.update(st.init("cuda"), idx, rand(300000) * 3)
+    tree = st.update(tree, torch.tensor([7, 7, -1, 7], device="cuda"), torch.tensor([1.0, 2.0, 9.0, 4.0], device="cuda"))
+    if tree[st.bound + 7].item() != 4.0 or tree[0].item() != 0.0:
+        raise AssertionError("SegmentTree.update: the last write did not win or node 0 was written")
+    if not torch.equal(tree[1:st.bound], tree[2::2] + tree[3::2]):
+        raise AssertionError("SegmentTree.update: an internal node is not the sum of its children")
+    cases.append(("size 131072, tree from update with duplicate and dropped indices", st, tree,
+                  torch.cat([rand(4096) * st.total(tree), edge_values(st, tree)])))
+    cases.append(("size 131072, no values", st, tree, torch.zeros(0, device="cuda")))
+
+    max_err = 0.0
+    for name, st, tree, values in cases:
+        out = st.get_prefix_sum_idx(tree, values)
+        ref = sumtree.prefix_sum_idx_reference(tree, values, st.bound, st.depth, st.size)
+        torch.cuda.synchronize()
+        if out.dtype != torch.int64 or not torch.equal(out, ref):
+            raise AssertionError(f"prefix_sum_idx differs from its plain version: {name}")
+        if values.numel():
+            max_err = max(max_err, float((out - ref).abs().max()))
+        lines.append(f"prefix_sum_idx exact: {name}")
+
+    # timing at the main path's tree: every leaf holds a priority, values are stratified
+    st, tree = filled(131072)
+    timings = {}
+    count = sumtree.launch_count()  # timing launches are not the main path's
+    for b in (32, 4096):
+        values = ((rand(b) + torch.arange(b, device="cuda")) / b * st.total(tree)).contiguous()
+        kern, kern_e = _time_ms(lambda: sumtree.prefix_sum_idx(tree, values, st.bound, st.depth, st.size))
+        plain, plain_e = _time_ms(lambda: sumtree.prefix_sum_idx_reference(tree, values, st.bound, st.depth, st.size))
+        # no single PyTorch call computes this function (a cumsum rounds differently); for information only
+        two, _ = _time_ms(lambda: torch.searchsorted(torch.cumsum(tree[st.bound:], 0), values))
+        nodes = _touched_nodes(tree, values, st.depth)
+        by_bytes = (b * 4 + b * 8 + 4 * nodes) / H100_HBM_BYTES_PER_S * 1e3
+        by_ops = 2 * b * st.depth / H100_FP32_OPS_PER_S * 1e3  # one compare and one subtract per level
+        timings[b] = (kern, plain, max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+        lines.append(
+            f"prefix_sum_idx bound {st.bound} x {b} values, device us (CUDA graph): kernel {kern * 1e3:.3f} "
+            f"plain {plain * 1e3:.3f} bound {max(by_bytes, by_ops) * 1e3:.5f} ({nodes} distinct nodes read; by bytes "
+            f"{by_bytes * 1e3:.5f}, by operations {by_ops * 1e3:.5f}); eager us per call: kernel {kern_e * 1e3:.2f} "
+            f"plain {plain_e * 1e3:.2f}; cumsum+searchsorted (another rounding, no yardstick) {two * 1e3:.3f}"
+        )
+    if sumtree.launch_count() == count:
+        raise AssertionError("the timed prefix_sum_idx calls did not launch the kernel")
+    kern, plain, bound, bound_by = timings[32]  # batch 32 on the main path
+    record = {
+        "name": "prefix_sum_idx", "route": "cuda",
+        "source": "tianshou_tpu_torch/ops/kernels/csrc/sumtree.cu",
+        "replaces": "tianshou_tpu/ops/pallas/sumtree.py:63",
+        "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None,
+    }
+    return record, lines
+
+
+def build_pipeline(torch, kind: str = "dqn"):
+    """The bench.py pipeline (``_build_atari_pipeline``) in the port, with DQN over a uniform
+    replay (``kind="dqn"``) or RainbowDQN over a prioritized one (``kind="rainbow"``,
+    examples/atari/atari_rainbow.py): returns (algo, train state, buffer, buffer state, collector)."""
+    from tianshou_tpu_torch.algorithm.modelfree.c51 import RainbowDQN
     from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
     from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
     from tianshou_tpu_torch.data.batch import Batch
     from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.buffer.prio import PrioritizedVectorReplayBuffer
     from tianshou_tpu_torch.data.collector import DeviceCollector
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.env.wrappers import FrameStack
-    from tianshou_tpu_torch.models.atari import DQNet
+    from tianshou_tpu_torch.models.atari import DQNet, RainbowAtariNet
 
     device = "cuda"
     torch.manual_seed(SEED)
     env = FrameStack(make_synthetic_atari(), 4)
-    algo = DQN(
-        model=DQNet(action_dim=6),
-        action_space=env.action_space,
-        optim=AdamOptimizerFactory(lr=1e-4),
-        gamma=0.99, n_step_return_horizon=3, target_update_freq=500, eps_training=0.05,
-    )
+    common = dict(action_space=env.action_space, gamma=0.99, n_step_return_horizon=3,
+                  target_update_freq=500, eps_training=0.05)
+    ring = dict(total_size=E * SLOTS, buffer_num=E, stack_num=4, save_only_last_obs=True)
+    if kind == "dqn":
+        algo = DQN(model=DQNet(action_dim=6), optim=AdamOptimizerFactory(lr=1e-4), **common)
+        buffer = VectorReplayBuffer(**ring)
+    else:
+        algo = RainbowDQN(model=RainbowAtariNet(action_dim=6, num_atoms=51), optim=AdamOptimizerFactory(lr=6.25e-5),
+                          num_atoms=51, v_min=-10.0, v_max=10.0, **common)
+        buffer = PrioritizedVectorReplayBuffer(alpha=0.6, beta=0.4, **ring)
     ts = algo.init(device)
-    buffer = VectorReplayBuffer(total_size=E * SLOTS, buffer_num=E, stack_num=4, save_only_last_obs=True)
     buf_state = buffer.init(Batch(
         obs=torch.zeros((84, 84, 1), dtype=torch.uint8), act=torch.tensor(0), rew=torch.tensor(0.0),
         terminated=torch.tensor(False), truncated=torch.tensor(False),
@@ -235,12 +361,37 @@ def build_pipeline(torch):
     return algo, ts, buffer, buf_state, coll
 
 
-def main_path(torch):
-    """Train the bench.py pipeline; returns (result, gather launches, report lines)."""
-    from tianshou_tpu_torch.ops.kernels import gather
+def _check_tree(torch, buffer, state, gen) -> str:
+    """The prioritized state after training: the tree's invariant, where its mass lies, the
+    priority range and a fresh batch's weights. Returns a report line."""
+    tree, bound = state.tree, buffer.segtree.bound
+    if not torch.equal(tree[1:bound], tree[2::2] + tree[3::2]):
+        raise AssertionError("an internal node of the sum tree is not the sum of its two children")
+    if tree[0].item() != 0.0:
+        raise AssertionError("node 0 of the sum tree was written")
+    leaves = tree[bound:bound + E * SLOTS].reshape(E, SLOTS)
+    stored = torch.arange(SLOTS, device=tree.device)[None, :] < state.base.size[:, None]
+    if not bool((leaves[stored] > 0).all()) or not bool((leaves[~stored] == 0).all()):
+        raise AssertionError("stored rows must carry priority and never-written slots none")
+    lo, hi = state.min_prio.item(), state.max_prio.item()
+    if not 0 < lo <= hi:
+        raise AssertionError(f"priority range [{lo}, {hi}] is off")
+    batch, idx = buffer.sample(state, gen, BATCH)
+    w = batch.weight
+    if not bool(((w > 0) & (w <= 1)).all()) or not bool(stored.reshape(-1)[idx].all()):
+        raise AssertionError("a sampled batch's weights must lie in (0, 1] and its rows be stored ones")
+    return (f"sum tree: {2 * bound} nodes, invariant holds exactly, total {tree[1].item():.3f}, "
+            f"{int(stored.sum())} leaves with priority, min_prio {lo:.6f} max_prio {hi:.6f}, "
+            f"batch weights in [{w.min().item():.4f}, {w.max().item():.4f}]")
+
+
+def main_path(torch, kind: str):
+    """Train the pipeline of ``kind``; returns (result, {kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.data.buffer.prio import PrioState
+    from tianshou_tpu_torch.ops.kernels import gather, sumtree
     from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
 
-    algo, ts, buffer, buf_state, coll = build_pipeline(torch)
+    algo, ts, buffer, buf_state, coll = build_pipeline(torch, kind)
     init_params = [p.detach().clone() for p in ts.model.parameters()]
     params = OffPolicyTrainerParams(
         max_epochs=1, epoch_num_steps=CHUNKS * T * E, batch_size=BATCH,
@@ -250,38 +401,49 @@ def main_path(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     gather.reset_launch_count()
+    sumtree.reset_launch_count()
     res = trainer.run(ts, buf_state, gen)
-    launches = gather.launch_count()
+    launches = {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count()}
 
     lines = []
-    ts, bs = res.train_state, res.buf_state
+    ts, state = res.train_state, res.buf_state
+    bs = state.base if isinstance(state, PrioState) else state
     tensors = [*ts.model.parameters(), *ts.target.parameters(), bs.cursor, bs.size, bs.last_idx,
                *bs.data.values()]
+    if isinstance(state, PrioState):
+        tensors += [state.tree, state.max_prio, state.min_prio]
     if not all(t.device.type == "cuda" for t in tensors):
-        raise AssertionError("a tensor of the main path left the device")
+        raise AssertionError(f"{kind} path: a tensor left the device")
     loss = res.last_chunk_stats.loss
     if not bool(torch.isfinite(loss).all()):
-        raise AssertionError(f"non-finite loss in the last chunk: {loss}")
+        raise AssertionError(f"{kind} path: non-finite loss in the last chunk: {loss}")
     if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()):
-        raise AssertionError("non-finite parameters after training")
+        raise AssertionError(f"{kind} path: non-finite parameters after training")
     if all(torch.equal(a, b) for a, b in zip(init_params, ts.model.parameters())):
-        raise AssertionError("training left the parameters unchanged")
+        raise AssertionError(f"{kind} path: training left the parameters unchanged")
     expect_updates = CHUNKS * max(1, round(0.1 * T * E))
     if res.gradient_step != expect_updates:
-        raise AssertionError(f"{res.gradient_step} updates, expected {expect_updates}")
+        raise AssertionError(f"{kind} path: {res.gradient_step} updates, expected {expect_updates}")
     if bs.size.min().item() != min(SLOTS, (CHUNKS + 1) * T):
-        raise AssertionError(f"ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
+        raise AssertionError(f"{kind} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
+    expect = {"gather_rows": 2 * res.gradient_step,
+              "prefix_sum_idx": res.gradient_step if isinstance(state, PrioState) else 0}
+    if launches != expect:
+        raise AssertionError(f"{kind} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
     train_s = res.timing["collect"] + res.timing["update"]
     lines.append(
-        f"main path: E={E} T={T} chunks={CHUNKS} updates={res.gradient_step} batch={BATCH} "
+        f"{kind} path: E={E} T={T} chunks={CHUNKS} updates={res.gradient_step} batch={BATCH} "
         f"ring uint8 {tuple(bs.data.obs.shape)} x2 ({bs.data.obs.numel() / 1e9:.3f} GB each)"
     )
     lines.append(
-        f"main path: env_steps_per_s {CHUNKS * T * E / train_s:.1f} ms_per_chunk {train_s / CHUNKS * 1e3:.1f} "
+        f"{kind} path: env_steps_per_s {CHUNKS * T * E / train_s:.1f} ms_per_chunk {train_s / CHUNKS * 1e3:.1f} "
         f"(collect {res.timing['collect'] / CHUNKS * 1e3:.1f} ms, update {res.timing['update'] / CHUNKS * 1e3:.1f} ms "
         f"= {res.timing['update'] / res.gradient_step * 1e3:.3f} ms/update; prefill {res.timing['prefill'] * 1e3:.1f} ms) "
-        f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches}"
+        f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches['gather_rows']} "
+        f"sumtree_launches {launches['prefix_sum_idx']}"
     )
+    if isinstance(state, PrioState):
+        lines.append(f"{kind} path: " + _check_tree(torch, buffer, state, gen))
     return res, launches, lines
 
 
@@ -291,7 +453,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU", file=sys.stderr)
         return 1
-    from tianshou_tpu_torch.ops.kernels import _build, gather
+    from tianshou_tpu_torch.ops.kernels import _build, gather, sumtree
 
     # float32 matmuls and convolutions in full precision (the net computes in bf16)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -303,21 +465,28 @@ def main() -> int:
     smi = _smi()
     print(f"device: {smi} ({torch.cuda.get_device_name(0)})", flush=True)
     t0 = time.perf_counter()
-    _build.build("gather")
-    print(f"build: {time.perf_counter() - t0:.2f} s for the gather kernel library", flush=True)
+    libs = _build.build()  # every csrc/*.cu, one nvcc each, started together
+    print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(lib.name for lib in libs)}", flush=True)
 
-    t0 = time.perf_counter()
-    record, lines = kernel_phase(torch, gather)
-    print("\n".join(lines), f"\nkernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    records = []
+    for phase, module in ((gather_phase, gather), (sumtree_phase, sumtree)):
+        t0 = time.perf_counter()
+        record, lines = phase(torch, module)
+        print("\n".join(lines), f"\n{record['name']} kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        records.append(record)
 
-    t0 = time.perf_counter()
-    res, launches, lines = main_path(torch)
-    print("\n".join(lines), f"\nmain path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
-    if launches != 2 * res.gradient_step:
-        raise AssertionError(f"gather_rows launched {launches} times for {res.gradient_step} updates, expected 2 per update")
-    record["launches"] = launches
+    by_path = {}
+    for kind in ("dqn", "rainbow"):
+        t0 = time.perf_counter()
+        _, by_path[kind], lines = main_path(torch, kind)  # raises unless every kernel ran as often as it must
+        print("\n".join(lines), f"\n{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for record in records:
+        record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
+        record["launches"] = sum(record["launches_by_path"].values())
+        if record["launches"] == 0:
+            raise AssertionError(f"no path launched {record['name']}")
 
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -94,8 +94,10 @@ class Algorithm:
         """Compute targets before the gradient step (n-step / GAE)."""
         return batch
 
-    def update_step(self, ts: TrainState, batch: Batch) -> tuple[TrainState, Batch]:
-        """One gradient step, in place; returns (ts, loss stats Batch)."""
+    def update_step(self, ts: TrainState, batch: Batch,
+                    generator: torch.Generator | None = None) -> tuple[TrainState, Batch]:
+        """One gradient step, in place; returns (ts, loss stats Batch).
+        ``generator`` draws what the step samples (noisy-net noise)."""
         raise NotImplementedError
 
     def postprocess(self, ts: TrainState, buffer, buf_state, batch: Batch,
@@ -110,7 +112,7 @@ class Algorithm:
         batch, indices = buffer.sample(buf_state, generator, batch_size,
                                        drop_keys=self.update_sample_drop_keys)
         batch = self.preprocess(ts, buffer, buf_state, batch, indices, generator)
-        ts, stats = self.update_step(ts, batch)
+        ts, stats = self.update_step(ts, batch, generator)
         buf_state = self.postprocess(ts, buffer, buf_state, batch, indices, stats)
         return ts, buf_state, stats
 
@@ -122,7 +124,8 @@ class Algorithm:
         batch is reused. For n_step > 1 only the two consumed fields are
         gathered at the terminal index.
         """
-        rews, ends, term_idx = buffer.n_step_gather(buf_state, indices, self.n_step)
+        base_state = buf_state.base if hasattr(buf_state, "base") else buf_state  # prioritized replay
+        rews, ends, term_idx = buffer.n_step_gather(base_state, indices, self.n_step)
         if self.n_step == 1 and "obs_next" in batch:
             return rews, ends, batch.obs_next, batch.terminated
         terminal = buffer.get(buf_state, term_idx, keys=("obs_next", "terminated"))

@@ -6,8 +6,8 @@
 n-step targets, and a lagged target network synced every
 ``target_update_freq`` gradient steps, counted after the step (:277).
 ``DQN``: double-DQN targets by default (:365-379) and an optional Huber
-loss (:392). Invalid-action masks and PER priority writeback are not
-ported yet.
+loss (:392). With a prioritized buffer the TD error is written back as the
+new priority (:401). Invalid-action masks are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch import nn
 from tianshou_tpu_torch.algorithm.base import ActOut, OffPolicyAlgorithm, TrainState
 from tianshou_tpu_torch.algorithm.optim import OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.env.core import Discrete, Space
 from tianshou_tpu_torch.utils.device import resolve_device
 
@@ -107,6 +108,13 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
                     t.copy_(o)
         return ts
 
+    def postprocess(self, ts: TrainState, buffer, buf_state, batch: Batch,
+                    indices: torch.Tensor, stats: Batch):
+        """PER priority writeback (reference dqn.py:401 / prio.py:81)."""
+        if isinstance(buffer, PrioritizedReplayBuffer):
+            return buffer.update_weight(buf_state, indices, stats.td_error)
+        return buf_state
+
 
 class DQN(QLearningOffPolicyAlgorithm):
     def __init__(self, *args, is_double: bool = True, huber_loss_delta: float | None = None,
@@ -123,7 +131,8 @@ class DQN(QLearningOffPolicyAlgorithm):
             return q_t.gather(-1, a_star[:, None])[:, 0]
         return q_t.max(dim=-1).values
 
-    def update_step(self, ts: TrainState, batch: Batch) -> tuple[TrainState, Batch]:
+    def update_step(self, ts: TrainState, batch: Batch,
+                    generator: torch.Generator | None = None) -> tuple[TrainState, Batch]:
         """One Adam step on the (weighted) squared or Huber TD error, in place."""
         returns = batch.returns
         weight = batch.get("weight")

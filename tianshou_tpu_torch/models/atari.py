@@ -1,6 +1,7 @@
 """Atari network family (port of ``tianshou_tpu/models/atari.py``; reference
-env/atari/atari_network.py: ``DQNet:60`` NatureCNN). Only ``NatureCNN`` and
-``DQNet`` so far.
+env/atari/atari_network.py: ``DQNet:60`` NatureCNN, ``C51Net:125``,
+``RainbowNet:154`` noisy dueling). ``QRDQNet`` and the implicit-quantile net
+are not ported yet.
 
 The public layout is the JAX package's: observations are NHWC
 ``[B, H, W, C]`` or frame-stacked ``[B, L, H, W, C]`` (the stack folded into
@@ -16,12 +17,15 @@ weights into this layout.
 from __future__ import annotations
 
 import math
+from collections.abc import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["NatureCNN", "DQNet", "same_out", "same_pads"]
+from tianshou_tpu_torch.models.discrete import Noise, NoisyLinear
+
+__all__ = ["NatureCNN", "DQNet", "C51Net", "RainbowAtariNet", "same_out", "same_pads"]
 
 
 def same_out(n: int, stride: int) -> int:
@@ -104,3 +108,68 @@ class DQNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.cnn(x))
+
+
+class C51Net(nn.Module):
+    """NatureCNN -> categorical atoms (reference atari_network.py:125):
+    ``[B, action_dim, num_atoms]`` probabilities, softmax over the atoms."""
+
+    def __init__(
+        self,
+        action_dim: int,
+        num_atoms: int = 51,
+        features: int = 512,
+        in_channels: int = 4,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        input_hw: tuple[int, int] = (84, 84),
+    ) -> None:
+        super().__init__()
+        self.action_dim, self.num_atoms = action_dim, num_atoms
+        self.cnn = NatureCNN(in_channels, features, compute_dtype, input_hw)
+        self.head = nn.Linear(features, action_dim * num_atoms)
+        _lecun_normal_(self.head.weight, features)
+        nn.init.zeros_(self.head.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        logits = self.head(self.cnn(x))
+        return F.softmax(logits.reshape(-1, self.action_dim, self.num_atoms), dim=-1)
+
+
+class RainbowAtariNet(nn.Module):
+    """NatureCNN -> noisy dueling distributional head (reference
+    atari_network.py:154): value stream ``v1 -> v2`` over the atoms,
+    advantage stream ``a1 -> a2`` over actions x atoms, mean-advantage
+    subtraction, softmax over the atoms.
+
+    ``forward(x, noise)``: ``None`` uses the mean weights; a
+    ``torch.Generator`` draws fresh factorized noise for each of the four
+    noisy layers, in the order v1, v2, a1, a2; a sequence of four
+    ``(eps_in, eps_out)`` pairs in that order is used as given.
+    """
+
+    def __init__(
+        self,
+        action_dim: int,
+        num_atoms: int = 51,
+        features: int = 512,
+        sigma0: float = 0.5,
+        in_channels: int = 4,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        input_hw: tuple[int, int] = (84, 84),
+    ) -> None:
+        super().__init__()
+        self.action_dim, self.num_atoms = action_dim, num_atoms
+        self.trunk = NatureCNN(in_channels, features, compute_dtype, input_hw)
+        self.v1 = NoisyLinear(features, features, sigma0)
+        self.v2 = NoisyLinear(features, num_atoms, sigma0)
+        self.a1 = NoisyLinear(features, features, sigma0)
+        self.a2 = NoisyLinear(features, action_dim * num_atoms, sigma0)
+
+    def forward(self, x: torch.Tensor,
+                noise: torch.Generator | Sequence[Noise] | None = None) -> torch.Tensor:
+        feat = self.trunk(x)
+        n = [noise] * 4 if noise is None or isinstance(noise, torch.Generator) else noise
+        v = self.v2(F.relu(self.v1(feat, n[0])), n[1]).reshape(-1, 1, self.num_atoms)
+        a = self.a2(F.relu(self.a1(feat, n[2])), n[3]).reshape(-1, self.action_dim, self.num_atoms)
+        logits = v + a - a.mean(dim=1, keepdim=True)
+        return F.softmax(logits, dim=-1)

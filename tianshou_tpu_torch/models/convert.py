@@ -1,14 +1,17 @@
 """flax -> torch weight conversion for the Atari nets.
 
-Takes the parameter tree of ``tianshou_tpu.models.atari.DQNet`` with numpy
-leaves (``{"params": {"NatureCNN_0": {...}, "Dense_0": {...}}}``, or the
-inner ``"params"`` dict) and returns a ``state_dict`` for
-:class:`tianshou_tpu_torch.models.atari.DQNet`. It needs no flax:
+Takes the parameter tree of a ``tianshou_tpu.models.atari`` net (``DQNet``,
+``C51Net``, ``RainbowAtariNet``) with numpy leaves (``{"params": {...}}`` or
+the inner ``"params"`` dict) and returns a ``state_dict`` for its
+counterpart in :mod:`tianshou_tpu_torch.models.atari`. It needs no flax:
 
 - conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
 - Dense kernels ``[in, out]`` -> ``[out, in]``;
 - the first Dense after the flatten has its rows permuted from the JAX
-  net's H, W, C flatten order to the torch net's C, H, W order.
+  net's H, W, C flatten order to the torch net's C, H, W order;
+- noisy layers: flax keeps ``mu_w [in, out]`` and ``mu_b`` uncentred and
+  subtracts ``1/sqrt(in)`` in its forward; the torch layer stores the
+  centred means as ``[out, in]``, so the shift is applied here.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["dqnet_params_from_flax", "nature_cnn_params_from_flax"]
+__all__ = [
+    "c51net_params_from_flax", "dqnet_params_from_flax", "nature_cnn_params_from_flax",
+    "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
+]
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -51,9 +57,36 @@ def nature_cnn_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch
 
 
 def dqnet_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
-    """``state_dict`` of a torch ``DQNet`` from a flax ``DQNet`` parameter tree."""
+    """``state_dict`` of a torch ``DQNet`` (or ``C51Net``: the same scopes,
+    a wider head) from the flax net's parameter tree."""
     p = tree["params"] if "params" in tree else tree
     out = nature_cnn_params_from_flax(p["NatureCNN_0"], prefix="cnn.")
     out["head.weight"] = _t(np.asarray(p["Dense_0"]["kernel"]).T)
     out["head.bias"] = _t(p["Dense_0"]["bias"])
+    return out
+
+
+c51net_params_from_flax = dqnet_params_from_flax
+
+
+def noisy_linear_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``state_dict`` entries of a ``NoisyLinear`` from its flax parameter
+    dict (``mu_w``, ``mu_b``, ``sigma_w``, ``sigma_b``)."""
+    mu_w = np.asarray(tree["mu_w"], dtype=np.float32)
+    shift = np.float32(1.0) / np.sqrt(np.float32(mu_w.shape[0]))
+    return {
+        f"{prefix}mu_w": _t((mu_w - shift).T),
+        f"{prefix}mu_b": _t(np.asarray(tree["mu_b"], dtype=np.float32) - shift),
+        f"{prefix}sigma_w": _t(np.asarray(tree["sigma_w"]).T),
+        f"{prefix}sigma_b": _t(tree["sigma_b"]),
+    }
+
+
+def rainbow_atari_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``RainbowAtariNet`` from the flax net's
+    parameter tree (scopes ``trunk``, ``v1``, ``v2``, ``a1``, ``a2``)."""
+    p = tree["params"] if "params" in tree else tree
+    out = nature_cnn_params_from_flax(p["trunk"], prefix="trunk.")
+    for name in ("v1", "v2", "a1", "a2"):
+        out.update(noisy_linear_params_from_flax(p[name], prefix=f"{name}."))
     return out

@@ -40,25 +40,38 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless the
-    library is newer than its source. Returns the library's path."""
-    src, lib = _CSRC / f"{name}.cu", _BUILD / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
-        return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    out = subprocess.run([nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {out.returncode}):\n{out.stdout}{out.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
+def build(*names: str) -> list[Path]:
+    """Compile each ``csrc/<name>.cu`` (all of them when no name is given)
+    into ``build/lib<name>.so`` unless the library is newer than its source:
+    one ``nvcc`` per stale source, all started together. Returns the
+    libraries' paths in the order of ``names``."""
+    names = names or tuple(sorted(src.stem for src in _CSRC.glob("*.cu")))
+    libs = [_BUILD / f"lib{name}.so" for name in names]
+    running = []
+    for name, lib in zip(names, libs):
+        src = _CSRC / f"{name}.cu"
+        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+            continue
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, proc))
+    failed = []
+    for name, lib, tmp, proc in running:  # wait for every compiler before raising
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so``, built first if stale."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(build(name)[0]))
     return _loaded[name]
