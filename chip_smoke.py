@@ -31,6 +31,19 @@ Phases, each of which fails the run:
    final tree must hold ``node = left + right`` exactly at every internal
    node, with zero leaves at never-written slots.
 
+6. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
+   E = 6 and 2053) hold the fused step kernel against its plain version
+   (``dynamics.step``): near-home states, every env within ``q`` rtol = atol = 2e-4 and ``qd``
+   rtol = atol = 5e-3; states from the kernel's own random-action rollout at steps 16, 32 and
+   64, at least 99.5% of envs within the same tolerances (a contact that sits on its activation
+   threshold may differ) and every output finite; for Ant also rotation vectors beyond pi, so
+   that the re-chart runs. Times: the kernel's device time from a replayed CUDA graph and its
+   eager time; the plain version's eager time (its Cholesky calls are not captured in a graph);
+   the bound by float32 operations counted for this run's active contact and limit rows.
+7. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
+   reset, 64 vector steps with actions from ``action_space.sample``; then Ant, 16 steps. One
+   kernel launch per step exactly, every state, observation and reward finite.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the per-kernel
 JSON record.
@@ -39,6 +52,7 @@ JSON record.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +68,14 @@ CHUNKS = 3     # training chunks after the prefill chunk
 T = 16         # env steps per chunk
 BATCH = 32
 SEED = 0
+
+# the physics paths (bench.py:bench_physics_step) and the kernel phase
+PHYS_E = 2048
+PHYS_PATHS = (("HalfCheetah", 64), ("Ant", 16))  # (task, vector steps)
+PHYS_TASKS = ("HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher")
+ROLLOUT_CHECKS = (16, 32, 64)
+Q_TOL, QD_TOL = 2e-4, 5e-3     # rtol = atol, as the JAX package holds its fused step
+MIN_SHARE_INSIDE = 0.995       # of envs, on rollout states
 
 
 def _smi() -> str:
@@ -388,7 +410,7 @@ def _check_tree(torch, buffer, state, gen) -> str:
 def main_path(torch, kind: str):
     """Train the pipeline of ``kind``; returns (result, {kernel: launches}, report lines)."""
     from tianshou_tpu_torch.data.buffer.prio import PrioState
-    from tianshou_tpu_torch.ops.kernels import gather, sumtree
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
     from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
 
     algo, ts, buffer, buf_state, coll = build_pipeline(torch, kind)
@@ -400,10 +422,11 @@ def main_path(torch, kind: str):
     trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    gather.reset_launch_count()
-    sumtree.reset_launch_count()
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
     res = trainer.run(ts, buf_state, gen)
-    launches = {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count()}
+    launches = {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count(),
+                "physics_fused": physics_fused.launch_count()}
 
     lines = []
     ts, state = res.train_state, res.buf_state
@@ -427,7 +450,7 @@ def main_path(torch, kind: str):
     if bs.size.min().item() != min(SLOTS, (CHUNKS + 1) * T):
         raise AssertionError(f"{kind} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
     expect = {"gather_rows": 2 * res.gradient_step,
-              "prefix_sum_idx": res.gradient_step if isinstance(state, PrioState) else 0}
+              "prefix_sum_idx": res.gradient_step if isinstance(state, PrioState) else 0, "physics_fused": 0}
     if launches != expect:
         raise AssertionError(f"{kind} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
     train_s = res.timing["collect"] + res.timing["update"]
@@ -447,13 +470,232 @@ def main_path(torch, kind: str):
     return res, launches, lines
 
 
+
+# ---------------------------------------------------------------------------
+# physics: the fused step kernel and the bench_physics_step paths
+# ---------------------------------------------------------------------------
+def physics_flops(model, contacts, limits, n_substeps: int) -> float:
+    """Float32 operations (a multiply and an add count one each) of ``n_substeps`` substeps of
+    the algorithm as ``csrc/physics_fused.cu`` writes it, summed over envs, with ``contacts`` and
+    ``limits`` the per-env counts of active contact spheres and joint limits."""
+    from tianshou_tpu_torch.env.physics.model import FREE, SLIDE
+
+    nq, nb, nl = model.nq, model.nbody, len(model.limit_q_idx)
+    iters = int(model.contact_iterations)
+
+    def fk(mul, add, mulc):  # cost of the FK template for a scalar type with these op costs
+        total = 0.0
+        for b in range(nb):
+            joints = model.joints_of(b)
+            if joints and joints[0].jtype == FREE:
+                total += 50 * mul + 40 * add + 10 * mulc
+            else:
+                if model.parent[b] >= 0:
+                    total += 36 * mulc + 27 * add
+                for j in joints:
+                    total += (9 * mulc + 9 * add + 3 * mul) if j.jtype == SLIDE else (36 * mul + 32 * mulc + 54 * add)
+            total += 9 * mulc + 9 * add  # origin -> centre of mass
+        return total
+
+    fk_ops = fk(1 + 3 * nq, 1 + nq, 1 + nq) + fk(10, 3, 3)          # dual numbers, second-order jets
+    body = nb * (51 * nq + 90 + 15 * nq + 13 * nq * (nq + 1) / 2 + 155 + 11 * nq)
+    if model.fluid_density > 0 or model.fluid_viscosity > 0:
+        body += 80 * nb
+    chol, solve = nq ** 3 / 3, nq * nq
+    integrate = 2 * nq * nq + chol + 2 * solve
+    fixed = fk_ops + body + integrate + chol + solve + nl * (solve + 2 * nq + 40)
+    c, l = contacts.double(), limits.double()
+    na = 4 * c + l
+    rows = c * (24 * nq + 3 * solve + 24 * nq + 40 + 40 + 2 * nq) + l * 3 * nq
+    qp = na * (na + 1) / 2 * (2 * nq + 2) + iters * na * (4 * nq + 8) + na * 2 * nq + solve
+    per_env = fixed + rows + qp
+    return float(per_env.sum()) * n_substeps
+
+
+def _inside(torch, got, want):
+    """Per env: both q and qd within the tolerances."""
+    (q, qd), (rq, rqd) = got, want
+    ok_q = (q - rq).abs() <= Q_TOL + Q_TOL * rq.abs()
+    ok_qd = (qd - rqd).abs() <= QD_TOL + QD_TOL * rqd.abs()
+    return ok_q.all(1) & ok_qd.all(1)
+
+
+def _eager_ms(torch, fn, runs: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def physics_phase(torch, pf) -> tuple[dict, list[str]]:
+    """The fused step kernel against the plain version on the card for every task, and its
+    times beside the bound. Returns (JSON record without launches, report lines); the record's
+    numbers are HalfCheetah's at E = 2048 on a rollout state, the main path's shape."""
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.env.physics import dynamics
+
+    lines, by_task = [], {}
+    max_err = 0.0
+    for task in PHYS_TASKS:
+        env = make(task)
+        model, fs = env.model, env.frame_skip
+        n_sub = fs * dynamics.resolve_substeps(model, env.substeps)
+        nu = len(model.actuators)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        home = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")
+
+        def near_home(E):
+            q = home + 0.03 * torch.randn(E, model.nq, device="cuda", generator=g)
+            qd = 0.05 * torch.randn(E, model.nq, device="cuda", generator=g)
+            return q, qd, torch.rand(E, nu, device="cuda", generator=g) * 2 - 1
+
+        def both(q, qd, ctrl):
+            got = pf.fused_step(model, q, qd, ctrl, frame_skip=fs)
+            want = pf.fused_step_reference(model, q, qd, ctrl, frame_skip=fs)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(x).all()) for x in (*got, *want)):
+                raise AssertionError(f"physics_fused {task}: a non-finite output")
+            return got, want, _inside(torch, got, want)
+
+        # (a) near home: every env inside
+        for E in ((PHYS_E, 6, PHYS_E + 5) if task == "HalfCheetah" else (PHYS_E,)):
+            q, qd, ctrl = near_home(E)
+            got, want, ok = both(q, qd, ctrl)
+            err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+            max_err = max(max_err, err) if task == "HalfCheetah" else max_err
+            if not bool(ok.all()):
+                raise AssertionError(f"physics_fused {task} E={E} near home: {int((~ok).sum())} envs outside the tolerance")
+            lines.append(f"physics_fused {task} E={E} near home: all envs inside q {Q_TOL} qd {QD_TOL}, "
+                         f"max |dq| {float((got[0] - want[0]).abs().max()):.3e} max |dqd| {float((got[1] - want[1]).abs().max()):.3e}")
+        if task == "Ant":  # rotation vectors beyond pi: the re-chart runs inside the kernel
+            q, qd, ctrl = near_home(PHYS_E)
+            axis = torch.randn(PHYS_E, 3, device="cuda", generator=g)
+            norm = 3.0 + 0.6 * torch.rand(PHYS_E, 1, device="cuda", generator=g)
+            q[:, 3:6] = axis / axis.norm(dim=1, keepdim=True) * norm
+            q[:, 2] += 0.5
+            got, want, ok = both(q.contiguous(), qd, ctrl)
+            n_rechart = int(((got[0][:, 3:6] * q[:, 3:6]).sum(1) < 0).sum())  # r -> r (1 - 2 pi / |r|) flips r
+            if not bool(ok.all()) or n_rechart == 0:
+                raise AssertionError(f"physics_fused Ant re-chart: {int((~ok).sum())} envs outside, {n_rechart} re-charted")
+            lines.append(f"physics_fused Ant E={PHYS_E} rotation vectors of norm 3.0-3.6: {n_rechart} envs re-charted, all inside")
+
+        # (b) the kernel's own random-action rollout: one further step by both at some steps
+        q, qd, ctrl = near_home(PHYS_E)
+        timing_state = None
+        for step in range(1, max(ROLLOUT_CHECKS) + 1):
+            q, qd = pf.fused_step(model, q, qd, ctrl, frame_skip=fs)
+            ctrl = torch.rand(PHYS_E, nu, device="cuda", generator=g) * 2 - 1
+            if step in ROLLOUT_CHECKS:
+                got, want, ok = both(q, qd, ctrl)
+                share = float(ok.double().mean())
+                contacts, limits = dynamics.active_rows(model, q)
+                lines.append(
+                    f"physics_fused {task} rollout step {step}: {int((~ok).sum())} of {PHYS_E} envs outside "
+                    f"(share inside {share:.5f}), worst |dq| {float((got[0] - want[0]).abs().max()):.3e} "
+                    f"|dqd| {float((got[1] - want[1]).abs().max()):.3e}, active contacts per env "
+                    f"{float(contacts.double().mean()):.2f} limits {float(limits.double().mean()):.2f}")
+                if share < MIN_SHARE_INSIDE:
+                    raise AssertionError(f"physics_fused {task} rollout step {step}: only {share:.5f} of envs inside")
+                if task == "HalfCheetah":
+                    max_err = max(max_err, float((got[0] - want[0])[ok].abs().max()), float((got[1] - want[1])[ok].abs().max()))
+                if step == 32:
+                    timing_state = (q.clone(), qd.clone(), ctrl.clone())
+
+        # times at the rollout state of step 32, beside the bound for that state's active rows
+        tq, tqd, tc = timing_state
+        count = pf.launch_count()
+        runs = 8 if task == "Ant" else 30
+        kern, kern_e = _time_ms(lambda: pf.fused_step(model, tq, tqd, tc, frame_skip=fs), warmup=2, runs=runs, per_graph=3)
+        if pf.launch_count() == count:
+            raise AssertionError("the timed fused_step calls did not launch the kernel")
+        plain_e = _eager_ms(torch, lambda: pf.fused_step_reference(model, tq, tqd, tc, frame_skip=fs))
+        contacts, limits = dynamics.active_rows(model, tq)
+        flops = physics_flops(model, contacts, limits, n_sub)
+        by_ops = flops / H100_FP32_OPS_PER_S * 1e3
+        by_bytes = PHYS_E * (4 * model.nq + nu) * 4 / H100_HBM_BYTES_PER_S * 1e3
+        by_task[task] = {"ms": kern, "eager_ms": kern_e, "plain_ms": plain_e, "bound_ms": max(by_ops, by_bytes),
+                         "bound_by": "operations" if by_ops >= by_bytes else "bytes", "gflop": flops / 1e9,
+                         "substeps": n_sub}
+        lines.append(
+            f"physics_fused {task} E={PHYS_E} x {n_sub} substeps, ms per vector step: kernel {kern:.4f} (CUDA graph) "
+            f"{kern_e:.4f} (eager); plain {plain_e:.2f} (eager); bound {max(by_ops, by_bytes):.5f} "
+            f"({flops / 1e9:.3f} GFLOP at {H100_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s; by bytes {by_bytes:.6f}); "
+            f"kernel at {max(by_ops, by_bytes) / kern:.4f} of the bound's rate")
+
+    main = by_task["HalfCheetah"]
+    record = {
+        "name": "physics_fused", "route": "cuda",
+        "source": "tianshou_tpu_torch/ops/kernels/csrc/physics_fused.cu",
+        "replaces": "tianshou_tpu/ops/pallas/physics_fused.py:67",
+        "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "plain_timing": "eager", "by_task": by_task,
+    }
+    return record, lines
+
+
+def physics_path(torch, task: str, steps: int):
+    """``bench.py:bench_physics_step`` in the port: returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+
+    venv = VectorDeviceEnv(make(task), PHYS_E, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    state, obs = venv.reset(gen)
+    finite = torch.isfinite(obs).all()
+    n_term = torch.zeros((), dtype=torch.int64, device="cuda")
+    wrong_term = torch.zeros((), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        act = venv.action_space.sample(PHYS_E, gen, venv.device)
+        out = venv.step(state, act, gen)
+        state = out.state
+        finite = finite & torch.isfinite(state.q).all() & torch.isfinite(state.qd).all() \
+            & torch.isfinite(out.obs).all() & torch.isfinite(out.reward).all()
+        n_term += out.terminated.sum()
+        if task == "Ant":  # Ant-v4's healthy range: a terminated env is one outside 0.2 < z < 1.0
+            z = state.q[:, 2]
+            wrong_term += (out.terminated != ~((z > 0.2) & (z < 1.0))).sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count(),
+                "physics_fused": physics_fused.launch_count()}
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "physics_fused": steps}:
+        raise AssertionError(f"{task} physics path: kernel launches {launches} for {steps} steps")
+    if not bool(finite):
+        raise AssertionError(f"{task} physics path: a non-finite state, observation or reward")
+    obs_dim = venv.observation_space.shape[0]
+    if out.obs.shape != (PHYS_E, obs_dim) or out.obs.device.type != "cuda" or out.reward.shape != (PHYS_E,):
+        raise AssertionError(f"{task} physics path: observation {tuple(out.obs.shape)} reward {tuple(out.reward.shape)}")
+    if state.t.min().item() != steps or state.t.max().item() != steps:
+        raise AssertionError(f"{task} physics path: t is {state.t.min().item()}..{state.t.max().item()}, expected {steps}")
+    if int(wrong_term) != 0:
+        raise AssertionError(f"{task} physics path: {int(wrong_term)} envs' terminated flag disagrees with 0.2 < z < 1.0")
+    lines = [
+        f"{task} physics path: E={PHYS_E} T={steps} obs {tuple(out.obs.shape)} physics_fused launches {launches['physics_fused']} "
+        f"(1 per vector step) env_steps_per_s {steps * PHYS_E / wall:.1f} us_per_vector_step {wall / steps * 1e6:.1f} "
+        f"terminated reports {int(n_term)} mean reward last step {float(out.reward.mean()):.4f}"
+    ]
+    return launches, lines
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU", file=sys.stderr)
         return 1
-    from tianshou_tpu_torch.ops.kernels import _build, gather, sumtree
+    from tianshou_tpu_torch.ops.kernels import _build, gather, physics_fused, sumtree
 
     # float32 matmuls and convolutions in full precision (the net computes in bf16)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -465,11 +707,17 @@ def main() -> int:
     smi = _smi()
     print(f"device: {smi} ({torch.cuda.get_device_name(0)})", flush=True)
     t0 = time.perf_counter()
-    libs = _build.build()  # every csrc/*.cu, one nvcc each, started together
-    print(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(lib.name for lib in libs)}", flush=True)
+    libs = _build.build()  # every kernel and every model signature, one nvcc each, started together
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(libs)} libraries: {', '.join(lib.name for lib in libs)}", flush=True)
+    for lib in libs:  # what ptxas says of each fused step kernel: its registers and per-thread local memory
+        found = re.search(r"fused_step_kernel\S*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+                          r"\nptxas info\s*: Used (\d+) registers", _build.build_logs.get(lib.name, ""))
+        if found:
+            print(f"build: {lib.name}: {found[4]} registers, {found[1]} bytes of local memory per thread (stack frame), "
+                  f"{found[2]} bytes spill stores, {found[3]} bytes spill loads")
 
     records = []
-    for phase, module in ((gather_phase, gather), (sumtree_phase, sumtree)):
+    for phase, module in ((gather_phase, gather), (sumtree_phase, sumtree), (physics_phase, physics_fused)):
         t0 = time.perf_counter()
         record, lines = phase(torch, module)
         print("\n".join(lines), f"\n{record['name']} kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -480,6 +728,10 @@ def main() -> int:
         t0 = time.perf_counter()
         _, by_path[kind], lines = main_path(torch, kind)  # raises unless every kernel ran as often as it must
         print("\n".join(lines), f"\n{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for task, steps in PHYS_PATHS:
+        t0 = time.perf_counter()
+        by_path[task.lower()], lines = physics_path(torch, task, steps)  # raises unless one launch per step
+        print("\n".join(lines), f"\n{task} physics path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

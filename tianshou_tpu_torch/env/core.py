@@ -12,6 +12,7 @@ envs' device. Auto-reset is the collector's job, so that the true terminal
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -62,6 +63,23 @@ class Box(Space):
         object.__setattr__(self, "high", tuple(high_arr.ravel().tolist()))
         object.__setattr__(self, "shape", tuple(low_arr.shape))
         object.__setattr__(self, "dtype", dtype)
+        object.__setattr__(self, "_on_device", {})  # device -> (low, high) tensors, copied once
+
+    def bounds(self, device: str | torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(low, high)`` as tensors of the box's shape on ``device``."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = tuple(
+                torch.tensor(b, dtype=self.dtype, device=device).reshape(self.shape) for b in (self.low, self.high))
+        return self._on_device[device]
+
+    def sample(self, num: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        """``num`` uniform samples of a bounded box, ``[num, *shape]``; no host sync."""
+        if not all(math.isfinite(b) for b in (*self.low, *self.high)):
+            raise ValueError("Box.sample needs finite bounds")
+        low, high = self.bounds(device)
+        u = torch.rand((num, *self.shape), dtype=self.dtype, device=device, generator=generator)
+        return low + (high - low) * u
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,27 @@
+"""Device MuJoCo-class benchmark environments (port of ``tianshou_tpu/env/mujoco``;
+Humanoid, which needs geom-pair contacts, is not ported yet)."""
+
+from tianshou_tpu_torch.env.mujoco.base import MujocoEnv, PhysState
+from tianshou_tpu_torch.env.mujoco.locomotion import Ant, HalfCheetah, Hopper, Reacher, Swimmer, Walker2d
+
+__all__ = [
+    "MujocoEnv", "PhysState", "HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher", "REGISTRY", "make",
+]
+
+REGISTRY = {
+    "HalfCheetah": HalfCheetah,
+    "Hopper": Hopper,
+    "Walker2d": Walker2d,
+    "Ant": Ant,
+    "Swimmer": Swimmer,
+    "Reacher": Reacher,
+}
+
+
+def make(task: str, **kwargs) -> MujocoEnv:
+    """Create a device env by task name; accepts gym-style suffixes
+    ("HalfCheetah-v4" -> HalfCheetah)."""
+    base = task.split("-")[0]
+    if base not in REGISTRY:
+        raise KeyError(f"unknown or unported task {task!r}; ported: {sorted(REGISTRY)}")
+    return REGISTRY[base](**kwargs)
