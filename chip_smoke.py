@@ -11,7 +11,8 @@ Phases, each of which fails the run:
    version on the card, and time the kernel, the plain version and one
    PyTorch library call with CUDA events: device time per call from a
    replayed CUDA graph of 20 calls, and eager time of single calls, each the
-   median of 60 runs after a warm-up.
+   median of 60 runs after a warm-up. The gather is timed beside an empty
+   launch of the same shape.
 4. DQN path: the DQN-on-pixels pipeline of ``bench.py``
    (``_build_atari_pipeline`` / ``bench_atari_cnn``) at its widths:
    ``FrameStack(SyntheticAtari(), 4)`` over 256 envs, a uint8 replay of
@@ -38,7 +39,8 @@ Phases, each of which fails the run:
    64, at least 99.5% of envs within the same tolerances (a contact that sits on its activation
    threshold may differ) and every output finite; for Ant also rotation vectors beyond pi, so
    that the re-chart runs. Times: the kernel's device time from a replayed CUDA graph and its
-   eager time; the plain version's eager time (its Cholesky calls are not captured in a graph);
+   eager time, at E = 2048 and, from the graph, at E = 32 and 8448 (is it bound by latency or by
+   throughput); the plain version's eager time (its Cholesky calls are not captured in a graph);
    the bound by float32 operations counted for this run's active contact and limit rows.
 7. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
    reset, 64 vector steps with actions from ``action_space.sample``; then Ant, 16 steps. One
@@ -198,6 +200,9 @@ def gather_phase(torch, gather) -> tuple[dict, list[str]]:
     rep = torch.tensor([5, 5, 5, 0, 512, 512, 7, 5, -4, 10_000], device="cuda")
     cases.append(("uint8[513,3] repeated and out-of-range indices", rag, rep))
     cases.append(("uint8 main ring, repeated indices", src, torch.full((128,), 77, device="cuda")))
+    for width in (16, 2032, 2064, 7057):  # around the 16-byte chunk and the block's edge
+        edge = torch.randint(0, 256, (300, width), dtype=torch.uint8, device="cuda", generator=g)
+        cases.append((f"uint8[300,{width}] x 200 rows", edge, torch.randint(-2, 302, (200,), device="cuda", generator=g)))
     max_err = 0.0
     for name, s, i in cases:
         out = gather.gather_rows(s, i)
@@ -215,11 +220,14 @@ def gather_phase(torch, gather) -> tuple[dict, list[str]]:
         kern, kern_e = _time_ms(lambda: gather.gather_rows(src, idx))
         plain, plain_e = _time_ms(lambda: gather.gather_rows_reference(src, idx))
         lib, lib_e = _time_ms(lambda: src[idx])
+        noop, _ = _time_ms(lambda: gather.launch_noop(rows, 256))
+        again, _ = _time_ms(lambda: gather.gather_rows(src, idx))  # the drift within the call
         bound = (2 * rows * row + idx.numel() * idx.element_size()) / H100_HBM_BYTES_PER_S * 1e3
         timings[rows] = (kern, plain, lib, bound)
         lines.append(
-            f"gather_rows {rows} rows x {row} B, device us (CUDA graph): kernel {kern * 1e3:.3f} "
-            f"plain {plain * 1e3:.3f} library(src[idx]) {lib * 1e3:.3f} bound {bound * 1e3:.3f}; "
+            f"gather_rows {rows} rows x {row} B, device us (CUDA graph): kernel {kern * 1e3:.3f} (again {again * 1e3:.3f}) "
+            f"plain {plain * 1e3:.3f} library(src[idx]) {lib * 1e3:.3f} empty launch of {rows} x 256 threads {noop * 1e3:.3f} "
+            f"bound {bound * 1e3:.3f} (kernel at {bound / kern:.3f} of the bound's rate, {kern / lib:.3f} of the library's time); "
             f"eager us per call: kernel {kern_e * 1e3:.2f} plain {plain_e * 1e3:.2f} library {lib_e * 1e3:.2f}"
         )
     if gather.launch_count() == count:
@@ -477,37 +485,51 @@ def main_path(torch, kind: str):
 def physics_flops(model, contacts, limits, n_substeps: int) -> float:
     """Float32 operations (a multiply and an add count one each) of ``n_substeps`` substeps of
     the algorithm as ``csrc/physics_fused.cu`` writes it, summed over envs, with ``contacts`` and
-    ``limits`` the per-env counts of active contact spheres and joint limits."""
+    ``limits`` the per-env counts of active contact spheres and joint limits: recursive body
+    kinematics, each body's composite inertia and wrench over its subtree, the mass matrix an
+    entry at a time from them (where one dof lies below the other), two Cholesky factorizations
+    with their right-hand sides (the first only with an active row),
+    and the QP over the active rows (with its matrix up to 16 rows, without beyond). A sum that
+    every lane repeats for itself (a column's pivot) is counted once."""
     from tianshou_tpu_torch.env.physics.model import FREE, SLIDE
 
     nq, nb, nl = model.nq, model.nbody, len(model.limit_q_idx)
     iters = int(model.contact_iterations)
+    cross, point_accel, mv, mm = 9, 33, 15, 45
 
-    def fk(mul, add, mulc):  # cost of the FK template for a scalar type with these op costs
-        total = 0.0
-        for b in range(nb):
-            joints = model.joints_of(b)
-            if joints and joints[0].jtype == FREE:
-                total += 50 * mul + 40 * add + 10 * mulc
-            else:
-                if model.parent[b] >= 0:
-                    total += 36 * mulc + 27 * add
-                for j in joints:
-                    total += (9 * mulc + 9 * add + 3 * mul) if j.jtype == SLIDE else (36 * mul + 32 * mulc + 54 * add)
-            total += 9 * mulc + 9 * add  # origin -> centre of mass
-        return total
-
-    fk_ops = fk(1 + 3 * nq, 1 + nq, 1 + nq) + fk(10, 3, 3)          # dual numbers, second-order jets
-    body = nb * (51 * nq + 90 + 15 * nq + 13 * nq * (nq + 1) / 2 + 155 + 11 * nq)
-    if model.fluid_density > 0 or model.fluid_viscosity > 0:
-        body += 80 * nb
+    below = [{b} for b in range(nb)]  # bodies of each body's subtree
+    for b in range(nb - 1, 0, -1):
+        if model.parent[b] >= 0:
+            below[model.parent[b]] |= below[b]
+    kin = 0.0
+    sub = {}  # dof -> the bodies it moves
+    for b in range(nb):
+        joints = model.joints_of(b)
+        if joints and joints[0].jtype == FREE:
+            kin += 650 + 700 + 5 * mm  # second-order jet and first-order duals of the exp map, five vee(A B^T)
+            for m in range(6):
+                sub[joints[0].q_idx + m] = below[b]
+        else:
+            if model.parent[b] >= 0:
+                kin += mv + mm + cross + point_accel + 9
+            for j in joints:
+                sub[j.q_idx] = below[b]
+                kin += (mv + cross + point_accel + 33) if j.jtype == SLIDE else (
+                    3 * mv + 3 * cross + 2 * point_accel + 2 * mm + 36 + 40 + 27)  # two products, Rodrigues, sincos
+        kin += mv + cross + point_accel + 6  # origin -> centre of mass
+    wrench = nb * (2 * mm + 2 * mv + 24 + (80 if model.fluid_density > 0 or model.fluid_viscosity > 0 else 0))
+    composite = 48 * sum(len(v) for v in below)
+    related = sum(1 for i in range(nq) for k in range(i + 1) if sub[i] <= sub[k] or sub[k] <= sub[i])
+    mass_and_force = 70 * related + 24 * nq  # two twists, a momentum and a pairing per entry
     chol, solve = nq ** 3 / 3, nq * nq
-    integrate = 2 * nq * nq + chol + 2 * solve
-    fixed = fk_ops + body + integrate + chol + solve + nl * (solve + 2 * nq + 40)
+    factor = chol + solve
+    fixed = kin + wrench + composite + mass_and_force + factor + 2 * nq * nq + 2 * nq + solve + 2 * nq
     c, l = contacts.double(), limits.double()
     na = 4 * c + l
-    rows = c * (24 * nq + 3 * solve + 24 * nq + 40 + 40 + 2 * nq) + l * 3 * nq
-    qp = na * (na + 1) / 2 * (2 * nq + 2) + iters * na * (4 * nq + 8) + na * 2 * nq + solve
+    fixed = fixed + (na > 0).double() * (factor + 2 * nq + nl * (solve + 5 * nq + 60))  # skipped when no row is active
+    rows = c * (3 * (8 * nq + solve) + 2 * mv + 140 + 2 * nq + 8 * nq)
+    per_iteration = na * (2 * na + 8) * (na <= 16).double() + na * (4 * nq + 8) * (na > 16).double()
+    qp = na * na * 2 * nq + na * 2 * nq + iters * per_iteration + na * 2 * nq + solve
     per_env = fixed + rows + qp
     return float(per_env.sum()) * n_substeps
 
@@ -611,10 +633,15 @@ def physics_phase(torch, pf) -> tuple[dict, list[str]]:
         # times at the rollout state of step 32, beside the bound for that state's active rows
         tq, tqd, tc = timing_state
         count = pf.launch_count()
-        runs = 8 if task == "Ant" else 30
+        runs = 30
         kern, kern_e = _time_ms(lambda: pf.fused_step(model, tq, tqd, tc, frame_skip=fs), warmup=2, runs=runs, per_graph=3)
         if pf.launch_count() == count:
             raise AssertionError("the timed fused_step calls did not launch the kernel")
+        by_envs = {PHYS_E: kern}  # latency-bound if 32 envs cost what 2048 do, throughput-bound if 8448 cost 4x
+        for n_envs in (32, 8448):
+            reps = -(-n_envs // PHYS_E)
+            sq, sqd, sc = (t.repeat(reps, 1)[:n_envs].contiguous() for t in (tq, tqd, tc))
+            by_envs[n_envs] = _time_ms(lambda: pf.fused_step(model, sq, sqd, sc, frame_skip=fs), warmup=2, runs=8, per_graph=3)[0]
         plain_e = _eager_ms(torch, lambda: pf.fused_step_reference(model, tq, tqd, tc, frame_skip=fs))
         contacts, limits = dynamics.active_rows(model, tq)
         flops = physics_flops(model, contacts, limits, n_sub)
@@ -622,12 +649,14 @@ def physics_phase(torch, pf) -> tuple[dict, list[str]]:
         by_bytes = PHYS_E * (4 * model.nq + nu) * 4 / H100_HBM_BYTES_PER_S * 1e3
         by_task[task] = {"ms": kern, "eager_ms": kern_e, "plain_ms": plain_e, "bound_ms": max(by_ops, by_bytes),
                          "bound_by": "operations" if by_ops >= by_bytes else "bytes", "gflop": flops / 1e9,
-                         "substeps": n_sub}
+                         "substeps": n_sub, "ms_by_envs": {str(k): v for k, v in sorted(by_envs.items())},
+                         **pf.kernel_info(model)}
         lines.append(
             f"physics_fused {task} E={PHYS_E} x {n_sub} substeps, ms per vector step: kernel {kern:.4f} (CUDA graph) "
             f"{kern_e:.4f} (eager); plain {plain_e:.2f} (eager); bound {max(by_ops, by_bytes):.5f} "
             f"({flops / 1e9:.3f} GFLOP at {H100_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s; by bytes {by_bytes:.6f}); "
-            f"kernel at {max(by_ops, by_bytes) / kern:.4f} of the bound's rate")
+            f"kernel at {max(by_ops, by_bytes) / kern:.4f} of the bound's rate; kernel (CUDA graph) at E=32 "
+            f"{by_envs[32]:.4f}, E=8448 {by_envs[8448]:.4f}")
 
     main = by_task["HalfCheetah"]
     record = {
@@ -709,12 +738,24 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()  # every kernel and every model signature, one nvcc each, started together
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(libs)} libraries: {', '.join(lib.name for lib in libs)}", flush=True)
-    for lib in libs:  # what ptxas says of each fused step kernel: its registers and per-thread local memory
+    # what ptxas says of each fused step kernel (registers, static shared memory, per-thread local memory:
+    # its stack frame and spills), beside what the library says of its launch (lanes per env, dynamic shared memory)
+    from tianshou_tpu_torch.env.mujoco import make
+    models = {}  # library file name -> a model it steps
+    for task in PHYS_TASKS:
+        model = make(task).model
+        models[_build._resolve(physics_fused.build_target(model))[1].name] = model
+    for lib in libs:
         found = re.search(r"fused_step_kernel\S*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
-                          r"\nptxas info\s*: Used (\d+) registers", _build.build_logs.get(lib.name, ""))
-        if found:
-            print(f"build: {lib.name}: {found[4]} registers, {found[1]} bytes of local memory per thread (stack frame), "
-                  f"{found[2]} bytes spill stores, {found[3]} bytes spill loads")
+                          r"\nptxas info\s*: Used (\d+) registers([^\n]*)", _build.build_logs.get(lib.name, ""))
+        if found and lib.name in models:
+            info = physics_fused.kernel_info(models[lib.name])
+            static = re.search(r"(\d+) bytes smem", found[5])
+            print(f"build: {lib.name}: TEAM {info['team']} lanes per env, {found[4]} registers, static shared memory "
+                  f"{static[1] if static else 0} B, dynamic shared memory {info['shared_bytes_per_env']} B per env x "
+                  f"{info['envs_per_block']} envs per block ({info['rows_in_shared']} QP rows in it, "
+                  f"{info['scratch_floats_per_env'] * 4} B of global scratch per env for the rest), local memory per thread: "
+                  f"{found[1]} B stack frame, {found[2]} B spill stores, {found[3]} B spill loads")
 
     records = []
     for phase, module in ((gather_phase, gather), (sumtree_phase, sumtree), (physics_phase, physics_fused)):

@@ -27,9 +27,12 @@ vector steps without the profiler and traces as many more: wall time per
 vector step, device busy time, idle share, launches per step, and how the
 device time of one ``venv.step`` splits between the fused step kernel and the
 small kernels around it (action sampling, clip, reward, observation,
-termination). Then the kernel alone on the path's last states: its time
-against the number of envs (32 to 33792), with the contact solver's iterations
-at 0 and at the task's count, and against the number of envs per block.
+termination). Then the kernel alone on the path's last states (device time
+from a replayed CUDA graph): against the number of envs (32 to 33792), with
+the contact solver's iterations at 0 and at the task's count, and against
+what the launch exposes: lanes per env (``TEAM``, one library each) and envs
+per block. The same sweep then runs for the four tasks that have no path here,
+on states 32 random-action steps from reset.
 """
 
 from __future__ import annotations
@@ -195,33 +198,80 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
 
 
 def kernel_scaling(env, state, smi: str) -> None:
-    """How the fused step kernel's time moves with the number of envs and with the contact
-    solver's iterations, on states of the path just run (tiled or cut to the env count)."""
+    """How the fused step kernel's time moves with the number of envs, with the contact solver's
+    iterations, and with the launch's shape (lanes per env, envs per block), on states of the
+    path just run (tiled or cut to the env count)."""
     import torch
 
+    from tianshou_tpu_torch.ops.kernels import _build
     from tianshou_tpu_torch.ops.kernels import physics_fused as pf
 
     model, fs = env.model, env.frame_skip
     iters = int(model.contact_iterations)
-    print(f"fused step kernel of {type(env).__name__}, ms per call (eager, median of 5) [{smi}]:")
+    nu = len(model.actuators)
+
+    def ms(q, qd, ctrl):
+        return chip_smoke._time_ms(lambda: pf.fused_step(model, q, qd, ctrl, frame_skip=fs), warmup=2, runs=8, per_graph=3)[0]
+
+    info = pf.kernel_info(model)
+    print(f"fused step kernel of {type(env).__name__}, ms per call (CUDA graph of 3 calls, median of 8) [{smi}]; default launch: "
+          f"TEAM {info['team']}, {info['envs_per_block']} envs per block, {info['shared_bytes_per_env']} B of shared memory per env, "
+          f"{info['rows_in_shared']} QP rows in shared memory")
     for E in (32, 256, 2048, 4224, 8448, 33792):
         reps = -(-E // state.q.shape[0])
         q, qd = state.q.repeat(reps, 1)[:E].contiguous(), state.qd.repeat(reps, 1)[:E].contiguous()
-        ctrl = torch.zeros(E, len(model.actuators), device="cuda")
+        ctrl = torch.zeros(E, nu, device="cuda")
         cells = []
         for n in sorted({0, iters}):
             model.contact_iterations = n
-            cells.append(f"{n} iterations {chip_smoke._eager_ms(torch, lambda: pf.fused_step(model, q, qd, ctrl, frame_skip=fs), 5):.4f}")
+            cells.append(f"{n} iterations {ms(q, qd, ctrl):.4f}")
         model.contact_iterations = iters
         print(f"  E={E}: " + ", ".join(cells))
     E = chip_smoke.PHYS_E
-    q, qd, ctrl = state.q[:E].contiguous(), state.qd[:E].contiguous(), torch.zeros(E, len(model.actuators), device="cuda")
-    default, cells = pf._BLOCK_THREADS, []
-    for n in (32, 16, 8, 4, 2, 1, 32):  # envs per block; 32 again at the end shows the drift within the sweep
-        pf._BLOCK_THREADS = n
-        cells.append(f"{n}: {chip_smoke._eager_ms(torch, lambda: pf.fused_step(model, q, qd, ctrl, frame_skip=fs), 5):.4f}")
-    pf._BLOCK_THREADS = default
-    print(f"  E={E} by envs per block: " + ", ".join(cells))
+    q, qd, ctrl = state.q[:E].contiguous(), state.qd[:E].contiguous(), torch.zeros(E, nu, device="cuda")
+    teams = (4, 8, 16, 32)
+    # one compiler per team size and one for the build with cycle counters, all together
+    _build.build(*(pf.build_target(model, t) for t in teams), pf.build_target(model, None, True))
+    default = (pf._TEAM, pf._ENVS_PER_BLOCK)
+    for team in teams:
+        pf._TEAM, cells = team, []
+        for n in (1, 2, 4, 8, 16, 4):  # 4 again at the end shows the drift within the sweep
+            pf._ENVS_PER_BLOCK = n
+            cells.append(f"{pf.kernel_info(model)['envs_per_block']}: {ms(q, qd, ctrl):.4f}")
+        print(f"  E={E}, TEAM {team}, by envs per block: " + ", ".join(cells))
+    pf._TEAM, pf._ENVS_PER_BLOCK = default
+
+    # where one warp's time goes: cycle counters of a profiling build, at 32 envs so that nothing else runs beside it
+    pf._PROFILE = True
+    q, qd, ctrl = state.q[:32].contiguous(), state.qd[:32].contiguous(), torch.zeros(32, nu, device="cuda")
+    pf.fused_step(model, q, qd, ctrl, frame_skip=fs)  # warm-up
+    pf.phase_cycles(model)
+    pf.fused_step(model, q, qd, ctrl, frame_skip=fs)
+    torch.cuda.synchronize()
+    cycles = pf.phase_cycles(model)
+    pf._PROFILE = False
+    from tianshou_tpu_torch.env.physics import dynamics
+    n_sub = fs * dynamics.resolve_substeps(model, env.substeps)
+    total = sum(cycles.values())
+    print(f"  E=32, cycles of env 0's warp per substep by phase (profiling build, {n_sub} substeps, {total / n_sub:.0f} in all; "
+          f"a phase's time includes waiting for the envs that share the warp): "
+          + ", ".join(f"{name} {c / n_sub:.0f} ({c / total:.3f})" for name, c in cycles.items()))
+
+
+def rollout_state(task: str, steps: int = 32):
+    """(env, state) of ``task`` at 2048 envs, ``steps`` random-action vector steps from reset."""
+    import torch
+
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+
+    venv = VectorDeviceEnv(make(task), chip_smoke.PHYS_E, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = venv.reset(gen)
+    for _ in range(steps):
+        state = venv.step(state, venv.action_space.sample(chip_smoke.PHYS_E, gen, venv.device), gen).state
+    torch.cuda.synchronize()
+    return venv.env, state
 
 
 def main() -> int:
@@ -249,6 +299,9 @@ def main() -> int:
     if "physics" in paths:
         for task, steps in chip_smoke.PHYS_PATHS:
             profile_physics(task, steps, smi)
+        for task in chip_smoke.PHYS_TASKS:
+            if task not in dict(chip_smoke.PHYS_PATHS):
+                kernel_scaling(*rollout_state(task), smi)
     return 0
 
 

@@ -36,6 +36,26 @@ def test_gather_rows_kernel_bit_exact_on_cuda(shape, dtype, rows, idx_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("width", [16, 2032, 2064, 7056, 7057, 8192, 8208, 65536])
+def test_gather_rows_widths_around_chunk_and_block_edges_on_cuda(width, idx_dtype):
+    """Row widths around the 16-byte chunk, one chunk per thread (up to 4096 B) and two, the block's
+    512 chunks, the main path's 7056 B, an unaligned width (byte path) and several blocks per row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(width)
+    src = torch.randint(0, 256, (300, width), dtype=torch.uint8, device="cuda", generator=g)
+    for rows in (1, 200, 3000):
+        idx = torch.randint(-2, 302, (rows,), device="cuda", generator=g).to(idx_dtype)
+        out = tg.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tg.gather_rows_reference(src, idx))
+    off = src.reshape(-1)[1:1 + 299 * width].reshape(299, width)  # a base pointer off the 16-byte grid
+    idx = torch.randint(0, 299, (64,), device="cuda", generator=g)
+    assert torch.equal(tg.gather_rows(off, idx), off[idx])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("size,batch", [(131072, 32), (131072, 4096), (100000, 32), (16384, 257), (5, 64), (1, 7)])
 def test_prefix_sum_idx_kernel_exact_on_cuda(size, batch):
     if not torch.cuda.is_available():
@@ -61,8 +81,8 @@ def test_prefix_sum_idx_kernel_exact_on_cuda(size, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("task", ["HalfCheetah", "Ant"])
-@pytest.mark.parametrize("num_envs", [6, 2053])
+@pytest.mark.parametrize("task", ["HalfCheetah", "Ant", "Hopper"])
+@pytest.mark.parametrize("num_envs", [1, 6, 31, 33, 2053])  # a lone team, ragged warps and a ragged last block
 def test_fused_step_kernel_matches_plain_version_on_cuda(task, num_envs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -107,3 +127,27 @@ def test_mujoco_env_step_launches_the_kernel_once_on_cuda():
     assert torch.equal(outs["auto"].state.q, outs["fused"].state.q)
     torch.testing.assert_close(outs["auto"].state.q, outs["plain"].state.q, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(outs["auto"].reward, outs["plain"].reward, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("team", [4, 32])
+def test_fused_step_kernel_gives_the_same_bits_for_any_team_size_on_cuda(team, monkeypatch):
+    """Each element of each sum belongs to one lane in a fixed order, so the lanes per env do not show."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+
+    env = make("Walker2d")
+    model = env.model
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda") + 0.03 * torch.randn(257, model.nq, device="cuda", generator=g)
+    qd = 0.05 * torch.randn(257, model.nq, device="cuda", generator=g)
+    for _ in range(12):  # roll on until contacts and limits are active
+        ctrl = torch.rand(257, len(model.actuators), device="cuda", generator=g) * 2 - 1
+        q, qd = pf.fused_step(model, q, qd, ctrl, frame_skip=env.frame_skip)
+    want = pf.fused_step(model, q, qd, ctrl, frame_skip=env.frame_skip)
+    monkeypatch.setattr(pf, "_TEAM", team)
+    got = pf.fused_step(model, q, qd, ctrl, frame_skip=env.frame_skip)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

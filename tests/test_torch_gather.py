@@ -29,6 +29,12 @@ CASES = [
     ((1024, 5), np.float32, 300),
     ((513, 3), np.uint8, 1000),
     ((256, 128), np.int32, 17),
+    # row widths around the kernel's 16-byte chunk and its block of 256 threads x 2 chunks
+    ((50, 16), np.uint8, 40),
+    ((50, 2032), np.uint8, 40),
+    ((50, 2064), np.uint8, 40),
+    ((50, 7057), np.uint8, 40),
+    ((50, 8192 + 16), np.uint8, 40),
 ]
 
 
@@ -77,3 +83,12 @@ def test_gather_rows_cpu_uses_plain_version_and_counts_no_launch():
 def test_gather_rows_rejects_bad_arguments(src, idx, err):
     with pytest.raises(err):
         tg.gather_rows(src, idx)
+
+
+def test_empty_launch_needs_the_built_library():
+    import shutil
+
+    if shutil.which("nvcc") or torch.cuda.is_available():
+        pytest.skip("a machine with the CUDA toolkit builds the library")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tg.launch_noop(128, 256)

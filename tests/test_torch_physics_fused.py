@@ -114,12 +114,14 @@ def test_default_build_targets_cover_every_task_and_kernel():
 
 
 @functools.cache
-def host_library(task, out_dir):
-    """csrc/physics_fused.cu compiled as host C++ for the task's sizes."""
+def host_library(task, out_dir, extra=()):
+    """csrc/physics_fused.cu compiled as host C++ for the task's sizes; ``extra`` are further
+    ``-D`` flags (``TEAM=4``, ``YCAP=2``, ``TT_REVERSE_LANES``)."""
     model = torch_make(task).model
     src = Path(pf.__file__).parent / "csrc" / "physics_fused.cu"
-    lib = Path(out_dir) / f"host_{task}.so"
+    lib = Path(out_dir) / ("_".join(["host", task, *extra]).replace("=", "") + ".so")
     flags = [f"-D{k}={v}" for k, v in zip(("NQ", "NB", "NJ", "NC", "NL", "NU"), pf.signature(model))]
+    flags += [f"-D{x}" for x in extra]
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++", *flags, "-o", str(lib), str(src)],
                    check=True, timeout=300)
     fn = ctypes.CDLL(str(lib)).tt_physics_fused_host
@@ -180,3 +182,114 @@ def test_kernel_source_as_host_code_recharts_a_free_joint(tmp_path_factory):
     assert (np.linalg.norm(q_new[:, 3:6], axis=1) <= np.pi + 1e-3).all()
     np.testing.assert_allclose(q_new, want[0].numpy(), **Q_TOL)
     np.testing.assert_allclose(qd_new, want[1].numpy(), **QD_TOL)
+
+
+def rollout_states(fn, model, fs, E, seed, steps=12):
+    """Near-home states rolled on with random actions by the host build ``fn``: contacts and limits are active."""
+    q, qd, ctrl = near_home(model, E, seed)
+    rng = np.random.default_rng(seed + 100)
+    for _ in range(steps):
+        ctrl = rng.uniform(-1, 1, ctrl.shape).astype(np.float32)
+        q, qd = host_step(fn, model, q, qd, ctrl, fs)
+    return q, qd, ctrl
+
+
+@pytest.mark.parametrize("task,extra", [
+    ("HalfCheetah", ("TEAM=1",)), ("HalfCheetah", ("TEAM=4",)), ("HalfCheetah", ("TEAM=32",)),
+    ("HalfCheetah", ("TT_REVERSE_LANES",)), ("Ant", ("TEAM=8",)), ("Ant", ("TT_REVERSE_LANES",)),
+    ("Swimmer", ("TEAM=2",)), ("Hopper", ("TEAM=16", "TT_REVERSE_LANES")),
+])
+def test_host_builds_agree_across_team_sizes_and_lane_orders(task, extra, tmp_path_factory):
+    """Each element of each sum belongs to one lane and has a fixed order, so a build with another
+    TEAM, or one that runs the lanes of every phase in the opposite order (which would expose a
+    phase reading what another lane writes in it), gives the default build's bits; both stay
+    within the tolerance of the plain version."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++ compiler to build the kernel source for the host")
+    env = torch_make(task)
+    model, fs = env.model, env.frame_skip if task != "Ant" else 1
+    base = host_library(task, str(tmp_path_factory.getbasetemp()))
+    other = host_library(task, str(tmp_path_factory.getbasetemp()), extra)
+    q, qd, ctrl = rollout_states(base, model, fs, 8, 7)
+    a, b = host_step(base, model, q, qd, ctrl, fs), host_step(other, model, q, qd, ctrl, fs)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    want = pf.fused_step_reference(model, torch.from_numpy(q), torch.from_numpy(qd), torch.from_numpy(ctrl), frame_skip=fs)
+    np.testing.assert_allclose(b[0], want[0].numpy(), **Q_TOL)
+    np.testing.assert_allclose(b[1], want[1].numpy(), **QD_TOL)
+
+
+@pytest.mark.parametrize("task,cap", [("HalfCheetah", 4), ("HalfCheetah", 8), ("Walker2d", 4), ("Ant", 4), ("Hopper", 4)])
+def test_host_build_with_more_active_rows_than_the_cap_is_right(task, cap, tmp_path_factory):
+    """(The cap is a multiple of four, so that a contact's four rows stay together.)
+    With YCAP below the number of active rows the rows beyond it live in the scratch array
+    outside the env's fixed scratch; no row is dropped: the result has the uncapped build's bits."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++ compiler to build the kernel source for the host")
+    from tianshou_tpu_torch.env.physics.dynamics import active_rows
+
+    env = torch_make(task)
+    model, fs = env.model, env.frame_skip if task != "Ant" else 1
+    nr = 4 * len(model.contact_radius) + len(model.limit_q_idx)
+    base = host_library(task, str(tmp_path_factory.getbasetemp()), (f"YCAP={nr}",))
+    capped = host_library(task, str(tmp_path_factory.getbasetemp()), (f"YCAP={cap}",))
+    q, qd, ctrl = rollout_states(base, model, fs, 12, 9, steps=20)
+    if task == "Ant":
+        q[:, 2] = 0.3  # press the feet into the floor
+    if task == "HalfCheetah" and cap == 8:
+        q[:, 1] -= 0.25  # and the cheetah's body: more than two contacts
+    contacts, limits = active_rows(model, torch.from_numpy(q))
+    assert int((4 * contacts + limits).max()) > cap  # the state does overflow the cap
+    a, b = host_step(base, model, q, qd, ctrl, fs), host_step(capped, model, q, qd, ctrl, fs)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    want = pf.fused_step_reference(model, torch.from_numpy(q), torch.from_numpy(qd), torch.from_numpy(ctrl), frame_skip=fs)
+    np.testing.assert_allclose(b[0], want[0].numpy(), **Q_TOL)
+    np.testing.assert_allclose(b[1], want[1].numpy(), **QD_TOL)
+
+
+@pytest.mark.parametrize("E", [1, 33])
+def test_host_build_any_env_count(E, tmp_path_factory):
+    """Env counts that leave a team alone or a warp and a block ragged on the card: on the host the
+    same per-env code runs for each env, with nothing shared between envs."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++ compiler to build the kernel source for the host")
+    env = torch_make("Hopper")
+    fn = host_library("Hopper", str(tmp_path_factory.getbasetemp()))
+    q, qd, ctrl = near_home(env.model, E, 11)
+    got = host_step(fn, env.model, q, qd, ctrl, env.frame_skip)
+    one_by_one = [host_step(fn, env.model, q[e:e + 1], qd[e:e + 1], ctrl[e:e + 1], env.frame_skip) for e in range(E)]
+    np.testing.assert_array_equal(got[0], np.concatenate([o[0] for o in one_by_one]))
+    np.testing.assert_array_equal(got[1], np.concatenate([o[1] for o in one_by_one]))
+    want = pf.fused_step_reference(env.model, *(torch.from_numpy(a) for a in (q, qd, ctrl)), frame_skip=env.frame_skip)
+    np.testing.assert_allclose(got[0], want[0].numpy(), **Q_TOL)
+    np.testing.assert_allclose(got[1], want[1].numpy(), **QD_TOL)
+
+
+def test_host_build_with_more_solver_iterations_than_the_momentum_table(tmp_path_factory):
+    """The momentum weights of the first 32 iterations are tabulated once; beyond, they are computed."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++ compiler to build the kernel source for the host")
+    env = torch_make("Hopper")
+    model, fs = env.model, env.frame_skip
+    fn = host_library("Hopper", str(tmp_path_factory.getbasetemp()))
+    q, qd, ctrl = rollout_states(fn, model, fs, 8, 13)
+    model.contact_iterations = 40
+    got = host_step(fn, model, q, qd, ctrl, fs)
+    want = pf.fused_step_reference(model, *(torch.from_numpy(a) for a in (q, qd, ctrl)), frame_skip=fs)
+    np.testing.assert_allclose(got[0], want[0].numpy(), **Q_TOL)
+    np.testing.assert_allclose(got[1], want[1].numpy(), **QD_TOL)
+
+
+def test_build_target_names_the_team_size():
+    model = torch_make("Ant").model
+    name, defines = pf.build_target(model, team=8)
+    assert name == "physics_fused" and defines[-1] == ("TEAM", 8) and defines[:-1] == pf.build_target(model)[1]
+    assert _build._resolve((name, defines))[1].name.endswith("_nu8_team8.so")
+    for bad in (0, 3, 64):
+        with pytest.raises(ValueError, match="power of two"):
+            pf.build_target(model, team=bad)
+    assert pf.build_target(model, profile=True)[1][-1] == ("TT_PROFILE", 1)
+    assert len(pf.PHASES) == 11  # TT_N_PHASES of the source
+    with pytest.raises(RuntimeError, match="_PROFILE"):
+        pf.phase_cycles(model)

@@ -2,14 +2,17 @@
 
 Replaces the TPU kernel ``tianshou_tpu/ops/pallas/gather.py:gather_rows``
 (a ring of HBM->HBM row DMAs) with the CUDA C++ kernel in
-``csrc/gather.cu``: one thread block per output row, 16-byte vector copies
-where the row and both base pointers are 16-byte aligned. It is a pure copy,
-bit-identical to indexing for every dtype, and takes rows of any width in
-bytes (the frame rows of the replay ring are 7056 B).
+``csrc/gather.cu``. Where the row width and both base pointers are 16-byte
+aligned, a row is spread over the grid and every thread starts all its
+16-byte loads before its first store, so that every byte of the launch is
+asked for in one trip to device memory after the index. Anything else is
+copied byte by byte. It is a pure copy, bit-identical to indexing for every dtype, and takes rows of
+any width in bytes (the frame rows of the replay ring are 7056 B).
 
 The kernel is bound by bytes: it moves ``2 * rows * row_bytes``. At the main
 path's shape (128 rows of 7056 B) that is 0.54 us at an H100's 3.35 TB/s, so
-the launch dominates; measured times are in ``PERF.md``.
+the launch and the two dependent trips (index, row) dominate; measured times
+beside those of an empty launch are in ``PERF.md``.
 
 :func:`gather_rows` launches the kernel for a CUDA tensor and takes the
 plain version, :func:`gather_rows_reference`, only for a CPU tensor.
@@ -25,6 +28,7 @@ __all__ = ["gather_rows", "gather_rows_reference", "launch_count", "reset_launch
 
 _launches = 0
 _fn = None  # the loaded C entry point
+_noop = None  # and the empty kernel's
 
 
 def launch_count() -> int:
@@ -57,18 +61,32 @@ def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def _kernel():
-    global _fn
+    global _fn, _noop
     if _fn is None:
         from tianshou_tpu_torch.ops.kernels._build import load
 
-        fn = load("gather").tt_gather_rows
+        lib = load("gather")
+        fn = lib.tt_gather_rows
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
+        lib.tt_gather_noop.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.tt_gather_noop.restype = ctypes.c_int
+        _fn, _noop = fn, lib.tt_gather_noop
     return _fn
+
+
+def launch_noop(blocks: int, threads: int, device="cuda") -> None:
+    """Launch an empty kernel of that shape on the current stream: the yardstick for what a launch
+    costs with nothing to copy. Not counted by :func:`launch_count`."""
+    _kernel()
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = _noop(blocks, threads, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

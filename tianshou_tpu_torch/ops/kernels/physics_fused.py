@@ -4,16 +4,22 @@ limits, for a batch of envs, in one kernel launch.
 
 Replaces the TPU kernel ``tianshou_tpu/ops/pallas/physics_fused.py:fused_step``
 (a traced, autodiff-expanded program over ``[nq, block_e]`` lane slabs) with
-the CUDA C++ kernel in ``csrc/physics_fused.cu``: one thread per env runs FK
-over dual numbers and second-order jets, builds the mass matrix and bias
-force from the body Jacobians, solves the contact QP over the active rows
-only without forming its matrix, integrates, and re-charts free-joint
-rotation vectors. State is env-first ``[E, nq]`` (the port's envs are
+the CUDA C++ kernel in ``csrc/physics_fused.cu``: a team of lanes (8 or 16
+threads for the packaged models) owns one env, with the env's scratch in
+shared memory. The team runs the body kinematics a tree level at a time,
+sums each body's composite inertia and wrench a body per lane, takes the mass
+matrix an entry per lane and the force from them, factors by rows over the
+lanes, solves the contact QP over the active rows only (a lane per row; its
+matrix is kept for up to 16 active rows and never formed beyond), integrates,
+and re-charts free-joint rotation vectors. Active
+rows beyond what an env keeps in shared memory go to a global scratch tensor
+allocated here. State is env-first ``[E, nq]`` (the port's envs are
 batch-first), actuation (clip, gear) is folded into the kernel, and envs
 beyond ``E`` are masked in the kernel, not padded.
 
 The model's sizes are compile-time constants of the kernel, so one library is
-built per model signature ``(nq, nbody, njoint, ncontact, nlimit, nu)`` at
+built per model signature ``(nq, nbody, njoint, ncontact, nlimit, nu)`` (and
+per team size, when one other than the source's default is asked for) at
 first use; the model's tables go in as two device arrays packed by
 :func:`pack_model`. The work is float32 operations outside the tensor cores;
 the bound by operations and the measured times are in ``PERF.md``.
@@ -39,11 +45,11 @@ from tianshou_tpu_torch.env.physics.model import FREE, Model
 
 __all__ = [
     "fused_step", "fused_step_reference", "launch_count", "reset_launch_count", "signature", "pack_model",
-    "build_target", "task_targets", "TASK_ASSETS",
+    "build_target", "task_targets", "kernel_info", "phase_cycles", "PHASES", "TASK_ASSETS",
 ]
 
 _launches = 0
-_fns: dict = {}  # signature -> the loaded C entry point
+_fns: dict = {}  # build target -> (the loaded C entry point, what the library says of itself)
 
 # the packaged MuJoCo tasks the kernel is built for by default
 TASK_ASSETS = {
@@ -51,9 +57,18 @@ TASK_ASSETS = {
     "Ant": "ant.xml", "Swimmer": "swimmer.xml", "Reacher": "reacher.xml",
 }
 _MACROS = ("NQ", "NB", "NJ", "NC", "NL", "NU")
-# envs (threads) per block. Measured at E = 2048 (scripts/torch_port_profile.py, PERF.md): the time
-# is flat from 32 down to 8 and rises below, so a full warp per block it is.
-_BLOCK_THREADS = 32
+# Launch shape. A block holds ``_ENVS_PER_BLOCK`` teams (cut to what 256 threads and 227 KB of shared
+# memory hold); ``_TEAM`` None takes the source's default team size for the model (the least power of
+# two above nq). scripts/torch_port_profile.py sweeps both; the measured times are in PERF.md.
+_ENVS_PER_BLOCK = 4
+_TEAM: int | None = None
+# True builds and launches the library with cycle counters per phase (-DTT_PROFILE), read by phase_cycles
+_PROFILE = False
+# the phases of a substep, in the order of the kernel's TT_PHASE marks
+PHASES = ("body kinematics by tree level", "body wrenches and composites", "mass matrix and force",
+          "active set", "factor M", "row forward solves", "row set-up and step bound", "solver iterations",
+          "J^T lambda", "factor M + dt D", "back substitution and integration")
+_MAX_THREADS, _MAX_SHARED = 256, 232448
 
 
 def launch_count() -> int:
@@ -78,9 +93,17 @@ def signature(model: Model) -> tuple[int, ...]:
             len(model.actuators))
 
 
-def build_target(model: Model) -> tuple:
-    """The :mod:`_build` target of the library that steps ``model``."""
-    return ("physics_fused", tuple(zip(_MACROS, signature(model))))
+def build_target(model: Model, team: int | None = None, profile: bool = False) -> tuple:
+    """The :mod:`_build` target of the library that steps ``model``, with ``team`` lanes per env
+    (None: the source's default for the model's sizes); ``profile`` adds the cycle counters."""
+    defines = tuple(zip(_MACROS, signature(model)))
+    if profile:
+        defines += (("TT_PROFILE", 1),)
+    if team is not None:
+        if team < 1 or team > 32 or team & (team - 1):
+            raise ValueError(f"team must be a power of two from 1 to 32, got {team}")
+        defines += (("TEAM", team),)
+    return ("physics_fused", defines)
 
 
 def task_targets() -> list[tuple]:
@@ -155,26 +178,58 @@ def _check(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, 
 
 
 def _kernel(model: Model):
-    sig = signature(model)
-    if sig not in _fns:
+    """(entry point, info) of the library for ``model`` at the current ``_TEAM``."""
+    target = build_target(model, _TEAM, _PROFILE)
+    if target not in _fns:
         from tianshou_tpu_torch.ops.kernels._build import load
 
-        lib = load(build_target(model))
-        built = (ctypes.c_int * 8)()
+        lib = load(target)
+        built = (ctypes.c_int * 12)()
         lib.tt_physics_fused_signature.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.tt_physics_fused_signature.restype = None
         lib.tt_physics_fused_signature(built)
-        if tuple(built[:6]) != sig:
-            raise RuntimeError(f"library built for sizes {tuple(built[:6])}, model has {sig}")
+        if tuple(built[:6]) != signature(model):
+            raise RuntimeError(f"library built for sizes {tuple(built[:6])}, model has {signature(model)}")
         fn = lib.tt_physics_fused
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fns[sig] = fn
-    return _fns[sig]
+        info = {"team": built[8], "rows_in_shared": built[9], "shared_bytes_per_env": built[10],
+                "scratch_floats_per_env": built[11]}
+        if _PROFILE:
+            lib.tt_physics_fused_cycles.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+            lib.tt_physics_fused_cycles.restype = ctypes.c_int
+            info["cycles"] = lib.tt_physics_fused_cycles
+        _fns[target] = (fn, info)
+    return _fns[target]
+
+
+def phase_cycles(model: Model) -> dict[str, int]:
+    """With ``_PROFILE`` set: the clock cycles that thread 0 of block 0 spent in each phase since
+    the last call (summed over substeps and launches), by the names in ``PHASES``; zeroes them."""
+    if not _PROFILE:
+        raise RuntimeError("set physics_fused._PROFILE before the launches to be profiled")
+    out = (ctypes.c_longlong * len(PHASES))()
+    err = _kernel(model)[1]["cycles"](out)
+    if err != 0:
+        raise RuntimeError(f"reading the phase cycles failed: CUDA error {err}")
+    return dict(zip(PHASES, out))
+
+
+def kernel_info(model: Model) -> dict:
+    """What the library for ``model`` says of itself: lanes per env (``team``), active QP rows an env
+    keeps in shared memory, its shared memory in bytes, the floats of global scratch it needs for
+    the rows beyond, and the envs per block of the launch. Builds and loads the library."""
+    info = {k: v for k, v in _kernel(model)[1].items() if k != "cycles"}
+    info["envs_per_block"] = _envs_per_block(info)
+    return info
+
+
+def _envs_per_block(info: dict) -> int:
+    return max(1, min(_ENVS_PER_BLOCK, _MAX_THREADS // info["team"], _MAX_SHARED // info["shared_bytes_per_env"]))
 
 
 def _device_consts(model: Model, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -210,18 +265,20 @@ def fused_step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tens
     if not (q.is_contiguous() and qd.is_contiguous() and ctrl.is_contiguous()):
         raise ValueError("fused_step needs contiguous q, qd and ctrl")
     substeps = dynamics.resolve_substeps(model, substeps)
-    fn = _kernel(model)
+    fn, info = _kernel(model)
     q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
     if q.shape[0] == 0:
         return q_out, qd_out
+    # the active QP rows an env does not keep in shared memory
+    ext = torch.empty(q.shape[0] * info["scratch_floats_per_env"], dtype=torch.float32, device=q.device)
     P, I = _device_consts(model, q.device)
     has_free = int(any(j.jtype == FREE for j in model.joints))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(P.data_ptr(), P.numel(), I.data_ptr(), I.numel(), q.data_ptr(), qd.data_ptr(), ctrl.data_ptr(),
-                 q_out.data_ptr(), qd_out.data_ptr(), q.shape[0], frame_skip * substeps,
-                 float(model.timestep / substeps), int(getattr(model, "contact_iterations", 30)), has_free,
-                 _BLOCK_THREADS, stream)
+                 q_out.data_ptr(), qd_out.data_ptr(), ext.data_ptr() if ext.numel() else None, q.shape[0],
+                 frame_skip * substeps, float(model.timestep / substeps),
+                 int(getattr(model, "contact_iterations", 30)), has_free, _envs_per_block(info), stream)
     if err != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
     _launches += 1
