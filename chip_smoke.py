@@ -12,7 +12,12 @@ Phases, each of which fails the run:
    PyTorch library call with CUDA events: device time per call from a
    replayed CUDA graph of 20 calls, and eager time of single calls, each the
    median of 60 runs after a warm-up. The gather is timed beside an empty
-   launch of the same shape.
+   launch of the same shape. The sum tree has two kernels, the descent
+   (``prefix_sum_idx``) and the update (``tree_update``): both are held
+   bit-exact on whole trees (builds from 131072 and 300000 indices with
+   duplicates and dropped ones, the training path's 32 and 256 leaves, the
+   one-block edge at 1024/1025 entries) and timed at B = 32 and 4096 values
+   and k = 32 and 256 leaves.
 4. DQN path: the DQN-on-pixels pipeline of ``bench.py``
    (``_build_atari_pipeline`` / ``bench_atari_cnn``) at its widths:
    ``FrameStack(SyntheticAtari(), 4)`` over 256 envs, a uint8 replay of
@@ -28,9 +33,11 @@ Phases, each of which fails the run:
    0.4, a sum tree of 131072 leaves) and ``RainbowDQN`` over the noisy
    dueling ``RainbowAtariNet(6, 51 atoms)`` with Adam at lr 6.25e-5, at the
    same depth. Counters are zeroed and read around it in the same way: the
-   sum-tree kernel must run once and the gather kernel twice per update, the
-   final tree must hold ``node = left + right`` exactly at every internal
-   node, with zero leaves at never-written slots.
+   descent kernel must run once and the gather kernel twice per update, the
+   update kernel once per update (the priority writeback) and once per
+   collect step (the new rows' max priority), prefill included; the final
+   tree must hold ``node = left + right`` exactly at every internal node,
+   with zero leaves at never-written slots.
 
 6. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
    E = 6 and 2053) hold the fused step kernel against its plain version
@@ -44,7 +51,8 @@ Phases, each of which fails the run:
    the bound by float32 operations counted for this run's active contact and limit rows.
 7. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
    reset, 64 vector steps with actions from ``action_space.sample``; then Ant, 16 steps. One
-   kernel launch per step exactly, every state, observation and reward finite.
+   kernel launch per step exactly (and none of the other kernels), every state, observation and
+   reward finite.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the per-kernel
@@ -92,9 +100,10 @@ def _time_ms(fn, warmup: int = 10, runs: int = 60, per_graph: int = 20) -> tuple
     """(device ms, eager ms) of one call of ``fn``, each a median over ``runs``.
 
     Device time: ``per_graph`` calls captured in a CUDA graph, replayed
-    between two CUDA events, so that no host launch gap is counted. Eager
-    time: CUDA events around one ordinary call, which includes the gap when
-    the host launches slower than the device runs.
+    between two CUDA events, so that no host launch gap is counted (NaN for
+    ``per_graph=0``, a function that cannot be captured). Eager time: CUDA
+    events around one ordinary call, which includes the gap when the host
+    launches slower than the device runs.
     """
     import torch
 
@@ -109,6 +118,8 @@ def _time_ms(fn, warmup: int = 10, runs: int = 60, per_graph: int = 20) -> tuple
         b.record()
         b.synchronize()
         eager.append(a.elapsed_time(b))
+    if per_graph == 0:  # a function that a CUDA graph cannot capture: eager time only
+        return float("nan"), statistics.median(eager)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(per_graph):
@@ -181,9 +192,9 @@ def make_synthetic_atari():
 
 
 # ---------------------------------------------------------------------------
-def gather_phase(torch, gather) -> tuple[dict, list[str]]:
+def gather_phase(torch, gather) -> tuple[list[dict], list[str]]:
     """Bit-exactness on the card at the main path's and edge-case shapes, timing at the
-    main path's shape. Returns (JSON record without launches, report lines)."""
+    main path's shape. Returns ([JSON record without launches], report lines)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     lines = []
     n, row = 131072, 7056  # the main path's obs ring: 256 envs x 512 slots of 84*84*1 B
@@ -240,7 +251,7 @@ def gather_phase(torch, gather) -> tuple[dict, list[str]]:
         "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
         "bound_by": "bytes", "library_ms": lib,
     }
-    return record, lines
+    return [record], lines
 
 
 def _touched_nodes(tree, values, depth: int) -> int:
@@ -258,10 +269,11 @@ def _touched_nodes(tree, values, depth: int) -> int:
     return int(torch.unique(torch.cat(read)).numel()) if read else 0
 
 
-def sumtree_phase(torch, sumtree) -> tuple[dict, list[str]]:
-    """Exact equality of the sum-tree descent kernel and its plain version on the card at the
-    main path's and edge-case shapes, timing at the main path's shape (131072 leaves, 32
-    stratified queries) and at 4096 queries. Returns (JSON record without launches, lines)."""
+def sumtree_phase(torch, sumtree) -> tuple[list[dict], list[str]]:
+    """Both sum-tree kernels on the card. The descent: exact equality with its plain version at the
+    main path's and edge-case shapes, timing at the main path's shape (131072 leaves, 32 stratified
+    queries) and at 4096 queries. The update: see :func:`_tree_update_checks`. Returns (the two JSON
+    records without launches, report lines)."""
     from tianshou_tpu_torch.ops.segtree import SegmentTree
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -342,6 +354,8 @@ def sumtree_phase(torch, sumtree) -> tuple[dict, list[str]]:
         )
     if sumtree.launch_count() == count:
         raise AssertionError("the timed prefix_sum_idx calls did not launch the kernel")
+    lines.append(f"prefix_sum_idx launch shape (log2 lanes per query, levels per trip, warps per block): "
+                 f"B=32 {sumtree._descent_shape(32)}, B=4096 {sumtree._descent_shape(4096)}")
     kern, plain, bound, bound_by = timings[32]  # batch 32 on the main path
     record = {
         "name": "prefix_sum_idx", "route": "cuda",
@@ -350,7 +364,123 @@ def sumtree_phase(torch, sumtree) -> tuple[dict, list[str]]:
         "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": None,
     }
+    update_record, update_lines = _tree_update_checks(torch, sumtree)
+    return [record, update_record], lines + update_lines
+
+
+def _update_nodes(torch, index, bound: int, depth: int, size: int) -> tuple[int, int]:
+    """(nodes an update of leaves ``index`` writes, nodes it reads without writing them): the kept
+    distinct leaves and all their ancestors; the ancestors' children outside that set."""
+    node = torch.unique(index[(index >= 0) & (index < size)]) + bound
+    written, ancestors = [node], []
+    for _ in range(depth):
+        node = torch.unique(node // 2)
+        written.append(node)
+        ancestors.append(node)
+    written = torch.cat(written)
+    if not ancestors:
+        return int(written.numel()), 0
+    children = torch.cat([2 * torch.cat(ancestors), 2 * torch.cat(ancestors) + 1])
+    return int(written.numel()), int((~torch.isin(children, written)).sum())
+
+
+def _tree_update_checks(torch, sumtree) -> tuple[dict, list[str]]:
+    """Exact equality of the sum-tree update kernel and its plain version on whole trees on the card,
+    timing at the training path's 32 leaves (priority writeback) and 256 leaves (the collector's add)
+    on the main path's tree. Returns (JSON record without launches, report lines)."""
+    from tianshou_tpu_torch.ops.segtree import SegmentTree
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lines = []
+
+    def rand(n):
+        return torch.rand(n, device="cuda", generator=g)
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), device="cuda", generator=g)
+
+    def filled(size):
+        st = SegmentTree(size)
+        return sumtree.update_reference(st.init("cuda"), torch.arange(size, device="cuda"), rand(size) + 1e-3,
+                                        st.bound, st.depth, st.size)
+
+    cases = []  # (name, size, tree before, index, value)
+    for size in (131072, 100000, 16384, 1):  # whole trees from nothing
+        st = SegmentTree(size)
+        cases.append((f"size {size}: every leaf from an empty tree", size, st.init("cuda"),
+                      torch.arange(size, device="cuda"), rand(size) + 1e-3))
+    idx = randint(-1, 131072, 300000)
+    idx[::1000] = 131072 + 5
+    cases.append(("size 131072: 300000 indices with duplicates, -1 and beyond size", 131072,
+                  SegmentTree(131072).init("cuda"), idx, rand(300000) * 3))
+    main = filled(131072)
+    cases.append(("main tree: [7, 7, -1, 7]", 131072, main, torch.tensor([7, 7, -1, 7], device="cuda"),
+                  torch.tensor([1.0, 2.0, 9.0, 4.0], device="cuda")))
+    for k in (32, 256, 1024, 1025):
+        value = rand(k) * 2
+        value[: k // 8] = 0.0  # zero priorities
+        cases.append((f"main tree: {k} leaves, duplicates and -1", 131072, main, randint(-1, 131072, k), value))
+    cases.append(("main tree: 256 leaves of one expanded priority", 131072, main,
+                  torch.arange(256, device="cuda") * 512 + 17, torch.tensor(0.3, device="cuda").expand(256)))
+    cases.append(("main tree: only dropped indices", 131072, main, torch.tensor([-1, 131072, -1], device="cuda"),
+                  torch.ones(3, device="cuda")))
+    cases.append(("size 100000: 700 leaves", 100000, filled(100000), randint(0, 100000, 700), rand(700)))
+
+    max_err = 0.0
+    for name, size, before, index, value in cases:
+        st = SegmentTree(size)
+        want = sumtree.update_reference(before.clone(), index, value, st.bound, st.depth, st.size)
+        got = sumtree.update(before.clone(), index, value, st.bound, st.depth, st.size)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got.double() - want.double()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"tree_update differs from its plain version: {name}")
+        if not torch.equal(got[1:st.bound], got[2::2] + got[3::2]) or got[0].item() != 0.0:
+            raise AssertionError(f"tree_update: the tree's invariant does not hold: {name}")
+        lines.append(f"tree_update bit-exact: {name}")
+    # through SegmentTree.update, as the buffer calls it: the last write wins, node 0 stays 0
+    st = SegmentTree(131072)
+    tree = st.update(main.clone(), torch.tensor([7, 7, -1, 7], device="cuda"), torch.tensor([1.0, 2.0, 9.0, 4.0], device="cuda"))
+    if tree[st.bound + 7].item() != 4.0 or tree[0].item() != 0.0:
+        raise AssertionError("SegmentTree.update: the last write did not win or node 0 was written")
+
+    # timing on the main path's tree: the writeback's sampled leaves, the collector's one leaf per env
+    st, tree = SegmentTree(131072), main
+    timings = {}
+    count = sumtree.update_launch_count()  # timing launches are not the main path's
+    for k, index in ((32, sumtree.prefix_sum_idx(tree, rand(32) * st.total(tree), st.bound, st.depth, st.size)),
+                     (256, torch.arange(256, device="cuda") * 512 + 100)):
+        value = rand(k) + 0.5
+        kern, kern_e = _time_ms(lambda: sumtree.update(tree, index, value, st.bound, st.depth, st.size))
+        # the plain version clears node 0 from a host scalar, which a CUDA graph cannot capture: eager time
+        _, plain = _time_ms(lambda: sumtree.update_reference(tree, index, value, st.bound, st.depth, st.size), per_graph=0)
+        written, read = _update_nodes(torch, index, st.bound, st.depth, st.size)
+        by_bytes = (12 * k + 4 * written + 4 * read) / H100_HBM_BYTES_PER_S * 1e3
+        by_ops = (written - int(torch.unique(index).numel())) / H100_FP32_OPS_PER_S * 1e3  # one add per ancestor
+        timings[k] = (kern, plain, max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+        lines.append(
+            f"tree_update bound {st.bound} x {k} leaves: kernel {kern * 1e3:.3f} us device (CUDA graph), "
+            f"{kern_e * 1e3:.2f} eager; plain {plain * 1e3:.2f} eager; bound {max(by_bytes, by_ops) * 1e3:.5f} "
+            f"({written} nodes written, {read} read beside them; by bytes {by_bytes * 1e3:.5f}, by operations "
+            f"{by_ops * 1e3:.5f})"
+        )
+    if sumtree.update_launch_count() == count:
+        raise AssertionError("the timed tree_update calls did not launch the kernel")
+    kern, plain, bound, bound_by = timings[32]  # the priority writeback, once per update
+    record = {
+        "name": "tree_update", "route": "cuda",
+        "source": "tianshou_tpu_torch/ops/kernels/csrc/sumtree.cu",
+        "replaces": "tianshou_tpu/ops/segtree.py:45",
+        "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None, "plain_timing": "eager", "ms_256": timings[256][0],
+        "plain_ms_256": timings[256][1], "bound_ms_256": timings[256][2],
+    }
     return record, lines
+
+
+def _launches(gather, sumtree, physics_fused) -> dict[str, int]:
+    return {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count(),
+            "tree_update": sumtree.update_launch_count(), "physics_fused": physics_fused.launch_count()}
 
 
 def build_pipeline(torch, kind: str = "dqn"):
@@ -433,8 +563,7 @@ def main_path(torch, kind: str):
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
     res = trainer.run(ts, buf_state, gen)
-    launches = {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count(),
-                "physics_fused": physics_fused.launch_count()}
+    launches = _launches(gather, sumtree, physics_fused)
 
     lines = []
     ts, state = res.train_state, res.buf_state
@@ -457,8 +586,10 @@ def main_path(torch, kind: str):
         raise AssertionError(f"{kind} path: {res.gradient_step} updates, expected {expect_updates}")
     if bs.size.min().item() != min(SLOTS, (CHUNKS + 1) * T):
         raise AssertionError(f"{kind} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
-    expect = {"gather_rows": 2 * res.gradient_step,
-              "prefix_sum_idx": res.gradient_step if isinstance(state, PrioState) else 0, "physics_fused": 0}
+    prio = isinstance(state, PrioState)
+    collect_steps = (CHUNKS + 1) * T  # the prefill chunk and the training chunks, one add per step
+    expect = {"gather_rows": 2 * res.gradient_step, "prefix_sum_idx": res.gradient_step if prio else 0,
+              "tree_update": res.gradient_step + collect_steps if prio else 0, "physics_fused": 0}
     if launches != expect:
         raise AssertionError(f"{kind} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
     train_s = res.timing["collect"] + res.timing["update"]
@@ -471,7 +602,7 @@ def main_path(torch, kind: str):
         f"(collect {res.timing['collect'] / CHUNKS * 1e3:.1f} ms, update {res.timing['update'] / CHUNKS * 1e3:.1f} ms "
         f"= {res.timing['update'] / res.gradient_step * 1e3:.3f} ms/update; prefill {res.timing['prefill'] * 1e3:.1f} ms) "
         f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches['gather_rows']} "
-        f"sumtree_launches {launches['prefix_sum_idx']}"
+        f"sumtree_launches {launches['prefix_sum_idx']} tree_update_launches {launches['tree_update']}"
     )
     if isinstance(state, PrioState):
         lines.append(f"{kind} path: " + _check_tree(torch, buffer, state, gen))
@@ -556,9 +687,9 @@ def _eager_ms(torch, fn, runs: int = 3) -> float:
     return statistics.median(out)
 
 
-def physics_phase(torch, pf) -> tuple[dict, list[str]]:
+def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
     """The fused step kernel against the plain version on the card for every task, and its
-    times beside the bound. Returns (JSON record without launches, report lines); the record's
+    times beside the bound. Returns ([JSON record without launches], report lines); the record's
     numbers are HalfCheetah's at E = 2048 on a rollout state, the main path's shape."""
     from tianshou_tpu_torch.env.mujoco import make
     from tianshou_tpu_torch.env.physics import dynamics
@@ -666,7 +797,7 @@ def physics_phase(torch, pf) -> tuple[dict, list[str]]:
         "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None, "plain_timing": "eager", "by_task": by_task,
     }
-    return record, lines
+    return [record], lines
 
 
 def physics_path(torch, task: str, steps: int):
@@ -697,9 +828,8 @@ def physics_path(torch, task: str, steps: int):
             wrong_term += (out.terminated != ~((z > 0.2) & (z < 1.0))).sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gather_rows": gather.launch_count(), "prefix_sum_idx": sumtree.launch_count(),
-                "physics_fused": physics_fused.launch_count()}
-    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "physics_fused": steps}:
+    launches = _launches(gather, sumtree, physics_fused)
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": steps}:
         raise AssertionError(f"{task} physics path: kernel launches {launches} for {steps} steps")
     if not bool(finite):
         raise AssertionError(f"{task} physics path: a non-finite state, observation or reward")
@@ -760,9 +890,10 @@ def main() -> int:
     records = []
     for phase, module in ((gather_phase, gather), (sumtree_phase, sumtree), (physics_phase, physics_fused)):
         t0 = time.perf_counter()
-        record, lines = phase(torch, module)
-        print("\n".join(lines), f"\n{record['name']} kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
-        records.append(record)
+        recs, lines = phase(torch, module)
+        names = " and ".join(r["name"] for r in recs)
+        print("\n".join(lines), f"\n{names} kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        records += recs
 
     by_path = {}
     for kind in ("dqn", "rainbow"):

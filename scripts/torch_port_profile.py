@@ -1,6 +1,6 @@
 """Where the time of the PyTorch port's main paths goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics]
+    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree]
 
 For the DQN-on-pixels pipeline of ``bench.py`` and then for the Rainbow +
 prioritized-replay pipeline (``chip_smoke.build_pipeline``: 256 envs,
@@ -20,6 +20,13 @@ the main path's shapes, and prints the kernel launches and device time per
 call of the stratified sampler, the weights, the priority writeback (a tree
 update of 32 leaves) and the collector's max-priority write (256 leaves), so
 that their share of an update's launches can be read off.
+
+For the sum tree alone (``--paths sumtree``, on the main path's tree of
+131072 leaves) it times the descent kernel at 32 and 4096 values for each
+launch shape it takes (log2 lanes per query, levels per trip, warps per
+block; one lane and one level per trip is the old kernel's walk)
+and the update kernel against its plain version at 1 to 1024 leaves (one
+launch) and above (one launch per 1024 leaves), each a replayed CUDA graph.
 
 For the physics paths (``VectorDeviceEnv`` of HalfCheetah and of Ant at 2048
 envs, random actions: ``bench.py:bench_physics_step``) it times 64 (Ant: 16)
@@ -147,6 +154,45 @@ def profile_per_parts(buffer, state, gen, smi: str, calls: int = 50) -> None:
         n = sum(len(v) for v in per_name.values())
         print(f"  {name}: {n / calls:.1f} launches, {sum(sum(v) for v in per_name.values()) / calls:.1f} us device, "
               f"{wall_us:.1f} us wall (without the profiler)")
+
+
+def profile_sumtree(smi: str) -> None:
+    """The descent kernel by launch shape and the update kernel by leaves, on a full main-path tree."""
+    import torch
+
+    from tianshou_tpu_torch.ops.kernels import sumtree
+    from tianshou_tpu_torch.ops.segtree import SegmentTree
+
+    def ms(fn):
+        return chip_smoke._time_ms(fn, warmup=5, runs=20, per_graph=20)[0]
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    st = SegmentTree(chip_smoke.E * chip_smoke.SLOTS)
+    tree = sumtree.update_reference(st.init("cuda"), torch.arange(st.size, device="cuda"),
+                                    torch.rand(st.size, device="cuda", generator=g) + 1e-3, st.bound, st.depth, st.size)
+    print(f"== sum tree, bound {st.bound} (depth {st.depth}), device us per call (CUDA graph of 20, median of 20) [{smi}] ==")
+    shapes = [(h, per_trip, warps) for h in range(6) for per_trip in range(max(1, h - 1), h + 5) for warps in (4, 8)]
+    for b in (32, 4096):
+        values = ((torch.rand(b, device="cuda", generator=g) + torch.arange(b, device="cuda")) / b * st.total(tree)).contiguous()
+        want = sumtree.prefix_sum_idx_reference(tree, values, st.bound, st.depth, st.size)
+        cells = []
+        for shape in shapes:
+            if not torch.equal(sumtree._descent(tree, values, st.bound, st.depth, st.size, shape), want):
+                raise AssertionError(f"prefix_sum_idx shape {shape} differs from its plain version")
+            cells.append(f"{shape} {ms(lambda: sumtree._descent(tree, values, st.bound, st.depth, st.size, shape)) * 1e3:.3f}")
+        rule = sumtree._descent_shape(b)
+        cells.append(f"the rule {rule} {ms(lambda: sumtree.prefix_sum_idx(tree, values, st.bound, st.depth, st.size)) * 1e3:.3f}")
+        print(f"  prefix_sum_idx B={b}, (log2 lanes per query, levels per trip, warps per block) us: " + ", ".join(cells))
+    for k in (1, 32, 256, 1024, 1025, 4096, st.size):
+        index = torch.randint(-1, st.size, (k,), device="cuda", generator=g)
+        value = torch.rand(k, device="cuda", generator=g) + 0.5
+        launches = sumtree.update_launch_count()
+        kern = ms(lambda: sumtree.update(tree, index, value, st.bound, st.depth, st.size))
+        per_call = (sumtree.update_launch_count() - launches) / (5 + 20 + 20)  # warm-up, eager runs, captured calls
+        # the plain version clears node 0 from a host scalar, which a CUDA graph cannot capture: eager time
+        plain = chip_smoke._time_ms(lambda: sumtree.update_reference(tree, index, value, st.bound, st.depth, st.size),
+                                    warmup=5, runs=20, per_graph=0)[1]
+        print(f"  tree_update k={k}: kernel {kern * 1e3:.3f} us ({per_call:.0f} launches per call), plain {plain * 1e3:.3f} us (eager)")
 
 
 def profile_physics(task: str, steps: int, smi: str) -> None:
@@ -277,10 +323,10 @@ def rollout_state(task: str, steps: int = 32):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chunks", type=int, default=1)
-    ap.add_argument("--paths", default="dqn,rainbow,physics", help="comma-separated: dqn, rainbow, physics")
+    ap.add_argument("--paths", default="dqn,rainbow,physics", help="comma-separated: dqn, rainbow, physics, sumtree")
     args = ap.parse_args()
     paths = set(args.paths.split(","))
-    if not paths <= {"dqn", "rainbow", "physics"}:
+    if not paths <= {"dqn", "rainbow", "physics", "sumtree"}:
         ap.error(f"unknown path in {args.paths!r}")
 
     import torch
@@ -296,6 +342,8 @@ def main() -> int:
     if "rainbow" in paths:
         buffer, state, gen = profile_path("rainbow", args.chunks, smi)
         profile_per_parts(buffer, state, gen, smi)
+    if "sumtree" in paths:
+        profile_sumtree(smi)
     if "physics" in paths:
         for task, steps in chip_smoke.PHYS_PATHS:
             profile_physics(task, steps, smi)

@@ -81,6 +81,90 @@ def test_prefix_sum_idx_kernel_exact_on_cuda(size, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 1, 1), (0, 4, 3), (1, 3, 4), (2, 2, 4), (2, 6, 1), (3, 5, 7), (4, 8, 4),
+                                   (5, 5, 4), (5, 7, 4), (5, 9, 32)])
+def test_prefix_sum_idx_kernel_exact_for_any_launch_shape_on_cuda(shape):
+    """(log2 lanes per query, levels per trip, warps per block): every split of the descent gives the same
+    leaves, with ragged last warps and blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for size in (131072, 100000, 5, 1):
+        st = SegmentTree(size)
+        tree = tsum.update_reference(st.init("cuda"), torch.arange(size, device="cuda"),
+                                     torch.rand(size, device="cuda", generator=g), st.bound, st.depth, st.size)
+        total = st.total(tree)
+        cum = torch.cumsum(tree[st.bound:st.bound + min(size, 64)], 0)
+        q = torch.cat([torch.rand(4099, device="cuda", generator=g) * total, cum, torch.stack([total, -total, total * 0])])
+        out = tsum._descent(tree, q.contiguous(), st.bound, st.depth, st.size, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tsum.prefix_sum_idx_reference(tree, q, st.bound, st.depth, st.size)), size
+
+
+def _update_cases_on_cuda(g):
+    """(name, size, index, value) on the card: duplicates, -1 and out-of-range indices, k around the one-block
+    size and above it (duplicates across chunks), zero priorities, an expanded (stride-0) value."""
+    cases = [("[7, 7, -1, 7]", 131072, torch.tensor([7, 7, -1, 7]), torch.tensor([1.0, 2.0, 9.0, 4.0])),
+             ("adjacent duplicates", 10, torch.tensor([4, 9, 9, 4, 4, 2, 2]), torch.arange(1.0, 8.0)),
+             ("size 1", 1, torch.tensor([0, -1, 0, 1]), torch.tensor([1.0, 9.0, 2.5, 9.0]))]
+    cases = [(n, s, i.cuda(), v.cuda()) for n, s, i, v in cases]
+    for size, k in ((131072, 32), (131072, 256), (131072, 1024), (131072, 1025), (100000, 300000), (5, 40)):
+        idx = torch.randint(-3, size + 3, (k,), device="cuda", generator=g)
+        val = torch.rand(k, device="cuda", generator=g) * 5
+        val[torch.rand(k, device="cuda", generator=g) < 0.2] = 0.0
+        cases.append((f"size {size}, k {k}", size, idx, val))
+    cases.append(("across chunks: a later chunk's write wins", 50, torch.arange(2100, device="cuda") % 50,
+                  torch.rand(2100, device="cuda", generator=g)))
+    cases.append(("expanded value", 131072, torch.randint(-1, 131072, (256,), device="cuda", generator=g),
+                  torch.tensor(0.7, device="cuda").expand(256)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["empty", "filled"])
+def test_tree_update_kernel_bit_exact_on_cuda(start):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for name, size, index, value in _update_cases_on_cuda(g):
+        st = SegmentTree(size)
+        base = st.init("cuda")
+        if start == "filled":
+            tsum.update_reference(base, torch.arange(size, device="cuda"), torch.rand(size, device="cuda", generator=g),
+                                  st.bound, st.depth, st.size)
+        want = tsum.update_reference(base.clone(), index, value, st.bound, st.depth, st.size)
+        before = tsum.update_launch_count()
+        got = tsum.update(base.clone(), index, value, st.bound, st.depth, st.size)
+        torch.cuda.synchronize()
+        assert tsum.update_launch_count() == before + -(-index.shape[0] // tsum.ONE_BLOCK), name
+        assert torch.equal(got, want), name
+        assert torch.equal(got[1:st.bound], got[2::2] + got[3::2]) and got[0].item() == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 256, 1024])
+def test_segtree_update_launches_the_kernel_once_on_cuda(k):
+    """The training path's updates (32 and 256 leaves) are one launch and read nothing back to the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(k)
+    st = SegmentTree(131072)
+    tree = st.init("cuda")
+    index = torch.randint(-1, 131072, (k,), device="cuda", generator=g)
+    value = torch.rand(k, device="cuda", generator=g)
+    want = tsum.update_reference(tree.clone(), index, value, st.bound, st.depth, st.size)
+    tsum.reset_launch_count()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+    try:
+        out = st.update(tree, index, value)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out is tree
+    assert (tsum.update_launch_count(), tsum.launch_count()) == (1, 0)
+    assert torch.equal(tree, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("task", ["HalfCheetah", "Ant", "Hopper"])
 @pytest.mark.parametrize("num_envs", [1, 6, 31, 33, 2053])  # a lone team, ragged warps and a ragged last block
 def test_fused_step_kernel_matches_plain_version_on_cuda(task, num_envs):

@@ -7,22 +7,20 @@ Layout: an implicit binary heap in one float32 tensor of length ``2 * bound``
 
 :meth:`SegmentTree.update` writes the tree in place (as the port's replay
 rings are written in place) and returns it. It reads nothing back to the
-host: masked-out and out-of-range indices are redirected to node 0, which is
-cleared afterwards, and duplicate indices are resolved with a stable sort so that
-the last write wins (``tensor[pos] = val`` with duplicates is undefined on
-CUDA). Parents are recomputed as ``tree[2p] + tree[2p+1]`` level by level,
+host; the last of duplicate indices wins and out-of-range indices are
+dropped. Parents are recomputed as ``tree[2p] + tree[2p+1]`` level by level,
 so a tree built from the same leaf values is bit-identical to the JAX one.
 
-:meth:`SegmentTree.get_prefix_sum_idx` is the descent of
-:mod:`tianshou_tpu_torch.ops.kernels.sumtree`: the hand-written CUDA kernel
-for a tree on the card, its plain version for a tree on the CPU.
+Both the update and :meth:`SegmentTree.get_prefix_sum_idx` (the descent) are
+in :mod:`tianshou_tpu_torch.ops.kernels.sumtree`: the hand-written CUDA
+kernels for a tree on the card, their plain versions for a tree on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tianshou_tpu_torch.ops.kernels.sumtree import prefix_sum_idx
+from tianshou_tpu_torch.ops.kernels import sumtree
 from tianshou_tpu_torch.utils.device import resolve_device
 
 __all__ = ["SegmentTree"]
@@ -58,27 +56,7 @@ class SegmentTree:
         """
         index = index.reshape(-1).to(torch.int64)
         value = value.reshape(-1).to(torch.float32)
-
-        # resolve duplicates: stable-sort by index, keep only the last
-        order = torch.argsort(index, stable=True)
-        s_idx = index[order]
-        is_last = torch.ones_like(s_idx, dtype=torch.bool)
-        is_last[:-1] = s_idx[1:] != s_idx[:-1]
-        valid = is_last & (s_idx >= 0) & (s_idx < self.size)
-        # dropped writes all land on the unused node 0, which is cleared at the end
-        pos = torch.where(valid, s_idx + self.bound, 0)
-        tree[pos] = value[order]
-
-        # repair ancestors level by level: row p of the pair view is (tree[2p], tree[2p+1]),
-        # and siblings write the same sum. Node 0's row holds node 0 itself, so what the
-        # dropped entries write there is read by no other node.
-        pairs = tree.view(self.bound, 2)
-        for _ in range(self.depth):
-            pos = pos // 2
-            children = pairs[pos]
-            tree[pos] = children[:, 0] + children[:, 1]
-        tree[0] = 0.0
-        return tree
+        return sumtree.update(tree, index, value, self.bound, self.depth, self.size)
 
     # ------------------------------------------------------------------
     def reduce(self, tree: torch.Tensor, start: int | torch.Tensor = 0,
@@ -106,5 +84,5 @@ class SegmentTree:
         ``_get_prefix_sum_idx`` segtree.py:119-134). ``value`` is a float
         tensor of any shape; the result has its shape."""
         value = value.to(torch.float32)
-        flat = prefix_sum_idx(tree, value.reshape(-1).contiguous(), self.bound, self.depth, self.size)
+        flat = sumtree.prefix_sum_idx(tree, value.reshape(-1).contiguous(), self.bound, self.depth, self.size)
         return flat.reshape(value.shape)
