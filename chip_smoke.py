@@ -18,16 +18,29 @@ Phases, each of which fails the run:
    duplicates and dropped ones, the training path's 32 and 256 leaves, the
    one-block edge at 1024/1025 entries) and timed at B = 32 and 4096 values
    and k = 32 and 256 leaves.
-4. DQN path: the DQN-on-pixels pipeline of ``bench.py``
+4. Graph phase: the trainer's programs as CUDA graphs against the eager
+   loop, for the DQN and the Rainbow pipelines of phases 5 and 6 at full
+   width (``graph_phase``): from one prefilled state and one generator state,
+   three collect chunks and three bursts of 8 updates through the graphs,
+   with the whole burst in one graph and with one update per graph, against
+   the same run eagerly on deep copies. Sampled indices, rings, collect state
+   and output and the sum tree bit-identical; losses, TD errors and
+   parameters within ``GRAPH_ATOL`` (expected exact, cuDNN held to
+   deterministic algorithms); the same kernel launches.
+5. DQN path: the DQN-on-pixels pipeline of ``bench.py``
    (``_build_atari_pipeline`` / ``bench_atari_cnn``) at its widths:
    ``FrameStack(SyntheticAtari(), 4)`` over 256 envs, a uint8 replay of
    256*512 frames per ring with ``stack_num=4`` and ``save_only_last_obs``,
    and ``DQN(DQNet(6))`` with n=3, gamma 0.99, target sync every 500 steps,
-   eps 0.05 and Adam at lr 1e-4, trained by ``OffPolicyTrainer`` for a random
-   prefill chunk plus three chunks of T=16 steps with update_per_step 0.1 and
-   batch 32 (410 updates a chunk). Launch counters are zeroed just before
-   and read just after; the gather kernel must run exactly twice per update.
-5. Rainbow path: the same pixel pipeline with the two parts of the
+   eps 0.05 and Adam at lr 1e-4, trained by ``OffPolicyTrainer`` (its collect
+   chunk and update burst are CUDA graphs) for a random prefill chunk plus
+   three chunks of T=16 steps with update_per_step 0.1 and batch 32 (410
+   updates a chunk), the first of each program's chunks its eager warm-up and
+   the second its capture, then a second ``run`` of three chunks that only
+   replays, which is timed. Launch counters are zeroed just before and read
+   just after both runs; the gather kernel must run exactly twice per update.
+   The same DQN path then runs with ``fused_megastep=True``: one graph per chunk.
+6. Rainbow path: the same pixel pipeline with the two parts of the
    ``examples/atari/atari_rainbow.py`` configuration exchanged: a
    prioritized replay (``PrioritizedVectorReplayBuffer``, alpha 0.6, beta
    0.4, a sum tree of 131072 leaves) and ``RainbowDQN`` over the noisy
@@ -39,7 +52,7 @@ Phases, each of which fails the run:
    tree must hold ``node = left + right`` exactly at every internal node,
    with zero leaves at never-written slots.
 
-6. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
+7. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
    E = 6 and 2053) hold the fused step kernel against its plain version
    (``dynamics.step``): near-home states, every env within ``q`` rtol = atol = 2e-4 and ``qd``
    rtol = atol = 5e-3; states from the kernel's own random-action rollout at steps 16, 32 and
@@ -49,10 +62,14 @@ Phases, each of which fails the run:
    eager time, at E = 2048 and, from the graph, at E = 32 and 8448 (is it bound by latency or by
    throughput); the plain version's eager time (its Cholesky calls are not captured in a graph);
    the bound by float32 operations counted for this run's active contact and limit rows.
-7. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
-   reset, 64 vector steps with actions from ``action_space.sample``; then Ant, 16 steps. One
-   kernel launch per step exactly (and none of the other kernels), every state, observation and
-   reward finite.
+8. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
+   reset, 64 vector steps with actions from ``action_space.sample`` as one program, the
+   counterpart of the scan, called three times (eager warm-up, capture and replay of one CUDA
+   graph, replay); then Ant, 16 steps. One kernel launch per step exactly (and none of the other
+   kernels), every state, observation and reward finite, Ant's termination rule.
+
+Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
+device memory of its graph pool.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the per-kernel
@@ -84,6 +101,10 @@ PHYS_E = 2048
 PHYS_PATHS = (("HalfCheetah", 64), ("Ant", 16))  # (task, vector steps)
 PHYS_TASKS = ("HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher")
 ROLLOUT_CHECKS = (16, 32, 64)
+
+# the graph phase: program calls per side (eager warm-up, capture and replay, replay) and updates per burst
+GRAPH_CALLS, GRAPH_K = 3, 8
+GRAPH_ATOL = 1e-6  # losses, TD errors and parameters of graph against eager; expected 0
 Q_TOL, QD_TOL = 2e-4, 5e-3     # rtol = atol, as the JAX package holds its fused step
 MIN_SHARE_INSIDE = 0.995       # of envs, on rollout states
 
@@ -545,69 +566,230 @@ def _check_tree(torch, buffer, state, gen) -> str:
             f"batch weights in [{w.min().item():.4f}, {w.max().item():.4f}]")
 
 
-def main_path(torch, kind: str):
-    """Train the pipeline of ``kind``; returns (result, {kernel: launches}, report lines)."""
+def _graph_report(pool, replays_per_chunk: float) -> str:
+    """Capture time, graph replays per chunk and pool memory of a trainer's or a rollout's graphs."""
+    captures = ", ".join(f"{g.name} {g.capture_s:.2f} s" for g in pool.graphs if g.capture_s is not None)
+    return (f"graph launches per chunk {replays_per_chunk:g}, capture time {captures}, "
+            f"graph pool {pool.memory_bytes() / 2**20:.1f} MiB of device memory")
+
+
+def main_path(torch, kind: str, fused: bool = False):
+    """Train the pipeline of ``kind`` through the graphed trainer (with ``fused`` as ONE graph per
+    chunk): a first ``run`` of the random prefill and ``CHUNKS`` chunks (the first chunk of each
+    program its eager warm-up, the second its capture), then a second ``run`` of ``CHUNKS`` chunks
+    that only replays, and that is timed. Returns (second result, {kernel: launches} over both runs,
+    report lines)."""
     from tianshou_tpu_torch.data.buffer.prio import PrioState
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
     from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
 
+    name = f"{kind}{' fused_megastep' if fused else ''}"
     algo, ts, buffer, buf_state, coll = build_pipeline(torch, kind)
     init_params = [p.detach().clone() for p in ts.model.parameters()]
     params = OffPolicyTrainerParams(
         max_epochs=1, epoch_num_steps=CHUNKS * T * E, batch_size=BATCH,
         collection_step_num_env_steps=T, update_per_step=0.1, start_steps=T * E, verbose=False,
+        fused_megastep=fused,
     )
     trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
-    res = trainer.run(ts, buf_state, gen)
+    first = trainer.run(ts, buf_state, gen)
+    graphs = list(trainer.graph_pool.graphs)
+    replays = sum(g.replays for g in graphs)
+    trainer.params.start_steps = 0  # the second run only replays
+    res = trainer.run(first.train_state, first.buf_state, gen)
     launches = _launches(gather, sumtree, physics_fused)
 
     lines = []
+    if trainer.graph_pool.graphs != graphs or any(g.graph is None for g in graphs):
+        raise AssertionError(f"{name} path: the second run built programs anew")
+    if len(graphs) != (1 if fused else 2):
+        raise AssertionError(f"{name} path: programs {[g.name for g in graphs]}")
+    replays_per_chunk = (sum(g.replays for g in graphs) - replays) / CHUNKS
+    if replays_per_chunk != len(graphs):
+        raise AssertionError(f"{name} path: {replays_per_chunk} graph replays per chunk of the second run")
     ts, state = res.train_state, res.buf_state
     bs = state.base if isinstance(state, PrioState) else state
-    tensors = [*ts.model.parameters(), *ts.target.parameters(), bs.cursor, bs.size, bs.last_idx,
-               *bs.data.values()]
+    tensors = [*ts.model.parameters(), *ts.target.parameters(), ts.step, *ts.hparams.values(), bs.cursor, bs.size,
+               bs.last_idx, *bs.data.values()]
     if isinstance(state, PrioState):
         tensors += [state.tree, state.max_prio, state.min_prio]
     if not all(t.device.type == "cuda" for t in tensors):
-        raise AssertionError(f"{kind} path: a tensor left the device")
+        raise AssertionError(f"{name} path: a tensor left the device")
     loss = res.last_chunk_stats.loss
     if not bool(torch.isfinite(loss).all()):
-        raise AssertionError(f"{kind} path: non-finite loss in the last chunk: {loss}")
+        raise AssertionError(f"{name} path: non-finite loss in the last chunk: {loss}")
     if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()):
-        raise AssertionError(f"{kind} path: non-finite parameters after training")
+        raise AssertionError(f"{name} path: non-finite parameters after training")
     if all(torch.equal(a, b) for a, b in zip(init_params, ts.model.parameters())):
-        raise AssertionError(f"{kind} path: training left the parameters unchanged")
-    expect_updates = CHUNKS * max(1, round(0.1 * T * E))
-    if res.gradient_step != expect_updates:
-        raise AssertionError(f"{kind} path: {res.gradient_step} updates, expected {expect_updates}")
-    if bs.size.min().item() != min(SLOTS, (CHUNKS + 1) * T):
-        raise AssertionError(f"{kind} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
+        raise AssertionError(f"{name} path: training left the parameters unchanged")
+    n_updates = max(1, round(0.1 * T * E))
+    expect_updates = 2 * CHUNKS * n_updates
+    if res.gradient_step != expect_updates or int(ts.step) != expect_updates:
+        raise AssertionError(f"{name} path: {res.gradient_step} updates ({int(ts.step)} on the device), "
+                             f"expected {expect_updates}")
+    collect_steps = (2 * CHUNKS + 1) * T  # the prefill chunk and the training chunks, one add per step
+    if bs.size.min().item() != min(SLOTS, collect_steps):
+        raise AssertionError(f"{name} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
     prio = isinstance(state, PrioState)
-    collect_steps = (CHUNKS + 1) * T  # the prefill chunk and the training chunks, one add per step
     expect = {"gather_rows": 2 * res.gradient_step, "prefix_sum_idx": res.gradient_step if prio else 0,
               "tree_update": res.gradient_step + collect_steps if prio else 0, "physics_fused": 0}
     if launches != expect:
-        raise AssertionError(f"{kind} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
+        raise AssertionError(f"{name} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
     train_s = res.timing["collect"] + res.timing["update"]
     lines.append(
-        f"{kind} path: E={E} T={T} chunks={CHUNKS} updates={res.gradient_step} batch={BATCH} "
+        f"{name} path: E={E} T={T} chunks={CHUNKS}+{CHUNKS} updates={res.gradient_step} batch={BATCH} "
         f"ring uint8 {tuple(bs.data.obs.shape)} x2 ({bs.data.obs.numel() / 1e9:.3f} GB each)"
     )
     lines.append(
-        f"{kind} path: env_steps_per_s {CHUNKS * T * E / train_s:.1f} ms_per_chunk {train_s / CHUNKS * 1e3:.1f} "
-        f"(collect {res.timing['collect'] / CHUNKS * 1e3:.1f} ms, update {res.timing['update'] / CHUNKS * 1e3:.1f} ms "
-        f"= {res.timing['update'] / res.gradient_step * 1e3:.3f} ms/update; prefill {res.timing['prefill'] * 1e3:.1f} ms) "
+        f"{name} path, first run (prefill, then the eager warm-up chunk and the capture chunk): "
+        f"{(first.timing['collect'] + first.timing['update']) / CHUNKS * 1e3:.1f} ms per chunk, "
+        f"prefill {first.timing['prefill'] * 1e3:.1f} ms"
+    )
+    what = "collect + update as one graph" if fused else (
+        f"collect {res.timing['collect'] / CHUNKS * 1e3:.1f} ms, update {res.timing['update'] / CHUNKS * 1e3:.1f} ms")
+    lines.append(
+        f"{name} path, second run (graph replays only): env_steps_per_s {CHUNKS * T * E / train_s:.1f} "
+        f"ms_per_chunk {train_s / CHUNKS * 1e3:.1f} ({what}) = {train_s / (CHUNKS * n_updates) * 1e3:.3f} ms per update "
+        f"(collect included); {_graph_report(trainer.graph_pool, replays_per_chunk)}; "
         f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches['gather_rows']} "
         f"sumtree_launches {launches['prefix_sum_idx']} tree_update_launches {launches['tree_update']}"
     )
     if isinstance(state, PrioState):
-        lines.append(f"{kind} path: " + _check_tree(torch, buffer, state, gen))
+        lines.append(f"{name} path: " + _check_tree(torch, buffer, state, gen))
     return res, launches, lines
 
+
+def graph_phase(torch, kind: str) -> list[str]:
+    """The trainer's programs as CUDA graphs against the eager loop, on the pipeline of ``kind``.
+
+    From one prefilled state and one generator state, three sides run: the trainer's programs with
+    the whole burst as one graph, the same with one update per graph (``burst_graph="update"``),
+    and the plain eager loop (``collector.collect`` and ``algo.update`` on the card) on deep
+    copies. Each side runs ``GRAPH_CALLS`` collect chunks of T steps and then ``GRAPH_CALLS``
+    bursts of ``GRAPH_K`` updates; a program's first call is its eager warm-up, the second its
+    capture and first replay, the third a replay. Sampled indices, rings, the collect state, the
+    collect output and the sum tree must be bit-identical; losses, TD errors and parameters within
+    ``GRAPH_ATOL`` (expected exact: cuDNN is held to deterministic algorithms here, and both sides
+    run the same kernels in the same order); the kernel launches the same."""
+    import copy
+
+    from tianshou_tpu_torch.data.buffer.prio import PrioState
+    from tianshou_tpu_torch.ops.kernels import counters
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    algo, ts, buffer, bs, coll = build_pipeline(torch, kind)
+    prio = isinstance(bs, PrioState)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, T, random=True)  # a prefill chunk: 16 rows per env to sample from
+    sample_indices = buffer.sample_indices
+    sides = {}
+    for side in ("burst", "update", "eager"):
+        s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, bs=s_bs, cstate=s_cs, gen=s_gen, outs=[], stats=[])
+    del ts, bs, cstate
+    for side, sd in sides.items():
+        # the sampled indices, logged on the device in order: a replay writes the next rows too
+        log = torch.full((GRAPH_CALLS * GRAPH_K, BATCH), -1, dtype=torch.int64, device="cuda")
+        row = torch.zeros((), dtype=torch.int64, device="cuda")
+
+        def logging_sampler(*args, log=log, row=row):
+            idx = sample_indices(*args)
+            log.index_copy_(0, row.view(1), idx.unsqueeze(0))
+            row.add_(1)
+            return idx
+
+        buffer.sample_indices = logging_sampler
+        trainer = None
+        if side != "eager":
+            trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
+                batch_size=BATCH, collection_step_num_env_steps=T, verbose=False))
+            trainer.burst_graph = side
+        before = counters.snapshot()
+        for _ in range(GRAPH_CALLS):
+            if trainer is None:
+                out = coll.collect(sd["ts"], sd["cstate"], sd["bs"], sd["gen"], T)[2]
+            else:
+                out = trainer.collect_chunk(sd["ts"], sd["cstate"], sd["bs"], sd["gen"], T)
+            sd["outs"].append(out.map(torch.clone))
+        for _ in range(GRAPH_CALLS):
+            if trainer is None:
+                stats = [algo.update(sd["ts"], buffer, sd["bs"], sd["gen"], BATCH)[2] for _ in range(GRAPH_K)]
+                stats = {k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()}
+            else:
+                stats = trainer.update_burst(sd["ts"], sd["bs"], sd["gen"], GRAPH_K)
+            sd["stats"].append({k: v.clone() for k, v in stats.items()})
+        torch.cuda.synchronize()
+        after = counters.snapshot()
+        sd["launches"] = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        sd["idx"] = log
+        if trainer is not None:
+            sd["graphs"] = {g.name.split()[0]: (g.replays, g.capture_s) for g in trainer.graph_pool.graphs}
+            sd["pool_mib"] = trainer.graph_pool.memory_bytes() / 2**20
+    buffer.sample_indices = sample_indices
+    torch.backends.cudnn.deterministic = deterministic
+
+    eager = sides["eager"]
+    if int((eager["idx"] < 0).sum()) != 0:
+        raise AssertionError(f"graph phase {kind}: the eager loop sampled {int(eager['idx'][:, 0].ge(0).sum())} batches")
+    lines = []
+    for side in ("burst", "update"):
+        sd, worst = sides[side], 0.0
+        replays = {name: n for name, (n, _) in sd["graphs"].items()}
+        expect = {"collect_chunk": GRAPH_CALLS - 1,
+                  "update_burst": GRAPH_CALLS - 1 if side == "burst" else GRAPH_CALLS * GRAPH_K - 1}
+        if replays != expect:
+            raise AssertionError(f"graph phase {kind} {side}: replays {replays}, expected {expect}")
+        if not torch.equal(sd["idx"], eager["idx"]):
+            raise AssertionError(f"graph phase {kind} {side}: sampled indices differ from eager")
+        if torch.equal(sd["idx"][GRAPH_K:2 * GRAPH_K], sd["idx"][2 * GRAPH_K:]):
+            raise AssertionError(f"graph phase {kind} {side}: two replays drew the same indices")
+        for call in range(GRAPH_CALLS):
+            for k, v in eager["outs"][call].items():
+                if not torch.equal(sd["outs"][call][k], v):
+                    raise AssertionError(f"graph phase {kind} {side}: collect output {k} of call {call} differs")
+            for k, v in eager["stats"][call].items():
+                worst = max(worst, float((sd["stats"][call][k] - v).abs().max()))
+        for a, b in ((sd["ts"].model, eager["ts"].model), (sd["ts"].target, eager["ts"].target)):
+            for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+                worst = max(worst, float((x.float() - y.float()).abs().max()))
+        if not int(sd["ts"].step) == int(eager["ts"].step) == GRAPH_CALLS * GRAPH_K:
+            raise AssertionError(f"graph phase {kind} {side}: step {int(sd['ts'].step)}, eager {int(eager['ts'].step)}")
+        sb, eb = sd["bs"], eager["bs"]
+        pairs = [(sb.tree, eb.tree), (sb.max_prio, eb.max_prio), (sb.min_prio, eb.min_prio)] if prio else []
+        sb, eb = (sb.base, eb.base) if prio else (sb, eb)
+        pairs += [(sb.cursor, eb.cursor), (sb.size, eb.size), (sb.last_idx, eb.last_idx),
+                  *zip(sb.data.values(), eb.data.values()), *zip(_leaves(sd["cstate"]), _leaves(eager["cstate"]))]
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"graph phase {kind} {side}: rings, sum tree or collect state differ from eager")
+        if worst > GRAPH_ATOL:
+            raise AssertionError(f"graph phase {kind} {side}: losses or parameters differ by {worst:.3e} > {GRAPH_ATOL}")
+        if sd["launches"] != eager["launches"]:
+            raise AssertionError(f"graph phase {kind} {side}: launches {sd['launches']}, eager {eager['launches']}")
+        lines.append(
+            f"graph phase {kind}, {side} graphs against eager: {GRAPH_CALLS} collect chunks of T={T} and "
+            f"{GRAPH_CALLS} x {GRAPH_K} updates; sampled indices, rings, collect state and output"
+            f"{' and the sum tree' if prio else ''} bit-identical; losses, TD errors and parameters max |diff| "
+            f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
+            f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
+        )
+    return lines
+
+
+def _leaves(tree) -> list:
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -801,49 +983,69 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
 
 
 def physics_path(torch, task: str, steps: int):
-    """``bench.py:bench_physics_step`` in the port: returns ({kernel: launches}, report lines)."""
+    """``bench.py:bench_physics_step`` in the port: ``steps`` vector steps with actions from
+    ``action_space.sample`` as ONE program, the counterpart of its jitted scan, through the graph
+    helper: the first call is its eager warm-up, the second its capture and first replay, the third
+    a replay, which is timed. Returns ({kernel: launches} over the three calls, report lines)."""
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.env.mujoco import make
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+    from tianshou_tpu_torch.utils.tree import tree_map
 
     venv = VectorDeviceEnv(make(task), PHYS_E, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
-    state, obs = venv.reset(gen)
+    state, obs = tree_map(torch.clone, venv.reset(gen))
     finite = torch.isfinite(obs).all()
     n_term = torch.zeros((), dtype=torch.int64, device="cuda")
     wrong_term = torch.zeros((), dtype=torch.int64, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        act = venv.action_space.sample(PHYS_E, gen, venv.device)
-        out = venv.step(state, act, gen)
-        state = out.state
-        finite = finite & torch.isfinite(state.q).all() & torch.isfinite(state.qd).all() \
-            & torch.isfinite(out.obs).all() & torch.isfinite(out.reward).all()
-        n_term += out.terminated.sum()
-        if task == "Ant":  # Ant-v4's healthy range: a terminated env is one outside 0.2 < z < 1.0
-            z = state.q[:, 2]
-            wrong_term += (out.terminated != ~((z > 0.2) & (z < 1.0))).sum()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    def rollout():
+        s = state
+        for _ in range(steps):
+            out = venv.step(s, venv.action_space.sample(PHYS_E, gen, venv.device), gen)
+            s = out.state
+            finite.logical_and_(torch.isfinite(s.q).all() & torch.isfinite(s.qd).all()
+                                & torch.isfinite(out.obs).all() & torch.isfinite(out.reward).all())
+            n_term.add_(out.terminated.sum())
+            if task == "Ant":  # Ant-v4's healthy range: a terminated env is one outside 0.2 < z < 1.0
+                z = s.q[:, 2]
+                wrong_term.add_((out.terminated != ~((z > 0.2) & (z < 1.0))).sum())
+        tree_map(torch.Tensor.copy_, state, s)
+        return out
+
+    pool = GraphPool("cuda")
+    program = Graphed(rollout, pool, (gen,), name=f"{task} rollout")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = program()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     launches = _launches(gather, sumtree, physics_fused)
-    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": steps}:
-        raise AssertionError(f"{task} physics path: kernel launches {launches} for {steps} steps")
+    total = 3 * steps
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": total}:
+        raise AssertionError(f"{task} physics path: kernel launches {launches} for {total} steps")
+    if program.replays != 2 or program.launches != {"physics_fused": steps}:
+        raise AssertionError(f"{task} physics path: {program.replays} replays of {program.launches}")
     if not bool(finite):
         raise AssertionError(f"{task} physics path: a non-finite state, observation or reward")
     obs_dim = venv.observation_space.shape[0]
     if out.obs.shape != (PHYS_E, obs_dim) or out.obs.device.type != "cuda" or out.reward.shape != (PHYS_E,):
         raise AssertionError(f"{task} physics path: observation {tuple(out.obs.shape)} reward {tuple(out.reward.shape)}")
-    if state.t.min().item() != steps or state.t.max().item() != steps:
-        raise AssertionError(f"{task} physics path: t is {state.t.min().item()}..{state.t.max().item()}, expected {steps}")
+    if state.t.min().item() != total or state.t.max().item() != total:
+        raise AssertionError(f"{task} physics path: t is {state.t.min().item()}..{state.t.max().item()}, expected {total}")
     if int(wrong_term) != 0:
         raise AssertionError(f"{task} physics path: {int(wrong_term)} envs' terminated flag disagrees with 0.2 < z < 1.0")
     lines = [
-        f"{task} physics path: E={PHYS_E} T={steps} obs {tuple(out.obs.shape)} physics_fused launches {launches['physics_fused']} "
-        f"(1 per vector step) env_steps_per_s {steps * PHYS_E / wall:.1f} us_per_vector_step {wall / steps * 1e6:.1f} "
-        f"terminated reports {int(n_term)} mean reward last step {float(out.reward.mean()):.4f}"
+        f"{task} physics path: E={PHYS_E} T={steps} x 3 calls (eager warm-up, capture + replay, replay) obs "
+        f"{tuple(out.obs.shape)} physics_fused launches {launches['physics_fused']} (1 per vector step); graph replay: "
+        f"env_steps_per_s {steps * PHYS_E / walls[2]:.1f} us_per_vector_step {walls[2] / steps * 1e6:.1f} (eager warm-up "
+        f"{walls[0] / steps * 1e6:.1f}); {_graph_report(pool, 1)}; terminated reports {int(n_term)} mean reward last "
+        f"step {float(out.reward.mean()):.4f}"
     ]
     return launches, lines
 
@@ -895,11 +1097,18 @@ def main() -> int:
         print("\n".join(lines), f"\n{names} kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
         records += recs
 
-    by_path = {}
     for kind in ("dqn", "rainbow"):
         t0 = time.perf_counter()
-        _, by_path[kind], lines = main_path(torch, kind)  # raises unless every kernel ran as often as it must
-        print("\n".join(lines), f"\n{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+        lines = graph_phase(torch, kind)  # raises unless graphs and the eager loop agree
+        print("\n".join(lines), f"\n{kind} graph phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+
+    by_path = {}
+    for kind, fused in (("dqn", False), ("rainbow", False), ("dqn", True)):
+        t0 = time.perf_counter()
+        name = f"{kind}_megastep" if fused else kind
+        # raises unless every kernel ran as often as it must
+        _, by_path[name], lines = main_path(torch, kind, fused)
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for task, steps in PHYS_PATHS:
         t0 = time.perf_counter()
         by_path[task.lower()], lines = physics_path(torch, task, steps)  # raises unless one launch per step

@@ -1,6 +1,7 @@
 """Where the time of the PyTorch port's main paths goes, on one NVIDIA GPU.
 
     python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree]
+    python3 scripts/torch_port_profile.py --compare PARENT_TREE [--pairs 10]
 
 For the DQN-on-pixels pipeline of ``bench.py`` and then for the Rainbow +
 prioritized-replay pipeline (``chip_smoke.build_pipeline``: 256 envs,
@@ -40,18 +41,43 @@ the contact solver's iterations at 0 and at the task's count, and against
 what the launch exposes: lanes per env (``TEAM``, one library each) and envs
 per block. The same sweep then runs for the four tasks that have no path here,
 on states 32 random-action steps from reset.
+
+The pixel paths run through one trainer: a warm-up run of the prefill and two
+chunks (where the trainer captures its CUDA graphs: a program's first call is
+its eager warm-up, the second its capture), then the timed and the traced
+runs, which replay.
+
+``--compare PARENT_TREE`` holds this tree against another checkout of the
+port (an unpacked ``git archive`` of the parent commit, say) on the card, in
+turns: ``--pairs`` pairs of processes, parent then this tree, then this tree
+then parent, and so on, because the host's speed drifts within a call. Each
+process (``--measure --tree ROOT``, which imports ``chip_smoke`` and
+``tianshou_tpu_torch`` from ROOT) measures the four paths of ``bench.py``
+once, through whatever programs its tree has: the DQN and the Rainbow + PER
+pixel paths (one chunk timed, one traced: wall per chunk, env-steps/s, ms
+per update, device busy time per chunk, idle share against the unprofiled
+wall, the host's launches per update, kernel and CUDA graph launches both,
+and device kernels per update); and the HalfCheetah (64 steps) and Ant (16 steps) rollouts at 2048 envs (one graph of
+the whole rollout where the tree has the helper, an eager loop where it has
+not): the same per vector step. It prints every process's numbers and then,
+per path and tree, the median and the range. Then, in this tree, the update
+burst as one graph against one update per graph (``burst_graph="update"``):
+two trainers over one pixel pipeline, replayed chunks in turns, as many pairs.
+All of it goes to ``chiprun_out/profile_pairs_<paths>.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import statistics
+import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-
-import chip_smoke  # noqa: E402
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+chip_smoke = None  # imported in main(), from the tree that --tree names
 
 
 def _device_events(prof) -> dict[str, list[float]]:
@@ -66,6 +92,14 @@ def _device_events(prof) -> dict[str, list[float]]:
     return per_name
 
 
+def _host_launches(prof) -> int:
+    """Launches the host issued in a trace: CUDA runtime or driver calls that launch a kernel or a graph."""
+    import torch
+
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+               and ("LaunchKernel" in e.name or "GraphLaunch" in e.name))
+
+
 def profile_path(kind: str, chunks: int, smi: str):
     """Time and trace ``chunks`` update chunks of the pipeline of ``kind``; returns its buffer,
     buffer state and generator for the traces of the parts."""
@@ -78,31 +112,29 @@ def profile_path(kind: str, chunks: int, smi: str):
     algo, ts, buffer, buf_state, coll = chip_smoke.build_pipeline(torch, kind)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def trainer(n: int, prefill: bool) -> OffPolicyTrainer:
-        params = OffPolicyTrainerParams(
-            max_epochs=1, epoch_num_steps=n * T * E, batch_size=batch,
-            collection_step_num_env_steps=T, update_per_step=0.1,
-            start_steps=T * E if prefill else 0, verbose=False,
-        )
-        return OffPolicyTrainer(algo, coll, None, buffer, params)
-
-    res = trainer(1, prefill=True).run(ts, buf_state, gen)  # warm-up: cuDNN plans, allocator
+    params = OffPolicyTrainerParams(
+        max_epochs=1, epoch_num_steps=2 * T * E, batch_size=batch,
+        collection_step_num_env_steps=T, update_per_step=0.1, start_steps=T * E, verbose=False,
+    )
+    trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
+    res = trainer.run(ts, buf_state, gen)  # warm-up: cuDNN plans, allocator, the graphs' capture
+    params.start_steps, params.epoch_num_steps = 0, chunks * T * E
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = trainer(chunks, prefill=False).run(res.train_state, res.buf_state, gen)
+    res = trainer.run(res.train_state, res.buf_state, gen)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     plain_timing = dict(res.timing)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = trainer(chunks, prefill=False).run(res.train_state, res.buf_state, gen)
+        res = trainer.run(res.train_state, res.buf_state, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
     per_name = _device_events(prof)
     busy_us = sum(sum(v) for v in per_name.values())
     launches = sum(len(v) for v in per_name.values())
-    updates = res.gradient_step
+    updates = chunks * max(1, round(0.1 * T * E))
     print(f"== {kind} path ==")
     print(f"device: {smi}")
     print(f"profiled {chunks} chunk(s): {chunks * T * E} env steps, {updates} updates")
@@ -112,7 +144,8 @@ def profile_path(kind: str, chunks: int, smi: str):
           f"update {res.timing['update'] * 1e3:.1f})")
     print(f"device busy ms {busy_us / 1e3:.1f}, idle share {1 - busy_us / 1e3 / (plain_wall * 1e3):.3f} "
           f"against the wall time without the profiler ({1 - busy_us / 1e3 / (wall * 1e3):.3f} under it), "
-          f"kernel launches {launches} ({launches / max(updates, 1):.1f} per update incl. collect)")
+          f"kernel launches {launches} ({launches / max(updates, 1):.1f} per update incl. collect), host launches "
+          f"{_host_launches(prof) / max(updates, 1):.2f} per update (kernels and CUDA graphs)")
     print("top kernels by device time: total_ms, calls, mean_us, name")
     for name, v in sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
         print(f"  {sum(v) / 1e3:9.2f} {len(v):7d} {sum(v) / len(v):9.2f}  {name[:110]}")
@@ -205,30 +238,27 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
 
     E = chip_smoke.PHYS_E
     venv = VectorDeviceEnv(make(task), E, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state, _ = venv.reset(gen)
-
-    def run(state, n):
-        for _ in range(n):
-            state = venv.step(state, venv.action_space.sample(E, gen, venv.device), gen).state
-        torch.cuda.synchronize()
-        return state
-
-    state = run(state, 4)  # warm-up: library load, local memory, allocator
+    state, program, graphed = rollout_program(venv, steps)
+    for _ in range(2):  # warm-up: library load, local memory, allocator; the graph's eager call and capture
+        program()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = run(state, steps)
+    program()
+    torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = run(state, steps)
+        program()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_name = _device_events(prof)
     busy_us = sum(sum(v) for v in per_name.values())
     launches = sum(len(v) for v in per_name.values())
     fused = {k: v for k, v in per_name.items() if "fused_step_kernel" in k}
     fused_us = sum(sum(v) for v in fused.values())
-    print(f"== {task} physics path ==")
+    print(f"== {task} physics path ({'one CUDA graph of the rollout' if graphed else 'eager'}) ==")
     print(f"device: {smi}")
+    print(f"host launches per step {_host_launches(prof) / steps:.2f} (kernels and CUDA graphs)")
     print(f"E={E}, {steps} vector steps: wall us per step without the profiler {plain_wall / steps * 1e6:.1f} "
           f"({steps * E / plain_wall:.1f} env-steps/s), under it {wall / steps * 1e6:.1f}")
     print(f"device busy us per step {busy_us / steps:.1f}, idle share {1 - busy_us / 1e6 / plain_wall:.3f} against the "
@@ -241,6 +271,30 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
     for name, v in sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
         print(f"  {sum(v) / 1e3:9.2f} {len(v):7d} {sum(v) / len(v):9.2f}  {name[:110]}")
     kernel_scaling(venv.env, state, smi)
+
+
+def rollout_program(venv, steps: int):
+    """``(state, program, graphed)``: ``program()`` runs ``steps`` vector steps of ``venv`` with random
+    actions on ``state``, in place; one CUDA graph through the tree's graph helper where the tree has
+    one (its first call eager, its second the capture), else an eager loop."""
+    import torch
+
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = tree_map(torch.clone, venv.reset(gen))
+
+    def rollout():
+        s = state
+        for _ in range(steps):
+            s = venv.step(s, venv.action_space.sample(venv.num_envs, gen, venv.device), gen).state
+        tree_map(torch.Tensor.copy_, state, s)
+
+    try:
+        from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+    except ImportError:  # a tree from before the graphs
+        return state, rollout, False
+    return state, Graphed(rollout, GraphPool("cuda"), (gen,), name="rollout"), True
 
 
 def kernel_scaling(env, state, smi: str) -> None:
@@ -320,15 +374,191 @@ def rollout_state(task: str, steps: int = 32):
     return venv.env, state
 
 
+def _trace(fn, torch):
+    """(wall s without the profiler, wall s under it, device busy us, device kernels, host launches) of
+    ``fn()``. The trace records the device's activity and the CUDA runtime's calls only, not PyTorch's
+    operators, which would multiply its events (and the time to read them back) several times over."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    # the raw events: building the profiler's own event objects for ~300,000 events takes tens of seconds
+    busy_ns = kernels = host = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                busy_ns, kernels = busy_ns + e.duration_ns(), kernels + 1
+        elif "LaunchKernel" in e.name() or "GraphLaunch" in e.name():
+            host += 1
+    return plain, traced, busy_ns / 1e3, kernels, host
+
+
+def measure(paths: set[str]) -> dict:
+    """The four paths of bench.py once each, through the programs of the tree imported: per path
+    wall ms per chunk (or us per vector step), env-steps/s, device busy time, idle share, host
+    launches and device kernels per update (or per step)."""
+    import torch
+
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    E, T, batch = chip_smoke.E, chip_smoke.T, chip_smoke.BATCH
+    n_updates = max(1, round(0.1 * T * E))
+    graphed = hasattr(OffPolicyTrainer, "burst_graph")
+    out = {}
+    for kind in ("dqn", "rainbow"):
+        for burst in (("burst",) if graphed else (None,)):
+            if kind not in paths:
+                continue
+            algo, ts, buffer, bs, coll = chip_smoke.build_pipeline(torch, kind)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=(2 if graphed else 1) * T * E,
+                                            batch_size=batch, collection_step_num_env_steps=T, update_per_step=0.1,
+                                            start_steps=T * E, verbose=False)
+            trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
+            if burst:
+                trainer.burst_graph = burst
+            t0 = time.perf_counter()
+            trainer.run(ts, bs, gen)  # warm-up (and where there are graphs, their capture)
+            params.start_steps, params.epoch_num_steps = 0, T * E
+            plain, traced, busy, kernels, host = _trace(lambda: trainer.run(ts, bs, gen), torch)
+            out[kind] = {
+                "seconds": time.perf_counter() - t0,
+                "wall_ms_per_chunk": plain * 1e3, "env_steps_per_s": T * E / plain, "ms_per_update": plain / n_updates * 1e3,
+                "device_busy_ms_per_chunk": busy / 1e3, "idle_share": 1 - busy / 1e6 / plain,
+                "idle_share_traced": 1 - busy / 1e6 / traced, "host_launches_per_update": host / n_updates,
+                "device_kernels_per_update": kernels / n_updates,
+            }
+            del algo, ts, buffer, bs, coll, trainer
+    if "physics" in paths:
+        from tianshou_tpu_torch.env.core import VectorDeviceEnv
+        from tianshou_tpu_torch.env.mujoco import make
+
+        for task, steps in chip_smoke.PHYS_PATHS:
+            t0 = time.perf_counter()
+            venv = VectorDeviceEnv(make(task), chip_smoke.PHYS_E, device="cuda")
+            _, program, _ = rollout_program(venv, steps)
+            for _ in range(2):  # warm-up (and where there is a graph, its capture)
+                program()
+            plain, traced, busy, kernels, host = _trace(program, torch)
+            out[task.lower()] = {
+                "seconds": time.perf_counter() - t0,
+                "us_per_vector_step": plain / steps * 1e6, "env_steps_per_s": steps * venv.num_envs / plain,
+                "device_busy_us_per_step": busy / steps, "idle_share": 1 - busy / 1e6 / plain,
+                "idle_share_traced": 1 - busy / 1e6 / traced, "host_launches_per_step": host / steps,
+                "device_kernels_per_step": kernels / steps,
+            }
+    return out
+
+
+def compare_burst_modes(kinds: list[str], turns: int, smi: str) -> dict:
+    """The whole burst in one graph against one update per graph, in one process: for each pixel
+    pipeline two trainers over the same state (one per mode, each warmed up and captured), then
+    ``turns`` pairs of replayed chunks in turns (ABBA); wall ms per chunk, without the profiler."""
+    import torch
+
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    E, T = chip_smoke.E, chip_smoke.T
+    out = {}
+    for kind in kinds:
+        algo, ts, buffer, bs, coll = chip_smoke.build_pipeline(torch, kind)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        trainers = {}
+        for mode in ("burst", "update"):
+            params = OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=2 * T * E, batch_size=chip_smoke.BATCH,
+                                            collection_step_num_env_steps=T, update_per_step=0.1,
+                                            start_steps=T * E, verbose=False)
+            trainers[mode] = OffPolicyTrainer(algo, coll, None, buffer, params)
+            trainers[mode].burst_graph = mode
+            trainers[mode].run(ts, bs, gen)  # the eager warm-up chunk and the capture chunk
+            params.start_steps, params.epoch_num_steps = 0, T * E
+        walls = {"burst": [], "update": []}
+        for i in range(turns):
+            for mode in (("burst", "update") if i % 2 == 0 else ("update", "burst")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainers[mode].run(ts, bs, gen)
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+        out[kind] = {mode: {"wall_ms_per_chunk": w, "median": statistics.median(w),
+                            "capture_s": {g.name: g.capture_s for g in trainers[mode].graph_pool.graphs},
+                            "pool_mib": trainers[mode].graph_pool.memory_bytes() / 2**20}
+                     for mode, w in walls.items()}
+        print(f"{kind}: wall ms per chunk, {turns} pairs in turns [{smi}]: " + "; ".join(
+            f"{mode} median {v['median']:.1f} (runs {', '.join(f'{x:.1f}' for x in v['wall_ms_per_chunk'])}), "
+            f"capture s {v['capture_s']}, pool {v['pool_mib']:.1f} MiB" for mode, v in out[kind].items()), flush=True)
+        del algo, ts, buffer, bs, coll, trainers
+    return out
+
+
+def compare(parent: str, pairs: int, paths: str, smi: str) -> None:
+    """``pairs`` pairs of measuring processes, the parent tree and this one in turns (ABBA)."""
+    trees = {"parent": os.path.abspath(parent), "change": ROOT}
+    runs = []
+    for i in range(pairs):
+        for tree in (("parent", "change") if i % 2 == 0 else ("change", "parent")):
+            cmd = [sys.executable, os.path.abspath(__file__), "--measure", "--tree", trees[tree], "--paths", paths]
+            t0 = time.perf_counter()
+            done = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
+            found = [ln for ln in done.stdout.splitlines() if ln.startswith("MEASURE ")]
+            if done.returncode != 0 or not found:
+                raise RuntimeError(f"measuring {tree} failed (rc {done.returncode}):\n{done.stdout[-3000:]}\n"
+                                   f"{done.stderr[-3000:]}")
+            runs.append({"tree": tree, "pair": i, "process_s": time.perf_counter() - t0,
+                         **json.loads(found[-1][len("MEASURE "):])})
+            print(f"pair {i} {tree} ({runs[-1]['process_s']:.0f} s): " + "; ".join(
+                f"{path} " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()) for path, m in runs[-1]["paths"].items()),
+                flush=True)
+    summary = {}
+    for tree in ("parent", "change"):
+        mine = [r["paths"] for r in runs if r["tree"] == tree]
+        for path in sorted({p for r in mine for p in r}):
+            for metric in sorted({k for r in mine if path in r for k in r[path]}):
+                vals = [r[path][metric] for r in mine if path in r]
+                summary.setdefault(path, {}).setdefault(metric, {})[tree] = {
+                    "median": statistics.median(vals), "min": min(vals), "max": max(vals), "n": len(vals)}
+    print(f"== {pairs} pairs in turns, parent tree {trees['parent']} against this tree [{smi}] ==")
+    print("path metric: parent median (min-max) | this tree median (min-max)")
+    for path, metrics in summary.items():
+        for metric, by_tree in metrics.items():
+            cells = [f"{by_tree[t]['median']:.6g} ({by_tree[t]['min']:.6g}-{by_tree[t]['max']:.6g})"
+                     if t in by_tree else "-" for t in ("parent", "change")]
+            print(f"  {path} {metric}: {cells[0]} | {cells[1]}")
+    modes = None
+    kinds = [k for k in ("dqn", "rainbow") if k in paths.split(",")]
+    if kinds:
+        print(f"== the update burst as one graph against one update per graph, this tree [{smi}] ==", flush=True)
+        modes = compare_burst_modes(kinds, pairs, smi)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"profile_pairs_{paths.replace(',', '_')}.json"), "w") as f:
+        json.dump({"device": smi, "pairs": pairs, "runs": runs, "summary": summary, "burst_modes": modes}, f, indent=1)
+
+
 def main() -> int:
+    global chip_smoke
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chunks", type=int, default=1)
     ap.add_argument("--paths", default="dqn,rainbow,physics", help="comma-separated: dqn, rainbow, physics, sumtree")
+    ap.add_argument("--compare", metavar="PARENT_TREE", help="measure this tree against PARENT_TREE in turns")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--measure", action="store_true", help="measure the paths once and print one MEASURE line")
+    ap.add_argument("--tree", default=ROOT, help="the checkout whose chip_smoke and tianshou_tpu_torch to import")
     args = ap.parse_args()
     paths = set(args.paths.split(","))
     if not paths <= {"dqn", "rainbow", "physics", "sumtree"}:
         ap.error(f"unknown path in {args.paths!r}")
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import chip_smoke as module
 
+    chip_smoke = module
     import torch
 
     if not torch.cuda.is_available():
@@ -337,6 +567,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke._smi()
+    if args.compare:
+        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree"})), smi)
+        return 0
+    if args.measure:
+        print("MEASURE " + json.dumps({"device": smi, "paths": measure(paths)}), flush=True)
+        return 0
     if "dqn" in paths:
         profile_path("dqn", args.chunks, smi)
     if "rainbow" in paths:

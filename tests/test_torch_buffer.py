@@ -184,3 +184,37 @@ def test_init_raises_without_cuda_and_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TVRB(8, 2).init(TBatch(obs=torch.zeros(2), act=torch.tensor(0), rew=torch.tensor(0.0),
                                terminated=torch.tensor(False), truncated=torch.tensor(False)))
+
+
+def test_n_step_return_at_an_unfinished_episode_follows_the_jax_package():
+    """A deviation inherited from the JAX package, pinned: at the newest row of
+    an episode that has not finished, ``next`` stays put while the episode-end
+    flag is only ``done``, so the chain repeats that row's reward and the
+    bootstrap is discounted by gamma**n. One env, rewards 1, 2, 3, 4 with none
+    done, n = 3, gamma 0.99, target Q = 0, indices [1, 2, 3]: both packages
+    give [8.8904, 10.8804, 11.8804]. Upstream tianshou's
+    ``compute_nstep_return`` marks the unfinished row as an end
+    (``end_flag[buffer.unfinished_index()] = True``) and gives
+    [8.8904, 6.96, 4.0]."""
+    from tianshou_tpu.ops.returns import nstep_returns as jnstep
+    from tianshou_tpu_torch.ops.returns import nstep_returns as tnstep
+
+    upstream = np.array([8.8904, 6.96, 4.0], np.float32)
+    jb, tb = JVRB(8, 1), TVRB(8, 1)
+    ex = dict(obs=np.zeros(2, np.float32), act=np.int32(0), rew=np.float32(0),
+              terminated=np.bool_(False), truncated=np.bool_(False))
+    js = jb.init(JBatch({k: jnp.asarray(v) for k, v in ex.items()}))
+    ts = tb.init(TBatch({k: torch.as_tensor(np.asarray(v)) for k, v in ex.items()}), device="cpu")
+    for r in (1.0, 2.0, 3.0, 4.0):
+        step = dict(obs=np.zeros((1, 2), np.float32), act=np.zeros(1, np.int32), rew=np.full(1, r, np.float32),
+                    terminated=np.zeros(1, bool), truncated=np.zeros(1, bool))
+        js, _ = jb.add(js, JBatch({k: jnp.asarray(v) for k, v in step.items()}))
+        tb.add(ts, TBatch({k: torch.from_numpy(v) for k, v in step.items()}))
+    idx = np.array([1, 2, 3], np.int64)
+    jr, je, _ = jb.n_step_gather(js, jnp.asarray(idx), 3)
+    tr, te, _ = tb.n_step_gather(ts, torch.from_numpy(idx), 3)
+    want = np.asarray(jnstep(jr, je, jnp.zeros(3, jnp.float32), 0.99))
+    got = tnstep(tr, te, torch.zeros(3), 0.99).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, [8.8904, 10.8804, 11.8804], rtol=1e-6)
+    assert np.isclose(got[0], upstream[0], rtol=1e-6) and not np.allclose(got[1:], upstream[1:])

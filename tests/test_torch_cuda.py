@@ -235,3 +235,240 @@ def test_fused_step_kernel_gives_the_same_bits_for_any_team_size_on_cuda(team, m
     got = pf.fused_step(model, q, qd, ctrl, frame_skip=env.frame_skip)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the trainer's programs as CUDA graphs (tianshou_tpu_torch/utils/graph.py)
+# ---------------------------------------------------------------------------
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+
+
+def _pixel_pipeline(kind: str, eps: float = 0.1):
+    """A small pixel pipeline on the card: (algo, train state, buffer, buffer state, collector)."""
+    from tianshou_tpu_torch.algorithm.modelfree.c51 import RainbowDQN
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.buffer.prio import PrioritizedVectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env import core
+    from tianshou_tpu_torch.env.wrappers import FrameStack
+    from tianshou_tpu_torch.models.atari import DQNet, RainbowAtariNet
+
+    hw, n_envs = 36, 8
+
+    class Pix(core.Env):
+        def __init__(self):
+            self.observation_space = core.Box(0, 255, (hw, hw, 1))
+            self.action_space = core.Discrete(4)
+
+        def _obs(self, pos):
+            row = torch.arange(hw, device=pos.device)[:, None]
+            col = torch.arange(hw, device=pos.device)[None, :]
+            return ((row * 7 + col * 13 + pos[:, None, None] * 3) % 251).to(torch.uint8)[..., None]
+
+        def reset(self, num_envs, generator, device):
+            z = torch.zeros(num_envs, dtype=torch.int32, device=device)
+            return z, self._obs(z)
+
+        def step(self, pos, a, generator):
+            pos = pos + a.to(torch.int32) + 1
+            done = torch.rand(pos.shape, generator=generator, device=pos.device) < 0.1
+            return core.EnvStep(state=pos, obs=self._obs(pos), reward=(a == pos % 4).to(torch.float32),
+                                terminated=done, truncated=torch.zeros_like(done), info=Batch())
+
+    torch.manual_seed(0)
+    kw = dict(action_space=core.Discrete(4), optim=AdamOptimizerFactory(lr=1e-3), gamma=0.9, n_step_return_horizon=3,
+              target_update_freq=3, eps_training=eps)
+    ring = dict(total_size=n_envs * 64, buffer_num=n_envs, stack_num=4, save_only_last_obs=True)
+    if kind == "dqn":
+        algo = DQN(model=DQNet(4, features=64, input_hw=(hw, hw)), **kw)
+        buffer = VectorReplayBuffer(**ring)
+    else:
+        algo = RainbowDQN(model=RainbowAtariNet(4, 11, 64, input_hw=(hw, hw)), num_atoms=11, v_min=-2.0, v_max=2.0,
+                          **kw)
+        buffer = PrioritizedVectorReplayBuffer(alpha=0.6, beta=0.4, **ring)
+    ts = algo.init("cuda")
+    bs = buffer.init(Batch(obs=torch.zeros((hw, hw, 1), dtype=torch.uint8), act=torch.tensor(0), rew=torch.tensor(0.0),
+                           terminated=torch.tensor(False), truncated=torch.tensor(False),
+                           obs_next=torch.zeros((hw, hw, 1), dtype=torch.uint8)), device="cuda")
+    coll = DeviceCollector(core.VectorDeviceEnv(FrameStack(Pix(), 4), n_envs, device="cuda"), algo, buffer)
+    return algo, ts, buffer, bs, coll
+
+
+def _trainer(algo, coll, buffer, **kw):
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    params = dict(max_epochs=1, epoch_num_steps=3 * 4 * 8, batch_size=16, collection_step_num_env_steps=4,
+                  update_per_step=0.25, start_steps=4 * 8, verbose=False)
+    params.update(kw)
+    return OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(**params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dqn", "rainbow"])
+@pytest.mark.parametrize("burst_graph", ["burst", "update"])
+def test_graphed_programs_match_the_eager_loop_on_cuda(kind, burst_graph, monkeypatch):
+    """Three collect chunks and three updates through the trainer's programs (eager warm-up,
+    capture and replay, replay) against the same on a deep copy, eagerly: the same bits."""
+    import copy
+
+    _needs_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    algo, ts, buffer, bs, coll = _pixel_pipeline(kind)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, 8, random=True)
+    ets, ebs, ecs = copy.deepcopy((ts, bs, cstate))
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    trainer = _trainer(algo, coll, buffer)
+    trainer.burst_graph = burst_graph
+    for _ in range(3):
+        out = trainer.collect_chunk(ts, cstate, bs, gen, 4).map(torch.clone)
+        eout = coll.collect(ets, ecs, ebs, egen, 4)[2]
+        assert all(torch.equal(out[k], eout[k]) for k in eout.keys())
+    for _ in range(3):
+        stats = trainer.update_burst(ts, bs, gen, 1).map(torch.clone)
+        estats = algo.update(ets, buffer, ebs, egen, 16)[2]
+        assert torch.equal(stats.loss[0], estats.loss) and torch.equal(stats.td_error[0], estats.td_error)
+    torch.cuda.synchronize()
+    assert all(g.replays == 2 for g in trainer.graph_pool.graphs)
+    for a, b in zip(ts.model.state_dict().values(), ets.model.state_dict().values()):
+        assert torch.equal(a, b)
+    base, ebase = (bs.base, ebs.base) if kind == "rainbow" else (bs, ebs)
+    assert all(torch.equal(x, y) for x, y in zip(base.data.values(), ebase.data.values()))
+    assert torch.equal(base.cursor, ebase.cursor) and int(ts.step) == int(ets.step) == 3
+    if kind == "rainbow":
+        assert torch.equal(bs.tree, ebs.tree) and torch.equal(bs.max_prio, ebs.max_prio)
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_device_launches_under_replay_on_cuda():
+    _needs_cuda()
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    src = torch.arange(64 * 16, dtype=torch.float32, device="cuda").reshape(64, 16)
+    idx = torch.tensor([3, 5, 7], device="cuda")
+    out = torch.zeros(3, 16, device="cuda")
+
+    def fn():
+        out.copy_(tg.gather_rows(src, idx) + tg.gather_rows(src, idx.flip(0)))
+
+    program = Graphed(fn, GraphPool("cuda"), name="two gathers")
+    before = tg.launch_count()
+    program()  # eager warm-up: two launches
+    assert tg.launch_count() == before + 2 and program.graph is None
+    program()  # capture (nothing launches) and one replay
+    assert tg.launch_count() == before + 4 and program.launches == {"gather_rows": 2}
+    out.zero_()
+    program()
+    torch.cuda.synchronize()
+    assert tg.launch_count() == before + 6 and program.replays == 2
+    assert torch.equal(out, src[idx] + src[idx.flip(0)])
+
+
+_FAILING_CAPTURE = """
+import torch
+from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+x = torch.zeros(4, device="cuda")
+traced = []
+
+def fn():
+    traced.append(1)
+    x.add_(1)
+    return float(x.sum())  # a host sync, which a capture refuses
+
+program = Graphed(fn, GraphPool("cuda"), warmup=0, name="syncing")
+for attempt in (1, 2):
+    try:
+        program()
+    except RuntimeError as exc:
+        assert "capturing syncing into a CUDA graph failed" in str(exc), exc
+        print(f"attempt {attempt} raised: {str(exc).splitlines()[0]}")
+    else:
+        raise SystemExit("the capture did not raise")
+    # the function ran once, while the first capture traced it; nothing ran eagerly after the failure
+    assert len(traced) == 1 and program.graph is None and program.replays == 0, (attempt, len(traced))
+print("raised twice, ran nothing")
+"""
+
+
+@pytest.mark.cuda
+def test_a_failing_capture_raises_and_never_runs_eagerly_on_cuda():
+    """In a process of its own: a refused capture may leave the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    _needs_cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", _FAILING_CAPTURE], capture_output=True, text=True, timeout=300,
+                          cwd=root, env={**os.environ, "PYTHONPATH": root})
+    assert done.returncode == 0 and "raised twice, ran nothing" in done.stdout, done.stdout + done.stderr
+    assert "attempt 2 raised" in done.stdout, done.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_a_second_run_replays_without_capturing_again_on_cuda(fused):
+    _needs_cuda()
+    algo, ts, buffer, bs, coll = _pixel_pipeline("rainbow")
+    trainer = _trainer(algo, coll, buffer, fused_megastep=fused)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = trainer.run(ts, bs, gen)
+    graphs = [(g, g.graph, g.capture_s, g.replays) for g in trainer.graph_pool.graphs]
+    assert len(graphs) == (1 if fused else 2) and all(graph is not None for _, graph, _, _ in graphs)
+    trainer.params.start_steps = 0
+    res = trainer.run(res.train_state, res.buf_state, gen)
+    assert [g for g, *_ in graphs] == trainer.graph_pool.graphs
+    for g, graph, capture_s, replays in graphs:
+        assert g.graph is graph and g.capture_s == capture_s and g.replays == replays + 3
+    assert res.gradient_step == int(ts.step) == 6 * 8 and trainer.graph_pool.memory_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_eps_schedule_reaches_the_graphed_collect_on_cuda():
+    """eps is read from its device scalar by the captured collect: eps 1 after two greedy chunks
+    makes the actions of later chunks differ from a greedy run's."""
+    _needs_cuda()
+    acts = []
+    for schedule in (lambda epoch, step: {"eps_training": 0.0 if step < 3 * 4 * 8 else 1.0}, None):
+        algo, ts, buffer, bs, coll = _pixel_pipeline("dqn", eps=0.0)
+        trainer = _trainer(algo, coll, buffer, epoch_num_steps=4 * 4 * 8, train_fn=schedule, update_per_step=0.0)
+        trainer.run(ts, bs, torch.Generator(device="cuda").manual_seed(0))
+        assert trainer.graph_pool.graphs[0].replays == 3  # chunk 1 eager, then capture and replays
+        acts.append(bs.data.act.clone())
+    # slots 0-3 prefill, 4-11 the greedy chunks, 12-19 the chunks with eps 1 in the first run
+    assert torch.equal(acts[0][:, :12], acts[1][:, :12]) and not torch.equal(acts[0][:, 12:20], acts[1][:, 12:20])
+
+
+@pytest.mark.cuda
+def test_sample_avail_route_replays_the_eager_draws_under_a_cuda_graph_on_cuda():
+    """``sample_indices``' ``torch.multinomial`` route (``sample_avail`` with a frame stack) captures,
+    and each replay draws what the eager calls draw."""
+    _needs_cuda()
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    buf = VectorReplayBuffer(64 * 8, 8, stack_num=4, sample_avail=True)
+    bs = buf.init(Batch(obs=torch.zeros(3), act=torch.tensor(0), rew=torch.tensor(0.0), terminated=torch.tensor(False),
+                        truncated=torch.tensor(False)), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for t in range(20):
+        buf.add(bs, Batch(obs=torch.full((8, 3), float(t), device="cuda"),
+                          act=torch.zeros(8, dtype=torch.int64, device="cuda"), rew=torch.zeros(8, device="cuda"),
+                          terminated=torch.rand(8, device="cuda", generator=g) < 0.2,
+                          truncated=torch.zeros(8, dtype=torch.bool, device="cuda")))
+    graphed, eager = torch.Generator(device="cuda").manual_seed(1), torch.Generator(device="cuda").manual_seed(1)
+    program = Graphed(lambda: buf.sample_indices(bs, graphed, 32), GraphPool("cuda"), (graphed,), name="multinomial")
+    got = [program().clone() for _ in range(3)]
+    want = [buf.sample_indices(bs, eager, 32) for _ in range(3)]
+    assert program.replays == 2 and not torch.equal(got[1], got[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(buf._avail_mask(bs)[got[2]].all())

@@ -140,7 +140,7 @@ def test_one_dqn_update_matches_jax(filled, is_double, huber):
         assert not np.array_equal(got[k], before[k]) or np.array_equal(w.numpy(), before[k]), k
         np.testing.assert_allclose(got[k], w.numpy(), rtol=0, atol=2e-5, err_msg=k)
         assert np.mean(np.abs(got[k] - w.numpy()) <= 2e-6) >= 0.999, k
-    assert tts.step == int(jts2.step) == 1
+    assert tts.step.shape == () and int(tts.step) == int(jts2.step) == 1  # a 0-d device tensor, as in the JAX pytree
 
 
 def test_target_sync_on_the_same_steps_as_jax(filled):
@@ -265,7 +265,7 @@ def test_off_policy_trainer_runs_the_update_cadence_on_cpu():
     gather.reset_launch_count()
     res = OffPolicyTrainer(talgo, coll, None, tb, params).run(tts, ts, torch.Generator().manual_seed(0))
     n_updates = round(0.25 * 4 * E)
-    assert res.gradient_step == res.train_state.step == 4 * n_updates
+    assert res.gradient_step == int(res.train_state.step) == 4 * n_updates
     assert res.env_step == 5 * 4 * E
     assert res.last_chunk_stats.loss.shape == (n_updates,)
     assert bool(torch.isfinite(res.last_chunk_stats.loss).all())
@@ -273,7 +273,7 @@ def test_off_policy_trainer_runs_the_update_cadence_on_cpu():
     assert gather.launch_count() == 0  # CPU tensors take the plain version
     assert int(res.buf_state.size.sum()) == E * 16
     assert seen[0] == (1, 4 * E) and len(seen) == 4
-    assert res.train_state.hparams["eps_training"] == 0.5
+    assert res.train_state.hparams["eps_training"].shape == () and float(res.train_state.hparams["eps_training"]) == 0.5
 
 
 def test_enable_validation_rejects_nan_rewards(monkeypatch):

@@ -329,7 +329,7 @@ def test_one_distributional_update_over_per_matches_jax(filled, kind, n_step):
         assert not np.array_equal(got[k], before[k].numpy()), k  # every tensor trains, the sigmas too
         np.testing.assert_allclose(got[k], w.numpy(), rtol=0, atol=1e-4, err_msg=k)
         assert np.mean(np.abs(got[k] - w.numpy()) <= 2e-6) >= 0.999, k
-    assert tts.step == int(jts2.step) == 1
+    assert tts.step.shape == () and int(tts.step) == int(jts2.step) == 1  # a 0-d device tensor, as in the JAX pytree
     # priority writeback: the cross-entropy becomes the new priority
     out = talgo.postprocess(tts, tb, ts, tbatch, tidx, tstats)
     assert out is ts
@@ -410,7 +410,7 @@ def test_off_policy_trainer_with_prioritized_replay_on_cpu(kind):
     sumtree.reset_launch_count()
     res = OffPolicyTrainer(algo, coll, None, tb, params).run(tts, ts, torch.Generator().manual_seed(0))
     n_updates = round(0.5 * 4 * E)
-    assert res.gradient_step == res.train_state.step == 3 * n_updates
+    assert res.gradient_step == int(res.train_state.step) == 3 * n_updates
     assert res.buf_state is ts and isinstance(ts, PrioState)
     assert int(ts.base.size.sum()) == E * cap  # 16 steps per env filled the 16-slot rings
     stats = res.last_chunk_stats

@@ -5,7 +5,10 @@ The JAX package keeps all mutable state in a ``TrainState`` pytree and makes
 every method a pure function of it. Here :class:`TrainState` holds the live
 objects (online module, target module, optimizer, step counter, dynamic
 hyper-parameters) and :meth:`Algorithm.update_step` updates them in place,
-returning the same state.
+returning the same state. The step counter and the hyper-parameters are 0-d
+tensors on the model's device, as the JAX package keeps them in its pytree:
+a CUDA graph captured over an update reads them where they live, where a
+host number would be captured as a constant.
 
 - ``Algorithm.forward(ts, obs, generator)``        <- Policy.forward
 - ``Algorithm.init(device) -> TrainState``         <- nn.Module + optimizer ctor
@@ -31,13 +34,15 @@ __all__ = ["ActOut", "Algorithm", "OffPolicyAlgorithm", "TrainState"]
 
 @dataclasses.dataclass
 class TrainState:
-    """All mutable algorithm state. ``step`` counts gradient steps on the host."""
+    """All mutable algorithm state. ``step`` counts gradient steps; it and
+    every value of ``hparams`` are 0-d tensors on the model's device, written
+    in place (the trainer's ``gradient_step`` is the host's mirror of ``step``)."""
 
     model: nn.Module                    # online network
     target: nn.Module | None            # lagged copy (None without a target net)
     optim: torch.optim.Optimizer
-    hparams: dict[str, float]           # dynamic knobs the trainer anneals (eps, ...)
-    step: int = 0
+    hparams: dict[str, torch.Tensor]    # dynamic knobs the trainer anneals (eps, ...), 0-d float32
+    step: torch.Tensor                  # 0-d int64
 
 
 class ActOut(NamedTuple):

@@ -37,6 +37,11 @@ class C51(QLearningOffPolicyAlgorithm):
         self.delta_z = (v_max - v_min) / (num_atoms - 1)
         self._supports: dict[torch.device, torch.Tensor] = {}
 
+    def init(self, device: str | torch.device | None = None) -> TrainState:
+        ts = super().init(device)
+        self.support(next(ts.model.parameters()).device)  # made here, never inside a CUDA graph's capture
+        return ts
+
     def support(self, device: torch.device) -> torch.Tensor:
         """The ``[num_atoms]`` support atoms on ``device`` (made once per device)."""
         if device not in self._supports:
@@ -97,8 +102,9 @@ class C51(QLearningOffPolicyAlgorithm):
 class RainbowDQN(C51):
     """C51 over a noisy dueling net (reference rainbow.py:18). The model's
     forward takes the noise; the loss forward of each update draws fresh
-    factorized noise from the update's generator, while action selection
-    and target computation use the mean weights."""
+    factorized noise from the update's generator (under a CUDA graph, the
+    generator the graph registered), while action selection and target
+    computation use the mean weights."""
 
     def _probs(self, model: nn.Module, obs: Any, generator: torch.Generator | None = None) -> torch.Tensor:
         return model(obs, generator)

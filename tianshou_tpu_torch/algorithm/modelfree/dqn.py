@@ -69,12 +69,15 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         if self.use_target:
             target = copy.deepcopy(model)
             target.requires_grad_(False)
+        def scalar(v: float) -> torch.Tensor:
+            return torch.full((), v, dtype=torch.float32, device=dev)
+
         return TrainState(
             model=model,
             target=target,
             optim=self.optim.create(model.parameters()),
-            hparams={"eps_training": float(self.eps_training), "eps_inference": float(self.eps_inference)},
-            step=0,
+            hparams={"eps_training": scalar(self.eps_training), "eps_inference": scalar(self.eps_inference)},
+            step=torch.zeros((), dtype=torch.int64, device=dev),
         )
 
     # ------------------------------------------------------------------
@@ -91,7 +94,7 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
     def exploration_noise(self, ts: TrainState, act: torch.Tensor, obs: Any,
                           generator: torch.Generator, training: bool = True) -> torch.Tensor:
         """eps-greedy (dqn.py:153); ``training`` picks eps_training or
-        eps_inference (dqn.py:158)."""
+        eps_inference (dqn.py:158), read from its device scalar."""
         rand_act = torch.randint(0, self.action_space.n, act.shape, generator=generator,
                                  device=act.device, dtype=act.dtype)
         eps = ts.hparams["eps_training" if training else "eps_inference"]
@@ -101,11 +104,15 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
     # ------------------------------------------------------------------
     def _sync_target(self, ts: TrainState) -> TrainState:
         """Copy the online weights into the target net when the gradient-step
-        count, already advanced past this step, is a multiple of the period."""
-        if self.use_target and ts.step % self.target_update_freq == 0:
+        count, already advanced past this step, is a multiple of the period:
+        a select on the device (tianshou_tpu dqn.py:115-123), no host branch.
+        On a sync step the target takes the online weights' bits; on any
+        other step it keeps its own."""
+        if self.use_target:
+            sync = ts.step % self.target_update_freq == 0
             with torch.no_grad():
                 for t, o in zip(ts.target.parameters(), ts.model.parameters()):
-                    t.copy_(o)
+                    t.copy_(torch.where(sync, o, t))
         return ts
 
     def postprocess(self, ts: TrainState, buffer, buf_state, batch: Batch,

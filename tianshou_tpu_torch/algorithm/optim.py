@@ -6,6 +6,11 @@ steps it with the reference's ordering (algorithm_base.py:484-500): clip the
 gradients by their global norm, then take the optimizer step. The clip
 matches ``optax.clip_by_global_norm``: gradients are scaled by
 ``max_norm / norm`` only where ``norm >= max_norm``, with no epsilon.
+
+On CUDA parameters Adam is built with ``capturable=True``: its step count and
+bias corrections live on the device, so that a CUDA graph can capture the
+step. Capturable Adam does not take CPU parameters, and on the CPU it is
+built as before.
 """
 
 from __future__ import annotations
@@ -54,4 +59,6 @@ class AdamOptimizerFactory(OptimizerFactory):
     eps: float = 1e-8
 
     def create(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
-        return torch.optim.Adam(params, lr=self.lr, betas=self.betas, eps=self.eps)
+        params = list(params)
+        capturable = any(p.is_cuda for p in params)
+        return torch.optim.Adam(params, lr=self.lr, betas=self.betas, eps=self.eps, capturable=capturable)

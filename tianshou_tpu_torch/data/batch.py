@@ -11,6 +11,7 @@ on assignment.
 
 from __future__ import annotations
 
+import copy
 from collections.abc import Callable, ItemsView, KeysView, ValuesView
 from typing import Any
 
@@ -118,6 +119,12 @@ class Batch:
     def copy(self) -> Batch:
         """Shallow copy: a new (nested) key structure sharing the tensors."""
         return self.map(lambda x: x)
+
+    def __deepcopy__(self, memo: dict) -> Batch:
+        out = Batch()
+        for k, v in self._d.items():
+            out._d[k] = copy.deepcopy(v, memo)
+        return out
 
     def map(self, fn: Callable[[torch.Tensor], Any]) -> Batch:
         """A new Batch with ``fn`` applied to every tensor leaf."""

@@ -7,7 +7,9 @@ convention: ``idx = env * capacity + slot``.
 
 Unlike the JAX package, :meth:`ReplayBuffer.add` and :meth:`ReplayBuffer.add_rollout`
 write into the state's tensors in place (the rings are large) and return the
-same state object.
+same state object. Every tensor of a :class:`BufferState` keeps its storage
+for its whole life (the cursors too are written with ``copy_``), so that a
+CUDA graph captured over the state reads and writes the live tensors.
 
 The frame-stack re-gather of :meth:`ReplayBuffer._stacked` runs through the
 hand-written row-gather kernel (:func:`tianshou_tpu_torch.ops.kernels.gather.gather_rows`)
@@ -137,18 +139,19 @@ class ReplayBuffer:
                     write(sub, transitions[k][sk])
             else:
                 write(store, transitions[k])
+        # cur is state.cursor: everything that reads it comes before the cursor's write
         if mask is None:
-            state.cursor = (cur + 1) % C
-            state.size = torch.clamp(state.size + 1, max=C)
-            state.last_idx = cur.clone()
             flat = env_ids * C + cur
+            state.last_idx.copy_(cur)
+            state.size.copy_(torch.clamp(state.size + 1, max=C))
+            state.cursor.copy_((cur + 1) % C)
             written = done
         else:
             m = mask.to(torch.int64)
-            state.cursor = (cur + m) % C
-            state.size = torch.clamp(state.size + m, max=C)
-            state.last_idx = torch.where(mask, cur, state.last_idx)
             flat = torch.where(mask, env_ids * C + cur, -1)
+            state.last_idx.copy_(torch.where(mask, cur, state.last_idx))
+            state.size.copy_(torch.clamp(state.size + m, max=C))
+            state.cursor.copy_((cur + m) % C)
             written = done & mask
         info = AddInfo(
             indices=flat,
@@ -220,7 +223,10 @@ class ReplayBuffer:
 
         Mirrors weighted cross-sub-buffer sampling (manager.py:200). With
         ``sample_avail`` and ``stack_num>1``, only indices with a complete
-        frame-stack history are drawn.
+        frame-stack history are drawn, through ``torch.multinomial`` (off the
+        main path), which a CUDA graph captures (each replay draws what the
+        eager calls draw: ``tests/test_torch_cuda.py``); :meth:`_avail_mask`
+        reads nothing back to the host.
         """
         dev = state.size.device
         if self.sample_avail and self.stack_num > 1:
@@ -322,7 +328,15 @@ class ReplayBuffer:
         """The n-step chain from each index: ``(rewards [n, B],
         episode_end [n, B] float32, terminal_idx [B])`` with
         ``terminal_idx = next^{n-1}(idx)``, feeding
-        :func:`tianshou_tpu_torch.ops.returns.nstep_returns`."""
+        :func:`tianshou_tpu_torch.ops.returns.nstep_returns`.
+
+        This follows the JAX package bit for bit, also where it departs from
+        upstream tianshou: at the newest row of an episode that has not
+        finished, ``next`` stays put but ``episode_end`` is only ``done``, so
+        the chain repeats that row's reward and the bootstrap is discounted by
+        ``gamma**n``. Upstream's ``compute_nstep_return`` marks the unfinished
+        row as an end (``end_flag[buffer.unfinished_index()] = True``).
+        ``tests/test_torch_buffer.py`` pins the case."""
         idxs = [flat_idx]
         for _ in range(n - 1):
             idxs.append(self.next(state, idxs[-1]))

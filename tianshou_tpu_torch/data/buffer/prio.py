@@ -7,7 +7,10 @@ tree (:mod:`tianshou_tpu_torch.ops.segtree`, whose descent is the
 hand-written CUDA kernel on the card), importance weights normalized by the
 minimum priority. Like the base buffer, every method updates the state in
 place and returns the same object; ``max_prio`` and ``min_prio`` are 0-d
-device tensors, so no method reads anything back to the host.
+device tensors, written with ``copy_``, so no method reads anything back to
+the host and every tensor of a :class:`PrioState` keeps its storage (what a
+CUDA graph captured over it needs). ``beta`` is read when a program is built
+(captured as a constant), as the JAX package reads it at trace time.
 """
 
 from __future__ import annotations
@@ -108,8 +111,8 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         """Write back new priorities after a gradient step (prio.py:81)."""
         prio = td_error.detach().abs().to(torch.float32) + self.eps
         self.segtree.update(state.tree, flat_idx, prio**self.alpha)
-        state.max_prio = torch.maximum(state.max_prio, prio.max())
-        state.min_prio = torch.minimum(state.min_prio, prio.min())
+        state.max_prio.copy_(torch.maximum(state.max_prio, prio.max()))
+        state.min_prio.copy_(torch.minimum(state.min_prio, prio.min()))
         return state
 
     def set_beta(self, beta: float) -> None:

@@ -2,10 +2,13 @@
 ``Collector._collect``, data/collector.py:773-1067).
 
 The JAX package runs a rollout as one jitted ``lax.scan``. Here it is a
-Python loop over :meth:`DeviceCollector._step_fn`, eagerly on the envs'
-device: policy forward, env step, buffer insert, episode bookkeeping and
-auto-reset stay on the device, and nothing is read back until
-:meth:`DeviceCollector.stats_from`.
+Python loop over :meth:`DeviceCollector._step_fn` on the envs' device:
+policy forward, env step, buffer insert, episode bookkeeping and auto-reset
+stay on the device, and nothing is read back until
+:meth:`DeviceCollector.stats_from`. :meth:`DeviceCollector.collect` writes
+the :class:`CollectState` in place and the per-step output into ``[T, E]``
+tensors it allocates once per call, so that the trainer can capture a whole
+chunk as one CUDA graph (the counterpart of the jitted scan) and replay it.
 
 Episode semantics match the reference:
 - transitions store the raw policy action (pre ``map_action``), the true
@@ -59,14 +62,22 @@ class DeviceCollector:
         self.buffer = buffer
 
     # ------------------------------------------------------------------
-    def reset(self, generator: torch.Generator) -> CollectState:
-        env_state, obs = self.venv.reset(generator)
+    def reset(self, generator: torch.Generator, into: CollectState | None = None) -> CollectState:
+        """A fresh state, every leaf its own tensor (an env may hand back one
+        tensor as both a state leaf and the observation, and :meth:`collect`
+        writes each leaf in place). With ``into``, the fresh values are
+        written into its tensors and ``into`` is returned."""
+        env_state, obs = tree_map(torch.clone, self.venv.reset(generator))
         E, dev = self.venv.num_envs, self.venv.device
-        return CollectState(
+        fresh = CollectState(
             env_state, obs, self.algo.init_policy_state(E),
             torch.zeros(E, dtype=torch.float32, device=dev),
             torch.zeros(E, dtype=torch.int64, device=dev),
         )
+        if into is None:
+            return fresh
+        tree_map(torch.Tensor.copy_, into, fresh)
+        return into
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -134,17 +145,21 @@ class DeviceCollector:
         keep_rollout: bool = False,
         random: bool = False,
     ):
-        """Collect ``n_steps`` per env. Returns ``(cstate, buf_state, out)``
-        where ``out.done/ep_ret/ep_len`` are ``[T, E]`` device tensors and
-        ``out.rollout`` (if requested) is the time-major transition Batch.
-        ``random=True`` samples uniform actions (warmup prefill)."""
+        """Collect ``n_steps`` per env, writing ``cstate`` and ``buf_state``
+        in place. Returns ``(cstate, buf_state, out)`` (the same state
+        objects) where ``out.done/ep_ret/ep_len`` are ``[T, E]`` device
+        tensors and ``out.rollout`` (if requested) is the time-major
+        transition Batch. ``random=True`` samples uniform actions (warmup
+        prefill)."""
         store = self.buffer is not None
-        steps = []
-        for _ in range(n_steps):
-            cstate, buf_state, per = self._step_fn(ts, cstate, buf_state, generator, training,
-                                                   store, keep_rollout, random)
-            steps.append(per)
-        out = Batch({k: _stack([s[k] for s in steps]) for k in steps[0].keys()})
+        out = None
+        for t in range(n_steps):
+            new, buf_state, per = self._step_fn(ts, cstate, buf_state, generator, training,
+                                                store, keep_rollout, random)
+            if out is None:
+                out = tree_map(lambda v: v.new_empty((n_steps, *v.shape)), per)
+            tree_map(lambda dst, v: dst[t].copy_(v), out, per)
+            tree_map(torch.Tensor.copy_, cstate, new)
         return cstate, buf_state, out
 
     # ------------------------------------------------------------------
@@ -157,9 +172,3 @@ class DeviceCollector:
             returns=out.ep_ret.cpu().numpy()[done],
             lens=out.ep_len.cpu().numpy()[done],
         )
-
-
-def _stack(xs: list) -> Any:
-    if isinstance(xs[0], Batch):
-        return Batch({k: _stack([x[k] for x in xs]) for k in xs[0].keys()})
-    return torch.stack(xs)

@@ -57,6 +57,7 @@ class MujocoEnv(Env):
         if self.physics_mode not in PHYSICS_MODES:
             raise ValueError(f"physics_mode must be one of {PHYSICS_MODES}, got {self.physics_mode!r}")
         self.model = load_mjcf(self.xml)
+        self._qpos0: dict[torch.device, torch.Tensor] = {}
         if self.contact_iterations is not None:
             self.model.contact_iterations = int(self.contact_iterations)
         # gym MujocoEnv action space == actuator ctrlrange
@@ -77,6 +78,16 @@ class MujocoEnv(Env):
     def _terminated(self, q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
         return torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
 
+    def qpos0(self, device: str | torch.device) -> torch.Tensor:
+        """The model's home ``qpos0`` as float32 ``[nq]`` on ``device``, copied
+        once and kept (as ``Box.bounds`` keeps its bounds): the collector resets
+        on every step, and a host-to-device copy there could not be captured in
+        a CUDA graph."""
+        device = torch.device(device)
+        if device not in self._qpos0:
+            self._qpos0[device] = torch.as_tensor(self.model.qpos0, dtype=torch.float32, device=device)
+        return self._qpos0[device]
+
     @property
     def dt(self) -> float:
         return self.model.timestep * self.frame_skip
@@ -94,7 +105,7 @@ class MujocoEnv(Env):
 
     def reset_from_noise(self, dq: torch.Tensor, dqd: torch.Tensor) -> tuple[PhysState, torch.Tensor]:
         """Reset with the noise handed over (as :meth:`reset_noise` draws it)."""
-        q0 = torch.as_tensor(self.model.qpos0, dtype=torch.float32, device=dq.device)
+        q0 = self.qpos0(dq.device)
         q, qd = (q0 + dq).to(torch.float32), dqd.to(torch.float32)
         st = PhysState(q, qd, torch.zeros(q.shape[0], dtype=torch.int32, device=q.device))
         return st, self._obs(q, qd)

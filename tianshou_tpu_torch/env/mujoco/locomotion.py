@@ -150,7 +150,7 @@ class Reacher(MujocoEnv):
         return arm, u, dqd
 
     def reset_from_noise(self, arm, u, dqd):
-        q0 = torch.as_tensor(self.model.qpos0, dtype=torch.float32, device=arm.device).expand(arm.shape[0], -1)
+        q0 = self.qpos0(arm.device).expand(arm.shape[0], -1)
         # target uniform in the radius-0.2 disk (gym resamples a square)
         r = 0.2 * torch.sqrt(u[:, 0])
         th = 2 * math.pi * u[:, 1]

@@ -24,21 +24,21 @@ import ctypes
 
 import torch
 
+from tianshou_tpu_torch.ops.kernels import counters
+
 __all__ = ["gather_rows", "gather_rows_reference", "launch_count", "reset_launch_count"]
 
-_launches = 0
 _fn = None  # the loaded C entry point
 _noop = None  # and the empty kernel's
 
 
 def launch_count() -> int:
     """Number of kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    return counters.get("gather_rows")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    counters.reset("gather_rows")
 
 
 def gather_rows_reference(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -97,7 +97,6 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     stream or raises; it never falls back to indexing. On a CPU tensor it
     runs :func:`gather_rows_reference`.
     """
-    global _launches
     _check(src, idx)
     if src.device.type == "cpu":
         return gather_rows_reference(src, idx)
@@ -118,5 +117,5 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {err}")
-    _launches += 1
+    counters.add("gather_rows")
     return out

@@ -42,13 +42,13 @@ import torch
 
 from tianshou_tpu_torch.env.physics import dynamics
 from tianshou_tpu_torch.env.physics.model import FREE, Model
+from tianshou_tpu_torch.ops.kernels import counters
 
 __all__ = [
     "fused_step", "fused_step_reference", "launch_count", "reset_launch_count", "signature", "pack_model",
     "build_target", "task_targets", "kernel_info", "phase_cycles", "PHASES", "TASK_ASSETS",
 ]
 
-_launches = 0
 _fns: dict = {}  # build target -> (the loaded C entry point, what the library says of itself)
 
 # the packaged MuJoCo tasks the kernel is built for by default
@@ -73,12 +73,11 @@ _MAX_THREADS, _MAX_SHARED = 256, 232448
 
 def launch_count() -> int:
     """Number of kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    return counters.get("physics_fused")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    counters.reset("physics_fused")
 
 
 def fused_step_reference(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
@@ -233,7 +232,8 @@ def _envs_per_block(info: dict) -> int:
 
 
 def _device_consts(model: Model, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The packed constants on ``device``, copied once and kept on the model."""
+    """The packed constants on ``device``, copied once and kept on the model: a host-to-device copy,
+    so the first call is made outside a CUDA graph's capture (a program's eager warm-up makes it)."""
     cache = model.__dict__.setdefault("_fused_consts", {})
     if device not in cache:
         P, I = pack_model(model)
@@ -252,7 +252,6 @@ def fused_step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tens
     stream or raises; it never falls back to the plain version. On CPU
     tensors it runs :func:`fused_step_reference`.
     """
-    global _launches
     _check(model, q, qd, ctrl, frame_skip)
     if q.device.type == "cpu":
         return fused_step_reference(model, q, qd, ctrl, frame_skip, substeps)
@@ -281,5 +280,5 @@ def fused_step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tens
                  int(getattr(model, "contact_iterations", 30)), has_free, _envs_per_block(info), stream)
     if err != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
-    _launches += 1
+    counters.add("physics_fused")
     return q_out, qd_out

@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from tianshou_tpu_torch.ops.kernels import counters
+
 __all__ = [
     "ONE_BLOCK", "launch_count", "prefix_sum_idx", "prefix_sum_idx_reference", "reset_launch_count", "update",
     "update_launch_count", "update_reference",
@@ -44,25 +46,22 @@ __all__ = [
 
 ONE_BLOCK = 1024  # entries per launch of the update (kOneBlock in csrc/sumtree.cu)
 
-_launches = 0         # descent launches
-_update_launches = 0  # update launches
 _fns: dict[str, object] = {}  # the loaded C entry points
 
 
 def launch_count() -> int:
     """Descent kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    return counters.get("prefix_sum_idx")
 
 
 def update_launch_count() -> int:
     """Update kernel launches since the last :func:`reset_launch_count`."""
-    return _update_launches
+    return counters.get("tree_update")
 
 
 def reset_launch_count() -> None:
     """Zero both counters."""
-    global _launches, _update_launches
-    _launches = _update_launches = 0
+    counters.reset("prefix_sum_idx", "tree_update")
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +182,6 @@ def _descent(tree: torch.Tensor, values: torch.Tensor, bound: int, depth: int, s
              shape: tuple[int, int, int]) -> torch.Tensor:
     """The descent kernel's launch on checked CUDA inputs, in the launch shape ``shape`` (see
     :func:`_descent_shape`); any shape gives the same leaves."""
-    global _launches
     fn = _kernel("tt_prefix_sum_idx", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -198,7 +196,7 @@ def _descent(tree: torch.Tensor, values: torch.Tensor, bound: int, depth: int, s
                  lanes_log2, per_trip, warps, stream)
     if err != 0:
         raise RuntimeError(f"prefix_sum_idx kernel launch failed: CUDA error {err}")
-    _launches += 1
+    counters.add("prefix_sum_idx")
     return out
 
 
@@ -216,7 +214,6 @@ def update(tree: torch.Tensor, index: torch.Tensor, value: torch.Tensor, bound: 
     No host sync and no allocation. On a CPU tree it runs
     :func:`update_reference`.
     """
-    global _update_launches
     _check_tree(tree, bound, depth, size, "update")
     if index.dim() != 1 or value.dim() != 1 or index.shape[0] != value.shape[0]:
         raise ValueError(f"update takes index [k] and value [k], got {tuple(index.shape)} and {tuple(value.shape)}")
@@ -236,7 +233,7 @@ def update(tree: torch.Tensor, index: torch.Tensor, value: torch.Tensor, bound: 
         stream = torch.cuda.current_stream(tree.device).cuda_stream
         err = fn(tree.data_ptr(), index.data_ptr(), index.stride(0), value.data_ptr(), value.stride(0), k, depth,
                  bound, size, ctypes.byref(launched), stream)
-    _update_launches += launched.value
+    counters.add("tree_update", launched.value)
     if err != 0:
         raise RuntimeError(f"update kernel launch failed: CUDA error {err}")
     return tree

@@ -99,6 +99,7 @@ def nstep_returns(
         steps = torch.where(ended, 1, steps + 1)
         acc = torch.where(ended[:, None], 0.0, acc)
         acc = rewards[t][:, None] + gamma * acc
-    gamma_pow = torch.pow(torch.tensor(gamma, dtype=torch.float32, device=tq.device), steps.to(torch.float32))
+    # gamma rounded to float32 on the device: a fill, not a host-to-device copy (which a CUDA graph cannot capture)
+    gamma_pow = torch.pow(torch.full((), gamma, dtype=torch.float32, device=tq.device), steps.to(torch.float32))
     out = tq * gamma_pow[:, None] + acc
     return out.reshape(target_q.shape)

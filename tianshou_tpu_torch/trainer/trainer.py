@@ -4,10 +4,20 @@
 The epoch and update cadence are the JAX package's: after an optional
 random prefill, each chunk collects ``collection_step_num_env_steps`` steps
 from every env and then takes ``round(update_per_step * T * E)`` gradient
-steps. PyTorch runs eagerly, so collect and update run one after the other
-on the device; the host reads back only the per-chunk episode and loss
-statistics. Test episodes, loggers and the fused collect+update program of
-the JAX package are not ported yet.
+steps; the host reads back only the per-chunk episode and loss statistics.
+
+The JAX package jits the collect chunk and the update burst, and with
+``fused_megastep`` both as one program. Here they are the programs
+:meth:`OffPolicyTrainer.collect_chunk`, :meth:`OffPolicyTrainer.update_burst`
+and :meth:`OffPolicyTrainer.megastep`, each a CUDA graph on the card
+(:class:`tianshou_tpu_torch.utils.graph.Graphed`): a program's first call
+runs eagerly as its warm-up and counts as work done, its second captures and
+replays it, every later call replays it. A program is built once per trainer
+and per state it closes over (train state, buffer state, collect state,
+generator), so a second :meth:`OffPolicyTrainer.run` on the same states
+replays what the first captured; all graphs of a trainer share one memory
+pool. On the CPU the same code runs eagerly. The random prefill stays eager.
+Test episodes and loggers are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 from tianshou_tpu_torch import config
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.collector import DeviceCollector
+from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
 from tianshou_tpu_torch.utils.statistics import MovAvg
 
 __all__ = ["OffPolicyTrainer", "OffPolicyTrainerParams", "TrainResult", "TrainerParams"]
@@ -44,6 +55,10 @@ class OffPolicyTrainerParams(TrainerParams):
     collection_step_num_env_steps: int = 10   # steps per env per collect chunk
     update_per_step: float = 1.0              # grad steps per collected env step
     start_steps: int = 0                      # uniform-random prefill before learning
+    # collect and the update burst as ONE program per chunk (one CUDA graph on
+    # the card); the burst follows the collect, so the actor's params stay
+    # chunk-stale as in the sequential loop (tianshou_tpu trainer.py:76)
+    fused_megastep: bool = False
 
 
 @dataclasses.dataclass
@@ -71,6 +86,11 @@ def _sync(device: torch.device) -> None:
 class OffPolicyTrainer:
     """Collect chunk -> burst of gradient steps, repeated (reference :1043)."""
 
+    #: how the update burst is captured: ``"burst"``, all updates of a chunk
+    #: in one graph (the JAX package's scan), or ``"update"``, one update in a
+    #: graph replayed ``n_updates`` times. PERF.md compares the two.
+    burst_graph = "burst"
+
     def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
                  buffer, params: OffPolicyTrainerParams) -> None:
         if test_collector is not None:
@@ -80,25 +100,103 @@ class OffPolicyTrainer:
         self.buffer = buffer
         self.params = params
         self.env_step = 0
-        self.gradient_step = 0
+        self.gradient_step = 0   # the host's mirror of the train state's step counter
         self._mov: dict[str, MovAvg] = {}
+        #: the memory pool and the graphs of this trainer's programs (made at the first program)
+        self.graph_pool: GraphPool | None = None
+        self._programs: dict[tuple, tuple[tuple, Graphed]] = {}
+        self._cstate = None
 
     def _apply_hparams(self, ts, overrides: dict | None):
-        if overrides:
-            ts.hparams.update({k: float(v) for k, v in overrides.items()})
+        """Write ``train_fn``'s overrides into the hparams' device scalars in
+        place, where the captured programs read them."""
+        for k, v in (overrides or {}).items():
+            if k in ts.hparams:
+                ts.hparams[k].fill_(float(v))
+            else:
+                ts.hparams[k] = torch.full((), float(v), dtype=torch.float32, device=ts.step.device)
         return ts
 
-    def _update_chunk(self, ts, buf_state, generator: torch.Generator, n_updates: int):
-        stats = []
-        for _ in range(n_updates):
-            ts, buf_state, s = self.algo.update(ts, self.buffer, buf_state, generator,
-                                                self.params.batch_size)
-            stats.append(s)
-        stacked = Batch({k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()})
-        for k, v in stacked.items():
+    # ------------------------------------------------------------------
+    # programs
+    # ------------------------------------------------------------------
+    def _program(self, key: tuple, states: tuple, generator: torch.Generator, fn: Callable[[], Any]) -> Graphed:
+        """The program ``key`` over ``states`` (the objects ``fn`` closes
+        over, compared by identity), built from ``fn`` once."""
+        held = self._programs.get(key)
+        if held is None or any(a is not b for a, b in zip(held[0], states)):
+            if self.graph_pool is None:
+                self.graph_pool = GraphPool(self.train_collector.venv.device)
+            elif held is not None:
+                self.graph_pool.graphs.remove(held[1])
+            held = (states, Graphed(fn, self.graph_pool, (generator,), name=" ".join(map(str, key))))
+            self._programs[key] = held
+        return held[1]
+
+    def _updates(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
+        stats = [self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)[2]
+                 for _ in range(n_updates)]
+        return Batch({k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()})
+
+    def _update_into_rows(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Callable[[], Batch]:
+        """One update that writes its stats into row ``row`` of ``[n_updates, ...]``
+        tensors and advances ``row`` modulo ``n_updates``, all on the device."""
+        rows = Batch()
+        row = torch.zeros((), dtype=torch.int64, device=ts.step.device)
+
+        def fn() -> Batch:
+            _, _, stats = self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)
+            for k, v in stats.items():
+                if k not in rows:
+                    rows[k] = v.new_empty((n_updates, *v.shape))
+                rows[k].index_copy_(0, row.view(1), v.unsqueeze(0))
+            row.copy_((row + 1) % n_updates)
+            return rows
+
+        return fn
+
+    def update_burst(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
+        """``n_updates`` gradient steps in place (the JAX package's
+        ``_build_update_many``); returns their stats stacked on a leading axis.
+        The stats are the program's static output: the next call overwrites them."""
+        key = ("update_burst", self.burst_graph, n_updates, self.params.batch_size)
+        states = (ts, buf_state, generator)
+        if self.burst_graph == "update":
+            step = self._program(key, states, generator, self._update_into_rows(ts, buf_state, generator, n_updates))
+            for _ in range(n_updates):
+                stats = step()
+            return stats
+        return self._program(key, states, generator,
+                             lambda: self._updates(ts, buf_state, generator, n_updates))()
+
+    def collect_chunk(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int) -> Batch:
+        """One collect chunk of ``n_steps`` steps per env, ``cstate`` and
+        ``buf_state`` written in place (the JAX package's jitted ``collect``);
+        returns the ``[T, E]`` per-step output, the program's static output."""
+        keep = config.ENABLE_VALIDATION
+        return self._program(
+            ("collect_chunk", n_steps, keep), (ts, cstate, buf_state, generator), generator,
+            lambda: self.train_collector.collect(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)[2],
+        )()
+
+    def megastep(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int,
+                 n_updates: int) -> tuple[Batch, Batch]:
+        """A collect chunk and then the update burst as ONE program (the JAX
+        package's ``_build_megastep``); returns ``(collect output, stats)``."""
+        keep = config.ENABLE_VALIDATION
+
+        def fn() -> tuple[Batch, Batch]:
+            out = self.train_collector.collect(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)[2]
+            return out, self._updates(ts, buf_state, generator, n_updates)
+
+        return self._program(("megastep", n_steps, keep, n_updates, self.params.batch_size),
+                             (ts, cstate, buf_state, generator), generator, fn)()
+
+    # ------------------------------------------------------------------
+    def _log_update(self, stats: Batch) -> None:
+        for k, v in stats.items():
             if v.dim() == 1 and v.is_floating_point():
                 self._mov.setdefault(k, MovAvg()).add(v.cpu().numpy())
-        return ts, buf_state, stacked
 
     def run(self, ts, buf_state, generator: torch.Generator) -> TrainResult:
         """Train in place; ``generator`` lives on the envs' device."""
@@ -107,7 +205,8 @@ class OffPolicyTrainer:
         dev = coll.venv.device
         t0 = time.perf_counter()
         prefill_time = collect_time = update_time = 0.0
-        cstate = coll.reset(generator)
+        # the collect programs close over one collect state: a new run resets it in place
+        cstate = self._cstate = coll.reset(generator, into=self._cstate)
         E = coll.venv.num_envs
         T = p.collection_step_num_env_steps
 
@@ -115,7 +214,7 @@ class OffPolicyTrainer:
         if p.start_steps > 0:
             tc = time.perf_counter()
             for _ in range(int(np.ceil(p.start_steps / (T * E)))):
-                cstate, buf_state, _ = coll.collect(ts, cstate, buf_state, generator, T, random=True)
+                coll.collect(ts, cstate, buf_state, generator, T, random=True)
                 self.env_step += T * E
             _sync(dev)
             prefill_time = time.perf_counter() - tc
@@ -129,19 +228,23 @@ class OffPolicyTrainer:
                 if p.train_fn is not None:
                     ts = self._apply_hparams(ts, p.train_fn(epoch, self.env_step))
                 tc = time.perf_counter()
-                cstate, buf_state, out = coll.collect(ts, cstate, buf_state, generator, T,
-                                                      keep_rollout=config.ENABLE_VALIDATION)
+                if p.fused_megastep:
+                    out, last_stats = self.megastep(ts, cstate, buf_state, generator, T, n_updates)
+                else:
+                    out = self.collect_chunk(ts, cstate, buf_state, generator, T)
                 _sync(dev)
                 collect_time += time.perf_counter() - tc
                 if config.ENABLE_VALIDATION:
                     _validate_collect(out)
                 self.env_step += T * E
                 steps_this_epoch += T * E
-                tu = time.perf_counter()
-                ts, buf_state, last_stats = self._update_chunk(ts, buf_state, generator, n_updates)
-                _sync(dev)
-                update_time += time.perf_counter() - tu
+                if not p.fused_megastep:
+                    tu = time.perf_counter()
+                    last_stats = self.update_burst(ts, buf_state, generator, n_updates)
+                    _sync(dev)
+                    update_time += time.perf_counter() - tu
                 self.gradient_step += n_updates
+                self._log_update(last_stats)
             if p.verbose:
                 smoothed = ", ".join(f"{k} {m.get():.4g}" for k, m in self._mov.items())
                 print(f"Epoch {epoch}: env_step {self.env_step}, gradient_step {self.gradient_step}, {smoothed}")
@@ -154,7 +257,8 @@ class OffPolicyTrainer:
             train_state=ts,
             buf_state=buf_state,
             update_stats={k: m.get() for k, m in self._mov.items()},
-            last_chunk_stats=last_stats,
+            # a copy: the stats are a program's static output, which the next replay overwrites
+            last_chunk_stats=None if last_stats is None else last_stats.map(torch.clone),
         )
 
 
