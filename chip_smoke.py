@@ -21,9 +21,8 @@ Phases, each of which fails the run:
 4. Graph phase: the trainer's programs as CUDA graphs against the eager
    loop, for the DQN and the Rainbow pipelines of phases 5 and 6 at full
    width (``graph_phase``): from one prefilled state and one generator state,
-   three collect chunks and three bursts of 8 updates through the graphs,
-   with the whole burst in one graph and with one update per graph, against
-   the same run eagerly on deep copies. Sampled indices, rings, collect state
+   three collect chunks and three bursts of 8 updates through the graphs
+   against the same run eagerly, each on a deep copy. Sampled indices, rings, collect state
    and output and the sum tree bit-identical; losses, TD errors and
    parameters within ``GRAPH_ATOL`` (expected exact, cuDNN held to
    deterministic algorithms); the same kernel launches.
@@ -666,10 +665,9 @@ def main_path(torch, kind: str, fused: bool = False):
 def graph_phase(torch, kind: str) -> list[str]:
     """The trainer's programs as CUDA graphs against the eager loop, on the pipeline of ``kind``.
 
-    From one prefilled state and one generator state, three sides run: the trainer's programs with
-    the whole burst as one graph, the same with one update per graph (``burst_graph="update"``),
-    and the plain eager loop (``collector.collect`` and ``algo.update`` on the card) on deep
-    copies. Each side runs ``GRAPH_CALLS`` collect chunks of T steps and then ``GRAPH_CALLS``
+    From one prefilled state and one generator state, two sides run on deep copies: the trainer's
+    programs (the collect chunk and the whole burst, each one graph) and the plain eager loop
+    (``collector.collect`` and ``algo.update`` on the card). Each side runs ``GRAPH_CALLS`` collect chunks of T steps and then ``GRAPH_CALLS``
     bursts of ``GRAPH_K`` updates; a program's first call is its eager warm-up, the second its
     capture and first replay, the third a replay. Sampled indices, rings, the collect state, the
     collect output and the sum tree must be bit-identical; losses, TD errors and parameters within
@@ -690,7 +688,7 @@ def graph_phase(torch, kind: str) -> list[str]:
     coll.collect(ts, cstate, bs, gen, T, random=True)  # a prefill chunk: 16 rows per env to sample from
     sample_indices = buffer.sample_indices
     sides = {}
-    for side in ("burst", "update", "eager"):
+    for side in ("graph", "eager"):
         s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
         s_gen = torch.Generator(device="cuda")
         s_gen.set_state(gen.get_state())
@@ -709,10 +707,9 @@ def graph_phase(torch, kind: str) -> list[str]:
 
         buffer.sample_indices = logging_sampler
         trainer = None
-        if side != "eager":
+        if side == "graph":
             trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
                 batch_size=BATCH, collection_step_num_env_steps=T, verbose=False))
-            trainer.burst_graph = side
         before = counters.snapshot()
         for _ in range(GRAPH_CALLS):
             if trainer is None:
@@ -740,48 +737,44 @@ def graph_phase(torch, kind: str) -> list[str]:
     eager = sides["eager"]
     if int((eager["idx"] < 0).sum()) != 0:
         raise AssertionError(f"graph phase {kind}: the eager loop sampled {int(eager['idx'][:, 0].ge(0).sum())} batches")
-    lines = []
-    for side in ("burst", "update"):
-        sd, worst = sides[side], 0.0
-        replays = {name: n for name, (n, _) in sd["graphs"].items()}
-        expect = {"collect_chunk": GRAPH_CALLS - 1,
-                  "update_burst": GRAPH_CALLS - 1 if side == "burst" else GRAPH_CALLS * GRAPH_K - 1}
-        if replays != expect:
-            raise AssertionError(f"graph phase {kind} {side}: replays {replays}, expected {expect}")
-        if not torch.equal(sd["idx"], eager["idx"]):
-            raise AssertionError(f"graph phase {kind} {side}: sampled indices differ from eager")
-        if torch.equal(sd["idx"][GRAPH_K:2 * GRAPH_K], sd["idx"][2 * GRAPH_K:]):
-            raise AssertionError(f"graph phase {kind} {side}: two replays drew the same indices")
-        for call in range(GRAPH_CALLS):
-            for k, v in eager["outs"][call].items():
-                if not torch.equal(sd["outs"][call][k], v):
-                    raise AssertionError(f"graph phase {kind} {side}: collect output {k} of call {call} differs")
-            for k, v in eager["stats"][call].items():
-                worst = max(worst, float((sd["stats"][call][k] - v).abs().max()))
-        for a, b in ((sd["ts"].model, eager["ts"].model), (sd["ts"].target, eager["ts"].target)):
-            for x, y in zip(a.state_dict().values(), b.state_dict().values()):
-                worst = max(worst, float((x.float() - y.float()).abs().max()))
-        if not int(sd["ts"].step) == int(eager["ts"].step) == GRAPH_CALLS * GRAPH_K:
-            raise AssertionError(f"graph phase {kind} {side}: step {int(sd['ts'].step)}, eager {int(eager['ts'].step)}")
-        sb, eb = sd["bs"], eager["bs"]
-        pairs = [(sb.tree, eb.tree), (sb.max_prio, eb.max_prio), (sb.min_prio, eb.min_prio)] if prio else []
-        sb, eb = (sb.base, eb.base) if prio else (sb, eb)
-        pairs += [(sb.cursor, eb.cursor), (sb.size, eb.size), (sb.last_idx, eb.last_idx),
-                  *zip(sb.data.values(), eb.data.values()), *zip(_leaves(sd["cstate"]), _leaves(eager["cstate"]))]
-        if not all(torch.equal(x, y) for x, y in pairs):
-            raise AssertionError(f"graph phase {kind} {side}: rings, sum tree or collect state differ from eager")
-        if worst > GRAPH_ATOL:
-            raise AssertionError(f"graph phase {kind} {side}: losses or parameters differ by {worst:.3e} > {GRAPH_ATOL}")
-        if sd["launches"] != eager["launches"]:
-            raise AssertionError(f"graph phase {kind} {side}: launches {sd['launches']}, eager {eager['launches']}")
-        lines.append(
-            f"graph phase {kind}, {side} graphs against eager: {GRAPH_CALLS} collect chunks of T={T} and "
-            f"{GRAPH_CALLS} x {GRAPH_K} updates; sampled indices, rings, collect state and output"
-            f"{' and the sum tree' if prio else ''} bit-identical; losses, TD errors and parameters max |diff| "
-            f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
-            f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
-        )
-    return lines
+    sd, worst = sides["graph"], 0.0
+    replays = {name: n for name, (n, _) in sd["graphs"].items()}
+    expect = {"collect_chunk": GRAPH_CALLS - 1, "update_burst": GRAPH_CALLS - 1}
+    if replays != expect:
+        raise AssertionError(f"graph phase {kind}: replays {replays}, expected {expect}")
+    if not torch.equal(sd["idx"], eager["idx"]):
+        raise AssertionError(f"graph phase {kind}: sampled indices differ from eager")
+    if torch.equal(sd["idx"][GRAPH_K:2 * GRAPH_K], sd["idx"][2 * GRAPH_K:]):
+        raise AssertionError(f"graph phase {kind}: two replays drew the same indices")
+    for call in range(GRAPH_CALLS):
+        for k, v in eager["outs"][call].items():
+            if not torch.equal(sd["outs"][call][k], v):
+                raise AssertionError(f"graph phase {kind}: collect output {k} of call {call} differs")
+        for k, v in eager["stats"][call].items():
+            worst = max(worst, float((sd["stats"][call][k] - v).abs().max()))
+    for a, b in ((sd["ts"].model, eager["ts"].model), (sd["ts"].target, eager["ts"].target)):
+        for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    if not int(sd["ts"].step) == int(eager["ts"].step) == GRAPH_CALLS * GRAPH_K:
+        raise AssertionError(f"graph phase {kind}: step {int(sd['ts'].step)}, eager {int(eager['ts'].step)}")
+    sb, eb = sd["bs"], eager["bs"]
+    pairs = [(sb.tree, eb.tree), (sb.max_prio, eb.max_prio), (sb.min_prio, eb.min_prio)] if prio else []
+    sb, eb = (sb.base, eb.base) if prio else (sb, eb)
+    pairs += [(sb.cursor, eb.cursor), (sb.size, eb.size), (sb.last_idx, eb.last_idx),
+              *zip(sb.data.values(), eb.data.values()), *zip(_leaves(sd["cstate"]), _leaves(eager["cstate"]))]
+    if not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"graph phase {kind}: rings, sum tree or collect state differ from eager")
+    if worst > GRAPH_ATOL:
+        raise AssertionError(f"graph phase {kind}: losses or parameters differ by {worst:.3e} > {GRAPH_ATOL}")
+    if sd["launches"] != eager["launches"]:
+        raise AssertionError(f"graph phase {kind}: launches {sd['launches']}, eager {eager['launches']}")
+    return [
+        f"graph phase {kind}, graphs against eager: {GRAPH_CALLS} collect chunks of T={T} and "
+        f"{GRAPH_CALLS} x {GRAPH_K} updates; sampled indices, rings, collect state and output"
+        f"{' and the sum tree' if prio else ''} bit-identical; losses, TD errors and parameters max |diff| "
+        f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
+        f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
+    ]
 
 
 def _leaves(tree) -> list:

@@ -60,10 +60,8 @@ wall, the host's launches per update, kernel and CUDA graph launches both,
 and device kernels per update); and the HalfCheetah (64 steps) and Ant (16 steps) rollouts at 2048 envs (one graph of
 the whole rollout where the tree has the helper, an eager loop where it has
 not): the same per vector step. It prints every process's numbers and then,
-per path and tree, the median and the range. Then, in this tree, the update
-burst as one graph against one update per graph (``burst_graph="update"``):
-two trainers over one pixel pipeline, replayed chunks in turns, as many pairs.
-All of it goes to ``chiprun_out/profile_pairs_<paths>.json``.
+per path and tree, the median and the range, and writes them all to
+``chiprun_out/profile_pairs_<paths>.json``.
 """
 
 from __future__ import annotations
@@ -411,32 +409,29 @@ def measure(paths: set[str]) -> dict:
 
     E, T, batch = chip_smoke.E, chip_smoke.T, chip_smoke.BATCH
     n_updates = max(1, round(0.1 * T * E))
-    graphed = hasattr(OffPolicyTrainer, "burst_graph")
+    graphed = hasattr(OffPolicyTrainer, "update_burst")  # a tree with the trainer's CUDA graphs
     out = {}
     for kind in ("dqn", "rainbow"):
-        for burst in (("burst",) if graphed else (None,)):
-            if kind not in paths:
-                continue
-            algo, ts, buffer, bs, coll = chip_smoke.build_pipeline(torch, kind)
-            gen = torch.Generator(device="cuda").manual_seed(0)
-            params = OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=(2 if graphed else 1) * T * E,
-                                            batch_size=batch, collection_step_num_env_steps=T, update_per_step=0.1,
-                                            start_steps=T * E, verbose=False)
-            trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
-            if burst:
-                trainer.burst_graph = burst
-            t0 = time.perf_counter()
-            trainer.run(ts, bs, gen)  # warm-up (and where there are graphs, their capture)
-            params.start_steps, params.epoch_num_steps = 0, T * E
-            plain, traced, busy, kernels, host = _trace(lambda: trainer.run(ts, bs, gen), torch)
-            out[kind] = {
-                "seconds": time.perf_counter() - t0,
-                "wall_ms_per_chunk": plain * 1e3, "env_steps_per_s": T * E / plain, "ms_per_update": plain / n_updates * 1e3,
-                "device_busy_ms_per_chunk": busy / 1e3, "idle_share": 1 - busy / 1e6 / plain,
-                "idle_share_traced": 1 - busy / 1e6 / traced, "host_launches_per_update": host / n_updates,
-                "device_kernels_per_update": kernels / n_updates,
-            }
-            del algo, ts, buffer, bs, coll, trainer
+        if kind not in paths:
+            continue
+        algo, ts, buffer, bs, coll = chip_smoke.build_pipeline(torch, kind)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=(2 if graphed else 1) * T * E,
+                                        batch_size=batch, collection_step_num_env_steps=T, update_per_step=0.1,
+                                        start_steps=T * E, verbose=False)
+        trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
+        t0 = time.perf_counter()
+        trainer.run(ts, bs, gen)  # warm-up (and where there are graphs, their capture)
+        params.start_steps, params.epoch_num_steps = 0, T * E
+        plain, traced, busy, kernels, host = _trace(lambda: trainer.run(ts, bs, gen), torch)
+        out[kind] = {
+            "seconds": time.perf_counter() - t0,
+            "wall_ms_per_chunk": plain * 1e3, "env_steps_per_s": T * E / plain, "ms_per_update": plain / n_updates * 1e3,
+            "device_busy_ms_per_chunk": busy / 1e3, "idle_share": 1 - busy / 1e6 / plain,
+            "idle_share_traced": 1 - busy / 1e6 / traced, "host_launches_per_update": host / n_updates,
+            "device_kernels_per_update": kernels / n_updates,
+        }
+        del algo, ts, buffer, bs, coll, trainer
     if "physics" in paths:
         from tianshou_tpu_torch.env.core import VectorDeviceEnv
         from tianshou_tpu_torch.env.mujoco import make
@@ -455,47 +450,6 @@ def measure(paths: set[str]) -> dict:
                 "idle_share_traced": 1 - busy / 1e6 / traced, "host_launches_per_step": host / steps,
                 "device_kernels_per_step": kernels / steps,
             }
-    return out
-
-
-def compare_burst_modes(kinds: list[str], turns: int, smi: str) -> dict:
-    """The whole burst in one graph against one update per graph, in one process: for each pixel
-    pipeline two trainers over the same state (one per mode, each warmed up and captured), then
-    ``turns`` pairs of replayed chunks in turns (ABBA); wall ms per chunk, without the profiler."""
-    import torch
-
-    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
-
-    E, T = chip_smoke.E, chip_smoke.T
-    out = {}
-    for kind in kinds:
-        algo, ts, buffer, bs, coll = chip_smoke.build_pipeline(torch, kind)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        trainers = {}
-        for mode in ("burst", "update"):
-            params = OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=2 * T * E, batch_size=chip_smoke.BATCH,
-                                            collection_step_num_env_steps=T, update_per_step=0.1,
-                                            start_steps=T * E, verbose=False)
-            trainers[mode] = OffPolicyTrainer(algo, coll, None, buffer, params)
-            trainers[mode].burst_graph = mode
-            trainers[mode].run(ts, bs, gen)  # the eager warm-up chunk and the capture chunk
-            params.start_steps, params.epoch_num_steps = 0, T * E
-        walls = {"burst": [], "update": []}
-        for i in range(turns):
-            for mode in (("burst", "update") if i % 2 == 0 else ("update", "burst")):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                trainers[mode].run(ts, bs, gen)
-                torch.cuda.synchronize()
-                walls[mode].append((time.perf_counter() - t0) * 1e3)
-        out[kind] = {mode: {"wall_ms_per_chunk": w, "median": statistics.median(w),
-                            "capture_s": {g.name: g.capture_s for g in trainers[mode].graph_pool.graphs},
-                            "pool_mib": trainers[mode].graph_pool.memory_bytes() / 2**20}
-                     for mode, w in walls.items()}
-        print(f"{kind}: wall ms per chunk, {turns} pairs in turns [{smi}]: " + "; ".join(
-            f"{mode} median {v['median']:.1f} (runs {', '.join(f'{x:.1f}' for x in v['wall_ms_per_chunk'])}), "
-            f"capture s {v['capture_s']}, pool {v['pool_mib']:.1f} MiB" for mode, v in out[kind].items()), flush=True)
-        del algo, ts, buffer, bs, coll, trainers
     return out
 
 
@@ -532,14 +486,9 @@ def compare(parent: str, pairs: int, paths: str, smi: str) -> None:
             cells = [f"{by_tree[t]['median']:.6g} ({by_tree[t]['min']:.6g}-{by_tree[t]['max']:.6g})"
                      if t in by_tree else "-" for t in ("parent", "change")]
             print(f"  {path} {metric}: {cells[0]} | {cells[1]}")
-    modes = None
-    kinds = [k for k in ("dqn", "rainbow") if k in paths.split(",")]
-    if kinds:
-        print(f"== the update burst as one graph against one update per graph, this tree [{smi}] ==", flush=True)
-        modes = compare_burst_modes(kinds, pairs, smi)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", f"profile_pairs_{paths.replace(',', '_')}.json"), "w") as f:
-        json.dump({"device": smi, "pairs": pairs, "runs": runs, "summary": summary, "burst_modes": modes}, f, indent=1)
+        json.dump({"device": smi, "pairs": pairs, "runs": runs, "summary": summary}, f, indent=1)
 
 
 def main() -> int:

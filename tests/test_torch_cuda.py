@@ -310,8 +310,7 @@ def _trainer(algo, coll, buffer, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["dqn", "rainbow"])
-@pytest.mark.parametrize("burst_graph", ["burst", "update"])
-def test_graphed_programs_match_the_eager_loop_on_cuda(kind, burst_graph, monkeypatch):
+def test_graphed_programs_match_the_eager_loop_on_cuda(kind, monkeypatch):
     """Three collect chunks and three updates through the trainer's programs (eager warm-up,
     capture and replay, replay) against the same on a deep copy, eagerly: the same bits."""
     import copy
@@ -326,7 +325,6 @@ def test_graphed_programs_match_the_eager_loop_on_cuda(kind, burst_graph, monkey
     egen = torch.Generator(device="cuda")
     egen.set_state(gen.get_state())
     trainer = _trainer(algo, coll, buffer)
-    trainer.burst_graph = burst_graph
     for _ in range(3):
         out = trainer.collect_chunk(ts, cstate, bs, gen, 4).map(torch.clone)
         eout = coll.collect(ets, ecs, ebs, egen, 4)[2]

@@ -325,8 +325,8 @@ def test_trainer_builds_each_program_once_per_state():
     assert {k: v[1] for k, v in trainer._programs.items()} == {k: v[1] for k, v in programs.items()}
     assert res2.gradient_step == 4 * round(0.5 * 4 * E)
     # another train state is another program, in the same pool
-    key = ("update_burst", "burst", 6, 8)
+    key = ("update_burst", 6, 8)
     ts = _pipeline("dqn")[1]
     trainer.update_burst(ts, res.buf_state, torch.Generator(), 6)
     assert trainer._programs[key][1] is not programs[key][1] and trainer._programs[key][0][0] is ts
-    assert len(trainer.graph_pool.graphs) == 2 and trainer.graph_pool.graphs[-1].name == "update_burst burst 6 8"
+    assert len(trainer.graph_pool.graphs) == 2 and trainer.graph_pool.graphs[-1].name == "update_burst 6 8"

@@ -86,11 +86,6 @@ def _sync(device: torch.device) -> None:
 class OffPolicyTrainer:
     """Collect chunk -> burst of gradient steps, repeated (reference :1043)."""
 
-    #: how the update burst is captured: ``"burst"``, all updates of a chunk
-    #: in one graph (the JAX package's scan), or ``"update"``, one update in a
-    #: graph replayed ``n_updates`` times. PERF.md compares the two.
-    burst_graph = "burst"
-
     def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
                  buffer, params: OffPolicyTrainerParams) -> None:
         if test_collector is not None:
@@ -138,36 +133,14 @@ class OffPolicyTrainer:
                  for _ in range(n_updates)]
         return Batch({k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()})
 
-    def _update_into_rows(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Callable[[], Batch]:
-        """One update that writes its stats into row ``row`` of ``[n_updates, ...]``
-        tensors and advances ``row`` modulo ``n_updates``, all on the device."""
-        rows = Batch()
-        row = torch.zeros((), dtype=torch.int64, device=ts.step.device)
-
-        def fn() -> Batch:
-            _, _, stats = self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)
-            for k, v in stats.items():
-                if k not in rows:
-                    rows[k] = v.new_empty((n_updates, *v.shape))
-                rows[k].index_copy_(0, row.view(1), v.unsqueeze(0))
-            row.copy_((row + 1) % n_updates)
-            return rows
-
-        return fn
-
     def update_burst(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
-        """``n_updates`` gradient steps in place (the JAX package's
-        ``_build_update_many``); returns their stats stacked on a leading axis.
-        The stats are the program's static output: the next call overwrites them."""
-        key = ("update_burst", self.burst_graph, n_updates, self.params.batch_size)
-        states = (ts, buf_state, generator)
-        if self.burst_graph == "update":
-            step = self._program(key, states, generator, self._update_into_rows(ts, buf_state, generator, n_updates))
-            for _ in range(n_updates):
-                stats = step()
-            return stats
-        return self._program(key, states, generator,
-                             lambda: self._updates(ts, buf_state, generator, n_updates))()
+        """``n_updates`` gradient steps in place as one program (the JAX
+        package's ``_build_update_many``, a scan); returns their stats stacked
+        on a leading axis. The stats are the program's static output: the next
+        call overwrites them. (One update per graph, replayed ``n_updates``
+        times, took 1.5% longer per chunk on an H100: PERF.md.)"""
+        return self._program(("update_burst", n_updates, self.params.batch_size), (ts, buf_state, generator),
+                             generator, lambda: self._updates(ts, buf_state, generator, n_updates))()
 
     def collect_chunk(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int) -> Batch:
         """One collect chunk of ``n_steps`` steps per env, ``cstate`` and
