@@ -25,7 +25,13 @@ Phases, each of which fails the run:
    against the same run eagerly, each on a deep copy. Sampled indices, rings, collect state
    and output and the sum tree bit-identical; losses, TD errors and
    parameters within ``GRAPH_ATOL`` (expected exact, cuDNN held to
-   deterministic algorithms); the same kernel launches.
+   deterministic algorithms); the same kernel launches. Then the pipeline's
+   Adam as the trainer builds it on the card (``capturable=True``, step and
+   bias corrections on the device), ``ADAM_STEPS`` steps as one replayed
+   graph, against the same factory's Adam on CPU copies of the trained
+   parameters, with the same gradients (``adam_check``), held to the JAX
+   one-update test's tolerance: ``ADAM_ATOL``, and ``ADAM_SHARE`` of the
+   values within ``ADAM_CLOSE``.
 5. DQN path: the DQN-on-pixels pipeline of ``bench.py``
    (``_build_atari_pipeline`` / ``bench_atari_cnn``) at its widths:
    ``FrameStack(SyntheticAtari(), 4)`` over 256 envs, a uint8 replay of
@@ -104,6 +110,8 @@ ROLLOUT_CHECKS = (16, 32, 64)
 # the graph phase: program calls per side (eager warm-up, capture and replay, replay) and updates per burst
 GRAPH_CALLS, GRAPH_K = 3, 8
 GRAPH_ATOL = 1e-6  # losses, TD errors and parameters of graph against eager; expected 0
+# capturable Adam on the card against Adam on the CPU: tests/test_torch_dqn.py's one-update tolerance
+ADAM_STEPS, ADAM_ATOL, ADAM_CLOSE, ADAM_SHARE = 8, 2e-5, 2e-6, 0.999
 Q_TOL, QD_TOL = 2e-4, 5e-3     # rtol = atol, as the JAX package holds its fused step
 MIN_SHARE_INSIDE = 0.995       # of envs, on rollout states
 
@@ -769,12 +777,51 @@ def graph_phase(torch, kind: str) -> list[str]:
     if sd["launches"] != eager["launches"]:
         raise AssertionError(f"graph phase {kind}: launches {sd['launches']}, eager {eager['launches']}")
     return [
+        f"graph phase {kind}: " + adam_check(torch, algo.optim, list(sd["ts"].model.parameters())),
         f"graph phase {kind}, graphs against eager: {GRAPH_CALLS} collect chunks of T={T} and "
         f"{GRAPH_CALLS} x {GRAPH_K} updates; sampled indices, rings, collect state and output"
         f"{' and the sum tree' if prio else ''} bit-identical; losses, TD errors and parameters max |diff| "
         f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
         f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
     ]
+
+
+def adam_check(torch, factory, params) -> str:
+    """The optimizer ``factory`` builds for parameters on the card (capturable Adam), stepped
+    ``ADAM_STEPS`` times through one CUDA graph (its first call eager, its second the capture),
+    against what it builds for CPU copies of ``params`` (Adam as before the graphs), with the same
+    gradients drawn from ``SEED``. Raises unless every parameter is within ``ADAM_ATOL`` and
+    ``ADAM_SHARE`` of them within ``ADAM_CLOSE``; returns a report line."""
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    cuda = [torch.nn.Parameter(p.detach().float().clone()) for p in params]
+    cpu = [torch.nn.Parameter(p.detach().float().cpu().clone()) for p in params]
+    opt_cuda, opt_cpu = factory.create(cuda), factory.create(cpu)
+    if not opt_cuda.defaults.get("capturable") or opt_cpu.defaults.get("capturable"):
+        raise AssertionError("Adam: capturable must hold on the card's parameters and only there")
+    gen = torch.Generator().manual_seed(SEED)
+    for p in cuda:
+        p.grad = torch.zeros_like(p)
+    program = Graphed(lambda: factory.step(opt_cuda), GraphPool("cuda"), name="adam")
+    for _ in range(ADAM_STEPS):
+        grads = [torch.randn(p.shape, generator=gen) * 1e-2 for p in cpu]
+        for p, g in zip(cuda, grads):
+            p.grad.copy_(g)
+        program()
+        for p, g in zip(cpu, grads):
+            p.grad = g
+        factory.step(opt_cpu)
+    diff = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten() for a, b in zip(cuda, cpu)])
+    moved = max(float((a.detach().cpu() - p.detach().float().cpu()).abs().max()) for a, p in zip(cpu, params))
+    worst, close = float(diff.max()), float((diff <= ADAM_CLOSE).double().mean())
+    if program.replays != ADAM_STEPS - 1 or moved == 0.0:
+        raise AssertionError(f"Adam: {program.replays} replays, parameters moved by {moved}")
+    if worst > ADAM_ATOL or close < ADAM_SHARE:
+        raise AssertionError(f"Adam: capturable on the card against the CPU: max |diff| {worst:.3e} "
+                             f"(tolerance {ADAM_ATOL}), {close:.5f} within {ADAM_CLOSE} (need {ADAM_SHARE})")
+    return (f"capturable Adam on the card (one graph, {ADAM_STEPS} steps) against Adam on the CPU, "
+            f"{diff.numel()} parameters: max |diff| {worst:.3e} (tolerance {ADAM_ATOL}), {close:.6f} within "
+            f"{ADAM_CLOSE} (need {ADAM_SHARE}); largest move {moved:.3e}")
 
 
 def _leaves(tree) -> list:
@@ -975,42 +1022,57 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
     return [record], lines
 
 
+def rollout_program(torch, venv, steps: int, gen, healthy_z: tuple[float, float] | None = None, checks: bool = False):
+    """``bench.py:bench_physics_step`` in the port: ``(state, program, sums)``, where ``program()`` runs
+    ``steps`` vector steps of ``venv`` from ``state`` (its reset state) with actions from
+    ``action_space.sample`` and writes the last state back into ``state``, as ONE program, the
+    counterpart of the bench's jitted scan, through the graph helper: its first call is its eager
+    warm-up, the second its capture and first replay, later calls replay. With ``checks`` the program
+    also accumulates on the device, in ``sums``: ``finite`` (every state, observation and reward so
+    far), ``terminated`` (the count of terminated reports) and, with ``healthy_z``, ``wrong_term``
+    (envs whose terminated flag disagrees with lo < z < hi). Without, ``sums`` is empty."""
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    state, obs = tree_map(torch.clone, venv.reset(gen))
+    sums = {}
+    if checks:
+        zero = torch.zeros((), dtype=torch.int64, device=obs.device)
+        sums = {"finite": torch.isfinite(obs).all(), "terminated": zero.clone(), "wrong_term": zero.clone()}
+
+    def rollout():
+        s = state
+        for _ in range(steps):
+            out = venv.step(s, venv.action_space.sample(venv.num_envs, gen, venv.device), gen)
+            s = out.state
+            if checks:
+                sums["finite"].logical_and_(torch.isfinite(s.q).all() & torch.isfinite(s.qd).all()
+                                            & torch.isfinite(out.obs).all() & torch.isfinite(out.reward).all())
+                sums["terminated"].add_(out.terminated.sum())
+                if healthy_z is not None:
+                    z = s.q[:, 2]
+                    sums["wrong_term"].add_((out.terminated != ~((z > healthy_z[0]) & (z < healthy_z[1]))).sum())
+        tree_map(torch.Tensor.copy_, state, s)
+        return out
+
+    return state, Graphed(rollout, GraphPool(venv.device), (gen,), name="rollout"), sums
+
+
 def physics_path(torch, task: str, steps: int):
-    """``bench.py:bench_physics_step`` in the port: ``steps`` vector steps with actions from
-    ``action_space.sample`` as ONE program, the counterpart of its jitted scan, through the graph
-    helper: the first call is its eager warm-up, the second its capture and first replay, the third
-    a replay, which is timed. Returns ({kernel: launches} over the three calls, report lines)."""
+    """The physics path of ``task``: ``rollout_program`` called three times (eager warm-up, capture
+    and first replay, replay, which is timed). Returns ({kernel: launches} over the three calls,
+    report lines)."""
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.env.mujoco import make
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
-    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
-    from tianshou_tpu_torch.utils.tree import tree_map
 
     venv = VectorDeviceEnv(make(task), PHYS_E, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
-    state, obs = tree_map(torch.clone, venv.reset(gen))
-    finite = torch.isfinite(obs).all()
-    n_term = torch.zeros((), dtype=torch.int64, device="cuda")
-    wrong_term = torch.zeros((), dtype=torch.int64, device="cuda")
-
-    def rollout():
-        s = state
-        for _ in range(steps):
-            out = venv.step(s, venv.action_space.sample(PHYS_E, gen, venv.device), gen)
-            s = out.state
-            finite.logical_and_(torch.isfinite(s.q).all() & torch.isfinite(s.qd).all()
-                                & torch.isfinite(out.obs).all() & torch.isfinite(out.reward).all())
-            n_term.add_(out.terminated.sum())
-            if task == "Ant":  # Ant-v4's healthy range: a terminated env is one outside 0.2 < z < 1.0
-                z = s.q[:, 2]
-                wrong_term.add_((out.terminated != ~((z > 0.2) & (z < 1.0))).sum())
-        tree_map(torch.Tensor.copy_, state, s)
-        return out
-
-    pool = GraphPool("cuda")
-    program = Graphed(rollout, pool, (gen,), name=f"{task} rollout")
+    # Ant-v4's healthy range: a terminated env is one outside 0.2 < z < 1.0
+    state, program, sums = rollout_program(torch, venv, steps, gen, (0.2, 1.0) if task == "Ant" else None, checks=True)
+    pool = program.pool
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1024,20 +1086,20 @@ def physics_path(torch, task: str, steps: int):
         raise AssertionError(f"{task} physics path: kernel launches {launches} for {total} steps")
     if program.replays != 2 or program.launches != {"physics_fused": steps}:
         raise AssertionError(f"{task} physics path: {program.replays} replays of {program.launches}")
-    if not bool(finite):
+    if not bool(sums["finite"]):
         raise AssertionError(f"{task} physics path: a non-finite state, observation or reward")
     obs_dim = venv.observation_space.shape[0]
     if out.obs.shape != (PHYS_E, obs_dim) or out.obs.device.type != "cuda" or out.reward.shape != (PHYS_E,):
         raise AssertionError(f"{task} physics path: observation {tuple(out.obs.shape)} reward {tuple(out.reward.shape)}")
     if state.t.min().item() != total or state.t.max().item() != total:
         raise AssertionError(f"{task} physics path: t is {state.t.min().item()}..{state.t.max().item()}, expected {total}")
-    if int(wrong_term) != 0:
-        raise AssertionError(f"{task} physics path: {int(wrong_term)} envs' terminated flag disagrees with 0.2 < z < 1.0")
+    if int(sums["wrong_term"]) != 0:
+        raise AssertionError(f"{task} physics path: {int(sums['wrong_term'])} envs' terminated flag disagrees with 0.2 < z < 1.0")
     lines = [
         f"{task} physics path: E={PHYS_E} T={steps} x 3 calls (eager warm-up, capture + replay, replay) obs "
         f"{tuple(out.obs.shape)} physics_fused launches {launches['physics_fused']} (1 per vector step); graph replay: "
         f"env_steps_per_s {steps * PHYS_E / walls[2]:.1f} us_per_vector_step {walls[2] / steps * 1e6:.1f} (eager warm-up "
-        f"{walls[0] / steps * 1e6:.1f}); {_graph_report(pool, 1)}; terminated reports {int(n_term)} mean reward last "
+        f"{walls[0] / steps * 1e6:.1f}); {_graph_report(pool, 1)}; terminated reports {int(sums['terminated'])} mean reward last "
         f"step {float(out.reward.mean()):.4f}"
     ]
     return launches, lines

@@ -58,8 +58,8 @@ pixel paths (one chunk timed, one traced: wall per chunk, env-steps/s, ms
 per update, device busy time per chunk, idle share against the unprofiled
 wall, the host's launches per update, kernel and CUDA graph launches both,
 and device kernels per update); and the HalfCheetah (64 steps) and Ant (16 steps) rollouts at 2048 envs (one graph of
-the whole rollout where the tree has the helper, an eager loop where it has
-not): the same per vector step. It prints every process's numbers and then,
+the whole rollout, ``chip_smoke.rollout_program``, where the tree has it, an
+eager loop where it has not): the same per vector step. It prints every process's numbers and then,
 per path and tree, the median and the range, and writes them all to
 ``chiprun_out/profile_pairs_<paths>.json``.
 """
@@ -273,13 +273,15 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
 
 def rollout_program(venv, steps: int):
     """``(state, program, graphed)``: ``program()`` runs ``steps`` vector steps of ``venv`` with random
-    actions on ``state``, in place; one CUDA graph through the tree's graph helper where the tree has
-    one (its first call eager, its second the capture), else an eager loop."""
+    actions on ``state``, in place: ``chip_smoke.rollout_program``, one CUDA graph, where the tree has
+    it, else (a tree from before the graphs) an eager loop."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if hasattr(chip_smoke, "rollout_program"):
+        return (*chip_smoke.rollout_program(torch, venv, steps, gen)[:2], True)
     from tianshou_tpu_torch.utils.tree import tree_map
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     state, _ = tree_map(torch.clone, venv.reset(gen))
 
     def rollout():
@@ -288,11 +290,7 @@ def rollout_program(venv, steps: int):
             s = venv.step(s, venv.action_space.sample(venv.num_envs, gen, venv.device), gen).state
         tree_map(torch.Tensor.copy_, state, s)
 
-    try:
-        from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
-    except ImportError:  # a tree from before the graphs
-        return state, rollout, False
-    return state, Graphed(rollout, GraphPool("cuda"), (gen,), name="rollout"), True
+    return state, rollout, False
 
 
 def kernel_scaling(env, state, smi: str) -> None:

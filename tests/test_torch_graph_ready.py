@@ -287,7 +287,7 @@ def test_graphed_runs_its_function_eagerly_on_every_cpu_call():
         return x.add_(1)
 
     pool = GraphPool("cpu")
-    g = Graphed(fn, pool, warmup=1, name="add one")
+    g = Graphed(fn, pool, name="add one")
     outs = [g() for _ in range(4)]
     assert len(calls) == 4 and torch.equal(x, torch.full((3,), 4.0))
     assert all(o is x for o in outs)

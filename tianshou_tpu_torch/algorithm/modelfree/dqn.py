@@ -107,12 +107,13 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         count, already advanced past this step, is a multiple of the period:
         a select on the device (tianshou_tpu dqn.py:115-123), no host branch.
         On a sync step the target takes the online weights' bits; on any
-        other step it keeps its own."""
+        other step it keeps its own. One pointwise kernel per parameter,
+        written in place."""
         if self.use_target:
             sync = ts.step % self.target_update_freq == 0
             with torch.no_grad():
                 for t, o in zip(ts.target.parameters(), ts.model.parameters()):
-                    t.copy_(torch.where(sync, o, t))
+                    torch.where(sync, o, t, out=t)
         return ts
 
     def postprocess(self, ts: TrainState, buffer, buf_state, batch: Batch,

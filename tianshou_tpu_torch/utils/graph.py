@@ -6,11 +6,11 @@ Python function of no arguments over static tensors (state that every call
 updates in place, as the port's buffers and train states are), wrapped in a
 :class:`Graphed` and captured once into a CUDA graph that later calls replay.
 
-- **Warm-up is real work.** The first ``warmup`` calls run the function
-  eagerly on the pool's side stream: they fill cuDNN's and cuBLAS's lazy
-  state, Adam's moments and every cache a first call builds, and they count
-  as work done. The call after them captures the function (which executes
-  nothing) and replays the graph, so every call does the function's work
+- **Warm-up is real work.** The first call runs the function eagerly on
+  the pool's side stream: it fills cuDNN's and cuBLAS's lazy state, Adam's
+  moments and every cache a first call builds, and it counts as work done.
+  The second call captures the function (which executes nothing) and
+  replays the graph, so every call does the function's work
   exactly once: the number of updates, the step counters and the sequence of
   random draws are those of the eager loop.
 - **Generators.** Each graph registers the explicit ``torch.Generator``\\ s
@@ -65,7 +65,7 @@ class GraphPool:
 
 
 class Graphed:
-    """``fn()`` captured into a CUDA graph after ``warmup`` eager calls.
+    """``fn()`` captured into a CUDA graph after one eager call.
 
     ``generators`` are the explicit generators ``fn`` draws from. Calling
     returns ``fn``'s output: a fresh one from an eager call, the graph's
@@ -75,8 +75,8 @@ class Graphed:
     """
 
     def __init__(self, fn: Callable[[], Any], pool: GraphPool, generators: Sequence[torch.Generator] = (),
-                 warmup: int = 1, name: str = "graph") -> None:
-        self.fn, self.pool, self.generators, self.warmup, self.name = fn, pool, tuple(generators), warmup, name
+                 name: str = "graph") -> None:
+        self.fn, self.pool, self.generators, self.name = fn, pool, tuple(generators), name
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out: Any = None
         self.calls = self.replays = 0
@@ -88,7 +88,7 @@ class Graphed:
         if self.pool.device.type != "cuda":
             return self.fn()
         self.calls += 1
-        if self.graph is None and self.calls <= self.warmup:
+        if self.graph is None and self.calls == 1:
             return self._eager()
         if self.graph is None:
             self._capture()
