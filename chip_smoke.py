@@ -57,7 +57,27 @@ Phases, each of which fails the run:
    tree must hold ``node = left + right`` exactly at every internal node,
    with zero leaves at never-written slots.
 
-7. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
+   Each pixel path also has a test collector (10 envs of the same frames, eps_inference 0.005 as
+   ``examples/atari/atari_dqn.py:58`` sets it, 10 episodes, chunks of 128 steps, the test chunk a
+   CUDA graph too): one test phase at the end of each ``run``; each must return 10 episodes with
+   finite returns, and its wall time, chunks and capture time are printed on a line of their own.
+   The printed env-steps/s and ms per update count collect and update time only, as before.
+   The DQN graph phase also holds the test chunk as a graph against the same chunk run eagerly,
+   from one generator state and one reset: the active mask, the episode count and the emitted
+   returns and lengths bit-identical.
+7. CartPole paths (``tests/test_dqn.py:17-48``, which mirrors upstream ``test/discrete/test_dqn.py``):
+   ``DQN(Net((64, 64), 2))`` on 10 train and 10 test envs of ``CartPole()``, Adam lr 1e-3, gamma
+   0.97, n-step 3, target sync every 320 steps, eps 0.3 annealed by ``train_fn`` to 0.1 over 30,000
+   steps, batch 64, T = 10, update_per_step 0.1, a prefill of 1,000 steps, up to 15 epochs of 5,000
+   steps with ``stop_fn`` at reward 195, seed 0, once over ``VectorReplayBuffer(20000, 10)`` and
+   once over ``PrioritizedVectorReplayBuffer(20000, 10, alpha 0.6, beta 0.4)``. Each must reach
+   ``best_reward >= 195``; the train collector's ``on_episode_done_hook`` must fire once per
+   collect chunk under the CUDA graphs; kernels: no gather, and with PER the descent once per update
+   and the tree update once per update and once per collect step.
+8. Determinism phase: the uniform CartPole path twice for 2 epochs from seed 0 under
+   ``TraceLoggerContext`` (cuDNN held to deterministic algorithms; no other setting): the two traces,
+   parameter hashes included, equal line for line (``TraceDeterminismTest``).
+9. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
    E = 6 and 2053) hold the fused step kernel against its plain version
    (``dynamics.step``): near-home states, every env within ``q`` rtol = atol = 2e-4 and ``qd``
    rtol = atol = 5e-3; states from the kernel's own random-action rollout at steps 16, 32 and
@@ -67,7 +87,7 @@ Phases, each of which fails the run:
    eager time, at E = 2048 and, from the graph, at E = 32 and 8448 (is it bound by latency or by
    throughput); the plain version's eager time (its Cholesky calls are not captured in a graph);
    the bound by float32 operations counted for this run's active contact and limit rows.
-8. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
+10. Physics paths (``bench.py:bench_physics_step``): ``VectorDeviceEnv(HalfCheetah(), 2048)``,
    reset, 64 vector steps with actions from ``action_space.sample`` as one program, the
    counterpart of the scan, called three times (eager warm-up, capture and replay of one CUDA
    graph, replay); then Ant, 16 steps. One kernel launch per step exactly (and none of the other
@@ -88,6 +108,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -106,6 +127,13 @@ PHYS_E = 2048
 PHYS_PATHS = (("HalfCheetah", 64), ("Ant", 16))  # (task, vector steps)
 PHYS_TASKS = ("HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher")
 ROLLOUT_CHECKS = (16, 32, 64)
+
+# the pixel paths' test phase (examples/atari/atari_dqn.py: test_num 10, eps_test 0.005)
+TEST_E, TEST_EPS, TEST_EPISODES, TEST_CHUNK = 10, 0.005, 10, 128
+
+# the CartPole paths (tests/test_dqn.py:17-48; reward threshold from upstream test/discrete/test_dqn.py:69)
+CP_E, CP_T, CP_EPOCHS, CP_EPOCH_STEPS, CP_PREFILL, CP_THRESHOLD = 10, 10, 15, 5000, 1000, 195
+DET_EPOCHS = 2  # the determinism phase
 
 # the graph phase: program calls per side (eager warm-up, capture and replay, replay) and updates per burst
 GRAPH_CALLS, GRAPH_K = 3, 8
@@ -530,7 +558,7 @@ def build_pipeline(torch, kind: str = "dqn"):
     torch.manual_seed(SEED)
     env = FrameStack(make_synthetic_atari(), 4)
     common = dict(action_space=env.action_space, gamma=0.99, n_step_return_horizon=3,
-                  target_update_freq=500, eps_training=0.05)
+                  target_update_freq=500, eps_training=0.05, eps_inference=TEST_EPS)
     ring = dict(total_size=E * SLOTS, buffer_num=E, stack_num=4, save_only_last_obs=True)
     if kind == "dqn":
         algo = DQN(model=DQNet(action_dim=6), optim=AdamOptimizerFactory(lr=1e-4), **common)
@@ -547,6 +575,28 @@ def build_pipeline(torch, kind: str = "dqn"):
     ), device=device)
     coll = DeviceCollector(VectorDeviceEnv(env, E, device=device), algo, buffer)
     return algo, ts, buffer, buf_state, coll
+
+
+def make_test_collector(algo):
+    """The pixel paths' test collector: ``TEST_E`` envs of ``FrameStack(SyntheticAtari(), 4)``, no buffer."""
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.wrappers import FrameStack
+
+    return DeviceCollector(VectorDeviceEnv(FrameStack(make_synthetic_atari(), 4), TEST_E, device="cuda"), algo, None)
+
+
+def _check_tests(name: str, tests: list, n_phases: int) -> None:
+    """Every test phase returned ``TEST_EPISODES`` episodes with finite returns."""
+    import numpy as np
+
+    if len(tests) != n_phases:
+        raise AssertionError(f"{name}: {len(tests)} test phases, expected {n_phases}")
+    for stats in tests:
+        if stats.n_collected_episodes != TEST_EPISODES or len(stats.returns) != TEST_EPISODES \
+                or not np.isfinite(stats.returns).all():
+            raise AssertionError(f"{name}: a test phase returned {stats.n_collected_episodes} episodes, "
+                                 f"returns {stats.returns}")
 
 
 def _check_tree(torch, buffer, state, gen) -> str:
@@ -593,19 +643,28 @@ def main_path(torch, kind: str, fused: bool = False):
     name = f"{kind}{' fused_megastep' if fused else ''}"
     algo, ts, buffer, buf_state, coll = build_pipeline(torch, kind)
     init_params = [p.detach().clone() for p in ts.model.parameters()]
+    tests = []  # the CollectStats of every test phase
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    # one epoch per run, so one test phase at the end of each run
     params = OffPolicyTrainerParams(
         max_epochs=1, epoch_num_steps=CHUNKS * T * E, batch_size=BATCH,
         collection_step_num_env_steps=T, update_per_step=0.1, start_steps=T * E, verbose=False,
-        fused_megastep=fused,
+        fused_megastep=fused, test_step_num_episodes=TEST_EPISODES, compute_score_fn=score,
     )
-    trainer = OffPolicyTrainer(algo, coll, None, buffer, params)
+    trainer = OffPolicyTrainer(algo, coll, make_test_collector(algo), buffer, params)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
     first = trainer.run(ts, buf_state, gen)
     graphs = list(trainer.graph_pool.graphs)
-    replays = sum(g.replays for g in graphs)
+    train_graphs = [g for g in graphs if not g.name.startswith("test_chunk")]
+    test_graph = next(g for g in graphs if g.name.startswith("test_chunk"))
+    replays, test_replays = sum(g.replays for g in train_graphs), test_graph.replays
     trainer.params.start_steps = 0  # the second run only replays
     res = trainer.run(first.train_state, first.buf_state, gen)
     launches = _launches(gather, sumtree, physics_fused)
@@ -613,11 +672,16 @@ def main_path(torch, kind: str, fused: bool = False):
     lines = []
     if trainer.graph_pool.graphs != graphs or any(g.graph is None for g in graphs):
         raise AssertionError(f"{name} path: the second run built programs anew")
-    if len(graphs) != (1 if fused else 2):
+    if len(train_graphs) != (1 if fused else 2) or len(graphs) != len(train_graphs) + 1:
         raise AssertionError(f"{name} path: programs {[g.name for g in graphs]}")
-    replays_per_chunk = (sum(g.replays for g in graphs) - replays) / CHUNKS
-    if replays_per_chunk != len(graphs):
+    replays_per_chunk = (sum(g.replays for g in train_graphs) - replays) / CHUNKS
+    if replays_per_chunk != len(train_graphs):
         raise AssertionError(f"{name} path: {replays_per_chunk} graph replays per chunk of the second run")
+    _check_tests(f"{name} path", tests, 2)
+    test_chunks = [t.n_collected_steps // (TEST_CHUNK * TEST_E) for t in tests]
+    if test_graph.replays - test_replays != test_chunks[1]:
+        raise AssertionError(f"{name} path: {test_graph.replays - test_replays} test chunk replays for "
+                             f"{test_chunks[1]} chunks of the second run's test phase")
     ts, state = res.train_state, res.buf_state
     bs = state.base if isinstance(state, PrioState) else state
     tensors = [*ts.model.parameters(), *ts.target.parameters(), ts.step, *ts.hparams.values(), bs.cursor, bs.size,
@@ -664,6 +728,14 @@ def main_path(torch, kind: str, fused: bool = False):
         f"(collect included); {_graph_report(trainer.graph_pool, replays_per_chunk)}; "
         f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches['gather_rows']} "
         f"sumtree_launches {launches['prefix_sum_idx']} tree_update_launches {launches['tree_update']}"
+    )
+    lines.append(
+        f"{name} path, test phases ({TEST_E} envs, eps_inference {TEST_EPS}, {TEST_EPISODES} episodes in chunks of "
+        f"{TEST_CHUNK} steps, timed apart from collect and update): first run {first.timing['test']:.3f} s in "
+        f"{test_chunks[0]} chunks (eager warm-up chunk and capture included), second run {res.timing['test']:.3f} s "
+        f"in {test_chunks[1]} chunks of replays ({res.timing['test'] / test_chunks[1] * 1e3:.1f} ms per chunk); "
+        f"test chunk capture {test_graph.capture_s:.2f} s; returns mean {tests[1].returns.mean():.3f} "
+        f"length mean {tests[1].lens.mean():.1f}; share of the second run's wall {res.timing['test'] / res.train_time:.3f}"
     )
     if isinstance(state, PrioState):
         lines.append(f"{name} path: " + _check_tree(torch, buffer, state, gen))
@@ -776,7 +848,8 @@ def graph_phase(torch, kind: str) -> list[str]:
         raise AssertionError(f"graph phase {kind}: losses or parameters differ by {worst:.3e} > {GRAPH_ATOL}")
     if sd["launches"] != eager["launches"]:
         raise AssertionError(f"graph phase {kind}: launches {sd['launches']}, eager {eager['launches']}")
-    return [
+    test_lines = [test_chunk_check(torch, algo, coll, buffer, sd["ts"])] if kind == "dqn" else []
+    return test_lines + [
         f"graph phase {kind}: " + adam_check(torch, algo.optim, list(sd["ts"].model.parameters())),
         f"graph phase {kind}, graphs against eager: {GRAPH_CALLS} collect chunks of T={T} and "
         f"{GRAPH_CALLS} x {GRAPH_K} updates; sampled indices, rings, collect state and output"
@@ -784,6 +857,51 @@ def graph_phase(torch, kind: str) -> list[str]:
         f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
         f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
     ]
+
+
+def test_chunk_check(torch, algo, coll, buffer, ts) -> str:
+    """The test collector's chunk as the trainer's CUDA graph against the same chunk run eagerly:
+    from one generator state and one reset each, ``GRAPH_CALLS`` chunks of ``TEST_CHUNK`` steps (the
+    graph's first call is its eager warm-up, the second its capture and first replay, the third a
+    replay). After every chunk the active mask, the episode count and the emitted ``done``, returns
+    and lengths must be bit-identical, and the collect state at the end. Returns a report line."""
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tc = make_test_collector(algo)
+    trainer = OffPolicyTrainer(algo, coll, tc, buffer, OffPolicyTrainerParams(verbose=False))
+    sides = {}
+    for side in ("graph", "eager"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        state = tc.reset_episodes(gen, TEST_EPISODES)
+        calls = []
+        for _ in range(GRAPH_CALLS):
+            if side == "graph":
+                out = trainer.test_chunk(ts, state, gen, TEST_CHUNK)
+            else:
+                out = tc.episode_chunk(ts, state, gen, TEST_CHUNK)
+            calls.append((out.map(torch.clone), state.active.clone(), state.n_done.clone()))
+        torch.cuda.synchronize()
+        sides[side] = (calls, _leaves(state.cstate))
+    torch.backends.cudnn.deterministic = deterministic
+    (g_calls, g_cs), (e_calls, e_cs) = sides["graph"], sides["eager"]
+    for i, ((g_out, g_act, g_n), (e_out, e_act, e_n)) in enumerate(zip(g_calls, e_calls)):
+        same = torch.equal(g_act, e_act) and torch.equal(g_n, e_n)
+        if not same or not all(torch.equal(g_out[k], e_out[k]) for k in ("done", "ep_ret", "ep_len")):
+            raise AssertionError(f"graph phase dqn test chunk {i}: the graph differs from the eager chunk")
+    if not all(torch.equal(a, b) for a, b in zip(g_cs, e_cs)):
+        raise AssertionError("graph phase dqn test chunk: the collect states differ")
+    graph = trainer.graph_pool.graphs[0]
+    n_done, active = int(g_calls[-1][2]), int(g_calls[-1][1].sum())
+    if graph.replays != GRAPH_CALLS - 1 or n_done == 0 or active == TEST_E:
+        raise AssertionError(f"graph phase dqn test chunk: {graph.replays} replays, {n_done} episodes counted, "
+                             f"{active} envs still active")
+    done = g_calls[-1][0]["done"]
+    return (f"graph phase dqn test chunk, graph against eager: {GRAPH_CALLS} chunks of {TEST_CHUNK} steps over "
+            f"{TEST_E} envs (eps_inference {TEST_EPS}); active mask ({active} of {TEST_E} active at the end), episode "
+            f"count ({n_done}), emitted done, returns and lengths and the collect state bit-identical; returns of the "
+            f"last chunk {g_calls[-1][0]['ep_ret'][done].tolist()}; replays {graph.replays}, capture {graph.capture_s:.2f} s")
 
 
 def adam_check(torch, factory, params) -> str:
@@ -830,6 +948,129 @@ def _leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+# ---------------------------------------------------------------------------
+# CartPole: the first paths of the port that train to a score
+# ---------------------------------------------------------------------------
+def run_cartpole(torch, prio: bool, max_epochs: int = CP_EPOCHS, stop: bool = True):
+    """DQN on CartPole as ``tests/test_dqn.py:17-48`` trains it, on the card, through the graphed
+    trainer with its test phase: returns (result, trainer, test phases' CollectStats, the episode
+    counts that the train collector's ``on_episode_done_hook`` saw, one per collect)."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.buffer.prio import PrioritizedVectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.mlp import Net
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    env = CartPole()
+    algo = DQN(model=Net((64, 64), 2, input_dim=4), action_space=env.action_space,
+               optim=AdamOptimizerFactory(lr=1e-3), gamma=0.97, n_step_return_horizon=3, target_update_freq=320,
+               eps_training=0.3)
+    ts = algo.init("cuda")
+    buffer = (PrioritizedVectorReplayBuffer(20000, CP_E, alpha=0.6, beta=0.4) if prio
+              else VectorReplayBuffer(20000, CP_E))
+    bs = buffer.init(Batch(obs=torch.zeros(4), act=torch.tensor(0), rew=torch.tensor(0.0),
+                           terminated=torch.tensor(False), truncated=torch.tensor(False), obs_next=torch.zeros(4)),
+                     device="cuda")
+    hooked, tests = [], []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    train_c = DeviceCollector(VectorDeviceEnv(env, CP_E, device="cuda"), algo, buffer,
+                              on_episode_done_hook=lambda st: hooked.append(st.n_collected_episodes))
+    test_c = DeviceCollector(VectorDeviceEnv(env, CP_E, device="cuda"), algo, None)
+    params = OffPolicyTrainerParams(
+        max_epochs=max_epochs, epoch_num_steps=CP_EPOCH_STEPS, test_step_num_episodes=10, batch_size=64,
+        collection_step_num_env_steps=CP_T, update_per_step=0.1, start_steps=CP_PREFILL,
+        stop_fn=(lambda r: r >= CP_THRESHOLD) if stop else None, compute_score_fn=score,
+        train_fn=lambda epoch, step: {"eps_training": max(0.1, 0.3 * (1 - step / 30000))}, verbose=False,
+    )
+    trainer = OffPolicyTrainer(algo, train_c, test_c, buffer, params)
+    res = trainer.run(ts, bs, torch.Generator(device="cuda").manual_seed(SEED))
+    return res, trainer, tests, hooked
+
+
+def cartpole_path(torch, prio: bool):
+    """The CartPole path over uniform (``prio=False``) or prioritized replay: it must reach the
+    threshold, the hook must fire once per collect chunk under the graphs, and the kernels must run as
+    often as the path needs them. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+
+    name = "cartpole_per" if prio else "cartpole"
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res, trainer, tests, hooked = run_cartpole(torch, prio)
+    launches = _launches(gather, sumtree, physics_fused)
+    if not res.best_reward >= CP_THRESHOLD:
+        raise AssertionError(f"{name} path: best test reward {res.best_reward} after {res.epochs} epochs, "
+                             f"below the threshold {CP_THRESHOLD}")
+    vector_steps = res.env_step // CP_E  # one buffer add per vector step, prefill included
+    if len(hooked) != res.env_step // (CP_T * CP_E):
+        raise AssertionError(f"{name} path: on_episode_done_hook ran {len(hooked)} times for "
+                             f"{res.env_step // (CP_T * CP_E)} collect chunks")
+    expect = {"gather_rows": 0, "prefix_sum_idx": res.gradient_step if prio else 0,
+              "tree_update": res.gradient_step + vector_steps if prio else 0, "physics_fused": 0}
+    if launches != expect:
+        raise AssertionError(f"{name} path: kernel launches {launches}, expected {expect}")
+    if len(tests) != res.epochs or any(t.n_collected_episodes != 10 for t in tests):
+        raise AssertionError(f"{name} path: {len(tests)} test phases for {res.epochs} epochs")
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    if sorted(graphs) != ["collect_chunk", "test_chunk", "update_burst"]:
+        raise AssertionError(f"{name} path: programs {sorted(graphs)}")
+    t = res.timing
+    train_steps = res.env_step - CP_PREFILL
+    chunks = sum(s.n_collected_steps for s in tests) // (TEST_CHUNK * CP_E)
+    lines = [
+        f"{name} path: best test reward {res.best_reward:.1f} (threshold {CP_THRESHOLD}) after {res.epochs} epochs; "
+        f"env_steps {res.env_step} (prefill {CP_PREFILL}) gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s "
+        f"(prefill {t['prefill']:.2f}, collect {t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); "
+        f"train env_steps_per_s {train_steps / (t['collect'] + t['update']):.1f} (collect and update time only; "
+        f"{train_steps / (t['collect'] + t['update'] - graphs['collect_chunk'].capture_s - graphs['update_burst'].capture_s):.1f} "
+        f"without the two programs' capture time); "
+        f"test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}",
+        f"{name} path, test phase: {len(tests)} phases, {chunks} chunks of {TEST_CHUNK} steps over {CP_E} envs, "
+        f"{t['test']:.3f} s = {t['test'] / res.train_time:.3f} of the wall time; capture s "
+        f"{ {n: round(g.capture_s, 3) for n, g in graphs.items()} }; on_episode_done_hook once per collect chunk "
+        f"({len(hooked)}); launches {launches}",
+    ]
+    return launches, lines
+
+
+def determinism_phase(torch) -> list[str]:
+    """The uniform CartPole path twice for ``DET_EPOCHS`` epochs from seed 0 (no stop) under
+    ``TraceLoggerContext``: the traces (``collector`` and ``trainer/collect`` lines, and a ``trainer/update``
+    line with the hash of the weights after every burst) must be equal line for line
+    (``TraceDeterminismTest`` in a temporary directory). cuDNN is held to deterministic algorithms
+    (``torch.backends.cudnn.deterministic``) for the phase; nothing else is set."""
+    from tianshou_tpu_torch.utils.determinism import TraceDeterminismTest, TraceLoggerContext
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    traces, results = [], []
+    for _ in range(2):
+        with TraceLoggerContext() as tl:
+            results.append(run_cartpole(torch, prio=False, max_epochs=DET_EPOCHS, stop=False)[0])
+            traces.append(tl.get_trace())
+    torch.backends.cudnn.deterministic = deterministic
+    with tempfile.TemporaryDirectory() as d:
+        det = TraceDeterminismTest(d)
+        det.check("cartpole", traces[0])
+        det.check("cartpole", traces[1], create_if_missing=False)  # raises at the first lines that differ
+    hashes = [line for line in traces[0] if line.startswith("trainer/update")]
+    if not hashes or any(r.epochs != DET_EPOCHS for r in results):
+        raise AssertionError("determinism phase: no parameter hash traced, or a run stopped early")
+    return [f"determinism phase: two runs of the uniform CartPole path, {DET_EPOCHS} epochs from seed {SEED}, "
+            f"cudnn.deterministic=True: {len(traces[0])} trace lines ({len(hashes)} parameter hashes) identical "
+            f"line for line; last {hashes[-1]}; test rewards {results[0].best_reward:.1f} and {results[1].best_reward:.1f}"]
 
 
 # ---------------------------------------------------------------------------
@@ -1164,6 +1405,14 @@ def main() -> int:
         # raises unless every kernel ran as often as it must
         _, by_path[name], lines = main_path(torch, kind, fused)
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for prio in (False, True):
+        t0 = time.perf_counter()
+        name = "cartpole_per" if prio else "cartpole"
+        by_path[name], lines = cartpole_path(torch, prio)  # raises below the threshold
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    lines = determinism_phase(torch)  # raises unless the two traces are equal
+    print("\n".join(lines), f"\ndeterminism phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for task, steps in PHYS_PATHS:
         t0 = time.perf_counter()
         by_path[task.lower()], lines = physics_path(torch, task, steps)  # raises unless one launch per step

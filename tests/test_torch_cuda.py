@@ -512,3 +512,79 @@ def test_capturable_adam_under_a_graph_matches_the_cpu_adam_on_cuda(max_grad_nor
         assert not np.array_equal(want, init.detach().numpy())
         np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
         assert np.mean(np.abs(got - want) <= 2e-6) >= 0.999
+
+
+def _cartpole_trainer(**kw):
+    """DQN over Net on CartPole on the card, with a test collector (the configuration of
+    tests/test_dqn.py at a small depth)."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.mlp import Net
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    torch.manual_seed(0)
+    env = CartPole()
+    algo = DQN(model=Net((64, 64), 2, input_dim=4), action_space=env.action_space,
+               optim=AdamOptimizerFactory(lr=1e-3), gamma=0.97, n_step_return_horizon=3, target_update_freq=320,
+               eps_training=0.3, eps_inference=0.05)
+    buffer = VectorReplayBuffer(2000, 10)
+    bs = buffer.init(Batch(obs=torch.zeros(4), act=torch.tensor(0), rew=torch.tensor(0.0),
+                           terminated=torch.tensor(False), truncated=torch.tensor(False), obs_next=torch.zeros(4)),
+                     device="cuda")
+    hooked = []
+    train_c = DeviceCollector(VectorDeviceEnv(env, 10, device="cuda"), algo, buffer,
+                              on_episode_done_hook=lambda s: hooked.append(s.n_collected_episodes))
+    test_c = DeviceCollector(VectorDeviceEnv(env, 10, device="cuda"), algo, None)
+    params = dict(max_epochs=2, epoch_num_steps=500, test_step_num_episodes=10, batch_size=64,
+                  collection_step_num_env_steps=10, update_per_step=0.1, start_steps=200, verbose=False)
+    params.update(kw)
+    trainer = OffPolicyTrainer(algo, train_c, test_c, buffer, OffPolicyTrainerParams(**params))
+    return trainer, algo.init("cuda"), bs, hooked
+
+
+@pytest.mark.cuda
+def test_test_chunk_graph_matches_the_eager_chunk_on_cuda():
+    """The test collector's chunk through the trainer's program (eager warm-up, capture and replay,
+    replay) against the same chunk eagerly, from one generator state and one reset: the same bits."""
+    _needs_cuda()
+    trainer, ts, _, _ = _cartpole_trainer()
+    tc = trainer.test_collector
+    sides = []
+    for graphed in (True, False):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        state = tc.reset_episodes(gen, 10)
+        calls = []
+        for _ in range(3):
+            out = trainer.test_chunk(ts, state, gen, 32) if graphed else tc.episode_chunk(ts, state, gen, 32)
+            calls.append((out.map(torch.clone), state.active.clone(), state.n_done.clone()))
+        sides.append(calls)
+    torch.cuda.synchronize()
+    for (out, active, n_done), (eout, eactive, en_done) in zip(*sides):
+        assert all(torch.equal(out[k], eout[k]) for k in ("done", "ep_ret", "ep_len"))
+        assert torch.equal(active, eactive) and torch.equal(n_done, en_done)
+    assert int(sides[0][-1][2]) > 0 and trainer.graph_pool.graphs[0].replays == 2
+
+
+@pytest.mark.cuda
+def test_test_phase_hooks_and_test_fn_under_graphs_on_cuda():
+    """Under the graphs: the train collector's hook once per collect chunk, ten test episodes per
+    epoch, and test_fn's overrides gone after each test phase."""
+    _needs_cuda()
+    tests = []
+    trainer, ts, bs, hooked = _cartpole_trainer(
+        train_fn=lambda epoch, step: {"eps_training": 0.2},
+        test_fn=lambda epoch, step: {"eps_training": 0.9, "eps_inference": 0.5},
+        compute_score_fn=lambda s: (tests.append(s), float(s.returns.mean()))[1])
+    res = trainer.run(ts, bs, torch.Generator(device="cuda").manual_seed(0))
+    assert len(hooked) == res.env_step // 100 == 12
+    assert [s.n_collected_episodes for s in tests] == [10, 10]
+    names = sorted(g.name.split()[0] for g in trainer.graph_pool.graphs)
+    assert names == ["collect_chunk", "test_chunk", "update_burst"]
+    assert float(ts.hparams["eps_training"]) == pytest.approx(0.2)
+    assert float(ts.hparams["eps_inference"]) == pytest.approx(0.05)
+    assert np.isfinite(res.best_reward) and res.timing["test"] > 0

@@ -192,11 +192,22 @@ def test_actuation_substeps_and_init_state(task):
     close(tdyn.actuation(tm, t(ctrl)), jax.vmap(lambda c: jdyn.actuation(jm, c))(ctrl), rtol=0, atol=0)
     assert tdyn.resolve_substeps(tm, None) == jbatched.resolve_substeps(jm, None)
     assert tdyn.resolve_substeps(tm, 3) == 3
-    q0, qd0 = tdyn.init_state(tm, 3)
+    q0, qd0 = tdyn.init_state(tm, 3, device="cpu")
     jq0, jqd0 = jdyn.init_state(jm)
     assert q0.dtype == torch.float32 and q0.shape == (3, tm.nq)
     close(q0[1], jq0, rtol=0, atol=0)
     close(qd0[2], jqd0, rtol=0, atol=0)
+
+
+def test_init_state_defaults_to_cuda(monkeypatch):
+    """Without a device, ``init_state`` resolves to ``cuda`` as every entry point
+    does, and raises without a GPU instead of moving to the CPU."""
+    tm = torch_load(TASK_ASSETS["Hopper"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdyn.init_state(tm, 2)
+    q0, _ = tdyn.init_state(tm, 2, device="cpu")
+    assert q0.device.type == "cpu"
 
 
 def test_active_rows_counts():

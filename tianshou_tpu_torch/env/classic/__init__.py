@@ -1,0 +1,1 @@
+"""Classic control tasks (port of ``tianshou_tpu/env/classic``; only CartPole so far)."""

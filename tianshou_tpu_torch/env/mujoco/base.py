@@ -65,7 +65,7 @@ class MujocoEnv(Env):
             low=[a.ctrlrange[0] for a in self.model.actuators],
             high=[a.ctrlrange[1] for a in self.model.actuators],
         )
-        obs_dim = int(self._obs(*dyn.init_state(self.model, 1)).shape[1])
+        obs_dim = int(self._obs(*dyn.init_state(self.model, 1, device="cpu")).shape[1])
         self.observation_space = Box(low=[-np.inf] * obs_dim, high=[np.inf] * obs_dim)
 
     # -- task hooks, over [E, ...] tensors ---------------------------------

@@ -38,6 +38,7 @@ from tianshou_tpu_torch.env.physics.algebra import axis_angle_mat, rotvec_to_mat
 from tianshou_tpu_torch.env.physics.jet import Jet, stack
 from tianshou_tpu_torch.env.physics.linalg import chol, chol_solve, inv3, mm, mv
 from tianshou_tpu_torch.env.physics.model import FREE, SLIDE, Model
+from tianshou_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "forward_kinematics", "kinetic_energy", "potential_energy", "mass_matrix", "bias_force",
@@ -511,7 +512,9 @@ def step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, fr
     return q, qd
 
 
-def init_state(model: Model, num_envs: int, device: str | torch.device = "cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """The home state of ``num_envs`` envs: ``(qpos0, 0)`` as float32 ``[E, nq]``."""
-    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device=device).expand(num_envs, -1).contiguous()
+def init_state(model: Model, num_envs: int, device: str | torch.device | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The home state of ``num_envs`` envs: ``(qpos0, 0)`` as float32 ``[E, nq]``
+    on ``device`` (``cuda`` unless given, :func:`resolve_device`)."""
+    q = torch.as_tensor(model.qpos0, dtype=torch.float32, device=resolve_device(device))
+    q = q.expand(num_envs, -1).contiguous()
     return q, torch.zeros_like(q)

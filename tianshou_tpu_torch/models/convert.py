@@ -1,9 +1,11 @@
-"""flax -> torch weight conversion for the Atari nets.
+"""flax -> torch weight conversion for the Atari nets and the MLPs.
 
 Takes the parameter tree of a ``tianshou_tpu.models.atari`` net (``DQNet``,
-``C51Net``, ``RainbowAtariNet``) with numpy leaves (``{"params": {...}}`` or
-the inner ``"params"`` dict) and returns a ``state_dict`` for its
-counterpart in :mod:`tianshou_tpu_torch.models.atari`. It needs no flax:
+``C51Net``, ``RainbowAtariNet``) or of a ``tianshou_tpu.models.mlp`` net
+(``MLP``, ``Net``, ``DuelingNet``) with numpy leaves (``{"params": {...}}``
+or the inner ``"params"`` dict) and returns a ``state_dict`` for its
+counterpart in :mod:`tianshou_tpu_torch.models.atari` or
+:mod:`tianshou_tpu_torch.models.mlp`. It needs no flax:
 
 - conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
 - Dense kernels ``[in, out]`` -> ``[out, in]``;
@@ -23,8 +25,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "c51net_params_from_flax", "dqnet_params_from_flax", "nature_cnn_params_from_flax",
-    "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
+    "c51net_params_from_flax", "dqnet_params_from_flax", "mlp_params_from_flax", "nature_cnn_params_from_flax",
+    "net_params_from_flax", "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
 ]
 
 
@@ -89,4 +91,37 @@ def rainbow_atari_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     out = nature_cnn_params_from_flax(p["trunk"], prefix="trunk.")
     for name in ("v1", "v2", "a1", "a2"):
         out.update(noisy_linear_params_from_flax(p[name], prefix=f"{name}."))
+    return out
+
+
+def mlp_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``state_dict`` entries of an ``MLP`` from its flax parameter dict
+    (``Dense_i`` -> ``linears.i``, ``LayerNorm_i`` -> ``norms.i``)."""
+    out: dict[str, torch.Tensor] = {}
+    for name, p in tree.items():
+        kind, i = name.rsplit("_", 1)
+        if kind == "Dense":
+            out[f"{prefix}linears.{i}.weight"] = _t(np.asarray(p["kernel"]).T)
+            out[f"{prefix}linears.{i}.bias"] = _t(p["bias"])
+        elif kind == "LayerNorm":
+            out[f"{prefix}norms.{i}.weight"] = _t(p["scale"])
+            out[f"{prefix}norms.{i}.bias"] = _t(p["bias"])
+        else:
+            raise ValueError(f"unexpected flax scope {name!r} in an MLP")
+    return out
+
+
+def net_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``MLP``, ``Net`` or ``DuelingNet`` from the
+    flax net's parameter tree: an MLP holds ``Dense_*`` scopes, a ``Net`` one
+    ``MLP_0``, a ``DuelingNet`` the trunk ``MLP_0`` and the heads ``MLP_1``
+    (advantage) and ``MLP_2`` (value)."""
+    p = tree["params"] if "params" in tree else tree
+    if "MLP_0" not in p:
+        return mlp_params_from_flax(p)
+    if "MLP_1" not in p:
+        return mlp_params_from_flax(p["MLP_0"], "mlp.")
+    out = mlp_params_from_flax(p["MLP_0"], "feat.")
+    out.update(mlp_params_from_flax(p["MLP_1"], "adv."))
+    out.update(mlp_params_from_flax(p["MLP_2"], "val."))
     return out

@@ -1,0 +1,119 @@
+"""Feed-forward nets (port of ``tianshou_tpu/models/mlp.py:23-115``; reference
+utils/net/common.py): ``MLP`` (:90), ``Net`` (:246, ``num_atoms``
+distributional heads, softmax, critic mode) and ``DuelingNet`` (:319).
+
+flax infers a dense layer's input width at its first call; a torch layer is
+made with it, so every net here takes ``input_dim`` (the flattened
+observation width). Dense kernels start from flax's default (LeCun normal,
+truncated) and biases from zero, LayerNorm uses flax's epsilon of 1e-6, and
+:func:`tianshou_tpu_torch.models.convert.net_params_from_flax` carries flax
+weights across. ``EnsembleLinear``, ``BranchingNet``, ``RandomActor`` and
+``DictObsNet`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tianshou_tpu_torch.models.atari import _lecun_normal_
+
+__all__ = ["MLP", "Net", "DuelingNet"]
+
+
+def _dense(in_features: int, out_features: int) -> nn.Linear:
+    layer = nn.Linear(in_features, out_features)
+    _lecun_normal_(layer.weight, in_features)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class MLP(nn.Module):
+    """Hidden layers with ``activation`` (and LayerNorm before it for
+    ``norm="layer"``) after each, then an optional linear output head
+    (reference MLP, net/common.py:90). ``output_dim=0``: the last hidden
+    layer is the output."""
+
+    def __init__(self, input_dim: int, hidden_sizes: Sequence[int], output_dim: int = 0,
+                 activation: Callable[[torch.Tensor], torch.Tensor] = F.relu, norm: str | None = None,
+                 flatten_input: bool = True) -> None:
+        super().__init__()
+        if norm not in (None, "layer"):
+            raise ValueError(f"norm must be None or 'layer', got {norm!r}")
+        widths = [input_dim, *hidden_sizes]
+        self.linears = nn.ModuleList(_dense(a, b) for a, b in zip(widths, widths[1:]))
+        self.norms = nn.ModuleList(nn.LayerNorm(h, eps=1e-6) for h in hidden_sizes) if norm == "layer" else None
+        if output_dim > 0:
+            self.linears.append(_dense(widths[-1], output_dim))
+        self.n_hidden = len(hidden_sizes)
+        self.activation = activation
+        self.flatten_input = flatten_input
+        self.output_dim = output_dim if output_dim > 0 else widths[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.flatten_input and x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        x = x.to(torch.float32)
+        for i, layer in enumerate(self.linears):
+            x = layer(x)
+            if i < self.n_hidden:
+                if self.norms is not None:
+                    x = self.norms[i](x)
+                x = self.activation(x)
+        return x
+
+
+class Net(nn.Module):
+    """Q or feature net over flattened observations, optionally concatenated
+    with actions (critic mode, ``action_dim`` wide), with ``num_atoms``
+    outputs per action and an optional softmax over the last axis (reference
+    Net, net/common.py:246)."""
+
+    def __init__(self, hidden_sizes: Sequence[int], output_dim: int = 0, num_atoms: int = 1,
+                 softmax: bool = False, concat_action: bool = False,
+                 activation: Callable[[torch.Tensor], torch.Tensor] = F.relu, norm: str | None = None,
+                 *, input_dim: int, action_dim: int = 0) -> None:
+        super().__init__()
+        self.output_dim = output_dim
+        self.num_atoms = num_atoms
+        self.softmax = softmax
+        self.concat_action = concat_action
+        width = input_dim + (action_dim if concat_action else 0)
+        self.mlp = MLP(width, hidden_sizes, output_dim * num_atoms, activation=activation, norm=norm)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor | None = None) -> torch.Tensor:
+        x = obs.reshape(obs.shape[0], -1)
+        if self.concat_action and act is not None:
+            x = torch.cat([x.to(torch.float32), act.reshape(act.shape[0], -1).to(torch.float32)], dim=-1)
+        x = self.mlp(x)
+        if self.num_atoms > 1:
+            x = x.reshape(x.shape[0], self.output_dim, self.num_atoms)
+        if self.softmax:
+            x = torch.softmax(x, dim=-1)
+        return x
+
+
+class DuelingNet(nn.Module):
+    """Dueling Q head: ``Q = V + A - mean(A)`` over a shared MLP trunk
+    (reference net/common.py:319)."""
+
+    def __init__(self, hidden_sizes: Sequence[int], action_dim: int, num_atoms: int = 1,
+                 dueling_hidden: Sequence[int] = (128,),
+                 activation: Callable[[torch.Tensor], torch.Tensor] = F.relu, *, input_dim: int) -> None:
+        super().__init__()
+        self.action_dim = action_dim
+        self.num_atoms = num_atoms
+        self.feat = MLP(input_dim, hidden_sizes, activation=activation)
+        self.adv = MLP(self.feat.output_dim, dueling_hidden, action_dim * num_atoms)
+        self.val = MLP(self.feat.output_dim, dueling_hidden, num_atoms)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        feat = self.feat(obs)
+        adv, val = self.adv(feat), self.val(feat)
+        if self.num_atoms > 1:
+            adv = adv.reshape(-1, self.action_dim, self.num_atoms)
+            val = val.reshape(-1, 1, self.num_atoms)
+        return val + adv - adv.mean(dim=1, keepdim=True)

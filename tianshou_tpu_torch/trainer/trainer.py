@@ -2,22 +2,36 @@
 ``tianshou/trainer.py``: ``TrainerParams`` :81, ``OffPolicyTrainer`` :1043).
 
 The epoch and update cadence are the JAX package's: after an optional
-random prefill, each chunk collects ``collection_step_num_env_steps`` steps
-from every env and then takes ``round(update_per_step * T * E)`` gradient
-steps; the host reads back only the per-chunk episode and loss statistics.
+prefill (uniform random actions, or the policy's with ``start_random=False``),
+each chunk collects ``collection_step_num_env_steps`` steps from every env
+and then takes ``round(update_per_step * T * E)`` gradient steps; the host
+reads back only the per-chunk episode and loss statistics. At the end of
+each epoch a test phase collects ``test_step_num_episodes`` episodes with
+the test collector (``training=False``: eps-greedy at ``eps_inference``),
+tracks the best score and calls ``save_best_fn``, ``stop_fn``, the logger
+and ``save_checkpoint_fn``; with ``test_in_train`` a chunk whose training
+episodes meet ``stop_fn`` triggers a test and may stop early. ``test_fn``'s
+overrides hold for the test phase only. The loggers
+(:mod:`tianshou_tpu_torch.utils.logger`) and the determinism trace
+(:mod:`tianshou_tpu_torch.utils.determinism`, lines ``collector``,
+``trainer/collect`` and ``trainer/update``) are the JAX package's.
 
-The JAX package jits the collect chunk and the update burst, and with
-``fused_megastep`` both as one program. Here they are the programs
-:meth:`OffPolicyTrainer.collect_chunk`, :meth:`OffPolicyTrainer.update_burst`
+The JAX package jits the collect chunk, the update burst, the test chunk and
+with ``fused_megastep`` collect and burst as one program. Here they are the
+programs :meth:`OffPolicyTrainer.collect_chunk`,
+:meth:`OffPolicyTrainer.update_burst`, :meth:`OffPolicyTrainer.test_chunk`
 and :meth:`OffPolicyTrainer.megastep`, each a CUDA graph on the card
 (:class:`tianshou_tpu_torch.utils.graph.Graphed`): a program's first call
 runs eagerly as its warm-up and counts as work done, its second captures and
 replays it, every later call replays it. A program is built once per trainer
-and per state it closes over (train state, buffer state, collect state,
-generator), so a second :meth:`OffPolicyTrainer.run` on the same states
-replays what the first captured; all graphs of a trainer share one memory
-pool. On the CPU the same code runs eagerly. The random prefill stays eager.
-Test episodes and loggers are not ported yet.
+and per state it closes over (train state, buffer state, collect state, the
+test collector's episode state, generator), so a second
+:meth:`OffPolicyTrainer.run` on the same states replays what the first
+captured; all graphs of a trainer share one memory pool, and train and test
+programs never run at the same time. A replay does only device work, so
+whatever the JAX package does on the host after a jitted call (trace lines,
+``on_episode_done_hook``, logger writes) runs here after the replay. On the
+CPU the same code runs eagerly. The random prefill stays eager.
 """
 
 from __future__ import annotations
@@ -32,21 +46,36 @@ import torch
 
 from tianshou_tpu_torch import config
 from tianshou_tpu_torch.data.batch import Batch
-from tianshou_tpu_torch.data.collector import DeviceCollector
+from tianshou_tpu_torch.data.collector import CollectStats, DeviceCollector, EpisodeState
+from tianshou_tpu_torch.utils.determinism import TraceLogger, trace_param_hash
 from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+from tianshou_tpu_torch.utils.print import DataclassPPrintMixin
+from tianshou_tpu_torch.utils.progress import progress_bar
 from tianshou_tpu_torch.utils.statistics import MovAvg
 
 __all__ = ["OffPolicyTrainer", "OffPolicyTrainerParams", "TrainResult", "TrainerParams"]
 
 
 @dataclasses.dataclass
-class TrainerParams:
+class TrainerParams(DataclassPPrintMixin):
     """Common knobs (reference trainer.py:81)."""
 
     max_epochs: int = 10
     epoch_num_steps: int = 10000          # env steps per epoch (total across envs)
+    test_step_num_episodes: int = 10
+    stop_fn: Callable[[float], bool] | None = None
+    compute_score_fn: Callable[[CollectStats], float] | None = None
+    #: called with the live train state when the test score improves; the next update writes its tensors in place
+    save_best_fn: Callable[[Any], None] | None = None
+    save_checkpoint_fn: Callable[[int, int, int, Any], None] | None = None
     train_fn: Callable[[int, int], dict] | None = None   # -> hparam overrides
+    test_fn: Callable[[int, int], dict] | None = None    # -> hparam overrides for the test phase only
+    logger: Any = None
     verbose: bool = True
+    show_progress: bool = False
+    test_in_train: bool = False
+    resume_from_log: bool = False   # restore epoch/step counters (trainer.py:448)
+    seed: int = 0                   # read by the JAX package's host-env trainers, which are not ported yet
 
 
 @dataclasses.dataclass
@@ -54,7 +83,8 @@ class OffPolicyTrainerParams(TrainerParams):
     batch_size: int = 64
     collection_step_num_env_steps: int = 10   # steps per env per collect chunk
     update_per_step: float = 1.0              # grad steps per collected env step
-    start_steps: int = 0                      # uniform-random prefill before learning
+    start_steps: int = 0                      # prefill before learning
+    start_random: bool = True                 # prefill with uniform random actions, else the policy's
     # collect and the update burst as ONE program per chunk (one CUDA graph on
     # the card); the burst follows the collect, so the actor's params stay
     # chunk-stale as in the sequential loop (tianshou_tpu trainer.py:76)
@@ -62,13 +92,16 @@ class OffPolicyTrainerParams(TrainerParams):
 
 
 @dataclasses.dataclass
-class TrainResult:
+class TrainResult(DataclassPPrintMixin):
     """Summary, mirroring reference InfoStats (data/stats.py:83)."""
 
+    best_score: float
+    best_reward: float
     env_step: int
     gradient_step: int
     epochs: int
     train_time: float
+    #: seconds of the random prefill, collect, update and test phases
     timing: dict
     train_state: Any = None
     buf_state: Any = None
@@ -83,28 +116,48 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _flat_scalars(stats: Batch, prefix: str = "") -> dict[str, np.ndarray]:
+    """A (possibly nested) stats Batch as numeric numpy arrays by flat key."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in stats.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Batch):
+            out.update(_flat_scalars(v, f"{name}/"))
+        elif v.numel() and v.dtype != torch.bool:
+            out[name] = v.detach().cpu().numpy()
+    return out
+
+
 class OffPolicyTrainer:
-    """Collect chunk -> burst of gradient steps, repeated (reference :1043)."""
+    """Collect chunk -> burst of gradient steps, repeated; a test phase at the
+    end of each epoch (reference :1043). ``test_collector=None`` runs no test
+    phase: no best score, no stop."""
 
     def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
                  buffer, params: OffPolicyTrainerParams) -> None:
-        if test_collector is not None:
-            raise NotImplementedError("test episodes are not ported yet; pass test_collector=None")
         self.algo = algo
         self.train_collector = train_collector
+        self.test_collector = test_collector
         self.buffer = buffer
         self.params = params
         self.env_step = 0
         self.gradient_step = 0   # the host's mirror of the train state's step counter
+        self.start_epoch = 0
+        self.best_reward = -np.inf
+        self.best_score = -np.inf
         self._mov: dict[str, MovAvg] = {}
         #: the memory pool and the graphs of this trainer's programs (made at the first program)
         self.graph_pool: GraphPool | None = None
         self._programs: dict[tuple, tuple[tuple, Graphed]] = {}
         self._cstate = None
+        self._ts = None
+        self._epoch = 0
+        if params.resume_from_log and params.logger is not None:
+            self.start_epoch, self.env_step, self.gradient_step = params.logger.restore_data()
 
     def _apply_hparams(self, ts, overrides: dict | None):
-        """Write ``train_fn``'s overrides into the hparams' device scalars in
-        place, where the captured programs read them."""
+        """Write overrides into the hparams' device scalars in place, where the
+        captured programs read them."""
         for k, v in (overrides or {}).items():
             if k in ts.hparams:
                 ts.hparams[k].fill_(float(v))
@@ -144,12 +197,14 @@ class OffPolicyTrainer:
 
     def collect_chunk(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int) -> Batch:
         """One collect chunk of ``n_steps`` steps per env, ``cstate`` and
-        ``buf_state`` written in place (the JAX package's jitted ``collect``);
-        returns the ``[T, E]`` per-step output, the program's static output."""
+        ``buf_state`` written in place (the device work of the JAX package's
+        ``collect``); returns the ``[T, E]`` per-step output, the program's
+        static output. Its host side, ``train_collector.report``, is the
+        caller's."""
         keep = config.ENABLE_VALIDATION
         return self._program(
             ("collect_chunk", n_steps, keep), (ts, cstate, buf_state, generator), generator,
-            lambda: self.train_collector.collect(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)[2],
+            lambda: self.train_collector.rollout(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep),
         )()
 
     def megastep(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int,
@@ -159,79 +214,208 @@ class OffPolicyTrainer:
         keep = config.ENABLE_VALIDATION
 
         def fn() -> tuple[Batch, Batch]:
-            out = self.train_collector.collect(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)[2]
+            out = self.train_collector.rollout(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)
             return out, self._updates(ts, buf_state, generator, n_updates)
 
         return self._program(("megastep", n_steps, keep, n_updates, self.params.batch_size),
                              (ts, cstate, buf_state, generator), generator, fn)()
 
-    # ------------------------------------------------------------------
-    def _log_update(self, stats: Batch) -> None:
-        for k, v in stats.items():
-            if v.dim() == 1 and v.is_floating_point():
-                self._mov.setdefault(k, MovAvg()).add(v.cpu().numpy())
+    def test_chunk(self, ts, state: EpisodeState, generator: torch.Generator, chunk_steps: int,
+                   training: bool = False) -> Batch:
+        """One chunk of the test collector's ``collect_episodes`` as a program
+        (the JAX package's jitted chunk): ``state`` (the collect state, the
+        active mask and the episode counts) written in place; returns the
+        ``[T, E]`` output, the program's static output."""
+        return self._program(
+            ("test_chunk", chunk_steps, training), (ts, state, generator), generator,
+            lambda: self.test_collector.episode_chunk(ts, state, generator, chunk_steps, training),
+        )()
 
+    # ------------------------------------------------------------------
+    # host side: test phase, scores, logging
+    # ------------------------------------------------------------------
+    def _test(self, ts, generator: torch.Generator) -> CollectStats:
+        """``test_step_num_episodes`` episodes with ``training=False``.
+        ``test_fn``'s overrides hold for this phase only: the JAX package
+        applies them to a copy of the train state; here they are written in
+        place and the values they replaced are written back afterwards (a key
+        that only ``test_fn`` sets keeps its value)."""
+        p = self.params
+        saved = {}
+        if p.test_fn is not None:
+            overrides = p.test_fn(self._epoch, self.env_step) or {}
+            saved = {k: ts.hparams[k].clone() for k in overrides if k in ts.hparams}
+            self._apply_hparams(ts, overrides)
+        try:
+            return self.test_collector.collect_episodes(ts, generator, p.test_step_num_episodes, training=False,
+                                                        chunk_fn=self.test_chunk)
+        finally:
+            for k, v in saved.items():
+                ts.hparams[k].copy_(v)
+
+    def _score(self, stats: CollectStats) -> float:
+        if self.params.compute_score_fn is not None:
+            return self.params.compute_score_fn(stats)
+        return float(stats.returns.mean()) if len(stats.returns) else -np.inf
+
+    def _log_test(self, stats: CollectStats, epoch: int) -> bool:
+        """Track the best score; returns True if the stop condition is met."""
+        rew = float(stats.returns.mean()) if len(stats.returns) else -np.inf
+        score = self._score(stats)
+        if score > self.best_score:
+            self.best_score = score
+            self.best_reward = rew
+            if self.params.save_best_fn is not None:
+                self.params.save_best_fn(self._ts)
+        if self.params.logger is not None:
+            self.params.logger.log_test_data(
+                {"test/reward": rew, "test/reward_std": float(stats.returns.std()) if len(stats.returns) else 0.0,
+                 "test/length": float(stats.lens.mean()) if len(stats.lens) else 0.0,
+                 "test/n_episodes": stats.n_collected_episodes},
+                self.env_step,
+            )
+        if self.params.verbose:
+            print(f"Epoch {epoch}: test_reward {rew:.2f} (best {self.best_reward:.2f}), env_step {self.env_step}")
+        return self.params.stop_fn is not None and self.params.stop_fn(rew)
+
+    def _log_update(self, stats: Batch) -> None:
+        """MovAvg-smoothed update statistics, to the logger at the update
+        scope (reference trainer.py:731-754 via log_update_data)."""
+        TraceLogger.log("trainer/update",
+                        lambda: f"gradient_step={self.gradient_step} params={trace_param_hash(self._ts)}")
+        data = {f"update/{k}": self._mov.setdefault(k, MovAvg()).add(arr) for k, arr in _flat_scalars(stats).items()}
+        if self.params.logger is not None and data:
+            self.params.logger.log_update_data(data, self.gradient_step)
+
+    def _log_info(self, epoch: int, t0: float, timing: dict) -> None:
+        """Epoch InfoStats/TimingStats (reference trainer.py:531-572,
+        data/stats.py:65-121) at the info scope."""
+        if self.params.logger is None:
+            return
+        data = {
+            "info/env_step": self.env_step,
+            "info/gradient_step": self.gradient_step,
+            "info/best_reward": self.best_reward,
+            "info/best_score": self.best_score,
+            "timing/total_time": time.perf_counter() - t0,
+        }
+        for k, v in timing.items():
+            data[f"timing/{k}_time"] = v
+        if timing.get("collect", 0.0) + timing.get("update", 0.0) > 0:
+            data["timing/update_speed"] = self.gradient_step / max(timing.get("update", 0.0), 1e-9)
+        self.params.logger.log_info_data(data, epoch)
+
+    def _save_counters(self, epoch: int) -> None:
+        if self.params.logger is not None:
+            self.params.logger.save_data(epoch, self.env_step, self.gradient_step)
+
+    # ------------------------------------------------------------------
     def run(self, ts, buf_state, generator: torch.Generator) -> TrainResult:
         """Train in place; ``generator`` lives on the envs' device."""
         p = self.params
         coll = self.train_collector
         dev = coll.venv.device
         t0 = time.perf_counter()
-        prefill_time = collect_time = update_time = 0.0
+        timing = dict.fromkeys(("prefill", "collect", "update", "test"), 0.0)
         # the collect programs close over one collect state: a new run resets it in place
         cstate = self._cstate = coll.reset(generator, into=self._cstate)
         E = coll.venv.num_envs
         T = p.collection_step_num_env_steps
+        self._ts = ts
 
-        # prefill with uniform random actions (reference start_timesteps)
+        # prefill (reference start_timesteps / RandomActionPolicy, experiment.py:444, collector.py:724)
         if p.start_steps > 0:
             tc = time.perf_counter()
             for _ in range(int(np.ceil(p.start_steps / (T * E)))):
-                coll.collect(ts, cstate, buf_state, generator, T, random=True)
+                coll.collect(ts, cstate, buf_state, generator, T, random=p.start_random)
                 self.env_step += T * E
             _sync(dev)
-            prefill_time = time.perf_counter() - tc
+            timing["prefill"] = time.perf_counter() - tc
+
+        def test() -> CollectStats:
+            tt = time.perf_counter()
+            stats = self._test(ts, generator)
+            timing["test"] += time.perf_counter() - tt
+            return stats
 
         n_updates = max(1, round(p.update_per_step * T * E))
         last_stats = None
-        epoch = 0
-        for epoch in range(1, p.max_epochs + 1):
+        epoch = self.start_epoch
+        for epoch in range(self.start_epoch + 1, p.max_epochs + 1):
+            self._epoch = epoch
             steps_this_epoch = 0
+            pbar = progress_bar(p.epoch_num_steps, f"epoch {epoch}", p.show_progress)
             while steps_this_epoch < p.epoch_num_steps:
                 if p.train_fn is not None:
-                    ts = self._apply_hparams(ts, p.train_fn(epoch, self.env_step))
+                    self._apply_hparams(ts, p.train_fn(epoch, self.env_step))
                 tc = time.perf_counter()
                 if p.fused_megastep:
-                    out, last_stats = self.megastep(ts, cstate, buf_state, generator, T, n_updates)
+                    out, burst = self.megastep(ts, cstate, buf_state, generator, T, n_updates)
                 else:
                     out = self.collect_chunk(ts, cstate, buf_state, generator, T)
                 _sync(dev)
-                collect_time += time.perf_counter() - tc
+                timing["collect"] += time.perf_counter() - tc
+                if not p.fused_megastep:  # the JAX megastep steps the envs itself, without collect's report
+                    coll.report(out, T, training=True)
                 if config.ENABLE_VALIDATION:
                     _validate_collect(out)
                 self.env_step += T * E
                 steps_this_epoch += T * E
+                TraceLogger.log("trainer/collect", lambda: f"env_step={self.env_step} episodes={int(out.done.sum())}")
+                pbar.update(T * E)
+                stats = None
+                if p.logger is not None or p.test_in_train:
+                    stats = coll.stats_from(out)
+                if p.logger is not None and stats.n_collected_episodes:
+                    p.logger.log_train_data(
+                        {"train/reward": float(stats.returns.mean()), "train/length": float(stats.lens.mean())},
+                        self.env_step,
+                    )
+                # test_in_train: training episodes already meet the stop condition, so confirm it
+                # with a test run and stop early (reference trainer.py:978)
+                if (p.test_in_train and p.stop_fn is not None and self.test_collector is not None
+                        and stats.n_collected_episodes > 0 and p.stop_fn(float(stats.returns.mean()))):
+                    if self._log_test(test(), epoch):
+                        pbar.close()
+                        return self._result(epoch, t0, timing, ts, buf_state, last_stats)
                 if not p.fused_megastep:
                     tu = time.perf_counter()
-                    last_stats = self.update_burst(ts, buf_state, generator, n_updates)
+                    burst = self.update_burst(ts, buf_state, generator, n_updates)
                     _sync(dev)
-                    update_time += time.perf_counter() - tu
+                    timing["update"] += time.perf_counter() - tu
                 self.gradient_step += n_updates
+                # a copy: the burst's stats are a graph's output, which the next replay of a program
+                # captured before it may overwrite
+                last_stats = burst.map(torch.clone)
                 self._log_update(last_stats)
+            pbar.close()
             if p.verbose:
                 smoothed = ", ".join(f"{k} {m.get():.4g}" for k, m in self._mov.items())
                 print(f"Epoch {epoch}: env_step {self.env_step}, gradient_step {self.gradient_step}, {smoothed}")
+            stop = False
+            if self.test_collector is not None:
+                stop = self._log_test(test(), epoch)
+            self._log_info(epoch, t0, {k: timing[k] for k in ("collect", "update", "test")})
+            self._save_counters(epoch)
+            if p.save_checkpoint_fn is not None:
+                p.save_checkpoint_fn(epoch, self.env_step, self.gradient_step, ts)
+            if stop:
+                break
+        return self._result(epoch, t0, timing, ts, buf_state, last_stats)
+
+    def _result(self, epoch: int, t0: float, timing: dict, ts, buf_state, last_stats: Batch | None) -> TrainResult:
         return TrainResult(
+            best_score=self.best_score,
+            best_reward=self.best_reward,
             env_step=self.env_step,
             gradient_step=self.gradient_step,
             epochs=epoch,
             train_time=time.perf_counter() - t0,
-            timing={"prefill": prefill_time, "collect": collect_time, "update": update_time},
+            timing=dict(timing),
             train_state=ts,
             buf_state=buf_state,
             update_stats={k: m.get() for k, m in self._mov.items()},
-            # a copy: the stats are a program's static output, which the next replay overwrites
-            last_chunk_stats=None if last_stats is None else last_stats.map(torch.clone),
+            last_chunk_stats=last_stats,
         )
 
 
