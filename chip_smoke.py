@@ -93,6 +93,27 @@ Phases, each of which fails the run:
    graph, replay); then Ant, 16 steps. One kernel launch per step exactly (and none of the other
    kernels), every state, observation and reward finite, Ant's termination rule.
 
+11. On-policy graph phase: ``OnPolicyTrainer``'s collect chunk and ``update_rollout`` as CUDA graphs
+   against the same calls run eagerly on deep copies (``onpolicy_graph_phase``): PPO on
+   ``NormObs(HalfCheetah())`` at 64 envs with ``recompute_advantage``, the linear rate schedule and a
+   ``target_kl`` that trips the KL guard mid-rollout; rollouts, normalization statistics and
+   permutations bit-identical, weights, Adam state and rate within ``GRAPH_ATOL``, the step counters
+   those of the untripped minibatches.
+12. PPO physics paths (``bench.py:bench_mujoco_ppo``): ``NormObs(HalfCheetah())``, E = 2048, T = 32,
+   4 passes of batch 16,384, ``ContinuousActorProbabilistic((64, 64), 6)`` and
+   ``ContinuousCritic((64, 64))``, Adam 3e-4 with ``max_grad_norm`` 0.5, return standardization and
+   the value clip: one program (collect with ``keep_rollout`` and then ``update_rollout``) as one
+   CUDA graph, eager warm-up, capture and 4 timed replays; exactly T ``physics_fused`` launches per
+   megastep and no other kernel, every weight and statistic finite, each env's count advanced by T
+   per megastep; the collect and the update then timed apart as graphs of their own. Then Ant at
+   T = 16 (the depth cut as the Ant physics path cuts it).
+13. PPO CartPole path (``tests/test_onpolicy.py:17-53``) through ``OnPolicyTrainer`` and its
+   collect, update and test graphs; it must reach reward 195 within 20 epochs.
+14. The MuJoCo example path (``examples/mujoco/mujoco_ppo.py`` defaults on HalfCheetah: 16 envs,
+   rollouts of 128, 10 passes of batch 64, the linear rate decay, ``target_kl`` 0.015, the PPO init,
+   ``NormObs``, 10 test episodes), cut to 2 epochs of 100,000 steps: finite test returns, the pooled
+   train statistics at every handoff to the test envs, the rate after the run the schedule's.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -142,6 +163,18 @@ GRAPH_ATOL = 1e-6  # losses, TD errors and parameters of graph against eager; ex
 ADAM_STEPS, ADAM_ATOL, ADAM_CLOSE, ADAM_SHARE = 8, 2e-5, 2e-6, 0.999
 Q_TOL, QD_TOL = 2e-4, 5e-3     # rtol = atol, as the JAX package holds its fused step
 MIN_SHARE_INSIDE = 0.995       # of envs, on rollout states
+
+# the on-policy graph phase: PPO on NormObs(HalfCheetah) with recompute_advantage, the rate schedule (over
+# OPG_TOTAL updates) and a KL guard that trips after a rollout's first minibatch
+OPG_E, OPG_T, OPG_REPEAT, OPG_BATCH, OPG_TOTAL, OPG_TARGET_KL = 64, 16, 3, 256, 100, 1e-6
+# the PPO physics paths (bench.py:bench_mujoco_ppo: E 2048, T 32, repeat 4, batch 16384, iters 4); Ant at T = 16
+PPO_E, PPO_REPEAT, PPO_BATCH, PPO_ITERS = 2048, 4, 16384, 4
+PPO_PATHS = (("HalfCheetah", 32), ("Ant", 16))  # (task, rollout steps)
+# PPO on CartPole (tests/test_onpolicy.py:17-53): 16 train envs, T 128, repeat 10, batch 256, epochs of 10,000 steps
+PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 256, 20, 10000
+PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
+# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs to 2
+MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 2, 100_000
 
 
 def _smi() -> str:
@@ -946,7 +979,7 @@ def _leaves(tree) -> list:
     from tianshou_tpu_torch.utils.tree import tree_map
 
     out = []
-    tree_map(out.append, tree)
+    tree_map(lambda x: out.append(x) or x, tree)
     return out
 
 
@@ -1346,6 +1379,424 @@ def physics_path(torch, task: str, steps: int):
     return launches, lines
 
 
+# ---------------------------------------------------------------------------
+# on-policy: PPO, A2C and REINFORCE trained on the device physics and on CartPole
+# ---------------------------------------------------------------------------
+def build_ppo(torch, task: str, num_envs: int, **kw):
+    """``bench.py:bench_mujoco_ppo``'s algorithm on ``NormObs(task)`` in the port (``kw`` overrides
+    its options): returns (algo, train state, collector)."""
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.env.wrappers import NormObs
+    from tianshou_tpu_torch.models.continuous import ContinuousActorProbabilistic, ContinuousCritic
+
+    torch.manual_seed(SEED)
+    env = NormObs(make(task))
+    nu, obs_dim = env.action_space.shape[0], env.observation_space.shape[0]
+    ppo_init = kw.pop("ppo_init", False)
+    opts = dict(optim=AdamOptimizerFactory(lr=kw.pop("lr", 3e-4), max_grad_norm=0.5), return_standardization=True,
+                value_clip=True, **kw)
+    algo = PPO(actor=ContinuousActorProbabilistic((64, 64), nu, ppo_init=ppo_init, input_dim=obs_dim),
+               critic=ContinuousCritic((64, 64), use_action=False, ppo_init=ppo_init, input_dim=obs_dim),
+               action_space=env.action_space, **opts)
+    ts = algo.init("cuda")
+    return algo, ts, DeviceCollector(VectorDeviceEnv(env, num_envs, device="cuda"), algo, None)
+
+
+def _adam_count(ts):
+    return ts.optim.state[next(iter(ts.model.parameters()))]["step"]
+
+
+def _onpolicy_tensors(torch, ts, cstate) -> list:
+    """Every tensor an on-policy chunk writes: weights, Adam's state and rate, counters, statistics."""
+    out = [*ts.model.parameters(), ts.step, *ts.extra.values(), *_leaves(cstate)]
+    for group in ts.optim.param_groups:
+        out += [v for p in group["params"] for v in ts.optim.state[p].values()]
+        if torch.is_tensor(group["lr"]):
+            out.append(group["lr"])
+    return out
+
+
+def onpolicy_graph_phase(torch) -> list[str]:
+    """``OnPolicyTrainer``'s programs as CUDA graphs against the eager calls: PPO on
+    ``NormObs(HalfCheetah())`` at ``OPG_E`` envs, with ``recompute_advantage``, the linear rate
+    schedule, and a ``target_kl`` small enough that the guard trips after the first minibatch of a
+    rollout. From one state and one generator state, each side (on deep copies) runs ``GRAPH_CALLS``
+    rollouts of ``OPG_T`` steps, each followed by its update: the trainer's ``collect_chunk`` and
+    ``update_rollout`` programs (eager warm-up, capture and replay, replay; the update is built again
+    once, when the collect's capture replaces its eager output) against ``collector.rollout`` and
+    ``algo.update_rollout``. The rollouts, the collect state (the normalization statistics included)
+    and the minibatch permutations (logged on the device) must be bit-identical; weights, Adam's state,
+    the rate, the return statistics and the stats within ``GRAPH_ATOL``; the guard must have tripped in
+    every update, with the step counters equal to the untripped minibatches and the rate that of the
+    last applied update."""
+    import copy
+
+    from tianshou_tpu_torch.algorithm.optim import linear_lr_schedule
+    from tianshou_tpu_torch.ops.kernels import counters
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    sched = linear_lr_schedule(3e-4, OPG_TOTAL)
+    algo, ts, coll = build_ppo(torch, "HalfCheetah", OPG_E, lr=sched, recompute_advantage=True,
+                               target_kl=OPG_TARGET_KL, advantage_normalization=False, ppo_init=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    draw = algo.minibatch_indices
+    n_mb = algo.minibatch_shape(OPG_T * OPG_E, OPG_BATCH)[0]
+    sides = {}
+    for side in ("graph", "eager"):
+        s_ts, s_cs = copy.deepcopy((ts, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, cstate=s_cs, gen=s_gen, outs=[], stats=[])
+    del ts, cstate
+    for side, sd in sides.items():
+        log = torch.full((GRAPH_CALLS, OPG_REPEAT, n_mb, OPG_T * OPG_E // n_mb), -1, dtype=torch.int64, device="cuda")
+        row = torch.zeros((), dtype=torch.int64, device="cuda")
+
+        def logging_draw(*args, log=log, row=row):
+            idx = draw(*args)
+            log.index_copy_(0, row.view(1), idx.unsqueeze(0))
+            row.add_(1)
+            return idx
+
+        algo.minibatch_indices = logging_draw
+        trainer = None
+        if side == "graph":
+            trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+                batch_size=OPG_BATCH, collection_step_num_env_steps=OPG_T, update_step_num_repetitions=OPG_REPEAT,
+                verbose=False))
+        before = counters.snapshot()
+        for _ in range(GRAPH_CALLS):
+            if trainer is None:
+                out = coll.rollout(sd["ts"], sd["cstate"], None, sd["gen"], OPG_T, keep_rollout=True)
+                stats = algo.update_rollout(sd["ts"], out.rollout, sd["gen"], OPG_REPEAT, OPG_BATCH)[1]
+            else:
+                out = trainer.collect_chunk(sd["ts"], sd["cstate"], None, sd["gen"], OPG_T, keep_rollout=True)
+                stats = trainer.update_rollout(sd["ts"], out.rollout, sd["gen"])
+            sd["outs"].append(out.map(torch.clone))
+            sd["stats"].append({k: v.clone() for k, v in stats.items()})
+            sd.setdefault("steps", []).append(int(sd["ts"].step))
+        torch.cuda.synchronize()
+        after = counters.snapshot()
+        sd["launches"] = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        sd["perm"] = log
+        if trainer is not None:
+            sd["graphs"] = {g.name.split()[0]: (g.replays, g.capture_s) for g in trainer.graph_pool.graphs}
+            sd["pool_mib"] = trainer.graph_pool.memory_bytes() / 2**20
+    algo.minibatch_indices = draw
+    g, e = sides["graph"], sides["eager"]
+    expect = {"collect_chunk": GRAPH_CALLS - 1, "update_rollout": GRAPH_CALLS - 2}
+    if {n: r for n, (r, _) in g["graphs"].items()} != expect:
+        raise AssertionError(f"on-policy graph phase: replays {g['graphs']}, expected {expect}")
+    if int((e["perm"] < 0).sum()) or not torch.equal(g["perm"], e["perm"]):
+        raise AssertionError("on-policy graph phase: the minibatch permutations differ from eager")
+    if torch.equal(g["perm"][1], g["perm"][2]):
+        raise AssertionError("on-policy graph phase: two replays drew the same permutations")
+    worst = 0.0
+    for call in range(GRAPH_CALLS):
+        if not all(torch.equal(a, b) for a, b in zip(_leaves(g["outs"][call]), _leaves(e["outs"][call]))):
+            raise AssertionError(f"on-policy graph phase: rollout {call} differs from eager")
+        for k, v in e["stats"][call].items():
+            worst = max(worst, float((g["stats"][call][k].double() - v.double()).abs().max()))
+    if not all(torch.equal(a, b) for a, b in zip(_leaves(g["cstate"]), _leaves(e["cstate"]))):
+        raise AssertionError("on-policy graph phase: the collect states (normalization statistics) differ")
+    for a, b in zip(_onpolicy_tensors(torch, g["ts"], g["cstate"]), _onpolicy_tensors(torch, e["ts"], e["cstate"])):
+        worst = max(worst, float((a.detach().double() - b.detach().double()).abs().max()))
+    if worst > GRAPH_ATOL:
+        raise AssertionError(f"on-policy graph phase: weights, Adam state or stats differ by {worst:.3e} > {GRAPH_ATOL}")
+    if g["steps"] != e["steps"] or g["launches"] != e["launches"]:
+        raise AssertionError(f"on-policy graph phase: steps {g['steps']} / {e['steps']}, launches {g['launches']} / "
+                             f"{e['launches']}")
+    per_update = OPG_REPEAT * n_mb
+    kl_stop = [float(s["kl_stop"]) for s in g["stats"]]
+    applied = [b - a for a, b in zip([0] + g["steps"][:-1], g["steps"])]
+    # the last pass's stats: every one of its minibatches tripped once the guard tripped in an earlier pass
+    if not all(0 < n < per_update for n in applied) or not all(k > 0 for k in kl_stop):
+        raise AssertionError(f"on-policy graph phase: the guard did not trip mid-rollout: applied {applied} of "
+                             f"{per_update}, kl_stop {kl_stop}")
+    ts = g["ts"]
+    count = _adam_count(ts)
+    lr = ts.optim.param_groups[0]["lr"]
+    want_lr = sched(count - 1)
+    if int(count) != int(ts.step) or not torch.equal(lr, want_lr):
+        raise AssertionError(f"on-policy graph phase: Adam count {int(count)}, step {int(ts.step)}, rate {float(lr)} "
+                             f"against the schedule's {float(want_lr)}")
+    return [f"on-policy graph phase, graphs against eager: PPO on NormObs(HalfCheetah) E={OPG_E}, {GRAPH_CALLS} "
+            f"rollouts of T={OPG_T} each with its update ({OPG_REPEAT} passes x {n_mb} minibatches, recompute_advantage, "
+            f"linear rate schedule, target_kl {OPG_TARGET_KL}); rollouts, normalization statistics and permutations "
+            f"bit-identical; weights, Adam state, rate and stats max |diff| {worst:.3e} (tolerance {GRAPH_ATOL}); "
+            f"updates applied per rollout {applied} of {per_update} (the rest tripped; step {int(ts.step)} = Adam count, "
+            f"rate {float(lr):.6e} = the schedule's at count {int(count) - 1}); launches {g['launches']} as eager; "
+            f"replays and capture s { {n: (r, round(c, 3)) for n, (r, c) in g['graphs'].items()} }; "
+            f"pool {g['pool_mib']:.1f} MiB"]
+
+
+def ppo_path(torch, task: str, steps: int):
+    """``bench.py:bench_mujoco_ppo`` in the port: PPO on ``NormObs(task)`` at E = ``PPO_E``, one
+    program of ``steps`` collect steps (``keep_rollout=True``) and then ``update_rollout`` (``PPO_REPEAT``
+    passes, batch ``PPO_BATCH``) as ONE CUDA graph, called for an eager warm-up, a capture, then
+    ``PPO_ITERS`` timed replays. Then the collect and the update as two programs of their own, each
+    replayed ``PPO_ITERS`` times between CUDA events, for their device times apart. Returns
+    ({kernel: launches} over the six megasteps, report lines)."""
+    import numpy as np
+
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    name = f"ppo_{task.lower()}"
+    algo, ts, coll = build_ppo(torch, task, PPO_E)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    count0 = cstate.env_state.rms.count.clone()
+    init = [p.detach().clone() for p in ts.model.parameters()]
+    pool = GraphPool("cuda")
+
+    def megastep():
+        out = coll.rollout(ts, cstate, None, gen, steps, keep_rollout=True)
+        return out, algo.update_rollout(ts, out.rollout, gen, PPO_REPEAT, PPO_BATCH)[1]
+
+    program = Graphed(megastep, pool, (gen,), name="ppo_megastep")
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    walls, device_ms = [], []
+    for call in range(2 + PPO_ITERS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        out, stats = program()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        device_ms.append(a.elapsed_time(b))
+    launches = _launches(gather, sumtree, physics_fused)
+    calls = 2 + PPO_ITERS
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": calls * steps}:
+        raise AssertionError(f"{name} path: kernel launches {launches} for {calls} megasteps of {steps} steps")
+    if program.replays != calls - 1 or program.launches != {"physics_fused": steps}:
+        raise AssertionError(f"{name} path: {program.replays} replays of {program.launches}")
+    count = count0.cpu().numpy().astype(np.float32)
+    for _ in range(calls * steps):  # the float32 running count, one observation per step
+        count = count + np.float32(1.0)
+    if not np.array_equal(cstate.env_state.rms.count.cpu().numpy(), count):
+        raise AssertionError(f"{name} path: rms.count advanced to {cstate.env_state.rms.count[:4].tolist()}, expected "
+                             f"{count[:4].tolist()}")
+    tensors = _onpolicy_tensors(torch, ts, cstate) + list(stats.values())
+    if not all(bool(torch.isfinite(t.double()).all()) for t in tensors if t.is_floating_point()):
+        raise AssertionError(f"{name} path: a non-finite weight, statistic or loss")
+    if all(torch.equal(a, b) for a, b in zip(init, ts.model.parameters())):
+        raise AssertionError(f"{name} path: training left the weights unchanged")
+    n_mb = algo.minibatch_shape(steps * PPO_E, PPO_BATCH)[0]
+    if int(ts.step) != calls * PPO_REPEAT * n_mb or out.rollout.obs.shape != (steps, PPO_E, 17 if task == "HalfCheetah" else 27):
+        raise AssertionError(f"{name} path: step {int(ts.step)}, rollout obs {tuple(out.rollout.obs.shape)}")
+
+    # the collect and the update apart, as two graphs over the same states
+    parts = {"collect": lambda: coll.rollout(ts, cstate, None, gen, steps, keep_rollout=True)}
+    held = parts["collect"]()
+    parts["update"] = lambda: algo.update_rollout(ts, held.rollout, gen, PPO_REPEAT, PPO_BATCH)[1]
+    apart = {}
+    for part, fn in parts.items():
+        prog = Graphed(fn, pool, (gen,), name=f"ppo_{part}")
+        prog(), prog()
+        times = []
+        for _ in range(PPO_ITERS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            prog()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        apart[part] = statistics.median(times)
+    wall = statistics.median(walls[2:])
+    dev = statistics.median(device_ms[2:])
+    lines = [
+        f"{name} path: NormObs({task}) E={PPO_E} T={steps} repeat={PPO_REPEAT} batch={PPO_BATCH} ({n_mb} minibatches "
+        f"of {steps * PPO_E // n_mb}); {calls} megasteps (eager warm-up, capture + replay, {PPO_ITERS} timed replays); "
+        f"physics_fused launches {launches['physics_fused']} ({steps} per megastep), no other kernel; rms.count "
+        f"{float(cstate.env_state.rms.count[0]):.4f} in every env (+{calls * steps})",
+        f"{name} path, graph replays: env_steps_per_s {steps * PPO_E / wall:.1f} ms_per_megastep {wall * 1e3:.3f} wall, "
+        f"{dev:.3f} device (eager warm-up {walls[0] * 1e3:.1f} ms); apart: collect {apart['collect']:.3f} ms, update "
+        f"{apart['update']:.3f} ms of device time; {_graph_report(pool, 1)}; last stats "
+        f"{ {k: round(float(v), 5) for k, v in stats.items()} }",
+    ]
+    return launches, lines
+
+
+def _rms_handoff_check(torch, trainer, name: str) -> list:
+    """Wrap the test collector's ``collect_episodes`` so that each test phase checks that it got the
+    train envs' pooled statistics of that moment and ran under them; returns the list it fills."""
+    from tianshou_tpu_torch.env.wrappers import merge_rms
+
+    handoffs = []
+    collect_episodes = trainer.test_collector.collect_episodes
+
+    def checked(*args, rms=None, **kw):
+        want = merge_rms(trainer._cstate.env_state.rms)
+        stats = collect_episodes(*args, rms=rms, **kw)
+        slots = trainer.test_collector._episodes.cstate.env_state.rms
+        if rms is None or not all(torch.equal(a, b) and torch.equal(s, b.expand_as(s))
+                                  for a, b, s in zip(rms, want, slots)):
+            raise AssertionError(f"{name}: a test phase did not run under the pooled train statistics")
+        handoffs.append(float(want.count))
+        return stats
+
+    trainer.test_collector.collect_episodes = checked
+    return handoffs
+
+
+def ppo_cartpole_path(torch):
+    """PPO on CartPole as ``tests/test_onpolicy.py:17-53`` trains it, through ``OnPolicyTrainer``
+    with its collect, update and test graphs; it must reach ``CP_THRESHOLD``. Returns
+    ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    env = CartPole()
+    algo = PPO(actor=DiscreteActor((64, 64), 2, input_dim=4), critic=DiscreteCritic((64, 64), input_dim=4),
+               action_space=env.action_space, optim=AdamOptimizerFactory(lr=3e-4, max_grad_norm=0.5), gamma=0.99,
+               gae_lambda=0.95, eps_clip=0.2, ent_coef=0.01, deterministic_eval=True)
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    params = OnPolicyTrainerParams(
+        max_epochs=PCP_EPOCHS, epoch_num_steps=PCP_EPOCH_STEPS, test_step_num_episodes=10, batch_size=PCP_BATCH,
+        collection_step_num_env_steps=PCP_T, update_step_num_repetitions=PCP_REPEAT,
+        stop_fn=lambda r: r >= CP_THRESHOLD, compute_score_fn=score, verbose=False)
+    trainer = OnPolicyTrainer(algo, DeviceCollector(VectorDeviceEnv(env, PCP_E, device="cuda"), algo, None),
+                              DeviceCollector(VectorDeviceEnv(env, CP_E, device="cuda"), algo, None), params)
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(algo.init("cuda"), torch.Generator(device="cuda").manual_seed(SEED))
+    launches = _launches(gather, sumtree, physics_fused)
+    if not res.best_reward >= CP_THRESHOLD:
+        raise AssertionError(f"ppo_cartpole path: best test reward {res.best_reward} after {res.epochs} epochs, below "
+                             f"the threshold {CP_THRESHOLD}")
+    if any(launches.values()):
+        raise AssertionError(f"ppo_cartpole path: kernel launches {launches}, expected none")
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    if sorted(graphs) != ["collect_chunk", "test_chunk", "update_rollout"]:
+        raise AssertionError(f"ppo_cartpole path: programs {sorted(graphs)}")
+    n_mb = algo.minibatch_shape(PCP_T * PCP_E, PCP_BATCH)[0]
+    if res.gradient_step != res.env_step // (PCP_T * PCP_E) * PCP_REPEAT * n_mb or int(res.train_state.step) != res.gradient_step:
+        raise AssertionError(f"ppo_cartpole path: gradient_step {res.gradient_step}, device step {int(res.train_state.step)}")
+    t = res.timing
+    train_s = t["collect"] + t["update"]
+    captures = {n: round(g.capture_s, 3) for n, g in graphs.items() if g.capture_s is not None}
+    # the two training graphs replayed alone, after the run: what a rollout costs once captured
+    replay = {}
+    for part in ("collect_chunk", "update_rollout"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PCP_REPLAYS):
+            graphs[part]()
+        torch.cuda.synchronize()
+        replay[part] = (time.perf_counter() - t0) / PCP_REPLAYS
+    return launches, [
+        f"ppo_cartpole path: best test reward {res.best_reward:.1f} (threshold {CP_THRESHOLD}) after {res.epochs} epochs "
+        f"(test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}); env_steps {res.env_step} "
+        f"gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s (collect {t['collect']:.2f}, update "
+        f"{t['update']:.2f}, test {t['test']:.2f}); train env_steps_per_s {res.env_step / train_s:.1f} (collect and update "
+        f"time only; {res.env_step / (train_s - sum(v for k, v in captures.items() if k != 'test_chunk')):.1f} without the "
+        f"captures, eager warm-ups included); test share {t['test'] / res.train_time:.3f}; capture s {captures}; "
+        f"{_graph_report(trainer.graph_pool, 2)}",
+        f"ppo_cartpole path, the training graphs replayed alone ({PCP_REPLAYS} times each after the run): collect "
+        f"{replay['collect_chunk'] * 1e3:.3f} ms, update {replay['update_rollout'] * 1e3:.3f} ms per rollout of "
+        f"{PCP_T * PCP_E} steps: env_steps_per_s {PCP_T * PCP_E / (replay['collect_chunk'] + replay['update_rollout']):.1f}",
+    ]
+
+
+def mujoco_example_path(torch):
+    """``examples/mujoco/mujoco_ppo.py:27-80``'s defaults on HalfCheetah through ``OnPolicyTrainer``:
+    16 envs of ``NormObs(HalfCheetah())``, rollouts of 128, 10 passes of batch 64 with
+    ``recompute_advantage``, Adam 3e-4 with the linear decay over the run's updates, ``target_kl``
+    0.015, the PPO init, 10 test episodes on 10 envs with frozen statistics; depth cut to
+    ``MJ_EPOCHS`` epochs of ``MJ_EPOCH_STEPS`` steps. Checks: finite test returns, the pooled
+    statistics at every handoff, the rate after the run against the schedule, ``kl_stop`` reported.
+    Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.optim import linear_lr_schedule
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.wrappers import NormObs
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    n_rollouts = max(1, MJ_EPOCHS * MJ_EPOCH_STEPS // (MJ_E * MJ_T))
+    n_mb = max(1, MJ_E * MJ_T // MJ_BATCH)
+    sched = linear_lr_schedule(3e-4, n_rollouts * MJ_REPEAT * n_mb)
+    algo, ts, train_c = build_ppo(torch, "HalfCheetah", MJ_E, lr=sched, ppo_init=True, advantage_normalization=False,
+                                  recompute_advantage=True, vf_coef=0.25, ent_coef=0.0, deterministic_eval=True,
+                                  target_kl=0.015, action_bound_method="clip")
+    test_c = DeviceCollector(VectorDeviceEnv(NormObs(train_c.venv.env.env, update_stats=False), 10, device="cuda"),
+                             algo, None)
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OnPolicyTrainer(algo, train_c, test_c, OnPolicyTrainerParams(
+        max_epochs=MJ_EPOCHS, epoch_num_steps=MJ_EPOCH_STEPS, test_step_num_episodes=10, batch_size=MJ_BATCH,
+        collection_step_num_env_steps=MJ_T, update_step_num_repetitions=MJ_REPEAT, compute_score_fn=score,
+        verbose=False))
+    handoffs = _rms_handoff_check(torch, trainer, "mujoco_example path")
+    kl_stops = []
+    log_update = trainer._log_update
+    trainer._log_update = lambda stats: (kl_stops.append(float(stats.kl_stop)), log_update(stats))
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(ts, torch.Generator(device="cuda").manual_seed(SEED))
+    launches = _launches(gather, sumtree, physics_fused)
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    test_steps = sum(s.n_collected_steps for s in tests) // 10
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0,
+                    "physics_fused": res.env_step // MJ_E + test_steps}:
+        raise AssertionError(f"mujoco_example path: kernel launches {launches} for {res.env_step // MJ_E} train and "
+                             f"{test_steps} test vector steps")
+    import numpy as np
+
+    if len(tests) != MJ_EPOCHS or not all(s.n_collected_episodes == 10 and np.isfinite(s.returns).all() for s in tests):
+        raise AssertionError(f"mujoco_example path: test phases {[(s.n_collected_episodes, s.returns) for s in tests]}")
+    if len(handoffs) != MJ_EPOCHS:
+        raise AssertionError(f"mujoco_example path: {len(handoffs)} handoffs for {MJ_EPOCHS} test phases")
+    count = _adam_count(ts)
+    lr, want_lr = ts.optim.param_groups[0]["lr"], sched(count - 1)
+    if not torch.equal(lr, want_lr) or int(count) != int(ts.step):
+        raise AssertionError(f"mujoco_example path: rate {float(lr)} at Adam count {int(count)}, the schedule's "
+                             f"{float(want_lr)}; step {int(ts.step)}")
+    if len(kl_stops) != res.env_step // (MJ_E * MJ_T) or not all(np.isfinite(kl_stops)):
+        raise AssertionError(f"mujoco_example path: kl_stop {kl_stops}")
+    t = res.timing
+    tripped = sum(k > 0 for k in kl_stops)
+    return launches, [
+        f"mujoco_example path: NormObs(HalfCheetah) E={MJ_E} T={MJ_T} repeat={MJ_REPEAT} batch={MJ_BATCH} "
+        f"recompute_advantage target_kl 0.015, linear rate decay over {sched.total_updates} updates (the example's "
+        f"{n_rollouts} rollouts); {res.epochs} epochs of {MJ_EPOCH_STEPS} steps ({len(kl_stops)} rollouts): test reward "
+        f"by epoch {[round(float(s.returns.mean()), 2) for s in tests]} (finite; no threshold at this depth); updates "
+        f"applied {int(ts.step)} of {res.gradient_step} (gradient_step counts every minibatch); the guard tripped in "
+        f"{tripped} of {len(kl_stops)} rollouts, kl_stop of the last passes mean {np.mean(kl_stops):.3f}; rate after the "
+        f"run {float(lr):.6e} = the schedule's at count {int(count) - 1}; pooled statistics handed to the test envs at "
+        f"{len(handoffs)} phases (counts {handoffs})",
+        f"mujoco_example path: wall {res.train_time:.2f} s (collect {t['collect']:.2f}, update {t['update']:.2f}, test "
+        f"{t['test']:.2f}); train env_steps_per_s {res.env_step / (t['collect'] + t['update']):.1f} (collect and update "
+        f"time only); capture s { {n: round(g.capture_s, 3) for n, g in graphs.items() if g.capture_s is not None} }; "
+        f"{_graph_report(trainer.graph_pool, 2)}; launches {launches}",
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1397,6 +1848,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lines = graph_phase(torch, kind)  # raises unless graphs and the eager loop agree
         print("\n".join(lines), f"\n{kind} graph phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    lines = onpolicy_graph_phase(torch)  # raises unless graphs and the eager calls agree
+    print("\n".join(lines), f"\non-policy graph phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
 
     by_path = {}
     for kind, fused in (("dqn", False), ("rainbow", False), ("dqn", True)):
@@ -1417,6 +1871,15 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[task.lower()], lines = physics_path(torch, task, steps)  # raises unless one launch per step
         print("\n".join(lines), f"\n{task} physics path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for task, steps in PPO_PATHS:
+        t0 = time.perf_counter()
+        name = f"ppo_{task.lower()}"
+        by_path[name], lines = ppo_path(torch, task, steps)  # raises unless one launch per vector step
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for name, path in (("ppo_cartpole", ppo_cartpole_path), ("mujoco_example", mujoco_example_path)):
+        t0 = time.perf_counter()
+        by_path[name], lines = path(torch)  # raises below the threshold or on a failed check
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -1,6 +1,6 @@
 """Where the time of the PyTorch port's main paths goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree]
+    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo]
     python3 scripts/torch_port_profile.py --compare PARENT_TREE [--pairs 10]
 
 For the DQN-on-pixels pipeline of ``bench.py`` and then for the Rainbow +
@@ -41,6 +41,14 @@ the contact solver's iterations at 0 and at the task's count, and against
 what the launch exposes: lanes per env (``TEAM``, one library each) and envs
 per block. The same sweep then runs for the four tasks that have no path here,
 on states 32 random-action steps from reset.
+
+For the on-policy paths (``--paths ppo``) it traces one PPO megastep of
+``chip_smoke``'s ``bench_mujoco_ppo`` twin (HalfCheetah and Ant, 2048 envs,
+one CUDA graph of collect and update): wall, device busy time, idle share
+and the device kernels by class (the physics kernel, GEMMs, the optimizer's
+multi-tensor kernels, sorts, reductions, indexing, the rest); then the
+MuJoCo example's update graph with and without ``target_kl`` on one
+rollout, for what the KL guard costs per minibatch.
 
 The pixel paths run through one trainer: a warm-up run of the prefill and two
 chunks (where the trainer captures its CUDA graphs: a program's first call is
@@ -397,6 +405,111 @@ def _trace(fn, torch):
     return plain, traced, busy_ns / 1e3, kernels, host
 
 
+def _trace_kernels(fn, torch) -> tuple[float, float, dict[str, list[float]], int]:
+    """(wall s without the profiler, wall s under it, {kernel name: [device us]}, host launches) of
+    ``fn()``, the trace read as in :func:`_trace`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    per_name: dict[str, list[float]] = {}
+    host = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                per_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
+        elif "LaunchKernel" in e.name() or "GraphLaunch" in e.name():
+            host += 1
+    return plain, traced, per_name, host
+
+
+def _kernel_classes(per_name: dict[str, list[float]]) -> dict[str, tuple[int, float]]:
+    """Device kernels by class (name patterns): {class: (launches, us)}."""
+    classes = (("physics_fused", ("fused_step_kernel",)), ("gemm", ("gemm", "cutlass", "sm90_", "cublas", "gemv")),
+               ("optimizer (multi-tensor)", ("multi_tensor", "foreach")), ("sort", ("sort", "radix")),
+               ("reduction", ("reduce",)), ("index / gather / scatter", ("index", "gather", "scatter")))
+    out: dict[str, tuple[int, float]] = {}
+    for name, times in per_name.items():
+        cls = next((c for c, keys in classes if any(k in name.lower() for k in keys)), "other (elementwise, copies)")
+        n, us = out.get(cls, (0, 0.0))
+        out[cls] = (n + len(times), us + sum(times))
+    return out
+
+
+def profile_ppo(smi: str) -> None:
+    """Where the time of the on-policy paths goes. For ``chip_smoke``'s PPO megastep (the
+    ``bench.py:bench_mujoco_ppo`` twin, HalfCheetah at T = 32 and Ant at T = 16, 2048 envs; one CUDA
+    graph of collect and update) one megastep timed and one traced: wall, device busy time, idle
+    share, host launches, device kernels by class. Then the MuJoCo example's update (16 envs, a
+    rollout of 128, 10 passes of batch 64, ``recompute_advantage``) as a graph with and without
+    ``target_kl`` on the same rollout and state: what the KL guard's copies and selects cost per
+    minibatch."""
+    import copy
+
+    import torch
+
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    for task, steps in chip_smoke.PPO_PATHS:
+        algo, ts, coll = chip_smoke.build_ppo(torch, task, chip_smoke.PPO_E)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cstate = coll.reset(gen)
+
+        def megastep():
+            out = coll.rollout(ts, cstate, None, gen, steps, keep_rollout=True)
+            return algo.update_rollout(ts, out.rollout, gen, chip_smoke.PPO_REPEAT, chip_smoke.PPO_BATCH)[1]
+
+        program = Graphed(megastep, GraphPool("cuda"), (gen,), name="ppo_megastep")
+        program(), program()  # eager warm-up, capture
+        plain, traced, per_name, host = _trace_kernels(program, torch)
+        busy = sum(sum(v) for v in per_name.values())
+        print(f"== ppo_{task.lower()} megastep (E={chip_smoke.PPO_E}, T={steps}, one CUDA graph) ==")
+        print(f"device: {smi}")
+        print(f"wall ms {plain * 1e3:.3f} without the profiler ({steps * chip_smoke.PPO_E / plain:.1f} env-steps/s), "
+              f"{traced * 1e3:.3f} under it; device busy ms {busy / 1e3:.3f}, idle share {1 - busy / 1e6 / plain:.3f} "
+              f"({1 - busy / 1e6 / traced:.3f} under the profiler); device kernels {sum(len(v) for v in per_name.values())}, "
+              f"host launches {host}")
+        for cls, (n, us) in sorted(_kernel_classes(per_name).items(), key=lambda kv: -kv[1][1]):
+            print(f"  {cls}: {n} kernels, {us / 1e3:.3f} ms ({us / busy:.3f} of busy)")
+
+    kw = dict(lr=3e-4, ppo_init=True, advantage_normalization=False, recompute_advantage=True, vf_coef=0.25,
+              ent_coef=0.0)
+    times = {}
+    for guard in (None, 0.015):
+        algo, ts, coll = chip_smoke.build_ppo(torch, "HalfCheetah", chip_smoke.MJ_E, target_kl=guard, **kw)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cstate = coll.reset(gen)
+        rollout = coll.rollout(ts, cstate, None, gen, chip_smoke.MJ_T, keep_rollout=True).rollout
+        state = copy.deepcopy(ts)
+
+        def update():
+            return algo.update_rollout(state, rollout, gen, chip_smoke.MJ_REPEAT, chip_smoke.MJ_BATCH)[1]
+
+        program = Graphed(update, GraphPool("cuda"), (gen,), name="update")
+        program(), program()
+        plain, _, per_name, _ = _trace_kernels(program, torch)
+        n_mb = chip_smoke.MJ_REPEAT * algo.minibatch_shape(chip_smoke.MJ_E * chip_smoke.MJ_T, chip_smoke.MJ_BATCH)[0]
+        busy = sum(sum(v) for v in per_name.values())
+        times[guard] = (plain, busy, sum(len(v) for v in per_name.values()), n_mb)
+    (p0, b0, k0, n_mb), (p1, b1, k1, _) = times[None], times[0.015]
+    print(f"== the MuJoCo example's update (E={chip_smoke.MJ_E}, T={chip_smoke.MJ_T}, {n_mb} minibatches of "
+          f"{chip_smoke.MJ_BATCH}, recompute_advantage), one CUDA graph ==")
+    print(f"device: {smi}")
+    print(f"without target_kl: wall ms {p0 * 1e3:.3f}, device busy ms {b0 / 1e3:.3f}, {k0} kernels "
+          f"({k0 / n_mb:.1f} and {b0 / n_mb:.1f} us per minibatch)")
+    print(f"with target_kl 0.015: wall ms {p1 * 1e3:.3f}, device busy ms {b1 / 1e3:.3f}, {k1} kernels "
+          f"({k1 / n_mb:.1f} and {b1 / n_mb:.1f} us per minibatch); the guard adds {(k1 - k0) / n_mb:.1f} kernels and "
+          f"{(b1 - b0) / n_mb:.1f} us of device time per minibatch")
+
+
 def measure(paths: set[str]) -> dict:
     """The four paths of bench.py once each, through the programs of the tree imported: per path
     wall ms per chunk (or us per vector step), env-steps/s, device busy time, idle share, host
@@ -493,14 +606,15 @@ def main() -> int:
     global chip_smoke
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chunks", type=int, default=1)
-    ap.add_argument("--paths", default="dqn,rainbow,physics", help="comma-separated: dqn, rainbow, physics, sumtree")
+    ap.add_argument("--paths", default="dqn,rainbow,physics",
+                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo")
     ap.add_argument("--compare", metavar="PARENT_TREE", help="measure this tree against PARENT_TREE in turns")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--measure", action="store_true", help="measure the paths once and print one MEASURE line")
     ap.add_argument("--tree", default=ROOT, help="the checkout whose chip_smoke and tianshou_tpu_torch to import")
     args = ap.parse_args()
     paths = set(args.paths.split(","))
-    if not paths <= {"dqn", "rainbow", "physics", "sumtree"}:
+    if not paths <= {"dqn", "rainbow", "physics", "sumtree", "ppo"}:
         ap.error(f"unknown path in {args.paths!r}")
     sys.path.insert(0, os.path.abspath(args.tree))
     import chip_smoke as module
@@ -515,7 +629,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke._smi()
     if args.compare:
-        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree"})), smi)
+        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree", "ppo"})), smi)
         return 0
     if args.measure:
         print("MEASURE " + json.dumps({"device": smi, "paths": measure(paths)}), flush=True)
@@ -533,6 +647,8 @@ def main() -> int:
         for task in chip_smoke.PHYS_TASKS:
             if task not in dict(chip_smoke.PHYS_PATHS):
                 kernel_scaling(*rollout_state(task), smi)
+    if "ppo" in paths:
+        profile_ppo(smi)
     return 0
 
 

@@ -94,10 +94,16 @@ def test_collect_episodes_matches_jax(n, envs, chunk, size):
 
 
 def test_collect_episodes_refuses_obs_statistics():
+    """Observation statistics handed to envs without ``NormObs`` change
+    nothing (``inject_rms`` leaves such a state as it is); the handoff itself
+    is ``tests/test_torch_normobs.py``'s."""
     env = MoveToRightEnv()
     coll = DeviceCollector(VectorDeviceEnv(env, 2, device="cpu"), AlwaysRight(env.action_space), None)
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        coll.collect_episodes(None, torch.Generator(), 2, rms=object())
+    plain = coll.collect_episodes(None, torch.Generator(), 3)
+    handed = coll.collect_episodes(None, torch.Generator(), 3, rms=object())
+    np.testing.assert_array_equal(handed.returns, plain.returns)
+    np.testing.assert_array_equal(handed.lens, plain.lens)
+    assert handed.n_collected_steps == plain.n_collected_steps
 
 
 def _deactivate_numpy(done, active, n_done, n_target):

@@ -588,3 +588,161 @@ def test_test_phase_hooks_and_test_fn_under_graphs_on_cuda():
     assert float(ts.hparams["eps_training"]) == pytest.approx(0.2)
     assert float(ts.hparams["eps_inference"]) == pytest.approx(0.05)
     assert np.isfinite(res.best_reward) and res.timing["test"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the on-policy family under CUDA graphs
+# ---------------------------------------------------------------------------
+def _ppo_cartpole(**kw):
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, linear_lr_schedule
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.wrappers import NormObs
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+
+    torch.manual_seed(0)
+    algo = PPO(actor=DiscreteActor((32, 32), 2, input_dim=4), critic=DiscreteCritic((32, 32), input_dim=4),
+               action_space=CartPole().action_space,
+               optim=AdamOptimizerFactory(lr=linear_lr_schedule(1e-3, 50), max_grad_norm=0.5), **kw)
+    coll = DeviceCollector(VectorDeviceEnv(NormObs(CartPole()), 8, device="cuda"), algo, None)
+    return algo, algo.init("cuda"), coll
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"target_kl": 1e-6, "recompute_advantage": True, "return_standardization": True}],
+                         ids=["ppo", "ppo_kl_guard_recompute"])
+def test_onpolicy_programs_match_the_eager_calls_on_cuda(kw):
+    """Three rollouts and their updates through ``OnPolicyTrainer``'s programs (the collect chunk:
+    eager, capture and replay, replay; the update: eager twice, as the collect's capture replaces its
+    output, then capture and replay) against ``collector.rollout`` and ``algo.update_rollout`` on a
+    deep copy: rollouts, statistics and step counters bit-identical, weights within 1e-6."""
+    import copy
+
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    _needs_cuda()
+    algo, ts, coll = _ppo_cartpole(**kw)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    ets, ecs = copy.deepcopy((ts, cstate))
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+        batch_size=32, collection_step_num_env_steps=16, update_step_num_repetitions=2, verbose=False))
+    for _ in range(3):
+        out = trainer.collect_chunk(ts, cstate, None, gen, 16, keep_rollout=True)
+        stats = trainer.update_rollout(ts, out.rollout, gen).map(torch.clone)
+        eout = coll.rollout(ets, ecs, None, egen, 16, keep_rollout=True)
+        estats = algo.update_rollout(ets, eout.rollout, egen, 2, 32)[1]
+        for k in ("obs", "act", "rew", "terminated", "truncated", "obs_next"):
+            assert torch.equal(out.rollout[k], eout.rollout[k]), k
+        assert torch.equal(stats.loss, estats.loss) and int(ts.step) == int(ets.step)
+    torch.cuda.synchronize()
+    assert {g.name.split()[0]: g.replays for g in trainer.graph_pool.graphs} == {"collect_chunk": 2, "update_rollout": 1}
+    assert all(torch.equal(a, b) for a, b in zip(cstate.env_state.rms, ecs.env_state.rms))
+    for a, b in zip(ts.model.parameters(), ets.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    lr = ts.optim.param_groups[0]["lr"]
+    assert torch.is_tensor(lr) and lr.is_cuda and torch.equal(lr, ets.optim.param_groups[0]["lr"])
+    if "target_kl" in kw:
+        assert 0 < int(ts.step) < 3 * 2 * 4 and float(stats.kl_stop) > 0
+
+
+@pytest.mark.cuda
+def test_scheduled_adam_under_a_graph_matches_the_cpu_adam_on_cuda():
+    """Capturable Adam with ``linear_lr_schedule`` on the card, six steps through one graph, against
+    the CPU's: the rate (a 0-d device tensor rewritten in place) equal to the schedule's at each
+    count, and the weights within 2e-6."""
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, linear_lr_schedule
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    sched = linear_lr_schedule(0.01, 4)
+    factory = AdamOptimizerFactory(lr=sched, max_grad_norm=1.0)
+    w = torch.randn(7, 5, generator=torch.Generator().manual_seed(0))
+    cuda, cpu = torch.nn.Parameter(w.cuda()), torch.nn.Parameter(w.clone())
+    opt_cuda, opt_cpu = factory.create([cuda]), factory.create([cpu])
+    cuda.grad = torch.zeros_like(cuda)
+    program = Graphed(lambda: factory.step(opt_cuda), GraphPool("cuda"), name="adam")
+    rates = []
+    for i in range(6):
+        g = torch.randn(7, 5, generator=torch.Generator().manual_seed(i + 1))
+        cuda.grad.copy_(g)
+        program()
+        rates.append(opt_cuda.param_groups[0]["lr"].item())
+        cpu.grad = g
+        factory.step(opt_cpu)
+    assert program.replays == 5
+    assert rates == [float(sched(torch.tensor(float(c)))) for c in range(6)]
+    torch.testing.assert_close(cuda.detach().cpu(), cpu.detach(), rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_policy_draws_under_a_graph_replay_the_eager_draws_on_cuda():
+    """``Categorical.sample``, ``Normal.sample`` and ``minibatch_indices`` captured and replayed draw
+    what the same eager calls draw from a generator in the same state."""
+    from tianshou_tpu_torch.models.distributions import Categorical, Normal
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    algo = _ppo_cartpole()[0]
+    logits = torch.randn(256, 5, device="cuda")
+    loc, scale = torch.randn(256, 6, device="cuda"), torch.rand(256, 6, device="cuda") + 0.1
+
+    def draws(gen):
+        return (Categorical(logits).sample(gen), Normal(loc, scale).sample(gen),
+                algo.minibatch_indices(1000, 3, 64, gen, torch.device("cuda")))
+
+    graphed, eager = torch.Generator(device="cuda").manual_seed(3), torch.Generator(device="cuda").manual_seed(3)
+    program = Graphed(lambda: draws(graphed), GraphPool("cuda"), (graphed,), name="draws")
+    got = [tuple(x.clone() for x in program()) for _ in range(3)]
+    want = [draws(eager) for _ in range(3)]
+    assert program.replays == 2 and not torch.equal(got[1][2], got[2][2])
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+    perm = got[2][2]
+    assert perm.shape == (3, 15, 66) and all(len(set(perm[r].flatten().tolist())) == 990 for r in range(3))
+
+
+@pytest.mark.cuda
+def test_ppo_physics_megastep_launches_the_kernel_once_per_step_on_cuda():
+    """A PPO megastep on ``NormObs(HalfCheetah())`` (collect with ``keep_rollout`` and then
+    ``update_rollout``) as one graph: one ``physics_fused`` launch per vector step under replay,
+    each env's count advanced by one per step, finite weights."""
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.env.wrappers import NormObs
+    from tianshou_tpu_torch.models.continuous import ContinuousActorProbabilistic, ContinuousCritic
+    from tianshou_tpu_torch.ops.kernels import physics_fused
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    env = NormObs(make("HalfCheetah"))
+    algo = PPO(actor=ContinuousActorProbabilistic((64, 64), 6, input_dim=17),
+               critic=ContinuousCritic((64, 64), use_action=False, input_dim=17), action_space=env.action_space,
+               return_standardization=True, value_clip=True)
+    ts = algo.init("cuda")
+    coll = DeviceCollector(VectorDeviceEnv(env, 128, device="cuda"), algo, None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+
+    def megastep():
+        out = coll.rollout(ts, cstate, None, gen, 8, keep_rollout=True)
+        return algo.update_rollout(ts, out.rollout, gen, 2, 256)[1]
+
+    program = Graphed(megastep, GraphPool("cuda"), (gen,), name="ppo")
+    program()
+    physics_fused.reset_launch_count()
+    program(), program()
+    torch.cuda.synchronize()
+    assert physics_fused.launch_count() == 16 and program.launches == {"physics_fused": 8}
+    count = torch.full((128,), 1e-4, device="cuda") + 1.0  # the reset's observation, then one per step
+    for _ in range(24):
+        count = count + 1.0
+    assert torch.equal(cstate.env_state.rms.count, count)
+    assert int(ts.step) == 3 * 2 * 4
+    assert all(bool(torch.isfinite(p).all()) for p in ts.model.parameters())

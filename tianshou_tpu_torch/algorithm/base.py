@@ -14,6 +14,7 @@ host number would be captured as a constant.
 - ``Algorithm.init(device) -> TrainState``         <- nn.Module + optimizer ctor
 - ``Algorithm.preprocess / update_step``           <- _preprocess_batch / _update_with_batch
 - ``Algorithm.update``                             <- Algorithm._update (:586)
+- ``Algorithm.map_action``                         <- Policy.map_action (:254): clip or tanh, then scaling
 """
 
 from __future__ import annotations
@@ -26,10 +27,10 @@ from torch import nn
 
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
-from tianshou_tpu_torch.env.core import Space
+from tianshou_tpu_torch.env.core import Box, Discrete, Space
 from tianshou_tpu_torch.ops.returns import nstep_returns, value_mask
 
-__all__ = ["ActOut", "Algorithm", "OffPolicyAlgorithm", "TrainState"]
+__all__ = ["ActOut", "Algorithm", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "TrainState"]
 
 
 @dataclasses.dataclass
@@ -38,11 +39,13 @@ class TrainState:
     every value of ``hparams`` are 0-d tensors on the model's device, written
     in place (the trainer's ``gradient_step`` is the host's mirror of ``step``)."""
 
-    model: nn.Module                    # online network
+    model: nn.Module                    # online network (on-policy: a ModuleDict of actor and critic)
     target: nn.Module | None            # lagged copy (None without a target net)
     optim: torch.optim.Optimizer
     hparams: dict[str, torch.Tensor]    # dynamic knobs the trainer anneals (eps, ...), 0-d float32
     step: torch.Tensor                  # 0-d int64
+    #: algorithm-specific carried state, 0-d tensors written in place (the return statistics)
+    extra: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 class ActOut(NamedTuple):
@@ -64,10 +67,17 @@ class Algorithm:
         action_space: Space,
         gamma: float = 0.99,
         optim: OptimizerFactory | None = None,
+        action_scaling: bool = False,
+        action_bound_method: str | None = "clip",  # "clip" | "tanh" | None
     ) -> None:
+        if action_bound_method not in ("clip", "tanh", None):
+            raise ValueError(f"action_bound_method must be 'clip', 'tanh' or None, got {action_bound_method!r}")
         self.action_space = action_space
         self.gamma = gamma
         self.optim = optim if optim is not None else AdamOptimizerFactory(lr=1e-3)
+        self.action_scaling = action_scaling
+        self.action_bound_method = action_bound_method
+        self.is_discrete = isinstance(action_space, Discrete)
 
     # ------------------------------------------------------------------
     def init(self, device: str | torch.device | None = None) -> TrainState:
@@ -87,10 +97,31 @@ class Algorithm:
         return None
 
     def map_action(self, act: torch.Tensor) -> torch.Tensor:
-        """Raw policy output -> env action (reference Policy.map_action :254)."""
+        """Raw policy output -> env action (reference Policy.map_action :254):
+        a continuous action is clipped to [-1, 1] (or squashed by tanh), then
+        with ``action_scaling`` mapped affinely onto the Box's bounds.
+        Discrete actions pass unchanged."""
+        if self.is_discrete:
+            return act
+        if self.action_bound_method == "clip":
+            act = act.clamp(-1.0, 1.0)
+        elif self.action_bound_method == "tanh":
+            act = torch.tanh(act)
+        if self.action_scaling and isinstance(self.action_space, Box):
+            low, high = self.action_space.bounds(act.device)
+            act = low + (high - low) * (act + 1.0) / 2.0
         return act
 
     def map_action_inverse(self, act: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`map_action` for env actions (reference :289)."""
+        if self.is_discrete:
+            return act
+        if self.action_scaling and isinstance(self.action_space, Box):
+            low, high = self.action_space.bounds(act.device)
+            act = 2.0 * (act - low) / (high - low) - 1.0
+        if self.action_bound_method == "tanh":
+            eps = 1e-6
+            act = torch.atanh(act.clamp(-1 + eps, 1 - eps))
         return act
 
     # ------------------------------------------------------------------
@@ -135,6 +166,10 @@ class Algorithm:
             return rews, ends, batch.obs_next, batch.terminated
         terminal = buffer.get(buf_state, term_idx, keys=("obs_next", "terminated"))
         return rews, ends, terminal.obs_next, terminal.terminated
+
+
+class OnPolicyAlgorithm(Algorithm):
+    """Updates from whole fresh rollouts (reference :828)."""
 
 
 class OffPolicyAlgorithm(Algorithm):

@@ -41,6 +41,7 @@ import torch
 from tianshou_tpu_torch.algorithm.base import ActOut
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env.core import VectorDeviceEnv
+from tianshou_tpu_torch.env.wrappers import inject_rms
 from tianshou_tpu_torch.utils.determinism import TraceLogger
 from tianshou_tpu_torch.utils.tree import tree_map
 
@@ -339,13 +340,16 @@ class DeviceCollector:
         too. ``chunk_fn(ts, state, generator, chunk_steps, training)`` runs
         one chunk; it defaults to :meth:`episode_chunk`, and the trainer
         passes its CUDA-graph program of it. The state is this collector's,
-        reset in place by every call.
+        reset in place by every call. ``rms``: pooled observation statistics
+        (:func:`tianshou_tpu_torch.env.wrappers.extract_pooled_rms`) written
+        into every test env's ``NormObs`` state after the reset.
         """
-        if rms is not None:
-            raise NotImplementedError(
-                "handing the train envs' observation statistics to the test envs waits for NormObs "
-                "(ROADMAP Queue 1 #3)")
         state = self._episodes = self.reset_episodes(generator, n_episodes, into=self._episodes)
+        if rms is not None:
+            # the test envs evaluate under the train envs' pooled observation statistics
+            # (the reference shares one obs_rms, venv_wrappers.py:99), written into the state in place
+            env_state = state.cstate.env_state
+            tree_map(torch.Tensor.copy_, env_state, inject_rms(self.venv.env, env_state, rms))
         run = self.episode_chunk if chunk_fn is None else chunk_fn
         all_rets: list[np.ndarray] = []
         all_lens: list[np.ndarray] = []

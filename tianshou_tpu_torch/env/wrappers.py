@@ -1,5 +1,13 @@
-"""Device env wrappers (port of ``tianshou_tpu/env/wrappers.py``; only
-``FrameStack`` so far)."""
+"""Device env wrappers (port of ``tianshou_tpu/env/wrappers.py``):
+``FrameStack`` and ``NormObs`` with its pooled statistics (``merge_rms``,
+``extract_pooled_rms``, ``inject_rms``); the other wrappers are not ported yet.
+
+``NormObs`` keeps a running mean and variance per env (``[E, obs]``, counts
+``[E]``) in the env state, as the JAX package's vmapped single-env statistics
+are; the collector writes that state in place, so a captured collect chunk
+updates them on every replay. ``inject_rms`` returns a new state, as in JAX;
+:meth:`tianshou_tpu_torch.data.collector.DeviceCollector.collect_episodes`
+copies it into its episode state."""
 
 from __future__ import annotations
 
@@ -9,7 +17,8 @@ import torch
 
 from tianshou_tpu_torch.env.core import Box, Env
 
-__all__ = ["FrameStack", "FrameStackState"]
+__all__ = ["FrameStack", "FrameStackState", "NormObs", "NormObsState", "RMSState", "extract_pooled_rms", "inject_rms",
+           "merge_rms"]
 
 
 class FrameStackState(NamedTuple):
@@ -43,3 +52,123 @@ class FrameStack(Env):
         frames = torch.cat([state.frames[:, 1:], s.obs[:, None]], dim=1)
         return s._replace(state=FrameStackState(s.state, frames), obs=frames)
 
+
+
+class RMSState(NamedTuple):
+    mean: torch.Tensor   # [E, *obs] (pooled: [*obs])
+    var: torch.Tensor    # [E, *obs] (pooled: [*obs])
+    count: torch.Tensor  # [E] float32 (pooled: 0-d)
+
+
+class NormObsState(NamedTuple):
+    inner: Any
+    rms: RMSState
+
+
+def _per_env(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` of shape ``[E]`` broadcast against ``like`` of shape ``[E, ...]``."""
+    return x.reshape(x.shape + (1,) * (like.dim() - 1))
+
+
+class NormObs(Env):
+    """Observation normalization with a running mean and variance per env,
+    carried in the env state (reference ``RunningMeanStd``,
+    utils/statistics.py:69, updated one observation at a time). Set
+    ``update_stats=False`` for test envs and hand them the train envs' pooled
+    statistics (reference venv_wrappers.py:99; :func:`inject_rms`)."""
+
+    def __init__(self, env: Env, clip: float = 10.0, update_stats: bool = True) -> None:
+        self.env = env
+        self.observation_space = env.observation_space
+        self.action_space = env.action_space
+        self.max_episode_steps = env.max_episode_steps
+        self.clip = clip
+        self.update_stats = update_stats
+
+    def _norm(self, rms: RMSState, obs: torch.Tensor) -> torch.Tensor:
+        return ((obs - rms.mean) / torch.sqrt(rms.var + 1e-8)).clamp(-self.clip, self.clip)
+
+    @staticmethod
+    def _update(rms: RMSState, obs: torch.Tensor) -> RMSState:
+        """One Welford step per env with that env's observation."""
+        delta = obs - rms.mean
+        count = rms.count + 1.0
+        new_mean = rms.mean + delta / _per_env(count, obs)
+        m_a = rms.var * _per_env(rms.count, obs)
+        new_var = (m_a + delta * (obs - new_mean)) / _per_env(count, obs)
+        return RMSState(new_mean, new_var, count)
+
+    def reset(self, num_envs, generator, device):
+        s, obs = self.env.reset(num_envs, generator, device)
+        rms = RMSState(torch.zeros_like(obs), torch.ones_like(obs),
+                       torch.full((num_envs,), 1e-4, dtype=torch.float32, device=obs.device))
+        if self.update_stats:
+            rms = self._update(rms, obs)
+        return NormObsState(s, rms), self._norm(rms, obs)
+
+    def step(self, state: NormObsState, action, generator):
+        s = self.env.step(state.inner, action, generator)
+        rms = self._update(state.rms, s.obs) if self.update_stats else state.rms
+        return s._replace(state=NormObsState(s.state, rms), obs=self._norm(rms, s.obs))
+
+    def carry_through_reset(self, old_state: NormObsState, reset_state: NormObsState) -> NormObsState:
+        # the statistics persist across episode boundaries
+        return NormObsState(reset_state.inner, old_state.rms)
+
+
+def merge_rms(rms: RMSState) -> RMSState:
+    """Pool per-env statistics (leading env axis) into one: means weighted
+    by count, and the variance within envs plus the variance of their means
+    (the law of total variance). The reference updates one shared
+    ``RunningMeanStd`` from every env's observations (venv_wrappers.py:99)."""
+    counts = rms.count
+    total = counts.sum()
+    w = (counts / total)[:, None]
+    mean_e = rms.mean.reshape(counts.shape[0], -1)
+    mean = (w * mean_e).sum(0)
+    var_within = (w * rms.var.reshape(counts.shape[0], -1)).sum(0)
+    d = mean_e - mean[None]
+    var_between = (w * d * d).sum(0)
+    return RMSState(mean.reshape(rms.mean.shape[1:]), (var_within + var_between).reshape(rms.var.shape[1:]), total)
+
+
+def _norm_obs_depth(env: Env) -> int | None:
+    """How many wrappers sit above the ``NormObs`` of ``env``'s chain (None: none in it)."""
+    depth = 0
+    while not isinstance(env, NormObs):
+        if not hasattr(env, "env"):
+            return None
+        env, depth = env.env, depth + 1
+    return depth
+
+
+def extract_pooled_rms(env: Env, env_state: Any) -> RMSState | None:
+    """The pooled statistics of the ``NormObs`` in ``env``'s wrapper chain,
+    from a batched env state; None without one."""
+    depth = _norm_obs_depth(env)
+    if depth is None:
+        return None
+    state = env_state
+    for _ in range(depth):
+        state = state.inner if hasattr(state, "inner") else state[0]
+    assert isinstance(state, NormObsState), type(state)
+    return merge_rms(state.rms)
+
+
+def inject_rms(env: Env, env_state: Any, rms: RMSState) -> Any:
+    """``env_state`` with the pooled ``rms`` broadcast into every env slot
+    of its ``NormObs`` (the reference's frozen shared ``obs_rms`` handed to
+    the test envs); unchanged without a ``NormObs``."""
+    if _norm_obs_depth(env) is None:
+        return env_state
+
+    def walk(state: Any) -> Any:
+        if isinstance(state, NormObsState):
+            E = state.rms.count.shape[0]
+            return NormObsState(state.inner, RMSState(rms.mean.expand(E, *rms.mean.shape),
+                                                      rms.var.expand(E, *rms.var.shape), rms.count.expand(E)))
+        if hasattr(state, "inner"):
+            return state._replace(inner=walk(state.inner))
+        return state
+
+    return walk(env_state)

@@ -16,7 +16,6 @@ weights into this layout.
 
 from __future__ import annotations
 
-import math
 from collections.abc import Sequence
 
 import torch
@@ -24,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tianshou_tpu_torch.models.discrete import Noise, NoisyLinear
+from tianshou_tpu_torch.models.mlp import _lecun_normal_
 
 __all__ = ["NatureCNN", "DQNet", "C51Net", "RainbowAtariNet", "same_out", "same_pads"]
 
@@ -36,12 +36,6 @@ def same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
     """(before, after) padding of one spatial dim under ``SAME`` (flax/XLA)."""
     total = max((same_out(n, stride) - 1) * stride + k - n, 0)
     return total // 2, total - total // 2
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
-    """flax's default kernel init: truncated normal with variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
 class NatureCNN(nn.Module):

@@ -1,0 +1,80 @@
+"""Continuous-control actors and critics (port of
+``tianshou_tpu/models/continuous.py``; reference utils/net/continuous.py).
+Only the on-policy pair so far: ``ContinuousActorProbabilistic`` and
+``ContinuousCritic``; the deterministic actor, the ensemble critic and the
+BCQ nets are not ported yet.
+
+Like the MLPs of :mod:`tianshou_tpu_torch.models.mlp` they take
+``input_dim``. ``ppo_init`` is the reference MuJoCo-PPO recipe
+(mujoco_ppo.py:109-120): tanh activations, orthogonal kernels with gain
+sqrt(2), the final mu layer at gain 0.01 and log-sigma from ``sigma_init``.
+:mod:`tianshou_tpu_torch.models.convert` carries flax weights across.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tianshou_tpu_torch.models.mlp import MLP, _dense
+
+__all__ = ["ContinuousActorProbabilistic", "ContinuousCritic", "SIGMA_MIN", "SIGMA_MAX"]
+
+SIGMA_MIN, SIGMA_MAX = -20.0, 2.0  # reference continuous.py:25
+
+
+class ContinuousActorProbabilistic(nn.Module):
+    """obs -> ``(mu, sigma)`` of a diagonal Gaussian (reference continuous.py:172).
+
+    ``conditioned_sigma``: log-sigma is a second head on the features;
+    otherwise it is a learned state-independent parameter (zeros, or
+    ``sigma_init`` with ``ppo_init``). Either is clipped to
+    ``[SIGMA_MIN, SIGMA_MAX]``. ``sde=True`` (gSDE) is not ported yet.
+    """
+
+    def __init__(self, hidden_sizes: Sequence[int], action_dim: int, conditioned_sigma: bool = False,
+                 ppo_init: bool = False, sigma_init: float = -0.5, sde: bool = False, *, input_dim: int) -> None:
+        super().__init__()
+        if sde:
+            raise NotImplementedError("gSDE (sde=True) is not ported yet: ROADMAP Queue 1 #4 (NPG, TRPO, gSDE)")
+        self.conditioned_sigma = conditioned_sigma
+        gain = math.sqrt(2.0) if ppo_init else None
+        self.mlp = MLP(input_dim, hidden_sizes, activation=torch.tanh if ppo_init else F.relu, orthogonal_gain=gain)
+        self.mu = _dense(self.mlp.output_dim, action_dim, 0.01 if ppo_init else None)
+        if conditioned_sigma:
+            self.sigma = _dense(self.mlp.output_dim, action_dim)
+        else:
+            self.log_sigma = nn.Parameter(torch.full((action_dim,), sigma_init if ppo_init else 0.0))
+
+    def forward(self, obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        feat = self.mlp(obs)
+        mu = self.mu(feat)
+        if self.conditioned_sigma:
+            log_sigma = self.sigma(feat).clamp(SIGMA_MIN, SIGMA_MAX)
+        else:
+            log_sigma = self.log_sigma.clamp(SIGMA_MIN, SIGMA_MAX).expand_as(mu)
+        return mu, torch.exp(log_sigma)
+
+
+class ContinuousCritic(nn.Module):
+    """(obs, act?) -> scalar value (reference continuous.py:99); with
+    ``use_action`` the flattened action (``action_dim`` wide) is concatenated
+    to the flattened observation."""
+
+    def __init__(self, hidden_sizes: Sequence[int], use_action: bool = True, ppo_init: bool = False, *,
+                 input_dim: int, action_dim: int = 0) -> None:
+        super().__init__()
+        self.use_action = use_action
+        width = input_dim + (action_dim if use_action else 0)
+        self.mlp = MLP(width, hidden_sizes, 1, activation=torch.tanh if ppo_init else F.relu,
+                       orthogonal_gain=math.sqrt(2.0) if ppo_init else None)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor | None = None) -> torch.Tensor:
+        x = obs.reshape(obs.shape[0], -1)
+        if self.use_action and act is not None:
+            x = torch.cat([x.to(torch.float32), act.reshape(act.shape[0], -1).to(torch.float32)], dim=-1)
+        return self.mlp(x)[:, 0]

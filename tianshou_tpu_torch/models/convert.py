@@ -1,11 +1,13 @@
-"""flax -> torch weight conversion for the Atari nets and the MLPs.
+"""flax -> torch weight conversion for the Atari nets, the MLPs and the
+actor-critic nets.
 
 Takes the parameter tree of a ``tianshou_tpu.models.atari`` net (``DQNet``,
-``C51Net``, ``RainbowAtariNet``) or of a ``tianshou_tpu.models.mlp`` net
-(``MLP``, ``Net``, ``DuelingNet``) with numpy leaves (``{"params": {...}}``
-or the inner ``"params"`` dict) and returns a ``state_dict`` for its
-counterpart in :mod:`tianshou_tpu_torch.models.atari` or
-:mod:`tianshou_tpu_torch.models.mlp`. It needs no flax:
+``C51Net``, ``RainbowAtariNet``), of a ``tianshou_tpu.models.mlp`` net
+(``MLP``, ``Net``, ``DuelingNet``) or of an on-policy net
+(``ContinuousActorProbabilistic``, ``ContinuousCritic``, ``DiscreteActor``,
+``DiscreteCritic``) with numpy leaves (``{"params": {...}}`` or the inner
+``"params"`` dict) and returns a ``state_dict`` for its counterpart in
+:mod:`tianshou_tpu_torch.models`. It needs no flax:
 
 - conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
 - Dense kernels ``[in, out]`` -> ``[out, in]``;
@@ -25,8 +27,10 @@ import numpy as np
 import torch
 
 __all__ = [
-    "c51net_params_from_flax", "dqnet_params_from_flax", "mlp_params_from_flax", "nature_cnn_params_from_flax",
-    "net_params_from_flax", "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
+    "actor_critic_params_from_flax", "c51net_params_from_flax", "continuous_actor_prob_params_from_flax",
+    "continuous_critic_params_from_flax", "discrete_actor_params_from_flax", "discrete_critic_params_from_flax",
+    "dqnet_params_from_flax", "mlp_params_from_flax", "nature_cnn_params_from_flax", "net_params_from_flax",
+    "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
 ]
 
 
@@ -124,4 +128,52 @@ def net_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     out = mlp_params_from_flax(p["MLP_0"], "feat.")
     out.update(mlp_params_from_flax(p["MLP_1"], "adv."))
     out.update(mlp_params_from_flax(p["MLP_2"], "val."))
+    return out
+
+
+def _dense_params(p: dict, name: str) -> dict[str, torch.Tensor]:
+    return {f"{name}.weight": _t(np.asarray(p["kernel"]).T), f"{name}.bias": _t(p["bias"])}
+
+
+def continuous_actor_prob_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``ContinuousActorProbabilistic`` from the
+    flax actor's tree: the trunk ``MLP_0``, the mu head ``Dense_0``, and the
+    log-sigma head ``Dense_1`` (``conditioned_sigma``) or parameter ``log_sigma``."""
+    p = tree["params"] if "params" in tree else tree
+    out = mlp_params_from_flax(p["MLP_0"], "mlp.")
+    out.update(_dense_params(p["Dense_0"], "mu"))
+    if "Dense_1" in p:
+        out.update(_dense_params(p["Dense_1"], "sigma"))
+    if "log_sigma" in p:
+        out["log_sigma"] = _t(p["log_sigma"])
+    return out
+
+
+def continuous_critic_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``ContinuousCritic``, ``DiscreteActor`` or
+    ``DiscreteCritic``: each holds one scope, ``MLP_0``."""
+    p = tree["params"] if "params" in tree else tree
+    return mlp_params_from_flax(p["MLP_0"], "mlp.")
+
+
+discrete_actor_params_from_flax = discrete_critic_params_from_flax = continuous_critic_params_from_flax
+
+
+_ON_POLICY_CONVERTERS = {
+    "ContinuousActorProbabilistic": continuous_actor_prob_params_from_flax,
+    "ContinuousCritic": continuous_critic_params_from_flax,
+    "DiscreteActor": discrete_actor_params_from_flax,
+    "DiscreteCritic": discrete_critic_params_from_flax,
+}
+
+
+def actor_critic_params_from_flax(params: dict, model) -> dict[str, torch.Tensor]:
+    """``state_dict`` of an on-policy train state's ``model`` (a
+    ``ModuleDict`` of ``actor`` and, where there is one, ``critic``) from the
+    JAX train state's ``params`` (``{"actor": tree, "critic": tree}``),
+    each net through the converter of its class."""
+    out: dict[str, torch.Tensor] = {}
+    for name, net in model.items():
+        for k, v in _ON_POLICY_CONVERTERS[type(net).__name__](params[name]).items():
+            out[f"{name}.{k}"] = v
     return out

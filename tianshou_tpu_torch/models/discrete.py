@@ -1,5 +1,7 @@
 """Discrete-action nets (port of ``tianshou_tpu/models/discrete.py``; reference
-utils/net/discrete.py). Only ``NoisyLinear`` (Rainbow) so far.
+utils/net/discrete.py): ``DiscreteActor`` and ``DiscreteCritic`` (the
+on-policy pair, over :class:`tianshou_tpu_torch.models.mlp.MLP`; they take
+``input_dim``) and ``NoisyLinear`` (Rainbow).
 
 Where the centring lives: the flax layer stores ``mu_w`` and ``mu_b`` as
 draws from ``[0, 2/sqrt(in))`` and subtracts ``1/sqrt(in)`` in its forward.
@@ -13,12 +15,39 @@ unchanged, so both train alike.
 from __future__ import annotations
 
 import math
+from collections.abc import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["NoisyLinear", "Noise", "factorized_noise"]
+from tianshou_tpu_torch.models.mlp import MLP
+
+__all__ = ["DiscreteActor", "DiscreteCritic", "NoisyLinear", "Noise", "factorized_noise"]
+
+
+class DiscreteActor(nn.Module):
+    """obs -> action logits (reference discrete.py:29)."""
+
+    def __init__(self, hidden_sizes: Sequence[int], action_dim: int, *, input_dim: int) -> None:
+        super().__init__()
+        self.mlp = MLP(input_dim, hidden_sizes, action_dim)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.mlp(obs)
+
+
+class DiscreteCritic(nn.Module):
+    """obs -> value, or ``last_size`` values per observation (reference discrete.py:94)."""
+
+    def __init__(self, hidden_sizes: Sequence[int], last_size: int = 1, *, input_dim: int) -> None:
+        super().__init__()
+        self.last_size = last_size
+        self.mlp = MLP(input_dim, hidden_sizes, last_size)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        out = self.mlp(obs)
+        return out[:, 0] if self.last_size == 1 else out
 
 #: what a noisy forward takes: nothing (mean weights), a generator that draws
 #: the factorized noise, or the pair ``(eps_in [in], eps_out [out])`` itself

@@ -5,7 +5,10 @@ distributional heads, softmax, critic mode) and ``DuelingNet`` (:319).
 flax infers a dense layer's input width at its first call; a torch layer is
 made with it, so every net here takes ``input_dim`` (the flattened
 observation width). Dense kernels start from flax's default (LeCun normal,
-truncated) and biases from zero, LayerNorm uses flax's epsilon of 1e-6, and
+truncated), or with ``orthogonal_gain`` from an orthogonal matrix scaled by
+that gain (flax's ``orthogonal(gain)``, the PPO recipe of
+:mod:`tianshou_tpu_torch.models.continuous`), and biases from zero,
+LayerNorm uses flax's epsilon of 1e-6, and
 :func:`tianshou_tpu_torch.models.convert.net_params_from_flax` carries flax
 weights across. ``EnsembleLinear``, ``BranchingNet``, ``RandomActor`` and
 ``DictObsNet`` are not ported yet.
@@ -13,20 +16,28 @@ weights across. ``EnsembleLinear``, ``BranchingNet``, ``RandomActor`` and
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.models.atari import _lecun_normal_
-
 __all__ = ["MLP", "Net", "DuelingNet"]
 
 
-def _dense(in_features: int, out_features: int) -> nn.Linear:
+def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
+    """flax's default kernel init: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
+def _dense(in_features: int, out_features: int, orthogonal_gain: float | None = None) -> nn.Linear:
     layer = nn.Linear(in_features, out_features)
-    _lecun_normal_(layer.weight, in_features)
+    if orthogonal_gain is None:
+        _lecun_normal_(layer.weight, in_features)
+    else:
+        nn.init.orthogonal_(layer.weight, gain=orthogonal_gain)
     nn.init.zeros_(layer.bias)
     return layer
 
@@ -35,19 +46,20 @@ class MLP(nn.Module):
     """Hidden layers with ``activation`` (and LayerNorm before it for
     ``norm="layer"``) after each, then an optional linear output head
     (reference MLP, net/common.py:90). ``output_dim=0``: the last hidden
-    layer is the output."""
+    layer is the output. ``orthogonal_gain`` initializes every kernel,
+    the head's too, as flax's ``orthogonal(gain)``."""
 
     def __init__(self, input_dim: int, hidden_sizes: Sequence[int], output_dim: int = 0,
                  activation: Callable[[torch.Tensor], torch.Tensor] = F.relu, norm: str | None = None,
-                 flatten_input: bool = True) -> None:
+                 flatten_input: bool = True, orthogonal_gain: float | None = None) -> None:
         super().__init__()
         if norm not in (None, "layer"):
             raise ValueError(f"norm must be None or 'layer', got {norm!r}")
         widths = [input_dim, *hidden_sizes]
-        self.linears = nn.ModuleList(_dense(a, b) for a, b in zip(widths, widths[1:]))
+        self.linears = nn.ModuleList(_dense(a, b, orthogonal_gain) for a, b in zip(widths, widths[1:]))
         self.norms = nn.ModuleList(nn.LayerNorm(h, eps=1e-6) for h in hidden_sizes) if norm == "layer" else None
         if output_dim > 0:
-            self.linears.append(_dense(widths[-1], output_dim))
+            self.linears.append(_dense(widths[-1], output_dim, orthogonal_gain))
         self.n_hidden = len(hidden_sizes)
         self.activation = activation
         self.flatten_input = flatten_input

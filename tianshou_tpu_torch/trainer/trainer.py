@@ -1,35 +1,45 @@
-"""Off-policy trainer (port of ``tianshou_tpu/trainer/trainer.py``; reference
-``tianshou/trainer.py``: ``TrainerParams`` :81, ``OffPolicyTrainer`` :1043).
+"""Trainers (port of ``tianshou_tpu/trainer/trainer.py``; reference
+``tianshou/trainer.py``: ``TrainerParams`` :81, ``OffPolicyTrainer`` :1043,
+``OnPolicyTrainer`` :1098).
 
-The epoch and update cadence are the JAX package's: after an optional
-prefill (uniform random actions, or the policy's with ``start_random=False``),
-each chunk collects ``collection_step_num_env_steps`` steps from every env
-and then takes ``round(update_per_step * T * E)`` gradient steps; the host
-reads back only the per-chunk episode and loss statistics. At the end of
-each epoch a test phase collects ``test_step_num_episodes`` episodes with
-the test collector (``training=False``: eps-greedy at ``eps_inference``),
+The epoch and update cadence are the JAX package's. Off-policy: after an
+optional prefill (uniform random actions, or the policy's with
+``start_random=False``), each chunk collects ``collection_step_num_env_steps``
+steps from every env and then takes ``round(update_per_step * T * E)``
+gradient steps. On-policy: each chunk collects a rollout of T steps per env
+(``keep_rollout=True``, no replay buffer) and ``update_rollout`` takes
+``update_step_num_repetitions`` passes of shuffled minibatches over it. The
+host reads back only the per-chunk episode and loss statistics. At the end
+of each epoch a test phase collects ``test_step_num_episodes`` episodes with
+the test collector (``training=False``), under the train envs' pooled
+observation statistics where the envs normalize observations (``NormObs``),
 tracks the best score and calls ``save_best_fn``, ``stop_fn``, the logger
 and ``save_checkpoint_fn``; with ``test_in_train`` a chunk whose training
 episodes meet ``stop_fn`` triggers a test and may stop early. ``test_fn``'s
 overrides hold for the test phase only. The loggers
 (:mod:`tianshou_tpu_torch.utils.logger`) and the determinism trace
 (:mod:`tianshou_tpu_torch.utils.determinism`, lines ``collector``,
-``trainer/collect`` and ``trainer/update``) are the JAX package's.
+``trainer/collect`` and ``trainer/update``) are the JAX package's. What the
+two trainers share (the test phase, hyper-parameters, logging, counters and
+programs) is :class:`_TrainerBase`, as in the JAX package.
 
-The JAX package jits the collect chunk, the update burst, the test chunk and
-with ``fused_megastep`` collect and burst as one program. Here they are the
-programs :meth:`OffPolicyTrainer.collect_chunk`,
-:meth:`OffPolicyTrainer.update_burst`, :meth:`OffPolicyTrainer.test_chunk`
-and :meth:`OffPolicyTrainer.megastep`, each a CUDA graph on the card
+The JAX package jits the collect chunk, the update burst (on-policy: the
+rollout update), the test chunk and with ``fused_megastep`` collect and
+burst as one program. Here they are the trainers' programs
+(:meth:`_TrainerBase.collect_chunk`, :meth:`OffPolicyTrainer.update_burst`,
+:meth:`OnPolicyTrainer.update_rollout`, :meth:`_TrainerBase.test_chunk` and
+:meth:`OffPolicyTrainer.megastep`), each a CUDA graph on the card
 (:class:`tianshou_tpu_torch.utils.graph.Graphed`): a program's first call
 runs eagerly as its warm-up and counts as work done, its second captures and
 replays it, every later call replays it. A program is built once per trainer
 and per state it closes over (train state, buffer state, collect state, the
-test collector's episode state, generator), so a second
-:meth:`OffPolicyTrainer.run` on the same states replays what the first
-captured; all graphs of a trainer share one memory pool, and train and test
-programs never run at the same time. A replay does only device work, so
-whatever the JAX package does on the host after a jitted call (trace lines,
+test collector's episode state, the rollout it updates from, generator), so
+a second ``run`` on the same states replays what the first captured; the
+on-policy update reads the collect graph's static rollout, so it is built
+again once, when the collect chunk's capture replaces its eager output. All
+graphs of a trainer share one memory pool, and train and test programs never
+run at the same time. A replay does only device work, so whatever the JAX
+package does on the host after a jitted call (trace lines,
 ``on_episode_done_hook``, logger writes) runs here after the replay. On the
 CPU the same code runs eagerly. The random prefill stays eager.
 """
@@ -47,13 +57,15 @@ import torch
 from tianshou_tpu_torch import config
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.collector import CollectStats, DeviceCollector, EpisodeState
+from tianshou_tpu_torch.env.wrappers import extract_pooled_rms
 from tianshou_tpu_torch.utils.determinism import TraceLogger, trace_param_hash
 from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
 from tianshou_tpu_torch.utils.print import DataclassPPrintMixin
 from tianshou_tpu_torch.utils.progress import progress_bar
 from tianshou_tpu_torch.utils.statistics import MovAvg
 
-__all__ = ["OffPolicyTrainer", "OffPolicyTrainerParams", "TrainResult", "TrainerParams"]
+__all__ = ["OffPolicyTrainer", "OffPolicyTrainerParams", "OnPolicyTrainer", "OnPolicyTrainerParams", "TrainResult",
+           "TrainerParams"]
 
 
 @dataclasses.dataclass
@@ -92,6 +104,13 @@ class OffPolicyTrainerParams(TrainerParams):
 
 
 @dataclasses.dataclass
+class OnPolicyTrainerParams(TrainerParams):
+    batch_size: int = 64
+    collection_step_num_env_steps: int = 128  # rollout length per env
+    update_step_num_repetitions: int = 1      # passes over each rollout
+
+
+@dataclasses.dataclass
 class TrainResult(DataclassPPrintMixin):
     """Summary, mirroring reference InfoStats (data/stats.py:83)."""
 
@@ -101,7 +120,7 @@ class TrainResult(DataclassPPrintMixin):
     gradient_step: int
     epochs: int
     train_time: float
-    #: seconds of the random prefill, collect, update and test phases
+    #: seconds of the collect, update and test phases (off-policy: and the random prefill)
     timing: dict
     train_state: Any = None
     buf_state: Any = None
@@ -128,17 +147,18 @@ def _flat_scalars(stats: Batch, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-class OffPolicyTrainer:
-    """Collect chunk -> burst of gradient steps, repeated; a test phase at the
-    end of each epoch (reference :1043). ``test_collector=None`` runs no test
-    phase: no best score, no stop."""
+class _TrainerBase:
+    """What both trainers share (the JAX package's ``_TrainerBase``): the
+    counters, the hyper-parameter writes, the programs and their graph pool,
+    the test phase with its observation-statistics handoff, the best score,
+    and the logger writes. ``test_collector=None`` runs no test phase: no
+    best score, no stop."""
 
     def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
-                 buffer, params: OffPolicyTrainerParams) -> None:
+                 params: TrainerParams) -> None:
         self.algo = algo
         self.train_collector = train_collector
         self.test_collector = test_collector
-        self.buffer = buffer
         self.params = params
         self.env_step = 0
         self.gradient_step = 0   # the host's mirror of the train state's step counter
@@ -181,44 +201,19 @@ class OffPolicyTrainer:
             self._programs[key] = held
         return held[1]
 
-    def _updates(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
-        stats = [self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)[2]
-                 for _ in range(n_updates)]
-        return Batch({k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()})
-
-    def update_burst(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
-        """``n_updates`` gradient steps in place as one program (the JAX
-        package's ``_build_update_many``, a scan); returns their stats stacked
-        on a leading axis. The stats are the program's static output: the next
-        call overwrites them. (One update per graph, replayed ``n_updates``
-        times, took 1.5% longer per chunk on an H100: PERF.md.)"""
-        return self._program(("update_burst", n_updates, self.params.batch_size), (ts, buf_state, generator),
-                             generator, lambda: self._updates(ts, buf_state, generator, n_updates))()
-
-    def collect_chunk(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int) -> Batch:
+    def collect_chunk(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int,
+                      keep_rollout: bool | None = None) -> Batch:
         """One collect chunk of ``n_steps`` steps per env, ``cstate`` and
         ``buf_state`` written in place (the device work of the JAX package's
         ``collect``); returns the ``[T, E]`` per-step output, the program's
-        static output. Its host side, ``train_collector.report``, is the
-        caller's."""
-        keep = config.ENABLE_VALIDATION
+        static output, with the transitions under ``rollout`` when
+        ``keep_rollout`` (default: ``config.ENABLE_VALIDATION``). Its host
+        side, ``train_collector.report``, is the caller's."""
+        keep = config.ENABLE_VALIDATION if keep_rollout is None else keep_rollout
         return self._program(
             ("collect_chunk", n_steps, keep), (ts, cstate, buf_state, generator), generator,
             lambda: self.train_collector.rollout(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep),
         )()
-
-    def megastep(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int,
-                 n_updates: int) -> tuple[Batch, Batch]:
-        """A collect chunk and then the update burst as ONE program (the JAX
-        package's ``_build_megastep``); returns ``(collect output, stats)``."""
-        keep = config.ENABLE_VALIDATION
-
-        def fn() -> tuple[Batch, Batch]:
-            out = self.train_collector.rollout(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)
-            return out, self._updates(ts, buf_state, generator, n_updates)
-
-        return self._program(("megastep", n_steps, keep, n_updates, self.params.batch_size),
-                             (ts, cstate, buf_state, generator), generator, fn)()
 
     def test_chunk(self, ts, state: EpisodeState, generator: torch.Generator, chunk_steps: int,
                    training: bool = False) -> Batch:
@@ -235,7 +230,9 @@ class OffPolicyTrainer:
     # host side: test phase, scores, logging
     # ------------------------------------------------------------------
     def _test(self, ts, generator: torch.Generator) -> CollectStats:
-        """``test_step_num_episodes`` episodes with ``training=False``.
+        """``test_step_num_episodes`` episodes with ``training=False``, under
+        the train envs' pooled observation statistics where their envs
+        normalize observations (``tianshou_tpu/trainer/trainer.py:208-221``).
         ``test_fn``'s overrides hold for this phase only: the JAX package
         applies them to a copy of the train state; here they are written in
         place and the values they replaced are written back afterwards (a key
@@ -246,9 +243,12 @@ class OffPolicyTrainer:
             overrides = p.test_fn(self._epoch, self.env_step) or {}
             saved = {k: ts.hparams[k].clone() for k in overrides if k in ts.hparams}
             self._apply_hparams(ts, overrides)
+        rms = None
+        if self._cstate is not None:
+            rms = extract_pooled_rms(self.train_collector.venv.env, self._cstate.env_state)
         try:
             return self.test_collector.collect_episodes(ts, generator, p.test_step_num_episodes, training=False,
-                                                        chunk_fn=self.test_chunk)
+                                                        rms=rms, chunk_fn=self.test_chunk)
         finally:
             for k, v in saved.items():
                 ts.hparams[k].copy_(v)
@@ -309,6 +309,103 @@ class OffPolicyTrainer:
         if self.params.logger is not None:
             self.params.logger.save_data(epoch, self.env_step, self.gradient_step)
 
+    def _after_collect(self, out: Batch, n_steps: int, epoch: int, pbar, test: Callable[[], CollectStats]) -> bool:
+        """The host side of a training chunk's collect (the collector's
+        report, the NaN screen, the counters, the trace line, the train
+        reward write) and ``test_in_train``: returns True when a test that
+        the chunk's training episodes called for meets the stop condition
+        (reference trainer.py:978)."""
+        p = self.params
+        coll = self.train_collector
+        E = coll.venv.num_envs
+        if config.ENABLE_VALIDATION:
+            _validate_collect(out)
+        self.env_step += n_steps * E
+        TraceLogger.log("trainer/collect", lambda: f"env_step={self.env_step} episodes={int(out.done.sum())}")
+        pbar.update(n_steps * E)
+        stats = None
+        if p.logger is not None or p.test_in_train:
+            stats = coll.stats_from(out)
+        if p.logger is not None and stats.n_collected_episodes:
+            p.logger.log_train_data(
+                {"train/reward": float(stats.returns.mean()), "train/length": float(stats.lens.mean())},
+                self.env_step,
+            )
+        return bool(p.test_in_train and p.stop_fn is not None and self.test_collector is not None
+                    and stats.n_collected_episodes > 0 and p.stop_fn(float(stats.returns.mean()))
+                    and self._log_test(test(), epoch))
+
+    def _end_epoch(self, epoch: int, t0: float, timing: dict, ts, test: Callable[[], CollectStats]) -> bool:
+        """The epoch's test phase, info and counter writes and checkpoint;
+        returns True when the test meets the stop condition."""
+        p = self.params
+        if p.verbose:
+            smoothed = ", ".join(f"{k} {m.get():.4g}" for k, m in self._mov.items())
+            print(f"Epoch {epoch}: env_step {self.env_step}, gradient_step {self.gradient_step}, {smoothed}")
+        stop = False
+        if self.test_collector is not None:
+            stop = self._log_test(test(), epoch)
+        self._log_info(epoch, t0, {k: timing[k] for k in ("collect", "update", "test")})
+        self._save_counters(epoch)
+        if p.save_checkpoint_fn is not None:
+            p.save_checkpoint_fn(epoch, self.env_step, self.gradient_step, ts)
+        return stop
+
+    def _result(self, epoch: int, t0: float, timing: dict, ts, buf_state, last_stats: Batch | None) -> TrainResult:
+        return TrainResult(
+            best_score=self.best_score,
+            best_reward=self.best_reward,
+            env_step=self.env_step,
+            gradient_step=self.gradient_step,
+            epochs=epoch,
+            train_time=time.perf_counter() - t0,
+            timing=dict(timing),
+            train_state=ts,
+            buf_state=buf_state,
+            update_stats={k: m.get() for k, m in self._mov.items()},
+            last_chunk_stats=last_stats,
+        )
+
+
+class OffPolicyTrainer(_TrainerBase):
+    """Collect chunk -> burst of gradient steps, repeated; a test phase at the
+    end of each epoch (reference :1043)."""
+
+    def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
+                 buffer, params: OffPolicyTrainerParams) -> None:
+        super().__init__(algo, train_collector, test_collector, params)
+        self.buffer = buffer
+
+    # ------------------------------------------------------------------
+    # programs
+    # ------------------------------------------------------------------
+    def _updates(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
+        stats = [self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)[2]
+                 for _ in range(n_updates)]
+        return Batch({k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()})
+
+    def update_burst(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
+        """``n_updates`` gradient steps in place as one program (the JAX
+        package's ``_build_update_many``, a scan); returns their stats stacked
+        on a leading axis. The stats are the program's static output: the next
+        call overwrites them. (One update per graph, replayed ``n_updates``
+        times, took 1.5% longer per chunk on an H100: PERF.md.)"""
+        return self._program(("update_burst", n_updates, self.params.batch_size), (ts, buf_state, generator),
+                             generator, lambda: self._updates(ts, buf_state, generator, n_updates))()
+
+    def megastep(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int,
+                 n_updates: int) -> tuple[Batch, Batch]:
+        """A collect chunk and then the update burst as ONE program (the JAX
+        package's ``_build_megastep``); returns ``(collect output, stats)``."""
+        keep = config.ENABLE_VALIDATION
+
+        def fn() -> tuple[Batch, Batch]:
+            out = self.train_collector.rollout(ts, cstate, buf_state, generator, n_steps, keep_rollout=keep)
+            return out, self._updates(ts, buf_state, generator, n_updates)
+
+        return self._program(("megastep", n_steps, keep, n_updates, self.params.batch_size),
+                             (ts, cstate, buf_state, generator), generator, fn)()
+
     # ------------------------------------------------------------------
     def run(self, ts, buf_state, generator: torch.Generator) -> TrainResult:
         """Train in place; ``generator`` lives on the envs' device."""
@@ -357,27 +454,10 @@ class OffPolicyTrainer:
                 timing["collect"] += time.perf_counter() - tc
                 if not p.fused_megastep:  # the JAX megastep steps the envs itself, without collect's report
                     coll.report(out, T, training=True)
-                if config.ENABLE_VALIDATION:
-                    _validate_collect(out)
-                self.env_step += T * E
                 steps_this_epoch += T * E
-                TraceLogger.log("trainer/collect", lambda: f"env_step={self.env_step} episodes={int(out.done.sum())}")
-                pbar.update(T * E)
-                stats = None
-                if p.logger is not None or p.test_in_train:
-                    stats = coll.stats_from(out)
-                if p.logger is not None and stats.n_collected_episodes:
-                    p.logger.log_train_data(
-                        {"train/reward": float(stats.returns.mean()), "train/length": float(stats.lens.mean())},
-                        self.env_step,
-                    )
-                # test_in_train: training episodes already meet the stop condition, so confirm it
-                # with a test run and stop early (reference trainer.py:978)
-                if (p.test_in_train and p.stop_fn is not None and self.test_collector is not None
-                        and stats.n_collected_episodes > 0 and p.stop_fn(float(stats.returns.mean()))):
-                    if self._log_test(test(), epoch):
-                        pbar.close()
-                        return self._result(epoch, t0, timing, ts, buf_state, last_stats)
+                if self._after_collect(out, T, epoch, pbar, test):
+                    pbar.close()
+                    return self._result(epoch, t0, timing, ts, buf_state, last_stats)
                 if not p.fused_megastep:
                     tu = time.perf_counter()
                     burst = self.update_burst(ts, buf_state, generator, n_updates)
@@ -389,34 +469,77 @@ class OffPolicyTrainer:
                 last_stats = burst.map(torch.clone)
                 self._log_update(last_stats)
             pbar.close()
-            if p.verbose:
-                smoothed = ", ".join(f"{k} {m.get():.4g}" for k, m in self._mov.items())
-                print(f"Epoch {epoch}: env_step {self.env_step}, gradient_step {self.gradient_step}, {smoothed}")
-            stop = False
-            if self.test_collector is not None:
-                stop = self._log_test(test(), epoch)
-            self._log_info(epoch, t0, {k: timing[k] for k in ("collect", "update", "test")})
-            self._save_counters(epoch)
-            if p.save_checkpoint_fn is not None:
-                p.save_checkpoint_fn(epoch, self.env_step, self.gradient_step, ts)
-            if stop:
+            if self._end_epoch(epoch, t0, timing, ts, test):
                 break
         return self._result(epoch, t0, timing, ts, buf_state, last_stats)
 
-    def _result(self, epoch: int, t0: float, timing: dict, ts, buf_state, last_stats: Batch | None) -> TrainResult:
-        return TrainResult(
-            best_score=self.best_score,
-            best_reward=self.best_reward,
-            env_step=self.env_step,
-            gradient_step=self.gradient_step,
-            epochs=epoch,
-            train_time=time.perf_counter() - t0,
-            timing=dict(timing),
-            train_state=ts,
-            buf_state=buf_state,
-            update_stats={k: m.get() for k, m in self._mov.items()},
-            last_chunk_stats=last_stats,
-        )
+
+class OnPolicyTrainer(_TrainerBase):
+    """Rollout -> ``update_step_num_repetitions`` passes of shuffled
+    minibatches over it, repeated; a test phase at the end of each epoch
+    (reference :1098). The rollout never touches a replay buffer: the
+    collect chunk keeps it (``keep_rollout=True``) and
+    :meth:`update_rollout` reads it where the chunk wrote it."""
+
+    def update_rollout(self, ts, rollout: Batch, generator: torch.Generator) -> Batch:
+        """``algo.update_rollout`` over ``rollout`` in place as one program
+        (the JAX package's jitted ``update_rollout``); returns the averaged
+        stats, the program's static output."""
+        p = self.params
+        repeat, batch_size = p.update_step_num_repetitions, p.batch_size
+        return self._program(
+            ("update_rollout", repeat, batch_size), (ts, rollout, generator), generator,
+            lambda: self.algo.update_rollout(ts, rollout, generator, repeat, batch_size)[1],
+        )()
+
+    def run(self, ts, generator: torch.Generator) -> TrainResult:
+        """Train in place; ``generator`` lives on the envs' device."""
+        p = self.params
+        coll = self.train_collector
+        dev = coll.venv.device
+        t0 = time.perf_counter()
+        timing = dict.fromkeys(("collect", "update", "test"), 0.0)
+        cstate = self._cstate = coll.reset(generator, into=self._cstate)
+        E = coll.venv.num_envs
+        T = p.collection_step_num_env_steps
+        n_mb, _ = self.algo.minibatch_shape(T * E, p.batch_size)
+        self._ts = ts
+
+        def test() -> CollectStats:
+            tt = time.perf_counter()
+            stats = self._test(ts, generator)
+            timing["test"] += time.perf_counter() - tt
+            return stats
+
+        last_stats = None
+        epoch = self.start_epoch
+        for epoch in range(self.start_epoch + 1, p.max_epochs + 1):
+            self._epoch = epoch
+            steps_this_epoch = 0
+            pbar = progress_bar(p.epoch_num_steps, f"epoch {epoch}", p.show_progress)
+            while steps_this_epoch < p.epoch_num_steps:
+                if p.train_fn is not None:
+                    self._apply_hparams(ts, p.train_fn(epoch, self.env_step))
+                tc = time.perf_counter()
+                out = self.collect_chunk(ts, cstate, None, generator, T, keep_rollout=True)
+                _sync(dev)
+                timing["collect"] += time.perf_counter() - tc
+                coll.report(out, T, training=True)
+                steps_this_epoch += T * E
+                if self._after_collect(out, T, epoch, pbar, test):
+                    pbar.close()
+                    return self._result(epoch, t0, timing, ts, None, last_stats)
+                tu = time.perf_counter()
+                stats = self.update_rollout(ts, out.rollout, generator)
+                _sync(dev)
+                timing["update"] += time.perf_counter() - tu
+                self.gradient_step += p.update_step_num_repetitions * n_mb
+                last_stats = stats.map(torch.clone)  # a graph's output: the next replay overwrites it
+                self._log_update(last_stats)
+            pbar.close()
+            if self._end_epoch(epoch, t0, timing, ts, test):
+                break
+        return self._result(epoch, t0, timing, ts, None, last_stats)
 
 
 def _validate_collect(out: Batch) -> None:
