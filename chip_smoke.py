@@ -114,6 +114,24 @@ Phases, each of which fails the run:
    ``NormObs``, 10 test episodes), cut to 2 epochs of 100,000 steps: finite test returns, the pooled
    train statistics at every handoff to the test envs, the rate after the run the schedule's.
 
+15. Continuous graph phase: ``OffPolicyTrainer``'s collect chunk and update burst as CUDA graphs against
+   the eager loop for TD3, SAC (``alpha="auto"``) and REDQ on HalfCheetah at the examples' widths (32
+   envs, 256x256 nets, batch 256): three collect chunks of T = 4 and three bursts of 8 updates, so that
+   TD3 crosses both sides of its delay and REDQ its step 20; weights, targets, ``log_alpha``, every Adam
+   state, rings and collect state bit-identical; the actor's Adam count the number of applied steps. For
+   SAC, the alpha and actor optimizers on the card against the CPU (``adam_check``).
+16. Continuous off-policy paths (``OFF_PATHS``): ``examples/mujoco/mujoco_sac.py``'s defaults on
+   HalfCheetah, ``mujoco_td3.py``'s on Ant over prioritized replay (alpha 0.6, beta 0.4) and
+   ``mujoco_redq.py``'s on HalfCheetah (32 envs, T 4, 128 updates per megastep of batch 256, a 1 M-row
+   replay, 256x256 nets, the random prefill, ``fused_megastep``, 10 test episodes), each cut to one
+   epoch (20,000, 5,000 and 5,000 steps): exactly one ``physics_fused`` launch per vector step, prefill
+   and test included; with PER one descent per update, one tree update per update and per collect
+   step, and an exactly consistent tree; then the megastep graph replayed alone for its wall and device
+   time.
+17. Pendulum paths (``tests/test_continuous.py:22-86``): SAC, TD3 and DDPG with 8 + 10 envs, a 50,000-row
+   replay, batch 128, T 8, 0.5 updates per env step, a 2,000-step prefill of the policy, at most 12
+   epochs of 4,000 steps; each must reach -250.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -175,6 +193,20 @@ PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 
 PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
 # examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs to 2
 MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 2, 100_000
+
+# the continuous off-policy paths: examples/mujoco/mujoco_{sac,td3,redq}.py's defaults (32 envs, T 4, one update
+# per env step, batch 256, a 1 M-row replay, 256x256 nets, 10 test episodes), the depth cut to one epoch
+OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 256, 1_000_000, (256, 256), 10, 5
+OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
+    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 20_000, False),
+    "td3_ant_per": ("Ant", "td3", 25_000, 5_000, True),
+    "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 5_000, False),
+}
+OFF_ALGOS = {"sac": dict(lr=1e-3, alpha=0.2), "td3": dict(lr=3e-4), "redq": dict(lr=1e-3, alpha="auto")}
+# Pendulum (tests/test_continuous.py:22-86; threshold from upstream test/continuous/test_sac_with_il.py:86)
+PEND_E, PEND_TEST_E, PEND_HID, PEND_BUFFER, PEND_BATCH, PEND_T, PEND_UTD = 8, 10, (128, 128), 50_000, 128, 8, 0.5
+PEND_PREFILL, PEND_EPOCHS, PEND_EPOCH_STEPS, PEND_THRESHOLD = 2_000, 12, 4_000, -250
+PEND_ALGOS = {"sac": dict(lr=3e-4, alpha="auto"), "td3": dict(lr=3e-4), "ddpg": dict(lr=1e-3)}
 
 
 def _smi() -> str:
@@ -632,22 +664,23 @@ def _check_tests(name: str, tests: list, n_phases: int) -> None:
                                  f"returns {stats.returns}")
 
 
-def _check_tree(torch, buffer, state, gen) -> str:
+def _check_tree(torch, buffer, state, gen, batch_size: int = BATCH) -> str:
     """The prioritized state after training: the tree's invariant, where its mass lies, the
     priority range and a fresh batch's weights. Returns a report line."""
     tree, bound = state.tree, buffer.segtree.bound
+    envs, slots = buffer.num_envs, buffer.capacity
     if not torch.equal(tree[1:bound], tree[2::2] + tree[3::2]):
         raise AssertionError("an internal node of the sum tree is not the sum of its two children")
     if tree[0].item() != 0.0:
         raise AssertionError("node 0 of the sum tree was written")
-    leaves = tree[bound:bound + E * SLOTS].reshape(E, SLOTS)
-    stored = torch.arange(SLOTS, device=tree.device)[None, :] < state.base.size[:, None]
+    leaves = tree[bound:bound + envs * slots].reshape(envs, slots)
+    stored = torch.arange(slots, device=tree.device)[None, :] < state.base.size[:, None]
     if not bool((leaves[stored] > 0).all()) or not bool((leaves[~stored] == 0).all()):
         raise AssertionError("stored rows must carry priority and never-written slots none")
     lo, hi = state.min_prio.item(), state.max_prio.item()
     if not 0 < lo <= hi:
         raise AssertionError(f"priority range [{lo}, {hi}] is off")
-    batch, idx = buffer.sample(state, gen, BATCH)
+    batch, idx = buffer.sample(state, gen, batch_size)
     w = batch.weight
     if not bool(((w > 0) & (w <= 1)).all()) or not bool(stored.reshape(-1)[idx].all()):
         raise AssertionError("a sampled batch's weights must lie in (0, 1] and its rows be stored ones")
@@ -1797,6 +1830,327 @@ def mujoco_example_path(torch):
     ]
 
 
+# ---------------------------------------------------------------------------
+# continuous off-policy: TD3, SAC and REDQ on the device physics; SAC, TD3 and DDPG on Pendulum
+# ---------------------------------------------------------------------------
+def make_offpolicy(torch, kind: str, env, hidden, lr: float, alpha=None):
+    """``kind`` (ddpg, td3, sac or redq) as the examples build it (``examples/mujoco/mujoco_{ddpg,td3,sac,
+    redq}.py``; ``tests/test_continuous.py`` for Pendulum): both optimizers Adam at ``lr``, gamma 0.99,
+    tau 0.005; DDPG and TD3 with Gaussian exploration noise of sigma 0.1 (TD3: policy noise 0.2 clipped
+    at 0.5, the actor every 2 steps); SAC's and REDQ's actor a conditioned-sigma tanh-Gaussian; REDQ
+    over an ensemble of 10 critics, a subset of 2 and the actor every 20 steps."""
+    from tianshou_tpu_torch.algorithm.modelfree.ddpg import DDPG
+    from tianshou_tpu_torch.algorithm.modelfree.redq import REDQ
+    from tianshou_tpu_torch.algorithm.modelfree.sac import SAC
+    from tianshou_tpu_torch.algorithm.modelfree.td3 import TD3
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.exploration.noise import GaussianNoise
+    from tianshou_tpu_torch.models.continuous import (
+        ContinuousActorDeterministic,
+        ContinuousActorProbabilistic,
+        ContinuousCritic,
+        EnsembleCritic,
+    )
+
+    obs_dim, nu = env.observation_space.shape[0], env.action_space.shape[0]
+    common = dict(action_space=env.action_space, policy_optim=AdamOptimizerFactory(lr=lr),
+                  critic_optim=AdamOptimizerFactory(lr=lr), gamma=0.99, tau=0.005)
+    critic = ContinuousCritic(hidden, input_dim=obs_dim, action_dim=nu)
+    if kind in ("ddpg", "td3"):
+        actor = ContinuousActorDeterministic(hidden, nu, input_dim=obs_dim)
+        noise = GaussianNoise(sigma=0.1)
+        if kind == "ddpg":
+            return DDPG(actor=actor, critic=critic, exploration_noise=noise, **common)
+        return TD3(actor=actor, critic=critic, exploration_noise=noise, policy_noise=0.2, noise_clip=0.5,
+                   update_actor_freq=2, **common)
+    actor = ContinuousActorProbabilistic(hidden, nu, conditioned_sigma=True, input_dim=obs_dim)
+    if kind == "sac":
+        return SAC(actor=actor, critic=critic, alpha=alpha, **common)
+    return REDQ(actor=actor, critic=EnsembleCritic(10, hidden, input_dim=obs_dim, action_dim=nu), ensemble_size=10,
+                subset_size=2, alpha=alpha, actor_delay=20, **common)
+
+
+def offpolicy_buffer(torch, env, size: int, num_envs: int, prio: bool = False):
+    """A float replay of ``size`` rows over ``num_envs`` rings on the card (PER: alpha 0.6, beta 0.4):
+    (buffer, state)."""
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.buffer.prio import PrioritizedVectorReplayBuffer
+
+    buffer = (PrioritizedVectorReplayBuffer(size, num_envs, alpha=0.6, beta=0.4) if prio
+              else VectorReplayBuffer(size, num_envs))
+    obs_dim, nu = env.observation_space.shape[0], env.action_space.shape[0]
+    state = buffer.init(Batch(obs=torch.zeros(obs_dim), act=torch.zeros(nu), rew=torch.tensor(0.0),
+                              terminated=torch.tensor(False), truncated=torch.tensor(False),
+                              obs_next=torch.zeros(obs_dim)), device="cuda")
+    return buffer, state
+
+
+def _offpolicy_state_tensors(ts, bs, cstate) -> list:
+    """Every tensor a continuous off-policy chunk writes: weights, targets, ``log_alpha``, every
+    optimizer's state, the step, the rings (and the sum tree) and the collect state."""
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+    from tianshou_tpu_torch.data.buffer.prio import PrioState
+
+    out = [*ts.model.state_dict().values(), *ts.target.state_dict().values(), ts.step]
+    for opt in ts.optim.values():
+        out += optimizer_tensors(opt)
+    base = bs.base if isinstance(bs, PrioState) else bs
+    out += [base.cursor, base.size, base.last_idx, *base.data.values(), *_leaves(cstate)]
+    if isinstance(bs, PrioState):
+        out += [bs.tree, bs.max_prio, bs.min_prio]
+    return out
+
+
+def offpolicy_graph_phase(torch, kind: str) -> list[str]:
+    """``OffPolicyTrainer``'s programs as CUDA graphs against the eager loop for TD3, SAC
+    (``alpha="auto"``) and REDQ on HalfCheetah at the examples' widths (32 envs, 256x256 nets, batch
+    256; REDQ's 10 critics): from one prefilled state and one generator state, on deep copies,
+    ``GRAPH_CALLS`` collect chunks of ``OFF_T`` steps and ``GRAPH_CALLS`` bursts of ``GRAPH_K`` updates
+    (steps 0-23: TD3 on both sides of its delay of 2, REDQ across its step 20) through the trainer's
+    programs against ``collector.collect`` and ``algo.update``. Every weight, target, ``log_alpha``,
+    Adam state, the rings, the collect state, the collect output and the stats bit-identical; the actor's
+    Adam count the number of applied actor steps (TD3 12, REDQ 2, SAC 24). Then, for SAC, the alpha and
+    actor optimizers on the card against the CPU (``adam_check``)."""
+    import copy
+
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.ops.kernels import counters
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    env = make("HalfCheetah")
+    algo = make_offpolicy(torch, kind, env, OFF_HID, lr=1e-3 if kind != "td3" else 3e-4, alpha="auto")
+    ts = algo.init("cuda")
+    buffer, bs = offpolicy_buffer(torch, env, OFF_E * 256, OFF_E)
+    coll = DeviceCollector(VectorDeviceEnv(env, OFF_E, device="cuda"), algo, buffer)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, 16, random=True)  # 512 rows to sample from
+    sides = {}
+    for side in ("graph", "eager"):
+        s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, bs=s_bs, cstate=s_cs, gen=s_gen, outs=[], stats=[])
+    del ts, bs, cstate
+    for side, sd in sides.items():
+        trainer = None
+        if side == "graph":
+            trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
+                batch_size=OFF_BATCH, collection_step_num_env_steps=OFF_T, verbose=False))
+        before = counters.snapshot()
+        for _ in range(GRAPH_CALLS):
+            if trainer is None:
+                out = coll.collect(sd["ts"], sd["cstate"], sd["bs"], sd["gen"], OFF_T)[2]
+            else:
+                out = trainer.collect_chunk(sd["ts"], sd["cstate"], sd["bs"], sd["gen"], OFF_T)
+            sd["outs"].append(out.map(torch.clone))
+        for _ in range(GRAPH_CALLS):
+            if trainer is None:
+                stats = [algo.update(sd["ts"], buffer, sd["bs"], sd["gen"], OFF_BATCH)[2] for _ in range(GRAPH_K)]
+                stats = {k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()}
+            else:
+                stats = trainer.update_burst(sd["ts"], sd["bs"], sd["gen"], GRAPH_K)
+            sd["stats"].append({k: v.clone() for k, v in stats.items()})
+        torch.cuda.synchronize()
+        after = counters.snapshot()
+        sd["launches"] = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        if trainer is not None:
+            sd["graphs"] = {g.name.split()[0]: (g.replays, g.capture_s) for g in trainer.graph_pool.graphs}
+            sd["pool_mib"] = trainer.graph_pool.memory_bytes() / 2**20
+    g, e = sides["graph"], sides["eager"]
+    name = f"continuous graph phase {kind}"
+    if {n: r for n, (r, _) in g["graphs"].items()} != {"collect_chunk": GRAPH_CALLS - 1, "update_burst": GRAPH_CALLS - 1}:
+        raise AssertionError(f"{name}: replays {g['graphs']}")
+    worst = 0.0
+    for call in range(GRAPH_CALLS):
+        if not all(torch.equal(a, b) for a, b in zip(_leaves(g["outs"][call]), _leaves(e["outs"][call]))):
+            raise AssertionError(f"{name}: collect output {call} differs from eager")
+        for k, v in e["stats"][call].items():
+            worst = max(worst, float((g["stats"][call][k].double() - v.double()).abs().max()))
+    pairs = list(zip(_offpolicy_state_tensors(g["ts"], g["bs"], g["cstate"]),
+                     _offpolicy_state_tensors(e["ts"], e["bs"], e["cstate"])))
+    for a, b in pairs:
+        worst = max(worst, float((a.detach().double() - b.detach().double()).abs().max()))
+    if worst != 0.0 or not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{name}: the graphs differ from eager by {worst:.3e}")
+    n_updates = GRAPH_CALLS * GRAPH_K
+    applied = {"td3": n_updates // 2, "redq": sum(s % 20 == 0 for s in range(n_updates)), "sac": n_updates}[kind]
+    ts = g["ts"]
+    actor_count = int(ts.optim["actor"].state[next(iter(ts.model["actor"].parameters()))]["step"])
+    if int(ts.step) != n_updates or actor_count != applied or g["launches"] != e["launches"]:
+        raise AssertionError(f"{name}: step {int(ts.step)}, actor steps applied {actor_count} (expected {applied}), "
+                             f"launches {g['launches']} / {e['launches']}")
+    lines = []
+    if kind == "sac":
+        lines.append(f"{name}: alpha " + adam_check(torch, algo.alpha_optim, [ts.model.log_alpha]))
+        lines.append(f"{name}: actor " + adam_check(torch, algo.policy_optim, list(ts.model["actor"].parameters())))
+    log_alpha = f", log_alpha {float(ts.model.log_alpha.detach()):.6f}" if hasattr(ts.model, "log_alpha") else ""
+    return lines + [
+        f"{name}, graphs against eager: HalfCheetah E={OFF_E}, nets {OFF_HID}, batch {OFF_BATCH}; {GRAPH_CALLS} collect "
+        f"chunks of T={OFF_T} and {GRAPH_CALLS} x {GRAPH_K} updates; weights, targets, Adam state, rings, collect state "
+        f"and output and stats bit-identical, max |diff| {worst:.3e}; actor steps applied {actor_count} of {n_updates}"
+        f"{log_alpha}; launches {g['launches']} as eager; replays and capture s "
+        f"{ {n: (r, round(c, 3)) for n, (r, c) in g['graphs'].items()} }; pool {g['pool_mib']:.1f} MiB"]
+
+
+def offpolicy_path(torch, name: str):
+    """The path ``name`` of ``OFF_PATHS`` through ``OffPolicyTrainer`` with ``fused_megastep``: the
+    example's defaults (32 envs, T 4, one update per env step: 128 per megastep, batch 256, a 1 M-row
+    replay, 256x256 nets, a random prefill, 10 test episodes on 10 envs), the depth cut to one epoch.
+    Checks: exactly one ``physics_fused`` launch per vector step (prefill, training and test); over PER
+    one descent per update and one tree update per update and per collect step, prefill included, and an
+    exactly consistent tree; the update count; finite weights and test returns. Then the megastep graph
+    replayed ``OFF_REPLAYS`` times for its wall and device time. Returns ({kernel: launches}, lines)."""
+    import numpy as np
+
+    from tianshou_tpu_torch.data.buffer.prio import PrioState
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    task, kind, prefill, epoch_steps, prio = OFF_PATHS[name]
+    torch.manual_seed(SEED)
+    env = make(task)
+    algo = make_offpolicy(torch, kind, env, OFF_HID, **OFF_ALGOS[kind])
+    ts = algo.init("cuda")
+    init = [p.detach().clone() for p in ts.model.parameters()]
+    buffer, bs = offpolicy_buffer(torch, env, OFF_BUFFER, OFF_E, prio)
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OffPolicyTrainer(
+        algo, DeviceCollector(VectorDeviceEnv(env, OFF_E, device="cuda"), algo, buffer),
+        DeviceCollector(VectorDeviceEnv(env, OFF_TEST_E, device="cuda"), algo, None), buffer,
+        OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=epoch_steps, test_step_num_episodes=OFF_TEST_E,
+                               batch_size=OFF_BATCH, collection_step_num_env_steps=OFF_T, update_per_step=1.0,
+                               start_steps=prefill, start_random=True, fused_megastep=True, compute_score_fn=score,
+                               verbose=False))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(ts, bs, gen)
+    torch.cuda.synchronize()
+    launches = _launches(gather, sumtree, physics_fused)
+
+    chunk = OFF_T * OFF_E
+    n_updates = round(1.0 * chunk)
+    prefill_chunks, chunks = -(-prefill // chunk), -(-epoch_steps // chunk)
+    train_steps = (prefill_chunks + chunks) * OFF_T  # vector steps, one buffer add each
+    test_steps = sum(s.n_collected_steps for s in tests) // OFF_TEST_E
+    graphs = {gr.name.split()[0]: gr for gr in trainer.graph_pool.graphs}
+    if sorted(graphs) != ["megastep", "test_chunk"] or graphs["megastep"].replays != chunks - 1:
+        raise AssertionError(f"{name} path: programs { {n: gr.replays for n, gr in graphs.items()} }")
+    if res.env_step != train_steps * OFF_E or res.gradient_step != chunks * n_updates or int(ts.step) != res.gradient_step:
+        raise AssertionError(f"{name} path: env_step {res.env_step}, gradient_step {res.gradient_step}, step {int(ts.step)}")
+    expect = {"gather_rows": 0, "prefix_sum_idx": res.gradient_step if prio else 0,
+              "tree_update": res.gradient_step + train_steps if prio else 0, "physics_fused": train_steps + test_steps}
+    if launches != expect:
+        raise AssertionError(f"{name} path: kernel launches {launches}, expected {expect} ({train_steps} train and "
+                             f"{test_steps} test vector steps, {res.gradient_step} updates)")
+    if len(tests) != 1 or tests[0].n_collected_episodes != OFF_TEST_E or not np.isfinite(tests[0].returns).all():
+        raise AssertionError(f"{name} path: test phases {[(s.n_collected_episodes, s.returns) for s in tests]}")
+    if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()) or \
+            all(torch.equal(a, b) for a, b in zip(init, ts.model.parameters())):
+        raise AssertionError(f"{name} path: non-finite or unchanged weights after training")
+    loss = res.last_chunk_stats.loss
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"{name} path: non-finite loss in the last megastep")
+    tree_line = [f"{name} path: " + _check_tree(torch, buffer, bs, gen, OFF_BATCH)] if prio else []
+    # the megastep graph replayed alone, after the checks: its wall and device time
+    walls, device = [], []
+    for _ in range(OFF_REPLAYS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        graphs["megastep"]()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        device.append(a.elapsed_time(b))
+    wall, dev = statistics.median(walls), statistics.median(device)
+    t = res.timing
+    captures = {n: round(gr.capture_s, 3) for n, gr in graphs.items()}
+    return launches, tree_line + [
+        f"{name} path: {kind} on {task}, E={OFF_E} T={OFF_T} batch={OFF_BATCH} nets {OFF_HID}, {n_updates} updates per "
+        f"megastep, {'PER alpha 0.6 beta 0.4 ' if prio else ''}replay of {OFF_BUFFER} rows; prefill {prefill_chunks * chunk} "
+        f"random steps, 1 epoch of {chunks * chunk} steps (depth cut); test reward {float(tests[0].returns.mean()):.3f} "
+        f"(10 episodes, lengths mean {tests[0].lens.mean():.1f}); launches {launches} = {train_steps} train + "
+        f"{test_steps} test vector steps{f', {res.gradient_step} updates' if prio else ''}",
+        f"{name} path: wall {res.train_time:.2f} s (prefill {t['prefill']:.2f}, megasteps {t['collect']:.2f}, test "
+        f"{t['test']:.2f}); train env_steps_per_s {chunks * chunk / t['collect']:.1f} over the run (eager warm-up and "
+        f"capture included); replayed megastep {wall * 1e3:.3f} ms wall, {dev:.3f} ms device = "
+        f"{chunk / wall:.1f} env_steps_per_s, {wall / n_updates * 1e3:.4f} ms per update (collect included); capture s "
+        f"{captures}; graph pool {trainer.graph_pool.memory_bytes() / 2**20:.1f} MiB; last losses "
+        f"{ {k: round(float(v.mean()), 4) for k, v in res.last_chunk_stats.items() if k != 'td_error'} }",
+    ]
+
+
+def pendulum_path(torch, kind: str):
+    """``kind`` (sac, td3 or ddpg) on ``Pendulum`` as ``tests/test_continuous.py:22-86`` trains it,
+    through ``OffPolicyTrainer`` and its collect, update and test graphs: 8 train and 10 test envs,
+    128x128 nets, a 50,000-row replay, batch 128, T 8, 0.5 updates per env step, a prefill of 2,000
+    steps with the policy's own actions, at most 12 epochs of 4,000 steps; it must reach -250.
+    Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.pendulum import Pendulum
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    name = f"pendulum_{kind}"
+    torch.manual_seed(SEED)
+    env = Pendulum()
+    algo = make_offpolicy(torch, kind, env, PEND_HID, **PEND_ALGOS[kind])
+    buffer, bs = offpolicy_buffer(torch, env, PEND_BUFFER, PEND_E)
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OffPolicyTrainer(
+        algo, DeviceCollector(VectorDeviceEnv(env, PEND_E, device="cuda"), algo, buffer),
+        DeviceCollector(VectorDeviceEnv(env, PEND_TEST_E, device="cuda"), algo, None), buffer,
+        OffPolicyTrainerParams(max_epochs=PEND_EPOCHS, epoch_num_steps=PEND_EPOCH_STEPS, test_step_num_episodes=10,
+                               batch_size=PEND_BATCH, collection_step_num_env_steps=PEND_T, update_per_step=PEND_UTD,
+                               start_steps=PEND_PREFILL, start_random=False, stop_fn=lambda r: r >= PEND_THRESHOLD,
+                               compute_score_fn=score, verbose=False))
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(algo.init("cuda"), bs, torch.Generator(device="cuda").manual_seed(SEED))
+    launches = _launches(gather, sumtree, physics_fused)
+    if not res.best_reward >= PEND_THRESHOLD:
+        raise AssertionError(f"{name} path: best test reward {res.best_reward} after {res.epochs} epochs, below the "
+                             f"threshold {PEND_THRESHOLD}")
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    if any(launches.values()) or sorted(graphs) != ["collect_chunk", "test_chunk", "update_burst"]:
+        raise AssertionError(f"{name} path: launches {launches}, programs {sorted(graphs)}")
+    if res.gradient_step != int(res.train_state.step):
+        raise AssertionError(f"{name} path: gradient_step {res.gradient_step}, step {int(res.train_state.step)}")
+    t = res.timing
+    train_steps = res.env_step - PEND_PREFILL
+    alpha = (f"; alpha {float(res.train_state.model.log_alpha.detach().exp()):.4f}"
+             if hasattr(res.train_state.model, "log_alpha") else "")
+    return launches, [
+        f"{name} path: best test reward {res.best_reward:.1f} (threshold {PEND_THRESHOLD}) after {res.epochs} epochs "
+        f"(test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}){alpha}; env_steps {res.env_step} "
+        f"gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s (prefill {t['prefill']:.2f}, collect "
+        f"{t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); train env_steps_per_s "
+        f"{train_steps / (t['collect'] + t['update']):.1f} (collect and update time, captures included); capture s "
+        f"{ {n: round(g.capture_s, 3) for n, g in graphs.items()} }; {_graph_report(trainer.graph_pool, 2)}",
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1880,6 +2234,18 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[name], lines = path(torch)  # raises below the threshold or on a failed check
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for kind in ("td3", "sac", "redq"):
+        t0 = time.perf_counter()
+        lines = offpolicy_graph_phase(torch, kind)  # raises unless graphs and the eager loop agree
+        print("\n".join(lines), f"\ncontinuous graph phase {kind}: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for name in OFF_PATHS:
+        t0 = time.perf_counter()
+        by_path[name], lines = offpolicy_path(torch, name)  # raises unless one launch per vector step
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for kind in ("sac", "td3", "ddpg"):
+        t0 = time.perf_counter()
+        by_path[f"pendulum_{kind}"], lines = pendulum_path(torch, kind)  # raises below the threshold
+        print("\n".join(lines), f"\npendulum_{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -1,6 +1,6 @@
 """Where the time of the PyTorch port's main paths goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo]
+    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo,offpolicy]
     python3 scripts/torch_port_profile.py --compare PARENT_TREE [--pairs 10]
 
 For the DQN-on-pixels pipeline of ``bench.py`` and then for the Rainbow +
@@ -49,6 +49,14 @@ and the device kernels by class (the physics kernel, GEMMs, the optimizer's
 multi-tensor kernels, sorts, reductions, indexing, the rest); then the
 MuJoCo example's update graph with and without ``target_kl`` on one
 rollout, for what the KL guard costs per minibatch.
+
+For the continuous off-policy paths (``--paths offpolicy``: ``chip_smoke``'s
+``sac_halfcheetah``, ``td3_ant_per`` and ``redq_halfcheetah``, 32 envs, T 4,
+128 updates of batch 256 per megastep, 256x256 nets) it fills the replay with
+random steps, then times and traces one megastep (collect and burst, one CUDA
+graph) and one burst alone (the trainer's ``update_burst``): wall, device busy
+time, idle share, host launches, device kernels and device ms per update, the
+kernels by class and ``physics_fused``'s share of the busy time.
 
 The pixel paths run through one trainer: a warm-up run of the prefill and two
 chunks (where the trainer captures its CUDA graphs: a program's first call is
@@ -510,6 +518,54 @@ def profile_ppo(smi: str) -> None:
           f"{(b1 - b0) / n_mb:.1f} us of device time per minibatch")
 
 
+def profile_offpolicy(smi: str, prefill_chunks: int = 40) -> None:
+    """Where the time of the continuous off-policy paths goes: for each path of ``chip_smoke.OFF_PATHS``
+    at its widths, after ``prefill_chunks`` random collect chunks, one megastep (collect and the burst
+    of 128 updates, one CUDA graph) and one burst alone, each called for its eager warm-up and its
+    capture, then timed and traced."""
+    import torch
+
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    cs = chip_smoke
+    for name, (task, kind, _, _, prio) in cs.OFF_PATHS.items():
+        torch.manual_seed(0)
+        env = make(task)
+        algo = cs.make_offpolicy(torch, kind, env, cs.OFF_HID, **cs.OFF_ALGOS[kind])
+        ts = algo.init("cuda")
+        buffer, bs = cs.offpolicy_buffer(torch, env, cs.OFF_BUFFER, cs.OFF_E, prio)
+        coll = DeviceCollector(VectorDeviceEnv(env, cs.OFF_E, device="cuda"), algo, buffer)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cstate = coll.reset(gen)
+        for _ in range(prefill_chunks):
+            coll.collect(ts, cstate, bs, gen, cs.OFF_T, random=True)
+        trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
+            batch_size=cs.OFF_BATCH, collection_step_num_env_steps=cs.OFF_T, verbose=False))
+        n_updates = cs.OFF_T * cs.OFF_E
+        programs = {"megastep": lambda: trainer.megastep(ts, cstate, bs, gen, cs.OFF_T, n_updates),
+                    "burst": lambda: trainer.update_burst(ts, bs, gen, n_updates)}
+        print(f"== {name}: {kind} on {task}, E={cs.OFF_E}, T={cs.OFF_T}, {n_updates} updates of batch {cs.OFF_BATCH}"
+              f"{', PER' if prio else ''} ==")
+        print(f"device: {smi}")
+        for part, fn in programs.items():
+            fn(), fn()  # eager warm-up, capture
+            plain, traced, per_name, host = _trace_kernels(fn, torch)
+            busy = sum(sum(v) for v in per_name.values())
+            kernels = sum(len(v) for v in per_name.values())
+            classes = _kernel_classes(per_name)
+            phys = classes.get("physics_fused", (0, 0.0))
+            print(f"{part}: wall ms {plain * 1e3:.3f} without the profiler, {traced * 1e3:.3f} under it; device busy ms "
+                  f"{busy / 1e3:.3f}, idle share {1 - busy / 1e6 / plain:.3f} ({1 - busy / 1e6 / traced:.3f} under the "
+                  f"profiler); device kernels {kernels} ({kernels / n_updates:.1f} per update), device ms per update "
+                  f"{busy / 1e3 / n_updates:.4f}; host launches {host}; physics_fused {phys[0]} launches, "
+                  f"{phys[1] / busy:.3f} of busy")
+            for cls, (n, us) in sorted(classes.items(), key=lambda kv: -kv[1][1]):
+                print(f"  {cls}: {n} kernels, {us / 1e3:.3f} ms ({us / busy:.3f} of busy)")
+
+
 def measure(paths: set[str]) -> dict:
     """The four paths of bench.py once each, through the programs of the tree imported: per path
     wall ms per chunk (or us per vector step), env-steps/s, device busy time, idle share, host
@@ -607,14 +663,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chunks", type=int, default=1)
     ap.add_argument("--paths", default="dqn,rainbow,physics",
-                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo")
+                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo, offpolicy")
     ap.add_argument("--compare", metavar="PARENT_TREE", help="measure this tree against PARENT_TREE in turns")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--measure", action="store_true", help="measure the paths once and print one MEASURE line")
     ap.add_argument("--tree", default=ROOT, help="the checkout whose chip_smoke and tianshou_tpu_torch to import")
     args = ap.parse_args()
     paths = set(args.paths.split(","))
-    if not paths <= {"dqn", "rainbow", "physics", "sumtree", "ppo"}:
+    if not paths <= {"dqn", "rainbow", "physics", "sumtree", "ppo", "offpolicy"}:
         ap.error(f"unknown path in {args.paths!r}")
     sys.path.insert(0, os.path.abspath(args.tree))
     import chip_smoke as module
@@ -629,7 +685,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke._smi()
     if args.compare:
-        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree", "ppo"})), smi)
+        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree", "ppo", "offpolicy"})), smi)
         return 0
     if args.measure:
         print("MEASURE " + json.dumps({"device": smi, "paths": measure(paths)}), flush=True)
@@ -649,6 +705,8 @@ def main() -> int:
                 kernel_scaling(*rollout_state(task), smi)
     if "ppo" in paths:
         profile_ppo(smi)
+    if "offpolicy" in paths:
+        profile_offpolicy(smi)
     return 0
 
 

@@ -746,3 +746,155 @@ def test_ppo_physics_megastep_launches_the_kernel_once_per_step_on_cuda():
     assert torch.equal(cstate.env_state.rms.count, count)
     assert int(ts.step) == 3 * 2 * 4
     assert all(bool(torch.isfinite(p).all()) for p in ts.model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# continuous off-policy: delayed updates and draws under a graph
+# ---------------------------------------------------------------------------
+def _pendulum_offpolicy(kind: str, prio: bool = False):
+    """TD3 or REDQ on Pendulum on the card, small nets, a buffer after a random prefill:
+    (algo, train state, buffer, buffer state, generator)."""
+    from tianshou_tpu_torch.algorithm.modelfree.redq import REDQ
+    from tianshou_tpu_torch.algorithm.modelfree.td3 import TD3
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.buffer.prio import PrioritizedVectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.pendulum import Pendulum
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.continuous import (
+        ContinuousActorDeterministic,
+        ContinuousActorProbabilistic,
+        ContinuousCritic,
+        EnsembleCritic,
+    )
+
+    torch.manual_seed(0)
+    env = Pendulum()
+    if kind == "td3":
+        algo = TD3(actor=ContinuousActorDeterministic((32, 32), 1, input_dim=3),
+                   critic=ContinuousCritic((32, 32), input_dim=3, action_dim=1), action_space=env.action_space)
+    else:
+        algo = REDQ(actor=ContinuousActorProbabilistic((32, 32), 1, conditioned_sigma=True, input_dim=3),
+                    critic=EnsembleCritic(10, (32, 32), input_dim=3, action_dim=1), action_space=env.action_space,
+                    actor_delay=2)
+    buffer = (PrioritizedVectorReplayBuffer(256, 8) if prio else VectorReplayBuffer(256, 8))
+    bs = buffer.init(Batch(obs=torch.zeros(3), act=torch.zeros(1), rew=torch.tensor(0.0), terminated=torch.tensor(False),
+                           truncated=torch.tensor(False), obs_next=torch.zeros(3)), device="cuda")
+    ts = algo.init("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    coll = DeviceCollector(VectorDeviceEnv(env, 8, device="cuda"), algo, buffer)
+    coll.collect(ts, coll.reset(gen), bs, gen, 16, random=True)
+    return algo, ts, buffer, bs, gen
+
+
+def _offpolicy_tensors(ts, bs) -> list:
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+
+    out = [*ts.model.parameters(), *ts.target.parameters(), ts.step]
+    for opt in ts.optim.values():
+        out += optimizer_tensors(opt)
+    if hasattr(bs, "tree"):
+        out += [bs.tree, bs.max_prio, bs.min_prio]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,prio", [("td3", True), ("redq", False)])
+def test_delayed_actor_updates_under_a_graph_match_eager_on_both_branches_on_cuda(kind, prio):
+    """Four updates as one captured program (eager warm-up, capture and replay, two replays: steps
+    0-3, both sides of TD3's delay of 2 and REDQ's ``actor_delay`` 2) against the same four updates
+    eagerly on a deep copy: every weight, target, Adam state and (PER) the sum tree bit-identical
+    after each update; the actor and its Adam state (REDQ: and ``log_alpha``) unchanged by each
+    delayed step and changed by the others."""
+    import copy
+
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    algo, ts, buffer, bs, gen = _pendulum_offpolicy(kind, prio)
+    ets, ebs = copy.deepcopy((ts, bs))
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    program = Graphed(lambda: algo.update(ts, buffer, bs, gen, 32)[2], GraphPool("cuda"), (gen,), name="update")
+    delayed = ["actor", "log_alpha"] if kind == "redq" else ["actor"]
+    for step in range(4):
+        before = [t.clone() for k in delayed for t in optimizer_tensors(ets.optim[k])]
+        stats = program()
+        estats = algo.update(ets, buffer, ebs, egen, 32)[2]
+        torch.cuda.synchronize()
+        assert all(torch.equal(stats[k], estats[k]) for k in estats.keys()), step
+        assert all(torch.equal(a, b) for a, b in zip(_offpolicy_tensors(ts, bs), _offpolicy_tensors(ets, ebs))), step
+        after = [t for k in delayed for t in optimizer_tensors(ets.optim[k])]
+        unchanged = all(torch.equal(a, b) for a, b in zip(before, after))
+        assert unchanged == (step % 2 == 1), step
+    assert program.replays == 3 and int(ts.step) == 4
+
+
+@pytest.mark.cuda
+def test_redq_subset_is_drawn_fresh_on_every_replay_as_eager_on_cuda(monkeypatch):
+    """REDQ's target subset, captured in a graph, is drawn anew by every replay, and each is the
+    subset that the same updates run eagerly (a deep copy, a generator in the same state) draw."""
+    import copy
+
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    algo, ts, buffer, bs, gen = _pendulum_offpolicy("redq")
+    ets, ebs = copy.deepcopy((ts, bs))
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    draw = algo._subset
+    logs = {side: torch.full((6, 2), -1, dtype=torch.int64, device="cuda") for side in ("graph", "eager")}
+    rows = {side: torch.zeros((), dtype=torch.int64, device="cuda") for side in logs}
+    side = ["graph"]
+
+    def logged(*args):
+        out = draw(*args)
+        logs[side[0]].index_copy_(0, rows[side[0]].view(1), out.unsqueeze(0))
+        rows[side[0]].add_(1)
+        return out
+
+    monkeypatch.setattr(algo, "_subset", logged)
+    program = Graphed(lambda: algo.update(ts, buffer, bs, gen, 32)[2], GraphPool("cuda"), (gen,), name="update")
+    for _ in range(6):
+        program()
+    side[0] = "eager"
+    for _ in range(6):
+        algo.update(ets, buffer, ebs, egen, 32)
+    torch.cuda.synchronize()
+    graphed = logs["graph"].tolist()
+    assert program.replays == 5 and int(rows["graph"]) == int(rows["eager"]) == 6
+    assert torch.equal(logs["graph"], logs["eager"])
+    assert len({tuple(r) for r in graphed[1:]}) > 1  # the replays drew different subsets
+    assert all(len(set(r)) == 2 and all(0 <= i < 10 for i in r) for r in graphed)
+
+
+@pytest.mark.cuda
+def test_capturable_adam_on_the_0d_log_alpha_matches_the_cpu_adam_on_cuda():
+    """SAC's alpha optimizer on a 0-d ``log_alpha`` on the card (capturable Adam), eight steps
+    through one graph, against the same factory's Adam on the CPU with the same gradients: within
+    2e-5 (the one-update rule of ``tests/test_torch_dqn.py``)."""
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, init_adam_state
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    factory = AdamOptimizerFactory(lr=3e-4)
+    cuda, cpu = torch.nn.Parameter(torch.zeros((), device="cuda")), torch.nn.Parameter(torch.zeros(()))
+    opt_cuda, opt_cpu = factory.create([cuda]), factory.create([cpu])
+    init_adam_state(opt_cuda)
+    assert opt_cuda.defaults["capturable"] and opt_cuda.state[cuda]["step"].device.type == "cuda"
+    cuda.grad = torch.zeros_like(cuda)
+    program = Graphed(lambda: factory.step(opt_cuda), GraphPool("cuda"), name="alpha_adam")
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        g = float(rng.normal(0.0, 2.0))
+        cuda.grad.fill_(g)
+        program()
+        cpu.grad = torch.tensor(g)
+        factory.step(opt_cpu)
+    assert program.replays == 7 and cuda.shape == ()
+    assert float(cpu.detach()) != 0.0
+    assert abs(float(cuda.detach().cpu()) - float(cpu.detach())) <= 2e-5
+    assert int(opt_cuda.state[cuda]["step"]) == int(opt_cpu.state[cpu]["step"]) == 8

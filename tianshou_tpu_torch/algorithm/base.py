@@ -15,11 +15,22 @@ host number would be captured as a constant.
 - ``Algorithm.preprocess / update_step``           <- _preprocess_batch / _update_with_batch
 - ``Algorithm.update``                             <- Algorithm._update (:586)
 - ``Algorithm.map_action``                         <- Policy.map_action (:254): clip or tanh, then scaling
+- :func:`polyak_update`                            <- polyak_update (:54), ``optax.incremental_update``
+- :class:`Snapshot`: what an update writes, copied aside and selected back on
+  the device (TD3's and REDQ's delayed actor steps, PPO's KL guard)
+
+An update draws its random numbers (sampled rows, target and actor noise)
+from the generator it is given. A :class:`Draws` in the generator's place
+hands the numbers over instead, so that tests can give both packages JAX's
+draws: the JAX update splits its key into k1 (the sample), k2 (preprocess)
+and k3 (the gradient step), and the test computes each draw from its key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections.abc import Iterable
 from typing import Any, NamedTuple
 
 import torch
@@ -27,10 +38,12 @@ from torch import nn
 
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.env.core import Box, Discrete, Space
 from tianshou_tpu_torch.ops.returns import nstep_returns, value_mask
 
-__all__ = ["ActOut", "Algorithm", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "TrainState"]
+__all__ = ["ActOut", "Algorithm", "Draws", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "Snapshot", "TrainState",
+           "optimizer_tensors", "polyak_update", "standard_normal"]
 
 
 @dataclasses.dataclass
@@ -39,13 +52,92 @@ class TrainState:
     every value of ``hparams`` are 0-d tensors on the model's device, written
     in place (the trainer's ``gradient_step`` is the host's mirror of ``step``)."""
 
-    model: nn.Module                    # online network (on-policy: a ModuleDict of actor and critic)
-    target: nn.Module | None            # lagged copy (None without a target net)
-    optim: torch.optim.Optimizer
+    #: online network; actor-critic: a ModuleDict of ``actor``, ``critic`` (and ``critic2``), keyed as the
+    #: JAX ``params``, with a 0-d ``log_alpha`` parameter under SAC's or REDQ's ``alpha="auto"``
+    model: nn.Module
+    #: lagged copy (None without a target net); actor-critic: a ModuleDict keyed as the JAX ``target_params``
+    target: nn.Module | None
+    #: one optimizer, or one per key of the JAX ``opt_state`` (continuous off-policy)
+    optim: torch.optim.Optimizer | dict[str, torch.optim.Optimizer]
     hparams: dict[str, torch.Tensor]    # dynamic knobs the trainer anneals (eps, ...), 0-d float32
     step: torch.Tensor                  # 0-d int64
     #: algorithm-specific carried state, 0-d tensors written in place (the return statistics)
     extra: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Draws:
+    """Random numbers handed to an update in place of its generator (tests
+    hand over the draws of a JAX key). Each field is what the update would
+    otherwise draw; a field the update reads must be given."""
+
+    #: the sampled rows ``[B]`` (the JAX update's k1)
+    indices: torch.Tensor | None = None
+    #: preprocess's standard normals ``[B, A]``: TD3's smoothing, SAC's and REDQ's next action (k2)
+    target: torch.Tensor | None = None
+    #: REDQ's target subset of the ensemble ``[M]`` (k2)
+    subset: torch.Tensor | None = None
+    #: the gradient step's standard normals ``[B, A]``: SAC's and REDQ's actor sample (k3)
+    actor: torch.Tensor | None = None
+
+
+def standard_normal(source: torch.Generator | Draws, field: str, like: torch.Tensor) -> torch.Tensor:
+    """Standard normals of ``like``'s shape, dtype and device: drawn from the
+    generator ``source``, or the ``field`` of handed :class:`Draws`."""
+    if isinstance(source, Draws):
+        return getattr(source, field).to(device=like.device, dtype=like.dtype)
+    return torch.randn(like.shape, generator=source, device=like.device, dtype=like.dtype)
+
+
+@torch.no_grad()
+def polyak_update(target: Iterable[torch.Tensor], online: Iterable[torch.Tensor], tau: float) -> None:
+    """``target <- tau * online + (1 - tau) * target`` in place, as multi-tensor
+    ops: ``optax.incremental_update``'s order of operations (two products,
+    then their sum), not ``lerp``'s (reference utils/lagged_network.py)."""
+    target, online = list(target), list(online)
+    torch._foreach_mul_(target, 1.0 - tau)
+    torch._foreach_add_(target, torch._foreach_mul(online, tau))
+
+
+def optimizer_tensors(opt: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """Every tensor a step of ``opt`` writes: its parameters, their state
+    (Adam's step count and moments) and a learning rate held as a tensor."""
+    out = []
+    for group in opt.param_groups:
+        out += group["params"]
+        for p in group["params"]:
+            out += [v for v in opt.state[p].values() if torch.is_tensor(v)]
+        if torch.is_tensor(group["lr"]):
+            out.append(group["lr"])
+    return out
+
+
+class Snapshot:
+    """Copies of the tensors an update writes, to select back on the device
+    with no host branch: :meth:`take` before the update, :meth:`restore_where`
+    after it, ``torch.where(cond, old, new, out=new)`` per tensor. The JAX
+    package selects whole trees with ``jnp.where``. The copies are grouped by
+    dtype: a multi-tensor copy takes one dtype, and a mixed list falls back to
+    one copy per tensor. An optimizer's state must exist before the first
+    :meth:`take` (:func:`tianshou_tpu_torch.algorithm.optim.init_adam_state`)."""
+
+    def __init__(self, tensors: Iterable[torch.Tensor]) -> None:
+        self.groups: dict[torch.dtype, list[torch.Tensor]] = {}
+        for t in tensors:
+            self.groups.setdefault(t.dtype, []).append(t)
+        self.saved = {dtype: [torch.empty_like(t) for t in group] for dtype, group in self.groups.items()}
+
+    @torch.no_grad()
+    def take(self) -> None:
+        for dtype, group in self.groups.items():
+            torch._foreach_copy_(self.saved[dtype], group)
+
+    @torch.no_grad()
+    def restore_where(self, cond: torch.Tensor) -> None:
+        """Where the 0-d bool ``cond`` holds, every tensor takes back its copy."""
+        for dtype, group in self.groups.items():
+            for old, new in zip(self.saved[dtype], group):
+                torch.where(cond, old, new, out=new)
 
 
 class ActOut(NamedTuple):
@@ -78,6 +170,13 @@ class Algorithm:
         self.action_scaling = action_scaling
         self.action_bound_method = action_bound_method
         self.is_discrete = isinstance(action_space, Discrete)
+
+    @property
+    def action_dim(self) -> int:
+        """The number of discrete actions, or the flat width of a continuous action."""
+        if isinstance(self.action_space, Discrete):
+            return self.action_space.n
+        return math.prod(self.action_space.shape)
 
     # ------------------------------------------------------------------
     def init(self, device: str | torch.device | None = None) -> TrainState:
@@ -141,12 +240,20 @@ class Algorithm:
         """Write back per-sample info (PER priorities). Returns buf_state."""
         return buf_state
 
-    def update(self, ts: TrainState, buffer, buf_state, generator: torch.Generator,
+    def update(self, ts: TrainState, buffer, buf_state, generator: torch.Generator | Draws,
                batch_size: int) -> tuple[TrainState, Any, Batch]:
         """sample -> preprocess -> update_step -> postprocess (reference
-        Algorithm._update, algorithm_base.py:586)."""
-        batch, indices = buffer.sample(buf_state, generator, batch_size,
-                                       drop_keys=self.update_sample_drop_keys)
+        Algorithm._update, algorithm_base.py:586). With :class:`Draws` for
+        ``generator`` the rows are ``generator.indices`` (with their
+        importance weights over prioritized replay)."""
+        drop = self.update_sample_drop_keys
+        if isinstance(generator, Draws):
+            indices = generator.indices
+            batch = buffer.get(buf_state, indices, drop_keys=drop)
+            if isinstance(buffer, PrioritizedReplayBuffer):
+                batch.weight = buffer.get_weight(buf_state, indices)
+        else:
+            batch, indices = buffer.sample(buf_state, generator, batch_size, drop_keys=drop)
         batch = self.preprocess(ts, buffer, buf_state, batch, indices, generator)
         ts, stats = self.update_step(ts, batch, generator)
         buf_state = self.postprocess(ts, buffer, buf_state, batch, indices, stats)
@@ -174,19 +281,20 @@ class OnPolicyAlgorithm(Algorithm):
 
 class OffPolicyAlgorithm(Algorithm):
     """Updates from replayed minibatches (reference :868). Subclasses that
-    define ``_target_q(ts, obs_next)`` get n-step bootstrapped targets from
-    :meth:`preprocess` (reference ``compute_nstep_return``, :721)."""
+    define ``_target_q(ts, obs_next, generator)`` get n-step bootstrapped
+    targets from :meth:`preprocess` (reference ``compute_nstep_return``,
+    :721); ``generator`` draws the target's noise (TD3, SAC, REDQ)."""
 
     n_step: int = 1
 
-    def _target_q(self, ts: TrainState, obs_next: Any) -> torch.Tensor:
+    def _target_q(self, ts: TrainState, obs_next: Any, generator: torch.Generator | Draws | None) -> torch.Tensor:
         raise NotImplementedError
 
     @torch.no_grad()
     def preprocess(self, ts, buffer, buf_state, batch: Batch, indices: torch.Tensor,
                    generator: torch.Generator) -> Batch:
         rews, ends, obs_next_t, terminated_t = self._nstep_terminal(buffer, buf_state, batch, indices)
-        tq = self._target_q(ts, obs_next_t)
+        tq = self._target_q(ts, obs_next_t, generator)
         mask = value_mask(terminated_t)
         tq = tq * mask.reshape(mask.shape + (1,) * (tq.dim() - 1))
         batch.returns = nstep_returns(rews, ends, tq, self.gamma)

@@ -132,7 +132,8 @@ class DQN(QLearningOffPolicyAlgorithm):
         self.huber_loss_delta = huber_loss_delta
 
     @torch.no_grad()
-    def _target_q(self, ts: TrainState, obs_next: Any) -> torch.Tensor:
+    def _target_q(self, ts: TrainState, obs_next: Any, generator: torch.Generator | None = None) -> torch.Tensor:
+        """The bootstrap value; draws nothing, so ``generator`` is unused."""
         q_t = self._q(ts.target if self.use_target else ts.model, obs_next)
         if self.is_double:
             a_star = self._q(ts.model, obs_next).argmax(dim=-1)

@@ -17,8 +17,9 @@ Two options change the update loop:
   with ``jnp.where(trip, old, new)``; here every tensor the update writes
   (parameters, the optimizer's step count, moments and learning rate, and
   ``ts.step``) is copied aside before the step and selected back with
-  ``torch.where(trip, old, new, out=new)`` after it, on the device: a CUDA
-  graph replays the guard with no host branch.
+  ``torch.where(trip, old, new, out=new)`` after it, on the device
+  (:class:`tianshou_tpu_torch.algorithm.base.Snapshot`): a CUDA graph
+  replays the guard with no host branch.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algorithm.base import TrainState
+from tianshou_tpu_torch.algorithm.base import Snapshot, TrainState, optimizer_tensors
 from tianshou_tpu_torch.algorithm.modelfree.a2c import A2C
 from tianshou_tpu_torch.data.batch import Batch
 
@@ -85,38 +86,18 @@ class PPO(A2C):
         ``stopped`` (0-d bool) carries the trip in and out. Returns
         ``(mean stats, stopped)``."""
         threshold = 1.5 * self.target_kl
-        written: dict[torch.dtype, list[torch.Tensor]] = {}  # by dtype: a multi-tensor copy takes one dtype
-        for t in self._written(ts):
-            written.setdefault(t.dtype, []).append(t)
-        saved = {dtype: [t.clone() for t in group] for dtype, group in written.items()}
+        # every tensor a minibatch update writes: the parameters, Adam's state and rate, the step counter
+        snapshot = Snapshot(optimizer_tensors(ts.optim) + [ts.step])
         stats = []
         for r in range(perm.shape[0]):
             for idx in perm[r]:
-                with torch.no_grad():
-                    for dtype, group in written.items():
-                        torch._foreach_copy_(saved[dtype], group)
+                snapshot.take()
                 s = self._update_minibatch(ts, self._minibatch(batch, idx))
                 stopped = stopped | (s.approx_kl > threshold)
-                with torch.no_grad():
-                    for dtype, group in written.items():
-                        for old, new in zip(saved[dtype], group):
-                            torch.where(stopped, old, new, out=new)
+                snapshot.restore_where(stopped)
                 s.kl_stop = stopped.to(torch.float32)
                 stats.append(s)
         return self._mean_stats(stats, perm.shape[0] * perm.shape[1]), stopped
-
-    @staticmethod
-    def _written(ts: TrainState) -> list[torch.Tensor]:
-        """Every tensor a minibatch update writes: the parameters, the
-        optimizer's per-parameter state (step count, moments), a learning
-        rate held as a tensor, and the train state's step counter."""
-        out = list(ts.model.parameters())
-        for group in ts.optim.param_groups:
-            for p in group["params"]:
-                out += [v for v in ts.optim.state[p].values() if torch.is_tensor(v)]
-            if torch.is_tensor(group["lr"]):
-                out.append(group["lr"])
-        return out + [ts.step]
 
     # ------------------------------------------------------------------
     def loss_minibatch(self, model: nn.Module, mb: Batch) -> tuple[torch.Tensor, Batch]:

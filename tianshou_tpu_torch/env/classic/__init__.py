@@ -1,1 +1,1 @@
-"""Classic control tasks (port of ``tianshou_tpu/env/classic``; only CartPole so far)."""
+"""Classic control tasks (port of ``tianshou_tpu/env/classic``: CartPole and Pendulum so far)."""

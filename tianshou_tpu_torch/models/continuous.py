@@ -1,8 +1,10 @@
 """Continuous-control actors and critics (port of
-``tianshou_tpu/models/continuous.py``; reference utils/net/continuous.py).
-Only the on-policy pair so far: ``ContinuousActorProbabilistic`` and
-``ContinuousCritic``; the deterministic actor, the ensemble critic and the
-BCQ nets are not ported yet.
+``tianshou_tpu/models/continuous.py``; reference utils/net/continuous.py):
+``ContinuousActorDeterministic`` (DDPG, TD3), ``ContinuousActorProbabilistic``
+(PPO, and with ``conditioned_sigma`` SAC and REDQ), ``ContinuousCritic`` and
+``EnsembleCritic`` (REDQ's N critics as one batched product, output
+``[N, B]``). The BCQ nets (``Perturbation``, ``VAE``) and gSDE are not
+ported yet.
 
 Like the MLPs of :mod:`tianshou_tpu_torch.models.mlp` they take
 ``input_dim``. ``ppo_init`` is the reference MuJoCo-PPO recipe
@@ -20,11 +22,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.models.mlp import MLP, _dense
+from tianshou_tpu_torch.models.mlp import MLP, EnsembleLinear, _dense
 
-__all__ = ["ContinuousActorProbabilistic", "ContinuousCritic", "SIGMA_MIN", "SIGMA_MAX"]
+__all__ = ["ContinuousActorDeterministic", "ContinuousActorProbabilistic", "ContinuousCritic", "EnsembleCritic",
+           "SIGMA_MIN", "SIGMA_MAX"]
 
 SIGMA_MIN, SIGMA_MAX = -20.0, 2.0  # reference continuous.py:25
+
+
+class ContinuousActorDeterministic(nn.Module):
+    """obs -> ``max_action * tanh(MLP(obs))`` (reference continuous.py:32)."""
+
+    def __init__(self, hidden_sizes: Sequence[int], action_dim: int, max_action: float = 1.0, *,
+                 input_dim: int) -> None:
+        super().__init__()
+        self.max_action = max_action
+        self.mlp = MLP(input_dim, hidden_sizes, action_dim)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.max_action * torch.tanh(self.mlp(obs))
 
 
 class ContinuousActorProbabilistic(nn.Module):
@@ -73,8 +89,33 @@ class ContinuousCritic(nn.Module):
         self.mlp = MLP(width, hidden_sizes, 1, activation=torch.tanh if ppo_init else F.relu,
                        orthogonal_gain=math.sqrt(2.0) if ppo_init else None)
 
+    def reset_parameters(self) -> None:
+        self.mlp.reset_parameters()
+
     def forward(self, obs: torch.Tensor, act: torch.Tensor | None = None) -> torch.Tensor:
         x = obs.reshape(obs.shape[0], -1)
         if self.use_action and act is not None:
             x = torch.cat([x.to(torch.float32), act.reshape(act.shape[0], -1).to(torch.float32)], dim=-1)
         return self.mlp(x)[:, 0]
+
+
+class EnsembleCritic(nn.Module):
+    """``ensemble_size`` independent Q(obs, act) critics evaluated as one
+    batched product per layer (reference REDQ's ``EnsembleLinear`` stack,
+    net/common.py:518): ReLU after each hidden layer, output ``[N, B]``."""
+
+    def __init__(self, ensemble_size: int, hidden_sizes: Sequence[int], *, input_dim: int, action_dim: int) -> None:
+        super().__init__()
+        widths = [input_dim + action_dim, *hidden_sizes, 1]
+        self.layers = nn.ModuleList(EnsembleLinear(ensemble_size, a, b) for a, b in zip(widths, widths[1:]))
+
+    def reset_parameters(self) -> None:
+        for layer in self.layers:
+            layer.reset_parameters()
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([obs.reshape(obs.shape[0], -1).to(torch.float32),
+                       act.reshape(act.shape[0], -1).to(torch.float32)], dim=-1)
+        for layer in self.layers[:-1]:
+            x = F.relu(layer(x))
+        return self.layers[-1](x)[..., 0]

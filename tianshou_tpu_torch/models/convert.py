@@ -1,16 +1,18 @@
 """flax -> torch weight conversion for the Atari nets, the MLPs and the
-actor-critic nets.
+actor-critic nets (on-policy and continuous off-policy).
 
 Takes the parameter tree of a ``tianshou_tpu.models.atari`` net (``DQNet``,
 ``C51Net``, ``RainbowAtariNet``), of a ``tianshou_tpu.models.mlp`` net
-(``MLP``, ``Net``, ``DuelingNet``) or of an on-policy net
-(``ContinuousActorProbabilistic``, ``ContinuousCritic``, ``DiscreteActor``,
+(``MLP``, ``Net``, ``DuelingNet``) or of an actor-critic net
+(``ContinuousActorProbabilistic``, ``ContinuousActorDeterministic``,
+``ContinuousCritic``, ``EnsembleCritic``, ``DiscreteActor``,
 ``DiscreteCritic``) with numpy leaves (``{"params": {...}}`` or the inner
 ``"params"`` dict) and returns a ``state_dict`` for its counterpart in
 :mod:`tianshou_tpu_torch.models`. It needs no flax:
 
 - conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
 - Dense kernels ``[in, out]`` -> ``[out, in]``;
+- ``EnsembleLinear`` keeps flax's ``[K, I, O]`` kernel and ``[K, 1, O]`` bias;
 - the first Dense after the flatten has its rows permuted from the JAX
   net's H, W, C flatten order to the torch net's C, H, W order;
 - noisy layers: flax keeps ``mu_w [in, out]`` and ``mu_b`` uncentred and
@@ -27,8 +29,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "actor_critic_params_from_flax", "c51net_params_from_flax", "continuous_actor_prob_params_from_flax",
-    "continuous_critic_params_from_flax", "discrete_actor_params_from_flax", "discrete_critic_params_from_flax",
+    "actor_critic_params_from_flax", "c51net_params_from_flax", "continuous_actor_det_params_from_flax",
+    "continuous_actor_prob_params_from_flax", "continuous_critic_params_from_flax", "discrete_actor_params_from_flax",
+    "discrete_critic_params_from_flax", "ensemble_critic_params_from_flax",
     "dqnet_params_from_flax", "mlp_params_from_flax", "nature_cnn_params_from_flax", "net_params_from_flax",
     "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
 ]
@@ -157,23 +160,42 @@ def continuous_critic_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
 
 
 discrete_actor_params_from_flax = discrete_critic_params_from_flax = continuous_critic_params_from_flax
+continuous_actor_det_params_from_flax = continuous_critic_params_from_flax  # one scope, MLP_0, too
 
 
-_ON_POLICY_CONVERTERS = {
+def ensemble_critic_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``EnsembleCritic`` from the flax critic's
+    tree: scopes ``EnsembleLinear_i`` -> ``layers.i``, kernels and biases as
+    they are."""
+    p = tree["params"] if "params" in tree else tree
+    out: dict[str, torch.Tensor] = {}
+    for i in range(len(p)):
+        layer = p[f"EnsembleLinear_{i}"]
+        out[f"layers.{i}.weight"], out[f"layers.{i}.bias"] = _t(layer["kernel"]), _t(layer["bias"])
+    return out
+
+
+_ACTOR_CRITIC_CONVERTERS = {
     "ContinuousActorProbabilistic": continuous_actor_prob_params_from_flax,
+    "ContinuousActorDeterministic": continuous_actor_det_params_from_flax,
     "ContinuousCritic": continuous_critic_params_from_flax,
+    "EnsembleCritic": ensemble_critic_params_from_flax,
     "DiscreteActor": discrete_actor_params_from_flax,
     "DiscreteCritic": discrete_critic_params_from_flax,
 }
 
 
 def actor_critic_params_from_flax(params: dict, model) -> dict[str, torch.Tensor]:
-    """``state_dict`` of an on-policy train state's ``model`` (a
-    ``ModuleDict`` of ``actor`` and, where there is one, ``critic``) from the
-    JAX train state's ``params`` (``{"actor": tree, "critic": tree}``),
-    each net through the converter of its class."""
+    """``state_dict`` of an actor-critic train state's ``model`` or
+    ``target`` (a ``ModuleDict`` of ``actor``, ``critic``, ``critic2``, as
+    the nets go) from the JAX train state's ``params`` or ``target_params``
+    (``{"actor": tree, "critic": tree, ...}``), each net through the
+    converter of its class; a 0-d ``log_alpha`` (SAC's and REDQ's
+    ``alpha="auto"``) is carried across where the model holds one."""
     out: dict[str, torch.Tensor] = {}
     for name, net in model.items():
-        for k, v in _ON_POLICY_CONVERTERS[type(net).__name__](params[name]).items():
+        for k, v in _ACTOR_CRITIC_CONVERTERS[type(net).__name__](params[name]).items():
             out[f"{name}.{k}"] = v
+    if hasattr(model, "log_alpha"):
+        out["log_alpha"] = _t(params["log_alpha"])
     return out

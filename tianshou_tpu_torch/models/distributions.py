@@ -1,5 +1,6 @@
-"""Probability distributions (port of ``tianshou_tpu/models/distributions.py``;
-only ``Categorical`` and ``Normal`` so far).
+"""Probability distributions (port of ``tianshou_tpu/models/distributions.py``:
+``Categorical``, ``Normal`` and ``TanhNormal``; ``MaskedCategorical`` is not
+ported yet).
 
 The JAX package keeps a distribution as a pytree of its parameters; here it
 is a small class over tensors. Sampling takes an explicit
@@ -8,7 +9,10 @@ is a small class over tensors. Sampling takes an explicit
 - ``Categorical.sample`` is Gumbel-max over uniforms, as
   ``jax.random.categorical`` draws it, so that a CUDA graph can capture it
   (``torch.multinomial`` synchronizes with the host);
-- ``Normal.sample`` is ``loc + scale * eps`` with standard normal ``eps``.
+- ``Normal.sample`` is ``loc + scale * eps`` with standard normal ``eps``;
+- ``TanhNormal.sample_and_log_prob`` squashes such a sample with ``tanh``
+  and corrects the log-density by ``2 * (log 2 - u - softplus(-2u))``
+  (reference sac.py:25-39), the JAX formula term for term.
 
 ``from_noise`` takes the uniforms or normals themselves, so that tests can
 hand over the numbers the JAX key draws. ``log_prob`` and ``entropy`` of
@@ -20,10 +24,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["Categorical", "Normal"]
+__all__ = ["Categorical", "Normal", "TanhNormal"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+_LOG_2 = math.log(2.0)
 
 
 class Categorical:
@@ -90,3 +96,39 @@ class Normal:
         var_ratio = (self.scale / other.scale) ** 2
         t1 = ((self.loc - other.loc) / other.scale) ** 2
         return (0.5 * (var_ratio + t1 - 1 - torch.log(var_ratio))).sum(-1)
+
+
+class TanhNormal:
+    """``tanh`` of a diagonal Gaussian, with the change-of-variables
+    log-prob: ``log N(u) - sum log(1 - tanh(u)^2)``, the correction written
+    stably as ``2 * (log 2 - u - softplus(-2u))``."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor) -> None:
+        self.loc = loc
+        self.scale = scale
+
+    def _log_prob_pre_tanh(self, u: torch.Tensor) -> torch.Tensor:
+        z = (u - self.loc) / self.scale
+        log_base = (-0.5 * z**2 - torch.log(self.scale) - _HALF_LOG_2PI).sum(-1)
+        correction = (2.0 * (_LOG_2 - u - F.softplus(-2.0 * u))).sum(-1)
+        return log_base - correction
+
+    def from_noise(self, eps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(tanh(u), log_prob)`` for ``u = loc + scale * eps``; ``z`` is
+        recomputed from ``u``, as the JAX package does."""
+        u = self.loc + self.scale * eps
+        return torch.tanh(u), self._log_prob_pre_tanh(u)
+
+    def sample_and_log_prob(self, generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+        eps = torch.randn(self.loc.shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
+        return self.from_noise(eps)
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_and_log_prob(generator)[0]
+
+    def log_prob(self, action: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        """Of an action in (-1, 1), clipped to ``±(1 - eps)`` before ``atanh``."""
+        return self._log_prob_pre_tanh(torch.atanh(action.clamp(-1 + eps, 1 - eps)))
+
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.loc)

@@ -1,6 +1,7 @@
-"""Feed-forward nets (port of ``tianshou_tpu/models/mlp.py:23-115``; reference
+"""Feed-forward nets (port of ``tianshou_tpu/models/mlp.py:23-128``; reference
 utils/net/common.py): ``MLP`` (:90), ``Net`` (:246, ``num_atoms``
-distributional heads, softmax, critic mode) and ``DuelingNet`` (:319).
+distributional heads, softmax, critic mode), ``DuelingNet`` (:319) and
+``EnsembleLinear`` (:518, REDQ's critics).
 
 flax infers a dense layer's input width at its first call; a torch layer is
 made with it, so every net here takes ``input_dim`` (the flattened
@@ -10,8 +11,12 @@ that gain (flax's ``orthogonal(gain)``, the PPO recipe of
 :mod:`tianshou_tpu_torch.models.continuous`), and biases from zero,
 LayerNorm uses flax's epsilon of 1e-6, and
 :func:`tianshou_tpu_torch.models.convert.net_params_from_flax` carries flax
-weights across. ``EnsembleLinear``, ``BranchingNet``, ``RandomActor`` and
-``DictObsNet`` are not ported yet.
+weights across. ``EnsembleLinear`` keeps flax's ``[K, I, O]`` kernel and
+``[K, 1, O]`` bias, and flax's LeCun normal counts the ensemble axis into the
+fan-in (a receptive field of K), so each member starts at std
+``1/sqrt(K * I)``, as in the JAX package. ``reset_parameters`` draws a net's
+weights anew by the same rules (a second critic of the same shape).
+``BranchingNet``, ``RandomActor`` and ``DictObsNet`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "Net", "DuelingNet"]
+__all__ = ["MLP", "Net", "DuelingNet", "EnsembleLinear"]
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
@@ -32,13 +37,17 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
-def _dense(in_features: int, out_features: int, orthogonal_gain: float | None = None) -> nn.Linear:
-    layer = nn.Linear(in_features, out_features)
+def _init_dense_(layer: nn.Linear, orthogonal_gain: float | None = None) -> None:
     if orthogonal_gain is None:
-        _lecun_normal_(layer.weight, in_features)
+        _lecun_normal_(layer.weight, layer.in_features)
     else:
         nn.init.orthogonal_(layer.weight, gain=orthogonal_gain)
     nn.init.zeros_(layer.bias)
+
+
+def _dense(in_features: int, out_features: int, orthogonal_gain: float | None = None) -> nn.Linear:
+    layer = nn.Linear(in_features, out_features)
+    _init_dense_(layer, orthogonal_gain)
     return layer
 
 
@@ -63,7 +72,14 @@ class MLP(nn.Module):
         self.n_hidden = len(hidden_sizes)
         self.activation = activation
         self.flatten_input = flatten_input
+        self.orthogonal_gain = orthogonal_gain
         self.output_dim = output_dim if output_dim > 0 else widths[-1]
+
+    def reset_parameters(self) -> None:
+        for layer in self.linears:
+            _init_dense_(layer, self.orthogonal_gain)
+        for norm in self.norms or ():
+            norm.reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.flatten_input and x.dim() > 2:
@@ -129,3 +145,26 @@ class DuelingNet(nn.Module):
             adv = adv.reshape(-1, self.action_dim, self.num_atoms)
             val = val.reshape(-1, 1, self.num_atoms)
         return val + adv - adv.mean(dim=1, keepdim=True)
+
+
+class EnsembleLinear(nn.Module):
+    """``K`` independent linear layers in one batched product (reference
+    EnsembleLinear, net/common.py:518): ``x [K, B, I]``, or ``[B, I]``
+    broadcast to every member, times ``weight [K, I, O]``, plus
+    ``bias [K, 1, O]`` -> ``[K, B, O]``."""
+
+    def __init__(self, ensemble_size: int, in_features: int, features: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(ensemble_size, in_features, features))
+        self.bias = nn.Parameter(torch.empty(ensemble_size, 1, features))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        k, i, _ = self.weight.shape
+        _lecun_normal_(self.weight.data, k * i)  # flax counts the ensemble axis into the fan-in
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x.expand(self.weight.shape[0], *x.shape)
+        return torch.bmm(x, self.weight) + self.bias
