@@ -16,7 +16,8 @@ Phases, each of which fails the run:
    (``prefix_sum_idx``) and the update (``tree_update``): both are held
    bit-exact on whole trees (builds from 131072 and 300000 indices with
    duplicates and dropped ones, the training path's 32 and 256 leaves, the
-   one-block edge at 1024/1025 entries) and timed at B = 32 and 4096 values
+   one-block edge at 1024/1025 entries; the TD3 Ant + PER path's tree of
+   1000000 leaves with 256 values and 256 and 32 written leaves) and timed at B = 32 and 4096 values
    and k = 32 and 256 leaves.
 4. Graph phase: the trainer's programs as CUDA graphs against the eager
    loop, for the DQN and the Rainbow pipelines of phases 5 and 6 at full
@@ -77,13 +78,15 @@ Phases, each of which fails the run:
 8. Determinism phase: the uniform CartPole path twice for 2 epochs from seed 0 under
    ``TraceLoggerContext`` (cuDNN held to deterministic algorithms; no other setting): the two traces,
    parameter hashes included, equal line for line (``TraceDeterminismTest``).
-9. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048 (HalfCheetah also at
-   E = 6 and 2053) hold the fused step kernel against its plain version
+9. Physics kernel phase: for each of the six MuJoCo tasks at E = 2048, 32 and 10 (the
+   off-policy paths' train and test envs; HalfCheetah also at E = 6 and 2053) hold the fused
+   step kernel against its plain version
    (``dynamics.step``): near-home states, every env within ``q`` rtol = atol = 2e-4 and ``qd``
    rtol = atol = 5e-3; states from the kernel's own random-action rollout at steps 16, 32 and
    64, at least 99.5% of envs within the same tolerances (a contact that sits on its activation
-   threshold may differ) and every output finite; for Ant also rotation vectors beyond pi, so
-   that the re-chart runs. Times: the kernel's device time from a replayed CUDA graph and its
+   threshold may differ) and every output finite, and at step 32 the first 32 and 10 rows
+   stepped alone bit-identical to the kernel's rows at E = 2048; for Ant also rotation vectors
+   beyond pi, so that the re-chart runs. Times: the kernel's device time from a replayed CUDA graph and its
    eager time, at E = 2048 and, from the graph, at E = 32 and 8448 (is it bound by latency or by
    throughput); the plain version's eager time (its Cholesky calls are not captured in a graph);
    the bound by float32 operations counted for this run's active contact and limit rows.
@@ -392,7 +395,7 @@ def _touched_nodes(tree, values, depth: int) -> int:
 
 def sumtree_phase(torch, sumtree) -> tuple[list[dict], list[str]]:
     """Both sum-tree kernels on the card. The descent: exact equality with its plain version at the
-    main path's and edge-case shapes, timing at the main path's shape (131072 leaves, 32 stratified
+    main path's, the PER path's (1000000 leaves, 256 values) and edge-case shapes, timing at the main path's shape (131072 leaves, 32 stratified
     queries) and at 4096 queries. The update: see :func:`_tree_update_checks`. Returns (the two JSON
     records without launches, report lines)."""
     from tianshou_tpu_torch.ops.segtree import SegmentTree
@@ -418,7 +421,8 @@ def sumtree_phase(torch, sumtree) -> tuple[list[dict], list[str]]:
         return torch.cat([cum, torch.stack([total * 0, total, total * 1.5, total + 1e9, -total - 1])])
 
     cases = []
-    for size, batches in ((131072, (32, 4096)), (100000, (32,)), (16384, (257,)), (1, (5,))):
+    # 1000000 leaves (bound 2**20): the TD3 Ant + PER path's replay, 256 values per update
+    for size, batches in ((131072, (32, 4096)), (1000000, (256,)), (100000, (32,)), (16384, (257,)), (1, (5,))):
         st, tree = filled(size)
         for b in batches:
             cases.append((f"size {size} (bound {st.bound}) x {b} uniform values", st, tree, rand(b) * st.total(tree)))
@@ -506,7 +510,8 @@ def _update_nodes(torch, index, bound: int, depth: int, size: int) -> tuple[int,
 
 
 def _tree_update_checks(torch, sumtree) -> tuple[dict, list[str]]:
-    """Exact equality of the sum-tree update kernel and its plain version on whole trees on the card,
+    """Exact equality of the sum-tree update kernel and its plain version on whole trees on the card
+    (the main path's 131072 leaves and the PER path's 1000000, among others),
     timing at the training path's 32 leaves (priority writeback) and 256 leaves (the collector's add)
     on the main path's tree. Returns (JSON record without launches, report lines)."""
     from tianshou_tpu_torch.ops.segtree import SegmentTree
@@ -526,7 +531,7 @@ def _tree_update_checks(torch, sumtree) -> tuple[dict, list[str]]:
                                         st.bound, st.depth, st.size)
 
     cases = []  # (name, size, tree before, index, value)
-    for size in (131072, 100000, 16384, 1):  # whole trees from nothing
+    for size in (131072, 1000000, 100000, 16384, 1):  # whole trees from nothing
         st = SegmentTree(size)
         cases.append((f"size {size}: every leaf from an empty tree", size, st.init("cuda"),
                       torch.arange(size, device="cuda"), rand(size) + 1e-3))
@@ -546,6 +551,13 @@ def _tree_update_checks(torch, sumtree) -> tuple[dict, list[str]]:
     cases.append(("main tree: only dropped indices", 131072, main, torch.tensor([-1, 131072, -1], device="cuda"),
                   torch.ones(3, device="cuda")))
     cases.append(("size 100000: 700 leaves", 100000, filled(100000), randint(0, 100000, 700), rand(700)))
+    # the TD3 Ant + PER path's tree: the writeback's 256 sampled leaves, the collector's 32 (one per env)
+    per = filled(1000000)
+    value = rand(256) * 2
+    value[:32] = 0.0
+    cases.append(("PER tree of 1000000: 256 leaves, duplicates and -1", 1000000, per, randint(-1, 1000000, 256), value))
+    cases.append(("PER tree of 1000000: 32 leaves, one per env's slice", 1000000, per,
+                  torch.arange(32, device="cuda") * 31250 + randint(0, 31250, 32), rand(32) + 0.5))
 
     max_err = 0.0
     for name, size, before, index, value in cases:
@@ -666,7 +678,8 @@ def _check_tests(name: str, tests: list, n_phases: int) -> None:
 
 def _check_tree(torch, buffer, state, gen, batch_size: int = BATCH) -> str:
     """The prioritized state after training: the tree's invariant, where its mass lies, the
-    priority range and a fresh batch's weights. Returns a report line."""
+    priority range, a fresh batch's weights, and both sum-tree kernels on this tree against their
+    plain versions (after the path's launch counts were read). Returns a report line."""
     tree, bound = state.tree, buffer.segtree.bound
     envs, slots = buffer.num_envs, buffer.capacity
     if not torch.equal(tree[1:bound], tree[2::2] + tree[3::2]):
@@ -684,9 +697,24 @@ def _check_tree(torch, buffer, state, gen, batch_size: int = BATCH) -> str:
     w = batch.weight
     if not bool(((w > 0) & (w <= 1)).all()) or not bool(stored.reshape(-1)[idx].all()):
         raise AssertionError("a sampled batch's weights must lie in (0, 1] and its rows be stored ones")
+    # both kernels on this tree, at the path's shapes, against their plain versions
+    from tianshou_tpu_torch.ops.kernels import sumtree
+
+    st = buffer.segtree
+    u = (torch.rand(batch_size, device=tree.device, generator=gen) + torch.arange(batch_size, device=tree.device)) \
+        / batch_size * st.total(tree)
+    if not torch.equal(st.get_prefix_sum_idx(tree, u), sumtree.prefix_sum_idx_reference(tree, u, bound, st.depth, st.size)):
+        raise AssertionError("prefix_sum_idx differs from its plain version on the path's tree")
+    for index in (idx, idx[:envs]):  # the writeback's sampled leaves; as many as the collector writes
+        value = torch.rand(index.shape, device=tree.device, generator=gen) + 0.5
+        got = sumtree.update(tree.clone(), index, value, bound, st.depth, st.size)
+        if not torch.equal(got, sumtree.update_reference(tree.clone(), index, value, bound, st.depth, st.size)):
+            raise AssertionError(f"tree_update of {index.numel()} leaves differs from its plain version on the path's tree")
     return (f"sum tree: {2 * bound} nodes, invariant holds exactly, total {tree[1].item():.3f}, "
             f"{int(stored.sum())} leaves with priority, min_prio {lo:.6f} max_prio {hi:.6f}, "
-            f"batch weights in [{w.min().item():.4f}, {w.max().item():.4f}]")
+            f"batch weights in [{w.min().item():.4f}, {w.max().item():.4f}]; on this tree the descent of "
+            f"{batch_size} stratified values and updates of {idx.numel()} and {min(envs, idx.numel())} leaves "
+            f"bit-exact against their plain versions")
 
 
 def _graph_report(pool, replays_per_chunk: float) -> str:
@@ -1247,7 +1275,8 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
             return got, want, _inside(torch, got, want)
 
         # (a) near home: every env inside
-        for E in ((PHYS_E, 6, PHYS_E + 5) if task == "HalfCheetah" else (PHYS_E,)):
+        # OFF_E and OFF_TEST_E: the off-policy paths' train and test envs (10 fills a block partly)
+        for E in (PHYS_E, OFF_E, OFF_TEST_E) + ((6, PHYS_E + 5) if task == "HalfCheetah" else ()):
             q, qd, ctrl = near_home(E)
             got, want, ok = both(q, qd, ctrl)
             err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
@@ -1289,6 +1318,17 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
                     max_err = max(max_err, float((got[0] - want[0])[ok].abs().max()), float((got[1] - want[1])[ok].abs().max()))
                 if step == 32:
                     timing_state = (q.clone(), qd.clone(), ctrl.clone())
+                    # the first rows of this state at the off-policy paths' E: against the plain version
+                    # on the same rows, and bit for bit what the kernel gives those rows at E = PHYS_E
+                    for n in (OFF_E, OFF_TEST_E):
+                        sub = [t[:n].contiguous() for t in (q, qd, ctrl)]
+                        got_n, _, ok_n = both(*sub)
+                        if not all(torch.equal(a, b[:n]) for a, b in zip(got_n, got)):
+                            raise AssertionError(f"physics_fused {task} rollout step {step}, E={n}: the kernel's rows "
+                                                 f"differ from its rows at E={PHYS_E}")
+                        lines.append(f"physics_fused {task} rollout step {step}, E={n}: rows bit-identical to the "
+                                     f"kernel's at E={PHYS_E}; {int(ok_n.sum())} of {n} envs inside against the plain "
+                                     f"version at E={n} ({int(ok[:n].sum())} at E={PHYS_E})")
 
         # times at the rollout state of step 32, beside the bound for that state's active rows
         tq, tqd, tc = timing_state

@@ -55,7 +55,8 @@ For the continuous off-policy paths (``--paths offpolicy``: ``chip_smoke``'s
 128 updates of batch 256 per megastep, 256x256 nets) it fills the replay with
 random steps, then times and traces one megastep (collect and burst, one CUDA
 graph) and one burst alone (the trainer's ``update_burst``): wall, device busy
-time, idle share, host launches, device kernels and device ms per update, the
+time, the idle share of the traced call alone (busy against its kernels' span
+from first start to last end, and against its wall), host launches, device kernels and device ms per update, the
 kernels by class and ``physics_fused``'s share of the busy time.
 
 The pixel paths run through one trainer: a warm-up run of the prefill and two
@@ -413,9 +414,10 @@ def _trace(fn, torch):
     return plain, traced, busy_ns / 1e3, kernels, host
 
 
-def _trace_kernels(fn, torch) -> tuple[float, float, dict[str, list[float]], int]:
-    """(wall s without the profiler, wall s under it, {kernel name: [device us]}, host launches) of
-    ``fn()``, the trace read as in :func:`_trace`."""
+def _trace_kernels(fn, torch) -> tuple[float, float, dict[str, list[float]], int, float]:
+    """(wall s without the profiler, wall s under it, {kernel name: [device us]}, host launches, device
+    span us: the traced call's first kernel start to its last kernel end) of ``fn()``, the trace read as
+    in :func:`_trace`."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -429,14 +431,15 @@ def _trace_kernels(fn, torch) -> tuple[float, float, dict[str, list[float]], int
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     per_name: dict[str, list[float]] = {}
-    host = 0
+    host, first, last = 0, float("inf"), float("-inf")
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             if not e.is_user_annotation():
                 per_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
+                first, last = min(first, e.start_ns()), max(last, e.start_ns() + e.duration_ns())
         elif "LaunchKernel" in e.name() or "GraphLaunch" in e.name():
             host += 1
-    return plain, traced, per_name, host
+    return plain, traced, per_name, host, max(last - first, 0) / 1e3
 
 
 def _kernel_classes(per_name: dict[str, list[float]]) -> dict[str, tuple[int, float]]:
@@ -477,7 +480,7 @@ def profile_ppo(smi: str) -> None:
 
         program = Graphed(megastep, GraphPool("cuda"), (gen,), name="ppo_megastep")
         program(), program()  # eager warm-up, capture
-        plain, traced, per_name, host = _trace_kernels(program, torch)
+        plain, traced, per_name, host, _ = _trace_kernels(program, torch)
         busy = sum(sum(v) for v in per_name.values())
         print(f"== ppo_{task.lower()} megastep (E={chip_smoke.PPO_E}, T={steps}, one CUDA graph) ==")
         print(f"device: {smi}")
@@ -503,7 +506,7 @@ def profile_ppo(smi: str) -> None:
 
         program = Graphed(update, GraphPool("cuda"), (gen,), name="update")
         program(), program()
-        plain, _, per_name, _ = _trace_kernels(program, torch)
+        plain, _, per_name, _, _ = _trace_kernels(program, torch)
         n_mb = chip_smoke.MJ_REPEAT * algo.minibatch_shape(chip_smoke.MJ_E * chip_smoke.MJ_T, chip_smoke.MJ_BATCH)[0]
         busy = sum(sum(v) for v in per_name.values())
         times[guard] = (plain, busy, sum(len(v) for v in per_name.values()), n_mb)
@@ -552,14 +555,15 @@ def profile_offpolicy(smi: str, prefill_chunks: int = 40) -> None:
         print(f"device: {smi}")
         for part, fn in programs.items():
             fn(), fn()  # eager warm-up, capture
-            plain, traced, per_name, host = _trace_kernels(fn, torch)
+            plain, traced, per_name, host, span = _trace_kernels(fn, torch)
             busy = sum(sum(v) for v in per_name.values())
             kernels = sum(len(v) for v in per_name.values())
             classes = _kernel_classes(per_name)
             phys = classes.get("physics_fused", (0, 0.0))
+            # both idle shares from the traced call alone: busy against its kernels' span and against its wall
             print(f"{part}: wall ms {plain * 1e3:.3f} without the profiler, {traced * 1e3:.3f} under it; device busy ms "
-                  f"{busy / 1e3:.3f}, idle share {1 - busy / 1e6 / plain:.3f} ({1 - busy / 1e6 / traced:.3f} under the "
-                  f"profiler); device kernels {kernels} ({kernels / n_updates:.1f} per update), device ms per update "
+                  f"{busy / 1e3:.3f} over a span of {span / 1e3:.3f} ms, idle share {1 - busy / span:.4f} of the span "
+                  f"({1 - busy / 1e6 / traced:.4f} of the traced wall); device kernels {kernels} ({kernels / n_updates:.1f} per update), device ms per update "
                   f"{busy / 1e3 / n_updates:.4f}; host launches {host}; physics_fused {phys[0]} launches, "
                   f"{phys[1] / busy:.3f} of busy")
             for cls, (n, us) in sorted(classes.items(), key=lambda kv: -kv[1][1]):

@@ -38,7 +38,6 @@ from torch import nn
 
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
-from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.env.core import Box, Discrete, Space
 from tianshou_tpu_torch.ops.returns import nstep_returns, value_mask
 
@@ -244,16 +243,9 @@ class Algorithm:
                batch_size: int) -> tuple[TrainState, Any, Batch]:
         """sample -> preprocess -> update_step -> postprocess (reference
         Algorithm._update, algorithm_base.py:586). With :class:`Draws` for
-        ``generator`` the rows are ``generator.indices`` (with their
-        importance weights over prioritized replay)."""
-        drop = self.update_sample_drop_keys
-        if isinstance(generator, Draws):
-            indices = generator.indices
-            batch = buffer.get(buf_state, indices, drop_keys=drop)
-            if isinstance(buffer, PrioritizedReplayBuffer):
-                batch.weight = buffer.get_weight(buf_state, indices)
-        else:
-            batch, indices = buffer.sample(buf_state, generator, batch_size, drop_keys=drop)
+        ``generator`` the buffer takes ``generator.indices`` as its draw."""
+        rows = generator.indices if isinstance(generator, Draws) else generator
+        batch, indices = buffer.sample(buf_state, rows, batch_size, drop_keys=self.update_sample_drop_keys)
         batch = self.preprocess(ts, buffer, buf_state, batch, indices, generator)
         ts, stats = self.update_step(ts, batch, generator)
         buf_state = self.postprocess(ts, buffer, buf_state, batch, indices, stats)

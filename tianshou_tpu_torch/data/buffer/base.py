@@ -314,12 +314,19 @@ class ReplayBuffer:
     def sample(
         self,
         state: BufferState,
-        generator: torch.Generator,
+        generator: torch.Generator | torch.Tensor,
         batch_size: int,
         drop_keys: tuple[str, ...] = (),
     ) -> tuple[Batch, torch.Tensor]:
-        idx = self.sample_indices(state, generator, batch_size)
+        """A batch and its flat indices, drawn with ``generator``; a tensor of
+        flat indices in the generator's place is taken as the draw."""
+        idx = self._indices(state, generator, batch_size)
         return self.get(state, idx, drop_keys=drop_keys), idx
+
+    def _indices(self, state, generator: torch.Generator | torch.Tensor, batch_size: int) -> torch.Tensor:
+        if isinstance(generator, torch.Tensor):
+            return generator
+        return self.sample_indices(state, generator, batch_size)
 
     # ------------------------------------------------------------------
     def n_step_gather(

@@ -95,9 +95,9 @@ class PrioritizedReplayBuffer(ReplayBuffer):
             weight = weight / torch.clamp(weight.max(), min=1e-12)
         return weight
 
-    def sample(self, state: PrioState, generator: torch.Generator, batch_size: int,
+    def sample(self, state: PrioState, generator: torch.Generator | torch.Tensor, batch_size: int,
                drop_keys: tuple[str, ...] = ()) -> tuple[Batch, torch.Tensor]:  # type: ignore[override]
-        idx = self.sample_indices(state, generator, batch_size)
+        idx = self._indices(state, generator, batch_size)
         batch = self.get(state, idx, drop_keys=drop_keys)
         batch.weight = self.get_weight(state, idx)
         return batch, idx
