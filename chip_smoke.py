@@ -84,8 +84,9 @@ Phases, each of which fails the run:
    (``dynamics.step``): near-home states, every env within ``q`` rtol = atol = 2e-4 and ``qd``
    rtol = atol = 5e-3; states from the kernel's own random-action rollout at steps 16, 32 and
    64, at least 99.5% of envs within the same tolerances (a contact that sits on its activation
-   threshold may differ) and every output finite, and at step 32 the first 32 and 10 rows
-   stepped alone bit-identical to the kernel's rows at E = 2048; for Ant also rotation vectors
+   threshold may differ) and every output finite, and at step 32 the first 32, 16 and 10 rows
+   stepped alone bit-identical to the kernel's rows at E = 2048 (E = 16, the trust-region and PPO
+   example paths' train envs, also near home); for Ant also rotation vectors
    beyond pi, so that the re-chart runs. Times: the kernel's device time from a replayed CUDA graph and its
    eager time, at E = 2048 and, from the graph, at E = 32 and 8448 (is it bound by latency or by
    throughput); the plain version's eager time (its Cholesky calls are not captured in a graph);
@@ -134,6 +135,27 @@ Phases, each of which fails the run:
 17. Pendulum paths (``tests/test_continuous.py:22-86``): SAC, TD3 and DDPG with 8 + 10 envs, a 50,000-row
    replay, batch 128, T 8, 0.5 updates per env step, a 2,000-step prefill of the policy, at most 12
    epochs of 4,000 steps; each must reach -250.
+
+18. Trust-region and gSDE graph phase (``trust_region_graph_phase``): NPG's and TRPO's ``update_rollout``
+   (the conjugate gradient by double backward, TRPO's line search by select) as the trainer's graph at
+   the examples' widths against the eager call, three rollouts: weights, the critic's Adam state and
+   count, and every stat, ``step_frac`` and ``accepted`` included, bit-identical (max |diff| 0). Then a
+   PPO+gSDE collect chunk as a graph against the eager chunk, three chunks of 400 steps across
+   HalfCheetah's episode end: rollouts, carried noise and counts bit-identical. cuDNN deterministic.
+19. NPG and TRPO physics paths (``examples/mujoco/mujoco_{npg,trpo}.py``'s defaults on
+   ``NormObs(HalfCheetah())``: 16 envs, T 64, one update per rollout of 1,024 rows, 20 critic steps, 10
+   test episodes), cut to 1 epoch of 100,000 steps: exactly one ``physics_fused`` launch per vector
+   step, train and test; every stat finite; the first update's relative conjugate-gradient residual;
+   TRPO's step fractions and the share of updates accepted; the update graph replayed alone.
+20. The gSDE example path (``mujoco_ppo.py --sde``: ``sigma_init`` -2.0, the example path's other
+   defaults) cut to 1 epoch: one ``physics_fused`` launch per vector step; after every collect chunk
+   each env's carried count the steps since the chunk's start or its last episode end; an eager check
+   that the noise stays bit-unchanged between resamples.
+21. TRPO CartPole (``tests/test_trust_region.py:26-55``): 16 + 10 envs, T 128, batch 1,024, at most 15
+   epochs of 10,000 steps; it must reach 195. No kernel.
+22. The MLP PPO path (``bench.py:312-350`` ``bench_mlp_ppo``): PPO on CartPole at E = 4,096, T 128, 4
+   passes of batch 16,384, one graph per megastep, 8 timed replays: env-steps/s and ms per megastep.
+   No kernel.
 
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
@@ -210,6 +232,18 @@ OFF_ALGOS = {"sac": dict(lr=1e-3, alpha=0.2), "td3": dict(lr=3e-4), "redq": dict
 PEND_E, PEND_TEST_E, PEND_HID, PEND_BUFFER, PEND_BATCH, PEND_T, PEND_UTD = 8, 10, (128, 128), 50_000, 128, 8, 0.5
 PEND_PREFILL, PEND_EPOCHS, PEND_EPOCH_STEPS, PEND_THRESHOLD = 2_000, 12, 4_000, -250
 PEND_ALGOS = {"sac": dict(lr=3e-4, alpha="auto"), "td3": dict(lr=3e-4), "ddpg": dict(lr=1e-3)}
+
+# NPG and TRPO: examples/mujoco/mujoco_{npg,trpo}.py's defaults (16 envs, T 64, batch 16,384, repeat 1, 64x64 nets,
+# Adam 1e-3, 20 critic steps, 10 test episodes), the depth cut from 30 epochs of 100,000 steps to 1
+TR_E, TR_T, TR_BATCH, TR_EPOCH_STEPS, TR_CRITIC_ITERS = 16, 64, 16384, 100_000, 20
+TR_PATHS = ("npg_halfcheetah", "trpo_halfcheetah")
+# TRPO on CartPole (tests/test_trust_region.py:26-55): 16 + 10 envs, T 128, batch 1,024, at most 15 epochs of 10,000
+TCP_E, TCP_T, TCP_BATCH, TCP_EPOCHS, TCP_EPOCH_STEPS = 16, 128, 1024, 15, 10000
+# bench.py:312-350 bench_mlp_ppo: E 4096, T 128, repeat 4, batch 16384, 8 timed megasteps
+MLP_E, MLP_T, MLP_REPEAT, MLP_BATCH, MLP_ITERS = 4096, 128, 4, 16384, 8
+# mujoco_ppo.py --sde: gSDE with sigma_init -2.0, the example path's other defaults, the depth cut to 1 epoch; the
+# graph phase's chunks of 400 steps (the third crosses HalfCheetah's episode end at step 1,000)
+SDE_SIGMA_INIT, SDE_EPOCHS, SDE_GRAPH_T = -2.0, 1, 400
 
 
 def _smi() -> str:
@@ -1285,6 +1319,15 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
                 raise AssertionError(f"physics_fused {task} E={E} near home: {int((~ok).sum())} envs outside the tolerance")
             lines.append(f"physics_fused {task} E={E} near home: all envs inside q {Q_TOL} qd {QD_TOL}, "
                          f"max |dq| {float((got[0] - want[0]).abs().max()):.3e} max |dqd| {float((got[1] - want[1]).abs().max()):.3e}")
+        # TR_E: the trust-region and PPO example paths' train envs, on a generator of its own (the draws above stay)
+        g_tr = torch.Generator(device="cuda").manual_seed(4)
+        q = home + 0.03 * torch.randn(TR_E, model.nq, device="cuda", generator=g_tr)
+        qd = 0.05 * torch.randn(TR_E, model.nq, device="cuda", generator=g_tr)
+        got, want, ok = both(q, qd, torch.rand(TR_E, nu, device="cuda", generator=g_tr) * 2 - 1)
+        if not bool(ok.all()):
+            raise AssertionError(f"physics_fused {task} E={TR_E} near home: {int((~ok).sum())} envs outside the tolerance")
+        lines.append(f"physics_fused {task} E={TR_E} near home: all envs inside q {Q_TOL} qd {QD_TOL}, "
+                     f"max |dq| {float((got[0] - want[0]).abs().max()):.3e} max |dqd| {float((got[1] - want[1]).abs().max()):.3e}")
         if task == "Ant":  # rotation vectors beyond pi: the re-chart runs inside the kernel
             q, qd, ctrl = near_home(PHYS_E)
             axis = torch.randn(PHYS_E, 3, device="cuda", generator=g)
@@ -1320,7 +1363,7 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
                     timing_state = (q.clone(), qd.clone(), ctrl.clone())
                     # the first rows of this state at the off-policy paths' E: against the plain version
                     # on the same rows, and bit for bit what the kernel gives those rows at E = PHYS_E
-                    for n in (OFF_E, OFF_TEST_E):
+                    for n in (OFF_E, TR_E, OFF_TEST_E):
                         sub = [t[:n].contiguous() for t in (q, qd, ctrl)]
                         got_n, _, ok_n = both(*sub)
                         if not all(torch.equal(a, b[:n]) for a, b in zip(got_n, got)):
@@ -1457,7 +1500,7 @@ def physics_path(torch, task: str, steps: int):
 # ---------------------------------------------------------------------------
 def build_ppo(torch, task: str, num_envs: int, **kw):
     """``bench.py:bench_mujoco_ppo``'s algorithm on ``NormObs(task)`` in the port (``kw`` overrides
-    its options): returns (algo, train state, collector)."""
+    its options; ``sde`` and ``sigma_init`` go to the actor): returns (algo, train state, collector)."""
     from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
     from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
     from tianshou_tpu_torch.data.collector import DeviceCollector
@@ -1470,9 +1513,10 @@ def build_ppo(torch, task: str, num_envs: int, **kw):
     env = NormObs(make(task))
     nu, obs_dim = env.action_space.shape[0], env.observation_space.shape[0]
     ppo_init = kw.pop("ppo_init", False)
+    actor_kw = {k: kw.pop(k) for k in ("sde", "sigma_init") if k in kw}
     opts = dict(optim=AdamOptimizerFactory(lr=kw.pop("lr", 3e-4), max_grad_norm=0.5), return_standardization=True,
                 value_clip=True, **kw)
-    algo = PPO(actor=ContinuousActorProbabilistic((64, 64), nu, ppo_init=ppo_init, input_dim=obs_dim),
+    algo = PPO(actor=ContinuousActorProbabilistic((64, 64), nu, ppo_init=ppo_init, input_dim=obs_dim, **actor_kw),
                critic=ContinuousCritic((64, 64), use_action=False, ppo_init=ppo_init, input_dim=obs_dim),
                action_space=env.action_space, **opts)
     ts = algo.init("cuda")
@@ -1792,13 +1836,18 @@ def ppo_cartpole_path(torch):
     ]
 
 
-def mujoco_example_path(torch):
+def mujoco_example_path(torch, sde: bool = False):
     """``examples/mujoco/mujoco_ppo.py:27-80``'s defaults on HalfCheetah through ``OnPolicyTrainer``:
     16 envs of ``NormObs(HalfCheetah())``, rollouts of 128, 10 passes of batch 64 with
     ``recompute_advantage``, Adam 3e-4 with the linear decay over the run's updates, ``target_kl``
     0.015, the PPO init, 10 test episodes on 10 envs with frozen statistics; depth cut to
     ``MJ_EPOCHS`` epochs of ``MJ_EPOCH_STEPS`` steps. Checks: finite test returns, the pooled
     statistics at every handoff, the rate after the run against the schedule, ``kl_stop`` reported.
+    With ``sde`` (``mujoco_ppo.py --sde``: gSDE, ``sigma_init`` ``SDE_SIGMA_INIT``) the depth is
+    ``SDE_EPOCHS`` epochs and, after every collect chunk (a graph replay), each env's carried count
+    must be the steps since the chunk's start or its last episode end in it (0 exactly where an
+    episode ended at the chunk's last step); after the run, an eager loop of the train collector's
+    steps must keep each env's noise bit-unchanged between resamples (``_sde_carry_check``).
     Returns ({kernel: launches}, report lines)."""
     from tianshou_tpu_torch.algorithm.optim import linear_lr_schedule
     from tianshou_tpu_torch.data.collector import DeviceCollector
@@ -1807,12 +1856,14 @@ def mujoco_example_path(torch):
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
     from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
 
-    n_rollouts = max(1, MJ_EPOCHS * MJ_EPOCH_STEPS // (MJ_E * MJ_T))
+    name, epochs = ("ppo_sde_halfcheetah", SDE_EPOCHS) if sde else ("mujoco_example", MJ_EPOCHS)
+    n_rollouts = max(1, epochs * MJ_EPOCH_STEPS // (MJ_E * MJ_T))
     n_mb = max(1, MJ_E * MJ_T // MJ_BATCH)
     sched = linear_lr_schedule(3e-4, n_rollouts * MJ_REPEAT * n_mb)
     algo, ts, train_c = build_ppo(torch, "HalfCheetah", MJ_E, lr=sched, ppo_init=True, advantage_normalization=False,
                                   recompute_advantage=True, vf_coef=0.25, ent_coef=0.0, deterministic_eval=True,
-                                  target_kl=0.015, action_bound_method="clip")
+                                  target_kl=0.015, action_bound_method="clip",
+                                  **(dict(sde=True, sigma_init=SDE_SIGMA_INIT) if sde else {}))
     test_c = DeviceCollector(VectorDeviceEnv(NormObs(train_c.venv.env.env, update_stats=False), 10, device="cuda"),
                              algo, None)
     tests = []
@@ -1822,13 +1873,14 @@ def mujoco_example_path(torch):
         return float(stats.returns.mean())
 
     trainer = OnPolicyTrainer(algo, train_c, test_c, OnPolicyTrainerParams(
-        max_epochs=MJ_EPOCHS, epoch_num_steps=MJ_EPOCH_STEPS, test_step_num_episodes=10, batch_size=MJ_BATCH,
+        max_epochs=epochs, epoch_num_steps=MJ_EPOCH_STEPS, test_step_num_episodes=10, batch_size=MJ_BATCH,
         collection_step_num_env_steps=MJ_T, update_step_num_repetitions=MJ_REPEAT, compute_score_fn=score,
         verbose=False))
-    handoffs = _rms_handoff_check(torch, trainer, "mujoco_example path")
+    handoffs = _rms_handoff_check(torch, trainer, f"{name} path")
     kl_stops = []
     log_update = trainer._log_update
     trainer._log_update = lambda stats: (kl_stops.append(float(stats.kl_stop)), log_update(stats))
+    carried = _sde_count_check(torch, trainer) if sde else None
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
     res = trainer.run(ts, torch.Generator(device="cuda").manual_seed(SEED))
@@ -1837,25 +1889,33 @@ def mujoco_example_path(torch):
     test_steps = sum(s.n_collected_steps for s in tests) // 10
     if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0,
                     "physics_fused": res.env_step // MJ_E + test_steps}:
-        raise AssertionError(f"mujoco_example path: kernel launches {launches} for {res.env_step // MJ_E} train and "
+        raise AssertionError(f"{name} path: kernel launches {launches} for {res.env_step // MJ_E} train and "
                              f"{test_steps} test vector steps")
     import numpy as np
 
-    if len(tests) != MJ_EPOCHS or not all(s.n_collected_episodes == 10 and np.isfinite(s.returns).all() for s in tests):
-        raise AssertionError(f"mujoco_example path: test phases {[(s.n_collected_episodes, s.returns) for s in tests]}")
-    if len(handoffs) != MJ_EPOCHS:
-        raise AssertionError(f"mujoco_example path: {len(handoffs)} handoffs for {MJ_EPOCHS} test phases")
+    if len(tests) != epochs or not all(s.n_collected_episodes == 10 and np.isfinite(s.returns).all() for s in tests):
+        raise AssertionError(f"{name} path: test phases {[(s.n_collected_episodes, s.returns) for s in tests]}")
+    if len(handoffs) != epochs:
+        raise AssertionError(f"{name} path: {len(handoffs)} handoffs for {epochs} test phases")
     count = _adam_count(ts)
     lr, want_lr = ts.optim.param_groups[0]["lr"], sched(count - 1)
     if not torch.equal(lr, want_lr) or int(count) != int(ts.step):
-        raise AssertionError(f"mujoco_example path: rate {float(lr)} at Adam count {int(count)}, the schedule's "
+        raise AssertionError(f"{name} path: rate {float(lr)} at Adam count {int(count)}, the schedule's "
                              f"{float(want_lr)}; step {int(ts.step)}")
     if len(kl_stops) != res.env_step // (MJ_E * MJ_T) or not all(np.isfinite(kl_stops)):
-        raise AssertionError(f"mujoco_example path: kl_stop {kl_stops}")
+        raise AssertionError(f"{name} path: kl_stop {kl_stops}")
     t = res.timing
     tripped = sum(k > 0 for k in kl_stops)
-    return launches, [
-        f"mujoco_example path: NormObs(HalfCheetah) E={MJ_E} T={MJ_T} repeat={MJ_REPEAT} batch={MJ_BATCH} "
+    sde_lines = []
+    if sde:
+        if len(carried) != len(kl_stops) or not all(ok for ok, _ in carried) or not any(n for _, n in carried):
+            raise AssertionError(f"{name} path: carried counts after each chunk {carried} (ok, envs whose episode ended)")
+        sde_lines = [f"{name} path, gSDE carry: after each of {len(carried)} collect chunks (graph replays) every env's "
+                     f"count equals the steps since the chunk's start or its last episode end (episodes ended in "
+                     f"{sum(1 for _, n in carried if n)} chunks, {sum(n for _, n in carried)} env-episodes; count 0 "
+                     f"exactly where one ended at the chunk's last step); {_sde_carry_check(torch, algo, ts, train_c)}"]
+    return launches, sde_lines + [
+        f"{name} path: NormObs(HalfCheetah) E={MJ_E} T={MJ_T} repeat={MJ_REPEAT} batch={MJ_BATCH} "
         f"recompute_advantage target_kl 0.015, linear rate decay over {sched.total_updates} updates (the example's "
         f"{n_rollouts} rollouts); {res.epochs} epochs of {MJ_EPOCH_STEPS} steps ({len(kl_stops)} rollouts): test reward "
         f"by epoch {[round(float(s.returns.mean()), 2) for s in tests]} (finite; no threshold at this depth); updates "
@@ -1863,7 +1923,7 @@ def mujoco_example_path(torch):
         f"{tripped} of {len(kl_stops)} rollouts, kl_stop of the last passes mean {np.mean(kl_stops):.3f}; rate after the "
         f"run {float(lr):.6e} = the schedule's at count {int(count) - 1}; pooled statistics handed to the test envs at "
         f"{len(handoffs)} phases (counts {handoffs})",
-        f"mujoco_example path: wall {res.train_time:.2f} s (collect {t['collect']:.2f}, update {t['update']:.2f}, test "
+        f"{name} path: wall {res.train_time:.2f} s (collect {t['collect']:.2f}, update {t['update']:.2f}, test "
         f"{t['test']:.2f}); train env_steps_per_s {res.env_step / (t['collect'] + t['update']):.1f} (collect and update "
         f"time only); capture s { {n: round(g.capture_s, 3) for n, g in graphs.items() if g.capture_s is not None} }; "
         f"{_graph_report(trainer.graph_pool, 2)}; launches {launches}",
@@ -2191,6 +2251,403 @@ def pendulum_path(torch, kind: str):
     ]
 
 
+# ---------------------------------------------------------------------------
+# the rest of the on-policy family: NPG and TRPO on the device physics and on CartPole, gSDE, the MLP PPO bench
+# ---------------------------------------------------------------------------
+def _sde_count_check(torch, trainer) -> list:
+    """Wrap ``trainer.collect_chunk`` so that after every chunk (a graph replay) it checks each env's
+    carried gSDE count: the per-chunk refresh sets it to 0, each step adds 1 and an episode's end sets
+    it to 0, so after ``T`` steps it is ``T - 1 - t`` for an env whose last episode end in the chunk
+    was at step ``t``, and ``T`` for an env with none. Returns the list it fills with (ok, envs whose
+    episode ended in the chunk)."""
+    checks = []
+    collect_chunk = trainer.collect_chunk
+
+    def checked(ts, cstate, buf_state, generator, n_steps, keep_rollout=None):
+        out = collect_chunk(ts, cstate, buf_state, generator, n_steps, keep_rollout)
+        step = torch.arange(n_steps, device=out.done.device)[:, None]
+        last = torch.where(out.done, step, -1).max(0).values
+        want = torch.where(last >= 0, n_steps - 1 - last, n_steps).to(torch.int32)
+        checks.append((torch.equal(cstate.policy_state.count, want), int((last >= 0).sum())))
+        return out
+
+    trainer.collect_chunk = checked
+    return checks
+
+
+def _sde_carry_check(torch, algo, ts, coll, steps: int = 13) -> str:
+    """``steps`` eager steps of ``coll`` from a fresh state: where an env's count before a step is not a
+    multiple of ``sde_sample_freq`` (and its episode goes on) its noise must come out bit-unchanged, and
+    where it is, fresh; returns the report."""
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cstate = coll.reset(gen)
+    kept = fresh = 0
+    for _ in range(steps):
+        before = cstate.policy_state.eps.clone(), cstate.policy_state.count.clone()
+        new, _, per = coll._step_fn(ts, cstate, None, gen, True, False, False)
+        hold = (before[1] % algo.sde_sample_freq != 0) & ~per.done
+        same = (new.policy_state.eps == before[0]).flatten(1).all(1)
+        if not torch.equal(same[hold], torch.ones_like(same[hold])) or bool(same[~hold & ~per.done].any()):
+            raise AssertionError(f"gSDE carry: noise changed between resamples or stayed at a resample "
+                                 f"(count {before[1].tolist()})")
+        kept, fresh = kept + int(hold.sum()), fresh + int((~hold & ~per.done).sum())
+        tree_map(torch.Tensor.copy_, cstate, new)
+    return (f"eager check of {steps} steps: the noise bit-unchanged in {kept} env-steps between resamples and drawn "
+            f"anew in {fresh} (sde_sample_freq {algo.sde_sample_freq})")
+
+
+def build_trust_region(torch, kind: str, num_envs: int):
+    """``examples/mujoco/mujoco_{npg,trpo}.py``'s algorithm on ``NormObs(HalfCheetah())`` in the port: the
+    PPO-init 64x64 actor and critic, Adam 1e-3, gamma 0.99, lambda 0.95, ``TR_CRITIC_ITERS`` critic
+    steps, the clip bound, a deterministic test; NPG's step 0.5, TRPO's ``max_kl`` 0.01, backtracking by
+    0.8 up to 10 times. Returns (algo, train state, collector)."""
+    from tianshou_tpu_torch.algorithm.modelfree.npg import NPG
+    from tianshou_tpu_torch.algorithm.modelfree.trpo import TRPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.env.wrappers import NormObs
+    from tianshou_tpu_torch.models.continuous import ContinuousActorProbabilistic, ContinuousCritic
+
+    torch.manual_seed(SEED)
+    env = NormObs(make("HalfCheetah"))
+    nu, obs_dim = env.action_space.shape[0], env.observation_space.shape[0]
+    cls, opts = {"npg": (NPG, dict(trust_region_size=0.5)),
+                 "trpo": (TRPO, dict(max_kl=0.01, backtrack_coeff=0.8, max_backtracks=10))}[kind]
+    algo = cls(actor=ContinuousActorProbabilistic((64, 64), nu, ppo_init=True, input_dim=obs_dim),
+               critic=ContinuousCritic((64, 64), use_action=False, ppo_init=True, input_dim=obs_dim),
+               action_space=env.action_space, optim=AdamOptimizerFactory(lr=1e-3), gamma=0.99, gae_lambda=0.95,
+               optim_critic_iters=TR_CRITIC_ITERS, action_bound_method="clip", deterministic_eval=True, **opts)
+    return algo, algo.init("cuda"), DeviceCollector(VectorDeviceEnv(env, num_envs, device="cuda"), algo, None)
+
+
+def trust_region_graph_phase(torch) -> list[str]:
+    """NPG's and TRPO's ``update_rollout`` (the conjugate gradient by double backward, TRPO's line
+    search by select) as the trainer's CUDA graph against the eager call, at ``mujoco_{npg,trpo}.py``'s
+    widths (16 envs of ``NormObs(HalfCheetah())``, T 64, one minibatch of 1,024 rows, 20 critic steps):
+    from one state, on deep copies, ``GRAPH_CALLS`` collected rollouts each updated by both (the program:
+    eager warm-up, capture and replay, replay). Weights, every optimizer tensor (the critic's Adam
+    moments and the shared count) and every stat (``step_frac`` and ``accepted`` too) bit-identical.
+    Then a PPO+gSDE collect chunk (``mujoco_ppo.py --sde``'s actor, 16 envs, ``SDE_GRAPH_T`` steps, so
+    that the third chunk crosses HalfCheetah's episode end at step 1,000) as the trainer's graph
+    against the eager chunk: rollouts, the collect state with its carried noise and counts, and
+    ``physics_fused``'s launches bit-identical. cuDNN is held to deterministic algorithms for the phase."""
+    import copy
+
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+    from tianshou_tpu_torch.ops.kernels import counters
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    lines = []
+    for kind in ("npg", "trpo"):
+        algo, ts, coll = build_trust_region(torch, kind, TR_E)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        cstate = coll.reset(gen)
+        rollouts = [coll.rollout(ts, cstate, None, gen, TR_T, keep_rollout=True).rollout.map(torch.clone)
+                    for _ in range(GRAPH_CALLS)]
+        ets = copy.deepcopy(ts)
+        held = rollouts[0].map(torch.clone)
+        trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+            batch_size=TR_BATCH, collection_step_num_env_steps=TR_T, update_step_num_repetitions=1, verbose=False))
+        ugen, egen = (torch.Generator(device="cuda").manual_seed(SEED + 1) for _ in range(2))
+        worst, stats_seen = 0.0, []
+        for roll in rollouts:
+            for k in roll.keys():
+                held[k].copy_(roll[k])
+            stats = {k: v.clone() for k, v in trainer.update_rollout(ts, held, ugen).items()}
+            estats = algo.update_rollout(ets, roll, egen, 1, TR_BATCH)[1]
+            for k, v in estats.items():
+                worst = max(worst, float((stats[k].double() - v.double()).abs().max()))
+            stats_seen.append(stats)
+        torch.cuda.synchronize()
+        for a, b in zip([*ts.model.parameters(), *optimizer_tensors(ts.optim), ts.step],
+                        [*ets.model.parameters(), *optimizer_tensors(ets.optim), ets.step]):
+            worst = max(worst, float((a.detach().double() - b.detach().double()).abs().max()))
+        graphs = {g.name.split()[0]: (g.replays, g.capture_s) for g in trainer.graph_pool.graphs}
+        if worst != 0.0 or graphs["update_rollout"][0] != GRAPH_CALLS - 1:
+            raise AssertionError(f"trust-region graph phase {kind}: max |diff| {worst:.3e} against eager, replays {graphs}")
+        count = _adam_count(ts)
+        if int(count) != GRAPH_CALLS * TR_CRITIC_ITERS or int(ts.step) != GRAPH_CALLS:
+            raise AssertionError(f"trust-region graph phase {kind}: Adam count {int(count)}, step {int(ts.step)}")
+        extra = ""
+        if kind == "trpo":
+            extra = (f"; step_frac by rollout {[float(s['step_frac']) for s in stats_seen]}, accepted "
+                     f"{[float(s['accepted']) for s in stats_seen]} (the same bits as eager)")
+        lines.append(f"trust-region graph phase {kind}, graphs against eager: NormObs(HalfCheetah) E={TR_E} T={TR_T}, "
+                     f"{GRAPH_CALLS} rollouts, each one update of {TR_CRITIC_ITERS} critic steps; weights, the critic's "
+                     f"Adam state (count {int(count)}) and every stat bit-identical, max |diff| {worst:.3e}{extra}; "
+                     f"replays and capture s { {n: (r, round(c, 3)) for n, (r, c) in graphs.items()} }; pool "
+                     f"{trainer.graph_pool.memory_bytes() / 2**20:.1f} MiB")
+
+    algo, ts, coll = build_ppo(torch, "HalfCheetah", MJ_E, ppo_init=True, sde=True, sigma_init=SDE_SIGMA_INIT,
+                               action_bound_method="clip")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    ecs = copy.deepcopy(cstate)
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+        batch_size=MJ_BATCH, collection_step_num_env_steps=SDE_GRAPH_T, update_step_num_repetitions=1, verbose=False))
+    launches, outs, ended = {}, {}, 0
+    for side in ("graph", "eager"):
+        before = counters.snapshot()
+        outs[side] = []
+        for _ in range(GRAPH_CALLS):
+            if side == "graph":
+                out = trainer.collect_chunk(ts, cstate, None, gen, SDE_GRAPH_T, keep_rollout=True)
+            else:
+                out = coll.rollout(ts, ecs, None, egen, SDE_GRAPH_T, keep_rollout=True)
+            outs[side].append(out.map(torch.clone))
+        torch.cuda.synchronize()
+        after = counters.snapshot()
+        launches[side] = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    for g, e in zip(outs["graph"], outs["eager"]):
+        if not all(torch.equal(a, b) for a, b in zip(_leaves(g), _leaves(e))):
+            raise AssertionError("gSDE graph phase: a collect chunk differs from the eager chunk")
+        ended += int(g.done.sum())
+    if not all(torch.equal(a, b) for a, b in zip(_leaves(cstate), _leaves(ecs))):
+        raise AssertionError("gSDE graph phase: the collect states (the carried noise and counts) differ")
+    replays = {gr.name.split()[0]: gr.replays for gr in trainer.graph_pool.graphs}
+    if launches["graph"] != launches["eager"] or replays != {"collect_chunk": GRAPH_CALLS - 1} or not ended:
+        raise AssertionError(f"gSDE graph phase: launches {launches}, replays {replays}, {ended} episode ends")
+    torch.backends.cudnn.deterministic = deterministic
+    lines.append(f"gSDE graph phase, graphs against eager: PPO+gSDE on NormObs(HalfCheetah) E={MJ_E}, {GRAPH_CALLS} "
+                 f"collect chunks of T={SDE_GRAPH_T} (the refresh, fresh noise each step, the reset at {ended} episode "
+                 f"ends); rollouts, carried noise and counts bit-identical, max |diff| 0.000e+00; launches "
+                 f"{launches['graph']} as eager; {_graph_report(trainer.graph_pool, 1)}")
+    return lines
+
+
+def trust_region_path(torch, name: str):
+    """``examples/mujoco/mujoco_{npg,trpo}.py``'s defaults through ``OnPolicyTrainer`` and its collect,
+    update and test graphs: 16 envs of ``NormObs(HalfCheetah())``, T 64, one update per rollout over its
+    1,024 rows (batch 16,384), 20 critic steps, 10 test episodes on 10 envs with frozen statistics;
+    the depth cut from 30 epochs of 100,000 steps to 1. Checks: one ``physics_fused`` launch per vector
+    step, train and test; every logged loss and the KL finite; the step and Adam counts. Prints the
+    relative residual ``|F s - g| / |g|`` of the first rollout's conjugate-gradient solution (its eager
+    warm-up) and, for TRPO, the step fractions and the share of updates accepted. Returns
+    ({kernel: launches}, report lines)."""
+    import numpy as np
+
+    from tianshou_tpu_torch.algorithm.modelfree.npg import _flat
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.wrappers import NormObs
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    kind = name.split("_")[0]
+    algo, ts, train_c = build_trust_region(torch, kind, TR_E)
+    test_c = DeviceCollector(VectorDeviceEnv(NormObs(train_c.venv.env.env, update_stats=False), 10, device="cuda"),
+                             algo, None)
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OnPolicyTrainer(algo, train_c, test_c, OnPolicyTrainerParams(
+        max_epochs=1, epoch_num_steps=TR_EPOCH_STEPS, test_step_num_episodes=10, batch_size=TR_BATCH,
+        collection_step_num_env_steps=TR_T, update_step_num_repetitions=1, compute_score_fn=score, verbose=False))
+    handoffs = _rms_handoff_check(torch, trainer, f"{name} path")
+    logged = []
+    log_update = trainer._log_update
+    trainer._log_update = lambda stats: (logged.append({k: float(v) for k, v in stats.items()}), log_update(stats))
+    residual = {}
+    natural_step = algo._natural_step
+
+    def first_residual(actor, mb):
+        s, obj, shs = natural_step(actor, mb)
+        if not residual:  # the first rollout's update runs eagerly (the program's warm-up)
+            params = list(actor.parameters())
+            g = _flat(torch.autograd.grad(algo._actor_objective(actor, mb), params))
+            grad_kl = _flat(torch.autograd.grad(algo._kl_to_old(actor, mb), params, create_graph=True))
+            fs = _flat(torch.autograd.grad(grad_kl @ s, params)) + algo.damping * s
+            residual.update(rel=(fs - g).norm() / g.norm(), shs=shs.clone(), n=g.numel())
+        return s, obj, shs
+
+    algo._natural_step = first_residual
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(ts, torch.Generator(device="cuda").manual_seed(SEED))
+    del algo._natural_step
+    launches = _launches(gather, sumtree, physics_fused)
+    test_steps = sum(s.n_collected_steps for s in tests) // 10
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0,
+                    "physics_fused": res.env_step // TR_E + test_steps}:
+        raise AssertionError(f"{name} path: kernel launches {launches} for {res.env_step // TR_E} train and "
+                             f"{test_steps} test vector steps")
+    n_rollouts = res.env_step // (TR_E * TR_T)
+    if len(logged) != n_rollouts or not all(np.isfinite(v) for d in logged for v in d.values()):
+        raise AssertionError(f"{name} path: {len(logged)} logged updates for {n_rollouts} rollouts, or a non-finite stat")
+    if len(tests) != 1 or tests[0].n_collected_episodes != 10 or not np.isfinite(tests[0].returns).all():
+        raise AssertionError(f"{name} path: test phases {[(s.n_collected_episodes, s.returns) for s in tests]}")
+    if not int(ts.step) == res.gradient_step == n_rollouts or int(_adam_count(ts)) != n_rollouts * TR_CRITIC_ITERS:
+        raise AssertionError(f"{name} path: step {int(ts.step)}, gradient_step {res.gradient_step}, Adam count "
+                             f"{int(_adam_count(ts))} for {n_rollouts} rollouts")
+    t = res.timing
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    mean = {k: float(np.mean([d[k] for d in logged])) for k in ("loss", "vf_loss", "kl")}
+    extra = ""
+    if kind == "trpo":
+        fracs = [d["step_frac"] for d in logged]
+        extra = (f"; step_frac mean {np.mean(fracs):.4f} (min {min(fracs):.4f}, by value "
+                 f"{ {round(f, 4): fracs.count(f) for f in sorted(set(fracs))} }), accepted in "
+                 f"{sum(d['accepted'] for d in logged):.0f} of {len(logged)} updates "
+                 f"(share {np.mean([d['accepted'] for d in logged]):.4f})")
+    return launches, [
+        f"{name} path: NormObs(HalfCheetah) E={TR_E} T={TR_T} batch={TR_BATCH} (one minibatch of {TR_E * TR_T}) "
+        f"critic steps {TR_CRITIC_ITERS}; {res.epochs} epoch of {TR_EPOCH_STEPS} steps ({n_rollouts} rollouts): test "
+        f"reward {float(tests[0].returns.mean()):.2f} (finite; no threshold at this depth); physics_fused launches "
+        f"{launches['physics_fused']} = {res.env_step // TR_E} train + {test_steps} test vector steps; the first update's "
+        f"conjugate gradient ({algo.cg_iters} iterations over {residual['n']} actor parameters): relative residual "
+        f"|F s - g| / |g| {float(residual['rel']):.4e}, sHs {float(residual['shs']):.4f}; logged means: loss "
+        f"{mean['loss']:.4f} vf_loss {mean['vf_loss']:.4f} kl {mean['kl']:.5f} (every stat finite){extra}; pooled "
+        f"statistics handed to the test envs at {len(handoffs)} phase",
+        f"{name} path: wall {res.train_time:.2f} s (collect {t['collect']:.2f}, update {t['update']:.2f}, test "
+        f"{t['test']:.2f}); ms per rollout update {t['update'] / n_rollouts * 1e3:.3f} (captures included); train "
+        f"env_steps_per_s {res.env_step / (t['collect'] + t['update']):.1f} (collect and update time only); capture s "
+        f"{ {n: round(g.capture_s, 3) for n, g in graphs.items() if g.capture_s is not None} }; "
+        f"{_graph_report(trainer.graph_pool, 2)}",
+    ] + _replay_update(torch, graphs["update_rollout"], name)
+
+
+def _replay_update(torch, program, name: str) -> list[str]:
+    """A trainer's update graph replayed ``PCP_REPLAYS`` times alone after its run: its device ms."""
+    times = []
+    for _ in range(PCP_REPLAYS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        program()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return [f"{name} path, the update graph replayed alone ({PCP_REPLAYS} times after the run): "
+            f"{statistics.median(times):.3f} ms of device time per rollout update (median; "
+            f"{', '.join(f'{x:.3f}' for x in times)})"]
+
+
+def trpo_cartpole_path(torch):
+    """TRPO on CartPole as ``tests/test_trust_region.py:26-55`` trains it, through ``OnPolicyTrainer``
+    and its collect, update and test graphs: ``DiscreteActor((64, 64))`` and ``DiscreteCritic((64, 64))``,
+    Adam 1e-3, 16 train and 10 test envs, T 128, batch 1,024, at most 15 epochs of 10,000 steps; it must
+    reach ``CP_THRESHOLD``. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.modelfree.trpo import TRPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    env = CartPole()
+    algo = TRPO(actor=DiscreteActor((64, 64), 2, input_dim=4), critic=DiscreteCritic((64, 64), input_dim=4),
+                action_space=env.action_space, optim=AdamOptimizerFactory(lr=1e-3), gamma=0.99, gae_lambda=0.95,
+                deterministic_eval=True)
+    tests, fracs = [], []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OnPolicyTrainer(algo, DeviceCollector(VectorDeviceEnv(env, TCP_E, device="cuda"), algo, None),
+                              DeviceCollector(VectorDeviceEnv(env, CP_E, device="cuda"), algo, None),
+                              OnPolicyTrainerParams(
+                                  max_epochs=TCP_EPOCHS, epoch_num_steps=TCP_EPOCH_STEPS, test_step_num_episodes=10,
+                                  batch_size=TCP_BATCH, collection_step_num_env_steps=TCP_T,
+                                  update_step_num_repetitions=1, stop_fn=lambda r: r >= CP_THRESHOLD,
+                                  compute_score_fn=score, verbose=False))
+    log_update = trainer._log_update
+    trainer._log_update = lambda stats: (fracs.append(float(stats.step_frac)), log_update(stats))
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(algo.init("cuda"), torch.Generator(device="cuda").manual_seed(SEED))
+    launches = _launches(gather, sumtree, physics_fused)
+    if not res.best_reward >= CP_THRESHOLD:
+        raise AssertionError(f"trpo_cartpole path: best test reward {res.best_reward} after {res.epochs} epochs, below "
+                             f"the threshold {CP_THRESHOLD}")
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    if any(launches.values()) or sorted(graphs) != ["collect_chunk", "test_chunk", "update_rollout"]:
+        raise AssertionError(f"trpo_cartpole path: launches {launches}, programs {sorted(graphs)}")
+    t = res.timing
+    return launches, [
+        f"trpo_cartpole path: best test reward {res.best_reward:.1f} (threshold {CP_THRESHOLD}) after {res.epochs} epochs "
+        f"(test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}); env_steps {res.env_step} "
+        f"gradient_steps {res.gradient_step}; step_frac mean {sum(fracs) / len(fracs):.4f} over {len(fracs)} rollouts; "
+        f"wall {res.train_time:.2f} s (collect {t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); "
+        f"train env_steps_per_s {res.env_step / (t['collect'] + t['update']):.1f} (captures included); capture s "
+        f"{ {n: round(g.capture_s, 3) for n, g in graphs.items() if g.capture_s is not None} }; "
+        f"{_graph_report(trainer.graph_pool, 2)}",
+    ]
+
+
+def ppo_mlp_cartpole_path(torch):
+    """``bench.py:312-350`` ``bench_mlp_ppo`` in the port: PPO on CartPole at E = ``MLP_E``, one program of
+    ``MLP_T`` collect steps (``keep_rollout=True``) and then ``update_rollout`` (``MLP_REPEAT`` passes of
+    batch ``MLP_BATCH``) as ONE CUDA graph, called for an eager warm-up, a capture, then ``MLP_ITERS`` timed
+    replays. No kernel of the port runs. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    torch.manual_seed(SEED)
+    env = CartPole()
+    algo = PPO(actor=DiscreteActor((64, 64), 2, input_dim=4), critic=DiscreteCritic((64, 64), input_dim=4),
+               action_space=env.action_space, optim=AdamOptimizerFactory(lr=3e-4, max_grad_norm=0.5),
+               deterministic_eval=True)
+    ts = algo.init("cuda")
+    coll = DeviceCollector(VectorDeviceEnv(env, MLP_E, device="cuda"), algo, None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    pool = GraphPool("cuda")
+
+    def megastep():
+        out = coll.rollout(ts, cstate, None, gen, MLP_T, keep_rollout=True)
+        return out, algo.update_rollout(ts, out.rollout, gen, MLP_REPEAT, MLP_BATCH)[1]
+
+    program = Graphed(megastep, pool, (gen,), name="mlp_ppo_megastep")
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    walls, device_ms = [], []
+    for _ in range(2 + MLP_ITERS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        out, stats = program()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        device_ms.append(a.elapsed_time(b))
+    launches = _launches(gather, sumtree, physics_fused)
+    n_mb = algo.minibatch_shape(MLP_T * MLP_E, MLP_BATCH)[0]
+    if any(launches.values()) or program.replays != 1 + MLP_ITERS:
+        raise AssertionError(f"ppo_mlp_cartpole path: launches {launches}, {program.replays} replays")
+    if not all(bool(torch.isfinite(v).all()) for v in stats.values()) or int(ts.step) != (2 + MLP_ITERS) * MLP_REPEAT * n_mb:
+        raise AssertionError(f"ppo_mlp_cartpole path: stats {stats}, step {int(ts.step)}")
+    wall, dev = statistics.median(walls[2:]), statistics.median(device_ms[2:])
+    episodes = int(out.done.sum())
+    return launches, [
+        f"ppo_mlp_cartpole path: CartPole E={MLP_E} T={MLP_T} repeat={MLP_REPEAT} batch={MLP_BATCH} ({n_mb} minibatches); "
+        f"{2 + MLP_ITERS} megasteps (eager warm-up, capture + replay, {MLP_ITERS} timed replays); no kernel of the port; "
+        f"graph replays: env_steps_per_s {MLP_T * MLP_E / wall:.1f} ms_per_megastep {wall * 1e3:.3f} wall, {dev:.3f} "
+        f"device (eager warm-up {walls[0] * 1e3:.1f} ms); episodes ended in the last megastep {episodes}; "
+        f"{_graph_report(pool, 1)}; last stats { {k: round(float(v), 5) for k, v in stats.items()} }",
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -2286,6 +2743,16 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[f"pendulum_{kind}"], lines = pendulum_path(torch, kind)  # raises below the threshold
         print("\n".join(lines), f"\npendulum_{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    lines = trust_region_graph_phase(torch)  # raises unless the graphs and the eager calls agree bit for bit
+    print("\n".join(lines), f"\ntrust-region and gSDE graph phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    paths = [(name, lambda name=name: trust_region_path(torch, name)) for name in TR_PATHS]
+    paths += [("ppo_sde_halfcheetah", lambda: mujoco_example_path(torch, sde=True)),
+              ("trpo_cartpole", lambda: trpo_cartpole_path(torch)), ("ppo_mlp_cartpole", lambda: ppo_mlp_cartpole_path(torch))]
+    for name, path in paths:
+        t0 = time.perf_counter()
+        by_path[name], lines = path()  # raises on a failed check, or below the threshold (trpo_cartpole)
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

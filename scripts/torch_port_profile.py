@@ -1,6 +1,6 @@
 """Where the time of the PyTorch port's main paths goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo,offpolicy]
+    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo,offpolicy,trust_region]
     python3 scripts/torch_port_profile.py --compare PARENT_TREE [--pairs 10]
 
 For the DQN-on-pixels pipeline of ``bench.py`` and then for the Rainbow +
@@ -58,6 +58,15 @@ graph) and one burst alone (the trainer's ``update_burst``): wall, device busy
 time, the idle share of the traced call alone (busy against its kernels' span
 from first start to last end, and against its wall), host launches, device kernels and device ms per update, the
 kernels by class and ``physics_fused``'s share of the busy time.
+
+For the trust-region paths (``--paths trust_region``: ``chip_smoke``'s ``npg_halfcheetah`` and
+``trpo_halfcheetah`` widths, 16 envs of ``NormObs(HalfCheetah())``, T 64, one update of 1,024 rows
+with 20 critic steps) it times and traces the collect chunk and the update, each a replayed CUDA
+graph: device busy time, kernels and their classes. The update is traced again with no
+conjugate-gradient iterations (``cg_iters`` 0: the search direction is 0 and one Fisher product
+remains) and, for TRPO, with no line-search candidates (``max_backtracks`` 0): the differences are
+the conjugate gradient's and the line search's shares of the update. Then ``chip_smoke``'s
+``bench_mlp_ppo`` twin's megastep (PPO CartPole, 4,096 envs, T 128) traced the same way.
 
 The pixel paths run through one trainer: a warm-up run of the prefill and two
 chunks (where the trainer captures its CUDA graphs: a program's first call is
@@ -662,19 +671,111 @@ def compare(parent: str, pairs: int, paths: str, smi: str) -> None:
         json.dump({"device": smi, "pairs": pairs, "runs": runs, "summary": summary}, f, indent=1)
 
 
+def _traced_graph(fn, torch, gen, calls: int = 5) -> dict:
+    """``fn`` (drawing from ``gen``) as a CUDA graph (eager warm-up, capture), then replayed ``calls``
+    times between CUDA events (median device ms) and once traced: busy us, kernels and kernel classes."""
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    program = Graphed(fn, GraphPool("cuda"), (gen,), name="profiled")
+    program(), program()
+    times = []
+    for _ in range(calls):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        program()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    _, _, per_name, _, span = _trace_kernels(program, torch)
+    busy = sum(sum(v) for v in per_name.values())
+    return dict(ms=statistics.median(times), busy_us=busy, span_us=span,
+                kernels=sum(len(v) for v in per_name.values()), classes=_kernel_classes(per_name))
+
+
+def profile_trust_region(smi: str) -> None:
+    """Where the time of an NPG and a TRPO rollout goes (``chip_smoke.build_trust_region`` at the
+    examples' widths): the collect chunk and the update as replayed graphs, then the update without its
+    conjugate-gradient iterations and, for TRPO, without its line search; then the MLP PPO megastep."""
+    import torch
+
+    cs = chip_smoke
+    for kind in ("npg", "trpo"):
+        variants = {"full": {}, "cg_iters 0": {"cg_iters": 0}}
+        if kind == "trpo":
+            variants["max_backtracks 0"] = {"max_backtracks": 0}
+        print(f"== {kind}_halfcheetah: E={cs.TR_E}, T={cs.TR_T}, one update of {cs.TR_E * cs.TR_T} rows, "
+              f"{cs.TR_CRITIC_ITERS} critic steps ==")
+        print(f"device: {smi}")
+        res = {}
+        for name, attrs in variants.items():
+            algo, ts, coll = cs.build_trust_region(torch, kind, cs.TR_E)
+            for k, v in attrs.items():
+                setattr(algo, k, v)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            cstate = coll.reset(gen)
+            rollout = coll.rollout(ts, cstate, None, gen, cs.TR_T, keep_rollout=True).rollout
+            if name == "full":
+                collect = _traced_graph(lambda: coll.rollout(ts, cstate, None, gen, cs.TR_T, keep_rollout=True), torch,
+                                        gen)
+                print(f"collect chunk: {collect['ms']:.3f} ms device (median of 5 replays), busy "
+                      f"{collect['busy_us'] / 1e3:.3f} ms, {collect['kernels']} kernels")
+            res[name] = _traced_graph(lambda: algo.update_rollout(ts, rollout, gen, 1, cs.TR_BATCH)[1], torch, gen)
+            r = res[name]
+            print(f"update ({name}): {r['ms']:.3f} ms device (median of 5 replays), busy {r['busy_us'] / 1e3:.3f} ms "
+                  f"over a span of {r['span_us'] / 1e3:.3f} ms, {r['kernels']} kernels")
+            if name == "full":
+                for cls, (n, us) in sorted(r["classes"].items(), key=lambda kv: -kv[1][1]):
+                    print(f"  {cls}: {n} kernels, {us / 1e3:.3f} ms ({us / r['busy_us']:.3f} of busy)")
+        full = res["full"]
+        for name, r in res.items():
+            if name != "full":
+                print(f"{'conjugate gradient' if 'cg' in name else 'line search'} ({name} against full): "
+                      f"{full['kernels'] - r['kernels']} kernels, {(full['ms'] - r['ms']):.3f} ms, share of the update "
+                      f"{1 - r['ms'] / full['ms']:.3f} (busy {1 - r['busy_us'] / full['busy_us']:.3f})")
+
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+
+    torch.manual_seed(0)
+    env = CartPole()
+    algo = PPO(actor=DiscreteActor((64, 64), 2, input_dim=4), critic=DiscreteCritic((64, 64), input_dim=4),
+               action_space=env.action_space, optim=AdamOptimizerFactory(lr=3e-4, max_grad_norm=0.5),
+               deterministic_eval=True)
+    ts = algo.init("cuda")
+    coll = DeviceCollector(VectorDeviceEnv(env, cs.MLP_E, device="cuda"), algo, None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    parts = {"collect": lambda: coll.rollout(ts, cstate, None, gen, cs.MLP_T, keep_rollout=True)}
+    held = parts["collect"]()
+    parts["update"] = lambda: algo.update_rollout(ts, held.rollout, gen, cs.MLP_REPEAT, cs.MLP_BATCH)[1]
+    print(f"== ppo_mlp_cartpole: E={cs.MLP_E}, T={cs.MLP_T}, {cs.MLP_REPEAT} passes of batch {cs.MLP_BATCH}, the collect "
+          f"and the update as graphs of their own ==")
+    print(f"device: {smi}")
+    for part, fn in parts.items():
+        r = _traced_graph(fn, torch, gen)
+        print(f"{part}: {r['ms']:.3f} ms device (median of 5 replays), busy {r['busy_us'] / 1e3:.3f} ms, "
+              f"{r['kernels']} kernels")
+        for cls, (n, us) in sorted(r["classes"].items(), key=lambda kv: -kv[1][1])[:4]:
+            print(f"  {cls}: {n} kernels, {us / 1e3:.3f} ms ({us / r['busy_us']:.3f} of busy)")
+
+
 def main() -> int:
     global chip_smoke
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chunks", type=int, default=1)
     ap.add_argument("--paths", default="dqn,rainbow,physics",
-                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo, offpolicy")
+                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo, offpolicy, trust_region")
     ap.add_argument("--compare", metavar="PARENT_TREE", help="measure this tree against PARENT_TREE in turns")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--measure", action="store_true", help="measure the paths once and print one MEASURE line")
     ap.add_argument("--tree", default=ROOT, help="the checkout whose chip_smoke and tianshou_tpu_torch to import")
     args = ap.parse_args()
     paths = set(args.paths.split(","))
-    if not paths <= {"dqn", "rainbow", "physics", "sumtree", "ppo", "offpolicy"}:
+    if not paths <= {"dqn", "rainbow", "physics", "sumtree", "ppo", "offpolicy", "trust_region"}:
         ap.error(f"unknown path in {args.paths!r}")
     sys.path.insert(0, os.path.abspath(args.tree))
     import chip_smoke as module
@@ -689,7 +790,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke._smi()
     if args.compare:
-        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree", "ppo", "offpolicy"})), smi)
+        compare(args.compare, args.pairs, ",".join(sorted(paths - {"sumtree", "ppo", "offpolicy", "trust_region"})), smi)
         return 0
     if args.measure:
         print("MEASURE " + json.dumps({"device": smi, "paths": measure(paths)}), flush=True)
@@ -711,6 +812,8 @@ def main() -> int:
         profile_ppo(smi)
     if "offpolicy" in paths:
         profile_offpolicy(smi)
+    if "trust_region" in paths:
+        profile_trust_region(smi)
     return 0
 
 

@@ -10,8 +10,18 @@ reconstruction), ``_stacked`` (with the episode-start clamp) and
 ``n_step_gather`` are then held BIT-EXACT on the same indices: they are
 integer index math and copies. ``sample_indices`` draws from another RNG
 stream, so it is checked for range and validity only.
+
+The host-level utilities are held bit-exact too: ``get_buffer_indices`` on
+every span of every ring (wrapping, whole-ring and malformed spans: the
+same result or the same exception), ``chronological_indices``,
+``num_stored``, also on partly filled rings, and ``update`` merging every
+pair's rows into a 16-slot single ring (rings and cursors). And the
+collector's policy-state carry: a stand-in stateful policy on
+``MoveToRightEnv`` gives the JAX collector's actions, episode ends and
+carried state, reset to zero where an episode ends.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -218,3 +228,140 @@ def test_n_step_return_at_an_unfinished_episode_follows_the_jax_package():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, [8.8904, 10.8804, 11.8804], rtol=1e-6)
     assert np.isclose(got[0], upstream[0], rtol=1e-6) and not np.allclose(got[1:], upstream[1:])
+
+
+# ---------------------------------------------------------------------------
+# host-level episode and merge utilities, and the collector's policy-state carry
+def _spans(tb, ts):
+    """(start, stop) pairs in every ring: whole rings, wraps, one entry, and the malformed cases."""
+    C = tb.capacity
+    out = []
+    for env in range(tb.num_envs):
+        size = int(ts.size[env])
+        base = env * C
+        out += [(base + a, base + b) for a in range(C) for b in range(C)]
+        out += [(base + size - 1, base), (base, base + C - 1)]
+    out += [(0, C + 1), (-1, 3), (E * C, E * C + 1)]
+    return out
+
+
+def _outcome(fn, *args):
+    try:
+        return ("ok", np.asarray(fn(*args)))
+    except (ValueError, NotImplementedError) as e:
+        return ("raises", type(e).__name__)
+
+
+def test_get_buffer_indices_and_chronological_indices_bit_exact(pair):
+    jb, js, tb, ts = pair
+    for start, stop in _spans(tb, ts):
+        got, want = _outcome(tb.get_buffer_indices, ts, start, stop), _outcome(jb.get_buffer_indices, js, start, stop)
+        assert got[0] == want[0], (start, stop)
+        if got[0] == "ok":
+            np.testing.assert_array_equal(got[1], want[1])
+        else:
+            assert got[1] == want[1]
+    for env in range(E):
+        np.testing.assert_array_equal(tb.chronological_indices(ts, env), jb.chronological_indices(js, env))
+    assert int(tb.num_stored(ts)) == int(jb.num_stored(js)) == 21
+
+
+def test_partial_rings_indices_bit_exact():
+    jb, tb = JVRB(SIZE, E), TVRB(SIZE, E)
+    ex = dict(obs=np.zeros(2, np.float32), act=np.int32(0), rew=np.float32(0), terminated=np.bool_(False),
+              truncated=np.bool_(False))
+    js = jb.init(JBatch({k: jnp.asarray(v) for k, v in ex.items()}))
+    ts = tb.init(TBatch({k: torch.as_tensor(np.asarray(v)) for k, v in ex.items()}), device="cpu")
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        step = dict(obs=rng.normal(size=(E, 2)).astype(np.float32), act=np.full(E, i, np.int32),
+                    rew=rng.normal(size=E).astype(np.float32), terminated=rng.random(E) < 0.3, truncated=np.zeros(E, bool))
+        m = np.array([True, i % 2 == 0, i < 1])
+        js, _ = jb.add(js, JBatch({k: jnp.asarray(v) for k, v in step.items()}), jnp.asarray(m))
+        tb.add(ts, TBatch({k: torch.from_numpy(v) for k, v in step.items()}), torch.from_numpy(m))
+    assert ts.size.tolist() == [4, 2, 1]
+    for start, stop in _spans(tb, ts):
+        got, want = _outcome(tb.get_buffer_indices, ts, start, stop), _outcome(jb.get_buffer_indices, js, start, stop)
+        assert got[0] == want[0] and (got[0] != "ok" or np.array_equal(got[1], want[1])), (start, stop)
+    for env in range(E):
+        np.testing.assert_array_equal(tb.chronological_indices(ts, env), jb.chronological_indices(js, env))
+    assert int(tb.num_stored(ts)) == int(jb.num_stored(js)) == 7
+
+
+def test_update_merges_bit_exact(pair):
+    jb, js, tb, ts = pair
+    jdst, tdst = JVRB(16, 1), TVRB(16, 1)  # 21 stored rows wrap the 16-slot ring
+    # the destination's keys in the source's order (the JAX package's scan adds the rows as one pytree)
+    ex = {k: np.asarray(v)[0] for k, v in tb.get(ts, torch.arange(1), stack_num=1).items()}
+    jstate = jdst.init(JBatch({k: jnp.asarray(v) for k, v in ex.items()}))
+    tstate = tdst.init(TBatch({k: torch.as_tensor(v) for k, v in ex.items()}), device="cpu")
+    jstate = jdst.update(jstate, jb, js)
+    assert tdst.update(tstate, tb, ts) is tstate
+    _eq_batch(tstate.data, jstate.data)
+    for f in ("cursor", "size", "last_idx"):
+        _eq(getattr(tstate, f), getattr(jstate, f))
+    with pytest.raises(NotImplementedError):
+        tb.update(ts, tb, ts)
+
+
+def test_collector_carries_and_resets_a_policy_state_as_jax():
+    """A stand-in stateful policy on ``MoveToRightEnv``: its state counts the
+    steps of the episode (plus the observation), it moves right where the
+    count is odd, and the collector resets it to zero where an episode ends.
+    Two chunks of 7 steps over 3 envs: actions, the carried state and the
+    episode ends equal to the JAX collector's."""
+    from tianshou_tpu.algorithm.base import ActOut as JActOut
+    from tianshou_tpu.algorithm.base import Algorithm as JAlgorithm
+    from tianshou_tpu.algorithm.base import TrainState as JTrainState
+    from tianshou_tpu.data.collector import DeviceCollector as JCollector
+    from tianshou_tpu.env.core import VectorDeviceEnv as JVenv
+    from tianshou_tpu.env.testing import MoveToRightEnv as JMoveToRightEnv
+    from tianshou_tpu_torch.algorithm.base import ActOut, Algorithm, TrainState
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.testing import MoveToRightEnv
+
+    class JCounting(JAlgorithm):
+        def init(self, key, obs_example):
+            return JTrainState(params={}, target_params={}, opt_state={}, hparams=JBatch(), extra=JBatch(),
+                               step=jnp.int32(0))
+
+        def init_policy_state(self, num_envs):
+            return JBatch(h=jnp.zeros(num_envs, jnp.int32))
+
+        def forward(self, ts, obs, key, state=None, deterministic=False):
+            h = state.h + 1 + obs[:, 0].astype(jnp.int32)
+            return JActOut(act=(h % 2).astype(jnp.int32), state=JBatch(h=h), info=JBatch())
+
+    class Counting(Algorithm):
+        def init(self, device=None):
+            return TrainState(model=torch.nn.Module(), target=None, optim=None, hparams={},
+                              step=torch.zeros((), dtype=torch.int64))
+
+        def init_policy_state(self, num_envs, device=None):
+            return TBatch(h=torch.zeros(num_envs, dtype=torch.int32, device=device))
+
+        def forward(self, ts, obs, generator=None, state=None, deterministic=False):
+            h = state.h + 1 + obs[:, 0].to(torch.int32)
+            return ActOut(act=(h % 2).to(torch.int64), state=TBatch(h=h), info=TBatch())
+
+    n_envs, steps = 3, 7
+    jenv, env = JMoveToRightEnv(size=3, max_episode_steps=5), MoveToRightEnv(size=3, max_episode_steps=5)
+    jalgo, algo = JCounting(jenv.action_space), Counting(env.action_space)
+    jcoll = JCollector(JVenv(jenv, n_envs), jalgo, None)
+    coll = DeviceCollector(VectorDeviceEnv(env, n_envs, device="cpu"), algo, None)
+    jts, ts = jalgo.init(None, None), algo.init()
+    jcs = jcoll.reset(jax.random.key(0))
+    cs = coll.reset(torch.Generator())
+    state = cs.policy_state
+    ends = 0
+    for chunk in range(2):
+        jcs, _, jout = jcoll.collect(jts, jcs, None, jax.random.key(chunk), steps, keep_rollout=True)
+        _, _, out = coll.collect(ts, cs, None, torch.Generator(), steps, keep_rollout=True)
+        assert cs.policy_state is state  # written in place
+        _eq(out.rollout.act, jout.rollout.act)
+        _eq(out.done, jout.done)
+        _eq(cs.policy_state.h, jcs.policy_state.h)
+        ends += int(out.done.sum())
+        assert bool((cs.policy_state.h[out.done[-1]] == 0).all())
+    assert ends >= 2

@@ -898,3 +898,123 @@ def test_capturable_adam_on_the_0d_log_alpha_matches_the_cpu_adam_on_cuda():
     assert float(cpu.detach()) != 0.0
     assert abs(float(cuda.detach().cpu()) - float(cpu.detach())) <= 2e-5
     assert int(opt_cuda.state[cuda]["step"]) == int(opt_cpu.state[cpu]["step"]) == 8
+
+
+def _pendulum_onpolicy(kind: str, n_envs: int = 8):
+    """(algo, train state, collector) of NPG, TRPO or PPO+gSDE on Pendulum at small widths on the card."""
+    from tianshou_tpu_torch.algorithm.modelfree.npg import NPG
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.modelfree.trpo import TRPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.pendulum import Pendulum
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.continuous import ContinuousActorProbabilistic, ContinuousCritic
+
+    torch.manual_seed(0)
+    env = Pendulum()
+    sde = kind == "ppo_sde"
+    actor = ContinuousActorProbabilistic((32, 32), 1, ppo_init=True, sde=sde, sigma_init=-1.0, input_dim=3)
+    critic = ContinuousCritic((32, 32), use_action=False, ppo_init=True, input_dim=3)
+    # NPG's fixed step at 0.1 (its default 0.5 can leave the KL's quadratic region on 256 Pendulum rows)
+    cls, kw = {"npg": (NPG, dict(optim_critic_iters=4, trust_region_size=0.1)),
+               "trpo": (TRPO, dict(optim_critic_iters=4, max_kl=0.01)),
+               "ppo_sde": (PPO, dict(sde_sample_freq=3))}[kind]
+    algo = cls(actor=actor, critic=critic, action_space=env.action_space, optim=AdamOptimizerFactory(lr=1e-3), **kw)
+    return algo, algo.init("cuda"), DeviceCollector(VectorDeviceEnv(env, n_envs, device="cuda"), algo, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["npg", "trpo"])
+def test_trust_region_update_graph_matches_eager_on_cuda(kind):
+    """``update_rollout`` of NPG and TRPO (conjugate gradient by double backward, TRPO's line search
+    by select) as a CUDA graph, replayed on three rollouts of 256 rows (two minibatches each), against
+    the eager call on a deep copy: weights, the critic's Adam state and count and the stats
+    (``step_frac`` and ``accepted`` too) finite and bit-identical."""
+    import copy
+
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    algo, ts, coll = _pendulum_onpolicy(kind)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    rollouts = [coll.rollout(ts, cstate, None, gen, 32, keep_rollout=True).rollout.map(torch.clone) for _ in range(3)]
+    ets = copy.deepcopy(ts)
+    held = rollouts[0].map(torch.clone)
+    ggen, egen = torch.Generator(device="cuda").manual_seed(1), torch.Generator(device="cuda").manual_seed(1)
+    program = Graphed(lambda: algo.update_rollout(ts, held, ggen, 1, 128)[1], GraphPool("cuda"), (ggen,), name=kind)
+    for roll in rollouts:
+        for k in roll.keys():
+            held[k].copy_(roll[k])
+        stats = program().map(torch.clone)
+        estats = algo.update_rollout(ets, roll, egen, 1, 128)[1]
+        for k in estats.keys():
+            assert bool(torch.isfinite(estats[k]).all()) and torch.equal(stats[k], estats[k]), k
+    torch.cuda.synchronize()
+    assert program.replays == 2
+    for a, b in zip(optimizer_tensors(ts.optim), optimizer_tensors(ets.optim)):
+        assert torch.equal(a, b)
+    assert int(ts.step) == int(ets.step) == 3 * 2
+    if kind == "trpo":
+        assert 0.0 < float(stats.step_frac) <= 1.0 and float(stats.accepted) == 1.0
+
+
+@pytest.mark.cuda
+def test_sde_collect_chunk_graph_matches_eager_on_cuda():
+    """A PPO+gSDE collect chunk (the per-chunk refresh, fresh noise every step, the reset where an
+    episode ends) as a CUDA graph against the eager chunk on a deep copy: rollouts, the carried noise
+    and counts bit-identical over three chunks of 250 steps (Pendulum ends its episodes at 200)."""
+    import copy
+
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    algo, ts, coll = _pendulum_onpolicy("ppo_sde")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    ecs = copy.deepcopy(cstate)
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    program = Graphed(lambda: coll.rollout(ts, cstate, None, gen, 250, keep_rollout=True), GraphPool("cuda"), (gen,),
+                      name="sde_collect")
+    for _ in range(3):
+        out = program().map(torch.clone)
+        eout = coll.rollout(ts, ecs, None, egen, 250, keep_rollout=True)
+        for k in ("obs", "act", "rew", "terminated", "truncated", "obs_next"):
+            assert torch.equal(out.rollout[k], eout.rollout[k]), k
+        assert torch.equal(out.done, eout.done) and bool(out.done.any())
+        assert torch.equal(cstate.policy_state.eps, ecs.policy_state.eps)
+        assert torch.equal(cstate.policy_state.count, ecs.policy_state.count)
+        assert torch.equal(cstate.policy_state.count == 0, out.done[-1])
+    assert program.replays == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rmsprop", "sgd", "sgd_momentum"])
+def test_rmsprop_and_sgd_under_a_graph_match_the_cpu_steps_on_cuda(kind):
+    """The port's RMSprop and SGD with the clip and the linear schedule on the card, six steps through
+    one graph, against the same factory's steps on the CPU: weights within 2e-6, the rate the schedule's."""
+    from tianshou_tpu_torch.algorithm.optim import RMSpropOptimizerFactory, SGDOptimizerFactory, linear_lr_schedule
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+
+    _needs_cuda()
+    sched = linear_lr_schedule(0.01, 4)
+    factory = {"rmsprop": lambda: RMSpropOptimizerFactory(lr=sched, alpha=0.9, max_grad_norm=1.0),
+               "sgd": lambda: SGDOptimizerFactory(lr=sched, max_grad_norm=1.0),
+               "sgd_momentum": lambda: SGDOptimizerFactory(lr=sched, momentum=0.9, max_grad_norm=1.0)}[kind]()
+    w = torch.randn(7, 5, generator=torch.Generator().manual_seed(0))
+    cuda, cpu = torch.nn.Parameter(w.cuda()), torch.nn.Parameter(w.clone())
+    opt_cuda, opt_cpu = factory.create([cuda]), factory.create([cpu])
+    cuda.grad = torch.zeros_like(cuda)
+    program = Graphed(lambda: factory.step(opt_cuda), GraphPool("cuda"), name=kind)
+    for i in range(6):
+        g = torch.randn(7, 5, generator=torch.Generator().manual_seed(i + 1))
+        cuda.grad.copy_(g)
+        program()
+        cpu.grad = g
+        factory.step(opt_cpu)
+        torch.testing.assert_close(cuda.detach().cpu(), cpu.detach(), rtol=0, atol=2e-6)
+    assert program.replays == 5
+    assert float(opt_cuda.param_groups[0]["lr"]) == float(opt_cpu.param_groups[0]["lr"]) == 0.0

@@ -140,8 +140,11 @@ def test_ppo_init_recipe():
     assert actor.mlp.activation is torch.tanh and critic.mlp.activation is torch.tanh
     plain = continuous.ContinuousActorProbabilistic((8,), A, input_dim=D)
     assert bool((plain.log_sigma == 0).all())
-    with pytest.raises(NotImplementedError, match="gSDE"):
-        continuous.ContinuousActorProbabilistic((8,), A, sde=True, input_dim=D)
+    # gSDE: a log-sigma matrix [last hidden width, A] at sigma_init, on top of the same PPO init
+    sde = continuous.ContinuousActorProbabilistic((64, 32), A, ppo_init=True, sde=True, sigma_init=-2.0, input_dim=D)
+    assert sde.log_sigma_mat.shape == (32, A) and not hasattr(sde, "log_sigma")
+    np.testing.assert_array_equal(sde.log_sigma_mat.detach().numpy(), np.full((32, A), -2.0, np.float32))
+    assert sde.mlp.activation is torch.tanh and bool((sde.mu.bias == 0).all())
 
 
 def test_sigma_is_clipped():

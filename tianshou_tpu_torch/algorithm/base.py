@@ -191,8 +191,22 @@ class Algorithm:
         called by collectors in both train and eval mode."""
         return act
 
-    def init_policy_state(self, num_envs: int) -> Any:
+    def init_policy_state(self, num_envs: int, device: str | torch.device | None = None) -> Any:
+        """Initial policy state for the collector's carry on ``device`` (None
+        for a stateless policy); the collector writes it in place."""
         return None
+
+    def reset_policy_state(self, num_envs: int, generator: torch.Generator,
+                           device: str | torch.device | None = None) -> Any:
+        """State installed where an episode just finished (reference
+        collector.py:1103): the initial state by default; gSDE draws its
+        noise state from ``generator``."""
+        return self.init_policy_state(num_envs, device)
+
+    def refresh_policy_state(self, state: Any, num_envs: int, generator: torch.Generator) -> Any:
+        """Run once at the start of every collect chunk: the state as it is
+        by default; gSDE draws its noise matrix anew (arXiv:2005.05719)."""
+        return state
 
     def map_action(self, act: torch.Tensor) -> torch.Tensor:
         """Raw policy output -> env action (reference Policy.map_action :254):

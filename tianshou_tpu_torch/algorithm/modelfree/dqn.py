@@ -7,7 +7,13 @@ n-step targets, and a lagged target network synced every
 ``target_update_freq`` gradient steps, counted after the step (:277).
 ``DQN``: double-DQN targets by default (:365-379) and an optional Huber
 loss (:392). With a prioritized buffer the TD error is written back as the
-new priority (:401). Invalid-action masks are not ported yet.
+new priority (:401).
+
+Invalid-action masks (reference :145): an observation ``Batch`` with a
+``mask`` (``[B, n]`` bool, True where an action is valid) restricts the
+greedy action (Q at ``-inf`` where masked), eps-greedy's random action
+(uniform over the valid actions) and the target: ``-1e9`` on the target net's
+Q, ``-inf`` on the double-Q selection. C51 and Rainbow inherit the acting.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from tianshou_tpu_torch.algorithm.optim import OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.env.core import Discrete, Space
+from tianshou_tpu_torch.models.distributions import Categorical
 from tianshou_tpu_torch.utils.device import resolve_device
 
 __all__ = ["DQN", "QLearningOffPolicyAlgorithm"]
@@ -85,21 +92,47 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         """Subclasses may reduce distributional output to scalar Q here."""
         return model(obs)
 
+    @staticmethod
+    def _action_mask(obs: Any) -> torch.Tensor | None:
+        """The valid-action mask of an observation ``Batch`` that has one."""
+        return obs.mask if isinstance(obs, Batch) and "mask" in obs else None
+
     @torch.no_grad()
     def forward(self, ts: TrainState, obs: Any, generator: torch.Generator | None = None,
                 state: Any = None, deterministic: bool = False) -> ActOut:
         q = self._q(ts.model, obs)
+        mask = self._action_mask(obs)
+        if mask is not None:
+            q = torch.where(mask, q, -torch.inf)
         return ActOut(act=q.argmax(dim=-1), state=state, info=Batch(q=q))
 
     def exploration_noise(self, ts: TrainState, act: torch.Tensor, obs: Any,
                           generator: torch.Generator, training: bool = True) -> torch.Tensor:
-        """eps-greedy (dqn.py:153); ``training`` picks eps_training or
-        eps_inference (dqn.py:158), read from its device scalar."""
-        rand_act = torch.randint(0, self.action_space.n, act.shape, generator=generator,
-                                 device=act.device, dtype=act.dtype)
+        """eps-greedy (dqn.py:153), over the valid actions when ``obs`` has a
+        mask; ``training`` picks eps_training or eps_inference (dqn.py:158),
+        read from its device scalar."""
+        mask = self._action_mask(obs)
+        if mask is None:
+            rand_act = torch.randint(0, self.action_space.n, act.shape, generator=generator,
+                                     device=act.device, dtype=act.dtype)
+        else:
+            u = torch.rand(mask.shape, generator=generator, device=act.device)
+            rand_act = self.masked_random_action(mask, u.clamp_(min=torch.finfo(u.dtype).tiny)).to(act.dtype)
+        return self.eps_greedy(ts, act, rand_act, torch.rand(act.shape, generator=generator, device=act.device),
+                               training)
+
+    @staticmethod
+    def masked_random_action(mask: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        """A uniform draw over the valid actions from ``uniform`` (``[B, n]``
+        in ``[tiny, 1)``): Gumbel-max over logits 0 where valid and ``-inf``
+        elsewhere, as ``jax.random.categorical`` draws it."""
+        return Categorical(logits=torch.where(mask, 0.0, -torch.inf)).from_noise(uniform)
+
+    def eps_greedy(self, ts: TrainState, act: torch.Tensor, rand_act: torch.Tensor, uniform: torch.Tensor,
+                   training: bool) -> torch.Tensor:
+        """``rand_act`` where ``uniform < eps``, else ``act``."""
         eps = ts.hparams["eps_training" if training else "eps_inference"]
-        explore = torch.rand(act.shape, generator=generator, device=act.device) < eps
-        return torch.where(explore, rand_act, act)
+        return torch.where(uniform < eps, rand_act, act)
 
     # ------------------------------------------------------------------
     def _sync_target(self, ts: TrainState) -> TrainState:
@@ -133,11 +166,18 @@ class DQN(QLearningOffPolicyAlgorithm):
 
     @torch.no_grad()
     def _target_q(self, ts: TrainState, obs_next: Any, generator: torch.Generator | None = None) -> torch.Tensor:
-        """The bootstrap value; draws nothing, so ``generator`` is unused."""
+        """The bootstrap value; draws nothing, so ``generator`` is unused.
+        With a mask, masked actions take ``-1e9`` on the target's Q and
+        ``-inf`` on the online net's double-Q selection."""
         q_t = self._q(ts.target if self.use_target else ts.model, obs_next)
+        mask = self._action_mask(obs_next)
+        if mask is not None:
+            q_t = torch.where(mask, q_t, -1e9)
         if self.is_double:
-            a_star = self._q(ts.model, obs_next).argmax(dim=-1)
-            return q_t.gather(-1, a_star[:, None])[:, 0]
+            q_sel = self._q(ts.model, obs_next)
+            if mask is not None:
+                q_sel = torch.where(mask, q_sel, -torch.inf)
+            return q_t.gather(-1, q_sel.argmax(dim=-1)[:, None])[:, 0]
         return q_t.max(dim=-1).values
 
     def update_step(self, ts: TrainState, batch: Batch,

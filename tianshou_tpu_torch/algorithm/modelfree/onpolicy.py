@@ -23,6 +23,17 @@ nothing in it reads a device value on the host:
 The train state's ``model`` is a ``ModuleDict`` of ``actor`` and, where
 there is one, ``critic``, stepped by one optimizer over both, as the JAX
 package's one optax chain over ``{"actor", "critic"}``.
+
+gSDE (an actor with ``sde=True``, arXiv:2005.05719): the collector carries
+the policy state ``Batch(eps [E, F, A] standard normals, count [E] int32
+steps since the last resample)``. :meth:`OnPolicyActorCritic.forward` draws
+fresh noise every step, keeps it where ``count % sde_sample_freq == 0`` and
+the carried noise elsewhere, and acts with ``mu + feat^T (eps *
+exp(log_sigma_mat))``, marginally ``Normal(mu, sigma(s))``, which
+``process_rollout`` and the losses use. The state restarts (fresh noise,
+count 0) where an episode ends and is drawn anew at the start of every
+collect chunk, all written in place, so a captured chunk replays it. The
+initial state is zeros: its noise is resampled at the first step (count 0).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from tianshou_tpu_torch.algorithm.base import ActOut, OnPolicyAlgorithm, TrainState
 from tianshou_tpu_torch.algorithm.optim import init_adam_state
@@ -58,6 +70,7 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         ent_coef: float = 0.0,
         vf_coef: float = 0.5,
         deterministic_eval: bool = False,
+        sde_sample_freq: int = 4,
         **kwargs: Any,
     ) -> None:
         kwargs.setdefault("action_scaling", not isinstance(action_space, Discrete))
@@ -70,6 +83,9 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         self.ent_coef = ent_coef
         self.vf_coef = vf_coef
         self.deterministic_eval = deterministic_eval
+        # gSDE's resample cadence in env steps: a rollout-frozen eps would leave
+        # an update only num_envs noise draws (arXiv:2005.05719)
+        self.sde_sample_freq = sde_sample_freq
 
     # ------------------------------------------------------------------
     def init(self, device: str | torch.device | None = None) -> TrainState:
@@ -97,12 +113,27 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
                           step=torch.zeros((), dtype=torch.int64, device=dev), extra=extra)
 
     # ------------------------------------------------------------------
+    @property
+    def _sde(self) -> bool:
+        """A gSDE actor: it returns ``(mu, sigma(s), feat)``."""
+        return bool(getattr(self.actor, "sde", False))
+
     def _dist(self, model: nn.Module, obs: torch.Tensor) -> Categorical | Normal:
-        out = model["actor"](obs)
+        return self._actor_dist(model["actor"], obs)
+
+    def _actor_dist(self, actor: nn.Module, obs: torch.Tensor,
+                    params: dict[str, torch.Tensor] | None = None) -> Categorical | Normal:
+        """The policy of ``actor``, evaluated at ``params`` in place of its own
+        parameters when given (TRPO's line search); a gSDE actor's is the
+        marginal ``Normal(mu, sigma(s))``."""
+        out = actor(obs) if params is None else functional_call(actor, params, (obs,))
         if self.is_discrete:
             return Categorical(logits=out)
-        mu, sigma = out
-        return Normal(loc=mu, scale=sigma)
+        return Normal(loc=out[0], scale=out[1])
+
+    def _dist_from_batch(self, b: Batch) -> Categorical | Normal:
+        """The rollout's policy from the ``dist_old`` that ``process_rollout`` stores."""
+        return Categorical(logits=b.logits) if self.is_discrete else Normal(loc=b.loc, scale=b.scale)
 
     def _value(self, model: nn.Module, obs: torch.Tensor) -> torch.Tensor:
         v = model["critic"](obs)
@@ -112,10 +143,61 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
     def forward(self, ts: TrainState, obs: Any, generator: torch.Generator | None = None,
                 state: Any = None, deterministic: bool = False) -> ActOut:
         """A sample of the policy, or its mode when ``deterministic`` and
-        ``deterministic_eval``."""
+        ``deterministic_eval``. A gSDE actor with a carried ``state`` acts
+        with its noise and returns the advanced state; without one it samples
+        the marginal ``Normal(mu, sigma(s))`` (one-shot inference)."""
+        if self._sde and not self.is_discrete:
+            mu, sigma, feat = ts.model["actor"](obs)
+            if deterministic and self.deterministic_eval:
+                act = mu
+            elif state is None:
+                act = Normal(loc=mu, scale=sigma).sample(generator)
+            else:
+                n = state.eps.shape[0]
+                fresh = self._sde_eps(n, generator, mu.device)
+                resample = (state.count % self.sde_sample_freq) == 0
+                eps = torch.where(resample.reshape(n, 1, 1), fresh, state.eps)
+                # einsum("bf,bfa,fa->ba", feat, eps, exp(clip(log_sigma_mat, -20, 2)))
+                sig_mat = torch.exp(ts.model["actor"].log_sigma_mat.clamp(-20.0, 2.0))
+                act = mu + torch.einsum("bf,bfa->ba", feat, eps * sig_mat)
+                state = Batch(eps=eps, count=state.count + 1)
+            return ActOut(act=act, state=state, info=Batch())
         dist = self._dist(ts.model, obs)
         act = dist.mode() if deterministic and self.deterministic_eval else dist.sample(generator)
         return ActOut(act=act, state=state, info=Batch())
+
+    # ------------------------------------------------------------------
+    # gSDE's noise state (the collector's policy-state hooks, algorithm/base.py)
+    def _sde_shape(self, num_envs: int) -> tuple[int, int, int]:
+        """``[E, F, A]``, ``F`` the actor's last hidden width."""
+        return num_envs, self.actor.hidden_sizes[-1], self.actor.action_dim
+
+    def _sde_eps(self, num_envs: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        """``[E, F, A]`` standard normals."""
+        return torch.randn(self._sde_shape(num_envs), generator=generator, device=device)
+
+    def _sde_noise(self, num_envs: int, generator: torch.Generator, device: torch.device) -> Batch:
+        return Batch(eps=self._sde_eps(num_envs, generator, device),
+                     count=torch.zeros(num_envs, dtype=torch.int32, device=device))
+
+    def init_policy_state(self, num_envs: int, device: str | torch.device | None = None) -> Any:
+        if not self._sde:
+            return super().init_policy_state(num_envs, device)
+        dev = resolve_device(device)
+        return Batch(eps=torch.zeros(self._sde_shape(num_envs), device=dev),
+                     count=torch.zeros(num_envs, dtype=torch.int32, device=dev))
+
+    def reset_policy_state(self, num_envs: int, generator: torch.Generator,
+                           device: str | torch.device | None = None) -> Any:
+        if not self._sde:
+            return super().reset_policy_state(num_envs, generator, device)
+        # an episode's end restarts the resample schedule; the noise is drawn, as the JAX package draws it
+        return self._sde_noise(num_envs, generator, resolve_device(device))
+
+    def refresh_policy_state(self, state: Any, num_envs: int, generator: torch.Generator) -> Any:
+        if not self._sde or state is None:
+            return state
+        return self._sde_noise(num_envs, generator, state.eps.device)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -10,7 +10,13 @@ matches ``optax.clip_by_global_norm``: gradients are scaled by
 On CUDA parameters Adam is built with ``capturable=True``: its step count and
 bias corrections live on the device, so that a CUDA graph can capture the
 step. Capturable Adam does not take CPU parameters, and on the CPU it is
-built as before.
+built as before. RMSprop and SGD are the port's own optimizers
+(:class:`RMSprop`, :class:`SGD`): multi-tensor steps whose state (the step
+count, the second moment or the momentum trace) is made with the optimizer
+on the parameters' device, so that they are capturable on any device.
+RMSprop follows optax, not ``torch.optim.RMSprop``: it scales by
+``rsqrt(nu + eps)`` (optax's ``eps_in_sqrt=True``), where torch divides by
+``sqrt(nu) + eps``.
 
 The learning rate may be a schedule (:func:`linear_lr_schedule`, the
 reference's ``LRSchedulerFactoryLinear``, optim.py:22), evaluated, as optax
@@ -28,8 +34,8 @@ from collections.abc import Callable, Iterable
 
 import torch
 
-__all__ = ["AdamOptimizerFactory", "LinearLRSchedule", "OptimizerFactory", "clip_by_global_norm_", "init_adam_state",
-           "linear_lr_schedule"]
+__all__ = ["RMSprop", "SGD", "AdamOptimizerFactory", "LinearLRSchedule", "OptimizerFactory", "RMSpropOptimizerFactory",
+           "SGDOptimizerFactory", "clip_by_global_norm_", "init_adam_state", "linear_lr_schedule"]
 
 #: a learning rate as a function of the update count (a 0-d float32 tensor) -> 0-d float32 tensor
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -82,16 +88,105 @@ def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> tor
     return norm
 
 
+class _ForeachOptimizer(torch.optim.Optimizer):
+    """Base of the port's multi-tensor optimizers: every parameter's state
+    (``step``, a 0-d float32 count on its device, and the buffers of
+    :meth:`_buffers`) is made at construction, so that a step reads and
+    writes only device tensors; ``lr`` is a float or a 0-d tensor."""
+
+    def __init__(self, params: Iterable[torch.Tensor], defaults: dict) -> None:
+        super().__init__(params, defaults)
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                for name in self._buffers(group):
+                    self.state[p][name] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def _buffers(self, group: dict) -> tuple[str, ...]:
+        raise NotImplementedError
+
+    def _update(self, group: dict, grads: list[torch.Tensor], states: list[dict]) -> list[torch.Tensor]:
+        """The step's update direction before the learning rate, per parameter."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.state[p] for p in params]
+            upd = self._update(group, [p.grad for p in params], states)
+            # optax: updates * (-lr), then params + updates
+            lr = group["lr"]
+            torch._foreach_mul_(upd, -lr if not torch.is_tensor(lr) else lr.neg())
+            torch._foreach_add_(params, upd)
+            torch._foreach_add_([s["step"] for s in states], 1.0)
+
+
+class RMSprop(_ForeachOptimizer):
+    """optax's ``rmsprop(lr, decay=alpha, eps)``: ``nu <- (1 - alpha) g^2 +
+    alpha nu``, ``p <- p - lr * g * rsqrt(nu + eps)``."""
+
+    def __init__(self, params, lr: float | torch.Tensor = 1e-2, alpha: float = 0.99, eps: float = 1e-8) -> None:
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps))
+
+    def _buffers(self, group):
+        return ("square_avg",)
+
+    def _update(self, group, grads, states):
+        nu = [s["square_avg"] for s in states]
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1.0 - group["alpha"])
+        torch._foreach_add_(sq, torch._foreach_mul(nu, group["alpha"]))
+        torch._foreach_copy_(nu, sq)
+        scale = torch._foreach_add(nu, group["eps"])
+        torch._foreach_rsqrt_(scale)
+        return torch._foreach_mul(scale, grads)
+
+
+class SGD(_ForeachOptimizer):
+    """optax's ``sgd(lr, momentum)``: the trace ``t <- g + momentum t``
+    (no trace at momentum 0, where it equals ``g``), ``p <- p - lr t``."""
+
+    def __init__(self, params, lr: float | torch.Tensor = 1e-2, momentum: float = 0.0) -> None:
+        super().__init__(params, dict(lr=lr, momentum=momentum))
+
+    def _buffers(self, group):
+        return ("momentum_buffer",) if group["momentum"] else ()
+
+    def _update(self, group, grads, states):
+        if not group["momentum"]:
+            return [g.clone() for g in grads]
+        trace = [s["momentum_buffer"] for s in states]
+        torch._foreach_mul_(trace, group["momentum"])
+        torch._foreach_add_(trace, grads)
+        return [b.clone() for b in trace]
+
+
 @dataclasses.dataclass
 class OptimizerFactory:
-    """Base: ``create(params)`` builds the optimizer, ``step(opt)`` clips and steps."""
+    """Base: ``create(params)`` builds the optimizer, ``step(opt)`` clips and
+    steps. ``lr`` is a float or a schedule of the update count
+    (:func:`linear_lr_schedule`); with a schedule the rate is a 0-d tensor in
+    the param groups, rewritten before every step from the optimizer's count
+    (that of the update before it), as optax evaluates a schedule."""
 
+    lr: float | Schedule = 1e-3
     max_grad_norm: float | None = dataclasses.field(default=None, kw_only=True)
 
     def create(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
         raise NotImplementedError
 
+    def _initial_lr(self, params: list[torch.Tensor]) -> float | torch.Tensor:
+        lr = self.lr
+        return lr(torch.zeros((), dtype=torch.float32, device=params[0].device)) if callable(lr) else lr
+
     def step(self, opt: torch.optim.Optimizer) -> None:
+        if callable(self.lr):
+            lr = self.lr(opt.state[opt.param_groups[0]["params"][0]]["step"])
+            for group in opt.param_groups:
+                group["lr"].copy_(lr)
         if self.max_grad_norm is not None:
             clip_by_global_norm_(
                 [p for group in opt.param_groups for p in group["params"]], self.max_grad_norm
@@ -101,27 +196,42 @@ class OptimizerFactory:
 
 @dataclasses.dataclass
 class AdamOptimizerFactory(OptimizerFactory):
-    """``torch.optim.Adam``, reference optim.py:89. ``lr`` is a float or a
-    schedule of the update count (:func:`linear_lr_schedule`)."""
+    """``torch.optim.Adam``, reference optim.py:89."""
 
-    lr: float | Schedule = 1e-3
     betas: tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
 
     def create(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
         params = list(params)
         capturable = any(p.is_cuda for p in params)
-        lr = self.lr(torch.zeros((), dtype=torch.float32, device=params[0].device)) if callable(self.lr) else self.lr
-        opt = torch.optim.Adam(params, lr=lr, betas=self.betas, eps=self.eps, capturable=capturable)
+        opt = torch.optim.Adam(params, lr=self._initial_lr(params), betas=self.betas, eps=self.eps,
+                               capturable=capturable)
         if callable(self.lr):
             init_adam_state(opt)
         return opt
 
-    def step(self, opt: torch.optim.Optimizer) -> None:
-        """With a schedule, first write the rate of the coming update (that of
-        the count before it) into the param groups."""
-        if callable(self.lr):
-            lr = self.lr(opt.state[opt.param_groups[0]["params"][0]]["step"])
-            for group in opt.param_groups:
-                group["lr"].copy_(lr)
-        super().step(opt)
+
+@dataclasses.dataclass
+class RMSpropOptimizerFactory(OptimizerFactory):
+    """:class:`RMSprop`, reference optim.py:113 with optax's placement of
+    ``eps`` (``tianshou_tpu/algorithm/optim.py:44``)."""
+
+    lr: float | Schedule = 1e-2
+    alpha: float = 0.99
+    eps: float = 1e-8
+
+    def create(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
+        params = list(params)
+        return RMSprop(params, lr=self._initial_lr(params), alpha=self.alpha, eps=self.eps)
+
+
+@dataclasses.dataclass
+class SGDOptimizerFactory(OptimizerFactory):
+    """:class:`SGD` (``tianshou_tpu/algorithm/optim.py:54``)."""
+
+    lr: float | Schedule = 1e-2
+    momentum: float = 0.0
+
+    def create(self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
+        params = list(params)
+        return SGD(params, lr=self._initial_lr(params), momentum=self.momentum)

@@ -22,6 +22,7 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tianshou_tpu_torch.data.batch import Batch
@@ -352,6 +353,65 @@ class ReplayBuffer:
         rews = state.data.rew[env, slot].reshape(chain.shape)
         ends = state.data.done[env, slot].reshape(chain.shape).to(torch.float32)
         return rews, ends, idxs[-1]
+
+    # ------------------------------------------------------------------
+    # host-level episode and merge utilities (reference buffer_base.py:171, :336)
+    # ------------------------------------------------------------------
+    def get_buffer_indices(self, state: BufferState, start: int, stop: int) -> np.ndarray:
+        """Flat indices of the transitions from ``start`` (inclusive) to
+        ``stop`` (exclusive) within one env ring, oldest first. The span may
+        wrap the ring's edge, as the reference's cross-edge episode fetch does
+        (buffer_base.py:171-250). Host-level: reads the ring's size back and
+        raises on a span across rings, out of range, empty, longer than the
+        stored entries or touching unwritten slots."""
+        C = self.capacity
+        env_s, slot_s = divmod(int(start), C)
+        env_e, slot_e = divmod(int(stop), C)
+        if env_s != env_e:
+            raise ValueError(f"start={start} and stop={stop} lie in different env rings ({env_s} vs {env_e}); "
+                             "episodes never span envs")
+        if not 0 <= env_s < self.num_envs:
+            raise ValueError(f"env {env_s} out of range [0, {self.num_envs})")
+        length = (slot_e - slot_s) % C
+        if length == 0 and start != stop:
+            length = C  # a whole-ring episode
+        if length == 0:
+            raise ValueError(f"empty span: start == stop == {start}")
+        size = int(state.size[env_s])
+        if length > size:
+            raise ValueError(f"span of length {length} exceeds the {size} stored entries of env ring {env_s}")
+        slots = (slot_s + np.arange(length)) % C
+        if size < C and (slots >= size).any():
+            raise ValueError(f"span {start}:{stop} touches unwritten slots of env ring {env_s}")
+        return env_s * C + slots
+
+    def chronological_indices(self, state: BufferState, env: int) -> np.ndarray:
+        """Flat indices of env ring ``env``, oldest to newest (host-level)."""
+        size = int(state.size[env])
+        oldest = int(state.cursor[env]) % self.capacity if size >= self.capacity else 0
+        return env * self.capacity + (oldest + np.arange(size)) % self.capacity
+
+    def update(self, state: BufferState, src: ReplayBuffer, src_state: BufferState) -> BufferState:
+        """Every stored transition of ``src`` (oldest to newest, env by env)
+        added to this buffer one at a time, in place (reference
+        ``ReplayBuffer.update``, buffer_base.py:336). Only a single-ring
+        destination merges, as the reference's ``ReplayBufferManager.update``
+        raises. Host-level: not for a captured program."""
+        if self.num_envs != 1:
+            raise NotImplementedError("update() merges into a single-ring ReplayBuffer only "
+                                      "(reference ReplayBufferManager.update raises likewise)")
+        for env in range(src.num_envs):
+            flat = src.chronological_indices(src_state, env)
+            if len(flat) == 0:
+                continue
+            rows = src.get(src_state, torch.as_tensor(flat, device=src_state.size.device), stack_num=1)
+            for i in range(len(flat)):
+                state, _ = self.add(state, rows[i:i + 1])
+        return state
+
+    def num_stored(self, state: BufferState) -> torch.Tensor:
+        """The number of stored transitions over all rings, a 0-d device tensor."""
+        return state.size.sum()
 
 
 def VectorReplayBuffer(total_size: int, buffer_num: int, **kwargs) -> ReplayBuffer:

@@ -26,6 +26,16 @@ Episode semantics match the reference:
 - per-env episode return/length accumulators emit on done
   (reference collector.py:554-578);
 - auto-reset replaces the carried obs with a fresh reset obs.
+
+The policy state (``CollectState.policy_state``: a recurrent carry, gSDE's
+noise) is carried from step to step and written in place like the rest of
+the state. Where an episode ends, the algorithm's ``reset_policy_state`` is
+selected in (reference collector.py:1103), in :meth:`DeviceCollector.rollout`
+and :meth:`DeviceCollector.episode_chunk` alike; at the start of every
+:meth:`DeviceCollector.rollout`, ``refresh_policy_state`` replaces it (the JAX
+package's ``_build_collect``, ``tianshou_tpu/data/collector.py:170-178``;
+its episode collection refreshes nothing). Both draw from the collect's
+generator only where the algorithm's hook does.
 """
 
 from __future__ import annotations
@@ -133,7 +143,7 @@ class DeviceCollector:
         env_state, obs = tree_map(torch.clone, self.venv.reset(generator))
         E, dev = self.venv.num_envs, self.venv.device
         fresh = CollectState(
-            env_state, obs, self.algo.init_policy_state(E),
+            env_state, obs, self.algo.init_policy_state(E, dev),
             torch.zeros(E, dtype=torch.float32, device=dev),
             torch.zeros(E, dtype=torch.int64, device=dev),
         )
@@ -186,10 +196,14 @@ class DeviceCollector:
         def sel(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
             return torch.where(done.reshape(done.shape + (1,) * (new.dim() - done.dim())), new, old)
 
+        policy_state = out.state
+        if policy_state is not None:  # the carry restarts where an episode ended
+            reset_ps = self.algo.reset_policy_state(E, generator, self.venv.device)
+            policy_state = tree_map(sel, reset_ps, policy_state)
         new_cstate = CollectState(
             env_state=tree_map(sel, reset_state, step.state),
             obs=tree_map(sel, reset_obs, step.obs),
-            policy_state=out.state,  # recurrent carries (reset on done) are not ported yet
+            policy_state=policy_state,
             ep_rew=torch.where(done, 0.0, ep_rew),
             ep_len=torch.where(done, 0, ep_len),
         )
@@ -212,8 +226,13 @@ class DeviceCollector:
     ) -> Batch:
         """The device work of :meth:`collect` (what the trainer's programs
         capture): ``n_steps`` steps per env, ``cstate`` and ``buf_state``
-        written in place. Returns the ``[T, E]`` per-step output."""
+        written in place, the policy state first refreshed
+        (``refresh_policy_state``). Returns the ``[T, E]`` per-step output."""
         store = self.buffer is not None
+        if cstate.policy_state is not None:
+            fresh = self.algo.refresh_policy_state(cstate.policy_state, self.venv.num_envs, generator)
+            if fresh is not cstate.policy_state:
+                tree_map(torch.Tensor.copy_, cstate.policy_state, fresh)
         out = None
         for t in range(n_steps):
             new, buf_state, per = self._step_fn(ts, cstate, buf_state, generator, training,

@@ -20,7 +20,7 @@ import torch
 
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Box", "Discrete", "Space", "EnvStep", "Env", "VectorDeviceEnv"]
+__all__ = ["Box", "Discrete", "MultiDiscrete", "Space", "EnvStep", "Env", "VectorDeviceEnv"]
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +80,28 @@ class Box(Space):
         low, high = self.bounds(device)
         u = torch.rand((num, *self.shape), dtype=self.dtype, device=device, generator=generator)
         return low + (high - low) * u
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiDiscrete(Space):
+    """``k`` discrete sub-actions, the i-th in ``[0, nvec[i])``."""
+
+    nvec: tuple = ()
+
+    def __init__(self, nvec) -> None:
+        nv = tuple(int(x) for x in np.asarray(nvec).ravel())
+        object.__setattr__(self, "nvec", nv)
+        object.__setattr__(self, "shape", (len(nv),))
+        object.__setattr__(self, "dtype", torch.int64)
+        object.__setattr__(self, "_on_device", {})  # device -> float32 nvec, copied once
+
+    def sample(self, num: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        """``[num, k]`` int64 samples: ``floor(u * nvec)`` of float32 uniforms, as the JAX package draws them."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = torch.tensor(self.nvec, dtype=torch.float32, device=device)
+        u = torch.rand((num, *self.shape), generator=generator, device=device)
+        return (u * self._on_device[device]).to(torch.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,10 @@
 """Device env wrappers (port of ``tianshou_tpu/env/wrappers.py``):
-``FrameStack`` and ``NormObs`` with its pooled statistics (``merge_rms``,
-``extract_pooled_rms``, ``inject_rms``); the other wrappers are not ported yet.
+``ContinuousToDiscrete``, ``MultiDiscreteToDiscrete`` and
+``TruncatedAsTerminated`` (reference env/gym_wrappers.py:8, :37, :61),
+``FrameStack``, and ``NormObs`` with its pooled statistics (``merge_rms``,
+``extract_pooled_rms``, ``inject_rms``). Like the JAX wrappers, the first
+three pass ``carry_through_reset`` on to nothing: they keep no state and
+their inner env's persistent sub-state is not carried through them.
 
 ``NormObs`` keeps a running mean and variance per env (``[E, obs]``, counts
 ``[E]``) in the env state, as the JAX package's vmapped single-env statistics
@@ -11,14 +15,106 @@ copies it into its episode state."""
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
-from tianshou_tpu_torch.env.core import Box, Env
+from tianshou_tpu_torch.env.core import Box, Discrete, Env, MultiDiscrete
 
-__all__ = ["FrameStack", "FrameStackState", "NormObs", "NormObsState", "RMSState", "extract_pooled_rms", "inject_rms",
-           "merge_rms"]
+__all__ = ["ContinuousToDiscrete", "FrameStack", "FrameStackState", "MultiDiscreteToDiscrete", "NormObs", "NormObsState",
+           "RMSState", "TruncatedAsTerminated", "extract_pooled_rms", "inject_rms", "merge_rms"]
+
+
+def _linspace(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
+    """``[k, n]``: ``n`` points from ``lo`` to ``hi`` per row, as ``jnp.linspace``
+    writes them in float32: ``lo * (1 - s) + hi * s`` with ``s = i / (n - 1)``,
+    the last point ``hi`` exactly. XLA may fuse or reassociate these products,
+    so a point can differ from the JAX package's by up to 2 ulp of the larger
+    bound's magnitude."""
+    if n == 1:
+        return lo[:, None]
+    s = torch.arange(n - 1, dtype=torch.float32) / torch.tensor(float(n - 1))
+    return torch.cat([lo[:, None] * (1 - s) + hi[:, None] * s, hi[:, None]], dim=1)
+
+
+class ContinuousToDiscrete(Env):
+    """Each dim of a Box action as ``action_per_dim`` bins (reference
+    gym_wrappers.py:8): the action space becomes ``MultiDiscrete`` and a
+    sub-action ``i`` maps to the i-th of the dim's evenly spaced points from
+    its low to its high bound. ``_mesh`` (``[k, action_per_dim]``) lives on
+    the CPU and is copied to a device once."""
+
+    def __init__(self, env: Env, action_per_dim: int) -> None:
+        if not isinstance(env.action_space, Box):
+            raise TypeError(f"ContinuousToDiscrete needs a Box action space, got {env.action_space}")
+        self.env = env
+        self.observation_space = env.observation_space
+        self.max_episode_steps = env.max_episode_steps
+        k = math.prod(env.action_space.shape)
+        self.action_per_dim = action_per_dim
+        self.action_space = MultiDiscrete([action_per_dim] * k)
+        lo, hi = (torch.tensor(b, dtype=torch.float32) for b in (env.action_space.low, env.action_space.high))
+        self._mesh = _linspace(lo, hi, action_per_dim)
+        self._on_device: dict[torch.device, torch.Tensor] = {}
+
+    def mesh(self, device: torch.device) -> torch.Tensor:
+        if device not in self._on_device:
+            self._on_device[device] = self._mesh.to(device)
+        return self._on_device[device]
+
+    def reset(self, num_envs, generator, device):
+        return self.env.reset(num_envs, generator, device)
+
+    def step(self, state, action, generator):
+        mesh = self.mesh(action.device)
+        cont = mesh[torch.arange(mesh.shape[0], device=action.device), action.reshape(action.shape[0], -1)]
+        return self.env.step(state, cont.reshape(action.shape[0], *self.env.action_space.shape), generator)
+
+
+class MultiDiscreteToDiscrete(Env):
+    """``MultiDiscrete([n1 .. nk])`` flattened into ``Discrete(n1 * .. * nk)``,
+    the first sub-action the most significant digit (reference gym_wrappers.py:37)."""
+
+    def __init__(self, env: Env) -> None:
+        if not isinstance(env.action_space, MultiDiscrete):
+            raise TypeError(f"MultiDiscreteToDiscrete needs a MultiDiscrete action space, got {env.action_space}")
+        self.env = env
+        self.observation_space = env.observation_space
+        self.max_episode_steps = env.max_episode_steps
+        nvec = np.asarray(env.action_space.nvec)
+        bases = np.concatenate([np.cumprod(nvec[::-1])[::-1][1:], [1]])
+        self._digits = torch.tensor(np.stack([bases, nvec]), dtype=torch.int64)  # [2, k]: place values, radices
+        self._on_device: dict[torch.device, torch.Tensor] = {}
+        self.action_space = Discrete(int(np.prod(nvec)))
+
+    def reset(self, num_envs, generator, device):
+        return self.env.reset(num_envs, generator, device)
+
+    def step(self, state, action, generator):
+        if action.device not in self._on_device:
+            self._on_device[action.device] = self._digits.to(action.device)
+        bases, nvec = self._on_device[action.device]
+        multi = torch.div(action.to(torch.int64)[:, None], bases, rounding_mode="floor") % nvec
+        return self.env.step(state, multi, generator)
+
+
+class TruncatedAsTerminated(Env):
+    """Truncation reported as termination (reference gym_wrappers.py:61)."""
+
+    def __init__(self, env: Env) -> None:
+        self.env = env
+        self.observation_space = env.observation_space
+        self.action_space = env.action_space
+        self.max_episode_steps = env.max_episode_steps
+
+    def reset(self, num_envs, generator, device):
+        return self.env.reset(num_envs, generator, device)
+
+    def step(self, state, action, generator):
+        s = self.env.step(state, action, generator)
+        return s._replace(terminated=s.terminated | s.truncated, truncated=torch.zeros_like(s.truncated))
 
 
 class FrameStackState(NamedTuple):

@@ -3,8 +3,7 @@
 ``ContinuousActorDeterministic`` (DDPG, TD3), ``ContinuousActorProbabilistic``
 (PPO, and with ``conditioned_sigma`` SAC and REDQ), ``ContinuousCritic`` and
 ``EnsembleCritic`` (REDQ's N critics as one batched product, output
-``[N, B]``). The BCQ nets (``Perturbation``, ``VAE``) and gSDE are not
-ported yet.
+``[N, B]``). The BCQ nets (``Perturbation``, ``VAE``) are not ported yet.
 
 Like the MLPs of :mod:`tianshou_tpu_torch.models.mlp` they take
 ``input_dim``. ``ppo_init`` is the reference MuJoCo-PPO recipe
@@ -49,26 +48,41 @@ class ContinuousActorProbabilistic(nn.Module):
     ``conditioned_sigma``: log-sigma is a second head on the features;
     otherwise it is a learned state-independent parameter (zeros, or
     ``sigma_init`` with ``ppo_init``). Either is clipped to
-    ``[SIGMA_MIN, SIGMA_MAX]``. ``sde=True`` (gSDE) is not ported yet.
+    ``[SIGMA_MIN, SIGMA_MAX]``.
+
+    ``sde``: generalized state-dependent exploration (gSDE,
+    arXiv:2005.05719). The actor learns a log-sigma matrix
+    ``log_sigma_mat [F, A]`` (``F`` the last hidden width, ``sigma_init``
+    everywhere) and returns ``(mu, sigma(s), feat)`` with the marginal std
+    ``sigma_a(s) = sqrt(sum_f feat_f(s)^2 exp(2 log_sigma_fa) + 1e-12)``; the
+    collector samples ``mu + feat^T (eps * exp(log_sigma))`` with ``eps``
+    carried between resamples
+    (:class:`tianshou_tpu_torch.algorithm.modelfree.onpolicy.OnPolicyActorCritic`).
     """
 
     def __init__(self, hidden_sizes: Sequence[int], action_dim: int, conditioned_sigma: bool = False,
                  ppo_init: bool = False, sigma_init: float = -0.5, sde: bool = False, *, input_dim: int) -> None:
         super().__init__()
-        if sde:
-            raise NotImplementedError("gSDE (sde=True) is not ported yet: ROADMAP Queue 1 #4 (NPG, TRPO, gSDE)")
         self.conditioned_sigma = conditioned_sigma
+        self.sde = sde
+        self.hidden_sizes, self.action_dim = tuple(hidden_sizes), action_dim
         gain = math.sqrt(2.0) if ppo_init else None
         self.mlp = MLP(input_dim, hidden_sizes, activation=torch.tanh if ppo_init else F.relu, orthogonal_gain=gain)
         self.mu = _dense(self.mlp.output_dim, action_dim, 0.01 if ppo_init else None)
-        if conditioned_sigma:
+        if sde:
+            self.log_sigma_mat = nn.Parameter(torch.full((self.mlp.output_dim, action_dim), sigma_init))
+        elif conditioned_sigma:
             self.sigma = _dense(self.mlp.output_dim, action_dim)
         else:
             self.log_sigma = nn.Parameter(torch.full((action_dim,), sigma_init if ppo_init else 0.0))
 
-    def forward(self, obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, obs: torch.Tensor) -> tuple[torch.Tensor, ...]:
         feat = self.mlp(obs)
         mu = self.mu(feat)
+        if self.sde:
+            log_sigma = self.log_sigma_mat.clamp(SIGMA_MIN, SIGMA_MAX)
+            var = (feat**2) @ torch.exp(2.0 * log_sigma)
+            return mu, torch.sqrt(var + 1e-12), feat
         if self.conditioned_sigma:
             log_sigma = self.sigma(feat).clamp(SIGMA_MIN, SIGMA_MAX)
         else:

@@ -141,14 +141,16 @@ def _dense_params(p: dict, name: str) -> dict[str, torch.Tensor]:
 def continuous_actor_prob_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """``state_dict`` of a torch ``ContinuousActorProbabilistic`` from the
     flax actor's tree: the trunk ``MLP_0``, the mu head ``Dense_0``, and the
-    log-sigma head ``Dense_1`` (``conditioned_sigma``) or parameter ``log_sigma``."""
+    log-sigma head ``Dense_1`` (``conditioned_sigma``), the parameter
+    ``log_sigma``, or gSDE's ``log_sigma_mat`` ``[F, A]`` (``sde``), as it is."""
     p = tree["params"] if "params" in tree else tree
     out = mlp_params_from_flax(p["MLP_0"], "mlp.")
     out.update(_dense_params(p["Dense_0"], "mu"))
     if "Dense_1" in p:
         out.update(_dense_params(p["Dense_1"], "sigma"))
-    if "log_sigma" in p:
-        out["log_sigma"] = _t(p["log_sigma"])
+    for name in ("log_sigma", "log_sigma_mat"):
+        if name in p:
+            out[name] = _t(p[name])
     return out
 
 

@@ -1,6 +1,5 @@
 """Probability distributions (port of ``tianshou_tpu/models/distributions.py``:
-``Categorical``, ``Normal`` and ``TanhNormal``; ``MaskedCategorical`` is not
-ported yet).
+``Categorical``, ``MaskedCategorical``, ``Normal`` and ``TanhNormal``).
 
 The JAX package keeps a distribution as a pytree of its parameters; here it
 is a small class over tensors. Sampling takes an explicit
@@ -26,7 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Categorical", "Normal", "TanhNormal"]
+__all__ = ["Categorical", "MaskedCategorical", "Normal", "TanhNormal"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 _LOG_2 = math.log(2.0)
@@ -66,6 +65,13 @@ class Categorical:
         logp = torch.log_softmax(self.logits, dim=-1)
         logq = torch.log_softmax(other.logits, dim=-1)
         return (torch.exp(logp) * (logp - logq)).sum(-1)
+
+
+def MaskedCategorical(logits: torch.Tensor, mask: torch.Tensor) -> Categorical:
+    """A :class:`Categorical` with the actions where ``mask`` is False filled
+    with the dtype's most negative finite value (not ``-inf``, so that the
+    log-probabilities stay finite), reference dqn.py:145."""
+    return Categorical(logits=torch.where(mask, logits, torch.finfo(logits.dtype).min))
 
 
 class Normal:
