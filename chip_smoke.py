@@ -157,6 +157,21 @@ Phases, each of which fails the run:
    passes of batch 16,384, one graph per megastep, 8 timed replays: env-steps/s and ms per megastep.
    No kernel.
 
+23. The penalty branch of the physics kernel (``contact_model="penalty"``, ``-DTT_PENALTY=1``, its own library
+   per signature), inside phase 9 for each of the six tasks (``penalty_checks``): near home at E = 2048, 32 and
+   10, every env inside ``q`` 2e-4 / ``qd`` 5e-3 of the plain version; states pushed into the floor and past
+   joint limits at E = 2048 (the springs must act), at least 99.5% of envs inside; timed there beside the bound
+   of the penalty model's operations. The numbers go into the record's ``penalty`` entry.
+24. ``physics_penalty_halfcheetah`` (``bench.py:bench_physics_step``'s twin under the penalty model, set on the
+   env's model after construction): E = 2048, T = 64, one graph; exactly one ``physics_fused`` launch per step.
+25. ``humanoid_physics``: ``VectorDeviceEnv(Humanoid(), 2048)`` on the plain route (``dynamics.step`` with its
+   geom-pair rows; neither package has a kernel for them), T = ``HUM_T`` (cut from 64), one graph, no kernel
+   launch, finite states, and a graph of fixed-action steps bit-identical to the eager loop.
+26. ``sac_humanoid`` (``OFF_PATHS``): ``mujoco_sac.py --task Humanoid``'s defaults with the prefill and the epoch
+   cut (``HUM_SAC_*``); no kernel launch; the 10 test episodes run eagerly after the epoch.
+27. ``inverted_pendulum_sac`` (``tests/test_mujoco_table.py:41-53``): SAC on ``InvertedPendulum``; it must
+   reach 1,000 within 12 epochs. No kernel.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -222,10 +237,15 @@ MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 2,
 # the continuous off-policy paths: examples/mujoco/mujoco_{sac,td3,redq}.py's defaults (32 envs, T 4, one update
 # per env step, batch 256, a 1 M-row replay, 256x256 nets, 10 test episodes), the depth cut to one epoch
 OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 256, 1_000_000, (256, 256), 10, 5
+# sac_humanoid: examples/mujoco/mujoco_sac.py --task Humanoid's defaults (as OFF_PATHS), the random prefill cut from
+# 10,000 steps to HUM_SAC_PREFILL and the epoch from 20,000 to HUM_SAC_EPOCH; the test phase's 10 episodes as eager
+# chunks of HUM_TEST_CHUNK steps (a 128-step test chunk warmed up eagerly on the plain route would take minutes)
+HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 1_024, 2_048, 32
 OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
     "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 20_000, False),
     "td3_ant_per": ("Ant", "td3", 25_000, 5_000, True),
     "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 5_000, False),
+    "sac_humanoid": ("Humanoid", "sac", HUM_SAC_PREFILL, HUM_SAC_EPOCH, False),  # the plain route: no kernel
 }
 OFF_ALGOS = {"sac": dict(lr=1e-3, alpha=0.2), "td3": dict(lr=3e-4), "redq": dict(lr=1e-3, alpha="auto")}
 # Pendulum (tests/test_continuous.py:22-86; threshold from upstream test/continuous/test_sac_with_il.py:86)
@@ -244,6 +264,20 @@ MLP_E, MLP_T, MLP_REPEAT, MLP_BATCH, MLP_ITERS = 4096, 128, 4, 16384, 8
 # mujoco_ppo.py --sde: gSDE with sigma_init -2.0, the example path's other defaults, the depth cut to 1 epoch; the
 # graph phase's chunks of 400 steps (the third crosses HalfCheetah's episode end at step 1,000)
 SDE_SIGMA_INIT, SDE_EPOCHS, SDE_GRAPH_T = -2.0, 1, 400
+
+# the penalty branch of physics_fused: the kernel phase pushes states into the floor (the root coordinate and its
+# drop) and past joint limits (the noise's scale); the physics_penalty_halfcheetah path is bench_physics_step's twin
+PEN_DROP = {"HalfCheetah": (1, 0.1), "Hopper": (1, 0.15), "Walker2d": (1, 0.15), "Ant": (2, 0.2)}
+PEN_SCALE = 0.3
+PEN_PATH = ("HalfCheetah", 64)
+# Humanoid on the plain route (dynamics.step, no kernel in either package): E 2048, the depth cut from 64 vector
+# steps to HUM_T
+HUM_T = 4
+# InvertedPendulum SAC (tests/test_mujoco_table.py:41-53 and its _run): 8 train and 10 test envs, 128x128 nets, lr
+# 3e-4, alpha "auto", a 100,000-row replay, batch 256, T 8, 0.5 updates per env step, a prefill of 2,000 steps with
+# the policy's own actions, at most 12 epochs of 5,000 steps; it must reach the table's 1,000
+IP_E, IP_TEST_E, IP_HID, IP_BUFFER, IP_BATCH, IP_T, IP_UTD = 8, 10, (128, 128), 100_000, 256, 8, 0.5
+IP_PREFILL, IP_EPOCHS, IP_EPOCH_STEPS, IP_THRESHOLD = 2_000, 12, 5_000, 1000.0
 
 
 def _smi() -> str:
@@ -1204,7 +1238,7 @@ def determinism_phase(torch) -> list[str]:
 # ---------------------------------------------------------------------------
 # physics: the fused step kernel and the bench_physics_step paths
 # ---------------------------------------------------------------------------
-def physics_flops(model, contacts, limits, n_substeps: int) -> float:
+def physics_flops(model, contacts, limits, n_substeps: int, penalty: bool = False) -> float:
     """Float32 operations (a multiply and an add count one each) of ``n_substeps`` substeps of
     the algorithm as ``csrc/physics_fused.cu`` writes it, summed over envs, with ``contacts`` and
     ``limits`` the per-env counts of active contact spheres and joint limits: recursive body
@@ -1212,7 +1246,10 @@ def physics_flops(model, contacts, limits, n_substeps: int) -> float:
     entry at a time from them (where one dof lies below the other), two Cholesky factorizations
     with their right-hand sides (the first only with an active row),
     and the QP over the active rows (with its matrix up to 16 rows, without beyond). A sum that
-    every lane repeats for itself (a column's pivot) is counted once."""
+    every lane repeats for itself (a column's pivot) is counted once. Under the ``penalty`` model
+    there is no QP and one factorization; every contact sphere's spring-damper and friction (its
+    point, velocity, forces and torque: about 64) and every limit's spring (about 12) are counted
+    whatever the state."""
     from tianshou_tpu_torch.env.physics.model import FREE, SLIDE
 
     nq, nb, nl = model.nq, model.nbody, len(model.limit_q_idx)
@@ -1246,6 +1283,9 @@ def physics_flops(model, contacts, limits, n_substeps: int) -> float:
     chol, solve = nq ** 3 / 3, nq * nq
     factor = chol + solve
     fixed = kin + wrench + composite + mass_and_force + factor + 2 * nq * nq + 2 * nq + solve + 2 * nq
+    if penalty:
+        per_env = fixed + 64 * len(model.contact_radius) + 12 * nl
+        return float(per_env * contacts.numel()) * n_substeps
     c, l = contacts.double(), limits.double()
     na = 4 * c + l
     fixed = fixed + (na > 0).double() * (factor + 2 * nq + nl * (solve + 5 * nq + 60))  # skipped when no row is active
@@ -1278,6 +1318,102 @@ def _eager_ms(torch, fn, runs: int = 3) -> float:
     return statistics.median(out)
 
 
+def _springs_active(torch, model, q) -> tuple[int, int]:
+    """(sphere-env pairs below the floor, dof-env pairs past a limit) at ``q``: the penalty model's springs."""
+    from tianshou_tpu_torch.env.physics import dynamics
+
+    pen = 0
+    if len(model.contact_radius):
+        p, R = dynamics.forward_kinematics(model, q)
+        cb = torch.as_tensor(model.contact_body, dtype=torch.int64, device=q.device)
+        off = torch.as_tensor(model.contact_offset, dtype=torch.float32, device=q.device)
+        z = p[:, cb, 2] + (R[:, cb, 2] * off).sum(-1)
+        pen = int((z < torch.as_tensor(model.contact_radius, dtype=torch.float32, device=q.device)).sum())
+    past = 0
+    if len(model.limit_q_idx):
+        ql = q[:, torch.as_tensor(model.limit_q_idx, dtype=torch.int64, device=q.device)]
+        lo, hi = (torch.as_tensor(model.limit_range[:, i], dtype=torch.float32, device=q.device) for i in (0, 1))
+        past = int(((ql < lo) | (ql > hi)).sum())
+    return pen, past
+
+
+def penalty_checks(torch, pf, task: str) -> tuple[dict, list[str], float]:
+    """The penalty branch of the kernel (``contact_model="penalty"``, its own library) against the plain
+    version for ``task``: near home at E = 2048, 32 and 10, every env inside the tolerances; states pushed
+    into the floor and past joint limits (``PEN_DROP``, noise ``PEN_SCALE``) at E = 2048, where the springs
+    must act and at least ``MIN_SHARE_INSIDE`` of envs be inside; timed there beside the bound of the
+    penalty model's operations. Returns (times, report lines, max |err| over the envs inside)."""
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.env.physics import dynamics
+
+    env = make(task)
+    model, fs = env.model, env.frame_skip
+    model.contact_model = "penalty"
+    if not pf.uses_penalty(model) or pf.build_target(model)[1][-1] != ("TT_PENALTY", 1):
+        raise AssertionError(f"physics_fused {task}: the penalty model does not select the penalty library")
+    n_sub = fs * dynamics.resolve_substeps(model, env.substeps)
+    nu = len(model.actuators)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    home = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")
+    lines, max_err = [], 0.0
+
+    def both(q, qd, ctrl):
+        before = pf.launch_count()
+        got = pf.fused_step(model, q, qd, ctrl, frame_skip=fs)
+        want = pf.fused_step_reference(model, q, qd, ctrl, frame_skip=fs)
+        torch.cuda.synchronize()
+        if pf.launch_count() != before + 1:
+            raise AssertionError(f"physics_fused penalty {task}: the kernel did not launch")
+        if not all(bool(torch.isfinite(x).all()) for x in (*got, *want)):
+            raise AssertionError(f"physics_fused penalty {task}: a non-finite output")
+        ok = _inside(torch, got, want)
+        err = max(float(torch.where(ok[:, None], got[i] - want[i], 0.0).abs().max()) for i in (0, 1))
+        return got, want, ok, err
+
+    for E in (PHYS_E, OFF_E, OFF_TEST_E):
+        q = home + 0.03 * torch.randn(E, model.nq, device="cuda", generator=g)
+        qd = 0.05 * torch.randn(E, model.nq, device="cuda", generator=g)
+        got, want, ok, err = both(q, qd, torch.rand(E, nu, device="cuda", generator=g) * 2 - 1)
+        if not bool(ok.all()):
+            raise AssertionError(f"physics_fused penalty {task} E={E} near home: {int((~ok).sum())} envs outside")
+        max_err = max(max_err, err)
+        lines.append(f"physics_fused penalty {task} E={E} near home: all envs inside q {Q_TOL} qd {QD_TOL}, max |err| {err:.3e}")
+    q = home + PEN_SCALE * torch.randn(PHYS_E, model.nq, device="cuda", generator=g)
+    if task in PEN_DROP:
+        q[:, PEN_DROP[task][0]] -= PEN_DROP[task][1]
+    if len(model.limit_q_idx):  # the first limited dof 0.05 past its range, above in even envs, below in odd
+        lo, hi = model.limit_range[0]
+        q[0::2, model.limit_q_idx[0]] = hi + 0.05
+        q[1::2, model.limit_q_idx[0]] = lo - 0.05
+    qd = 0.5 * torch.randn(PHYS_E, model.nq, device="cuda", generator=g)
+    ctrl = torch.rand(PHYS_E, nu, device="cuda", generator=g) * 2 - 1
+    pen, past = _springs_active(torch, model, q)
+    if (len(model.contact_radius) and pen == 0) or (len(model.limit_q_idx) and past == 0):
+        raise AssertionError(f"physics_fused penalty {task}: pushed states leave the springs idle ({pen}, {past})")
+    got, want, ok, err = both(q, qd, ctrl)
+    share = float(ok.double().mean())
+    if share < MIN_SHARE_INSIDE:
+        raise AssertionError(f"physics_fused penalty {task} pushed states: only {share:.5f} of envs inside")
+    max_err = max(max_err, err)
+    lines.append(f"physics_fused penalty {task} E={PHYS_E} pushed states: {pen} spheres below the floor, {past} dofs past "
+                 f"a limit; {int((~ok).sum())} of {PHYS_E} envs outside (share inside {share:.5f}), max |err| inside "
+                 f"{err:.3e}")
+    kern, kern_e = _time_ms(lambda: pf.fused_step(model, q, qd, ctrl, frame_skip=fs), warmup=2, runs=30, per_graph=3)
+    plain_e = _eager_ms(torch, lambda: pf.fused_step_reference(model, q, qd, ctrl, frame_skip=fs))
+    zeros = torch.zeros(PHYS_E)  # the penalty model's work does not depend on the active rows
+    flops = physics_flops(model, zeros, zeros, n_sub, penalty=True)
+    by_ops = flops / H100_FP32_OPS_PER_S * 1e3
+    by_bytes = PHYS_E * (4 * model.nq + nu) * 4 / H100_HBM_BYTES_PER_S * 1e3
+    times = {"ms": kern, "eager_ms": kern_e, "plain_ms": plain_e, "bound_ms": max(by_ops, by_bytes),
+             "bound_by": "operations" if by_ops >= by_bytes else "bytes", "gflop": flops / 1e9, "substeps": n_sub,
+             **pf.kernel_info(model)}
+    lines.append(f"physics_fused penalty {task} E={PHYS_E} x {n_sub} substeps, ms per vector step: kernel {kern:.4f} "
+                 f"(CUDA graph) {kern_e:.4f} (eager); plain {plain_e:.2f} (eager); bound {times['bound_ms']:.5f} "
+                 f"({flops / 1e9:.3f} GFLOP; by bytes {by_bytes:.6f}); kernel at {times['bound_ms'] / kern:.4f} of the "
+                 f"bound's rate")
+    return times, lines, max_err
+
+
 def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
     """The fused step kernel against the plain version on the card for every task, and its
     times beside the bound. Returns ([JSON record without launches], report lines); the record's
@@ -1285,8 +1421,8 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
     from tianshou_tpu_torch.env.mujoco import make
     from tianshou_tpu_torch.env.physics import dynamics
 
-    lines, by_task = [], {}
-    max_err = 0.0
+    lines, by_task, by_task_penalty = [], {}, {}
+    max_err = pen_max_err = 0.0
     for task in PHYS_TASKS:
         env = make(task)
         model, fs = env.model, env.frame_skip
@@ -1400,14 +1536,21 @@ def physics_phase(torch, pf) -> tuple[list[dict], list[str]]:
             f"({flops / 1e9:.3f} GFLOP at {H100_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s; by bytes {by_bytes:.6f}); "
             f"kernel at {max(by_ops, by_bytes) / kern:.4f} of the bound's rate; kernel (CUDA graph) at E=32 "
             f"{by_envs[32]:.4f}, E=8448 {by_envs[8448]:.4f}")
+        pen_times, pen_lines, pen_err = penalty_checks(torch, pf, task)
+        by_task_penalty[task] = pen_times
+        lines += pen_lines
+        pen_max_err = max(pen_max_err, pen_err) if task == PEN_PATH[0] else pen_max_err
 
-    main = by_task["HalfCheetah"]
+    main, pen = by_task["HalfCheetah"], by_task_penalty[PEN_PATH[0]]
     record = {
         "name": "physics_fused", "route": "cuda",
         "source": "tianshou_tpu_torch/ops/kernels/csrc/physics_fused.cu",
         "replaces": "tianshou_tpu/ops/pallas/physics_fused.py:67",
         "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None, "plain_timing": "eager", "by_task": by_task,
+        # the contact_model="penalty" branch (-DTT_PENALTY=1), on the physics_penalty_halfcheetah path's shape
+        "penalty": {"max_abs_err": pen_max_err, "ms": pen["ms"], "plain_ms": pen["plain_ms"], "bound_ms": pen["bound_ms"],
+                    "bound_by": pen["bound_by"], "library_ms": None, "by_task": by_task_penalty},
     }
     return [record], lines
 
@@ -1448,15 +1591,21 @@ def rollout_program(torch, venv, steps: int, gen, healthy_z: tuple[float, float]
     return state, Graphed(rollout, GraphPool(venv.device), (gen,), name="rollout"), sums
 
 
-def physics_path(torch, task: str, steps: int):
+def physics_path(torch, task: str, steps: int, penalty: bool = False):
     """The physics path of ``task``: ``rollout_program`` called three times (eager warm-up, capture
-    and first replay, replay, which is timed). Returns ({kernel: launches} over the three calls,
-    report lines)."""
+    and first replay, replay, which is timed); with ``penalty``, under ``contact_model="penalty"`` set on
+    the env's model after construction, so that the kernel's penalty library runs. Returns ({kernel:
+    launches} over the three calls, report lines)."""
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.env.mujoco import make
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
 
     venv = VectorDeviceEnv(make(task), PHYS_E, device="cuda")
+    if penalty:
+        venv.env.model.contact_model = "penalty"
+        task = f"{task} penalty"
+        if not physics_fused.uses_penalty(venv.env.model):
+            raise AssertionError(f"{task} physics path: the model does not step under the penalty model")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
@@ -1485,6 +1634,9 @@ def physics_path(torch, task: str, steps: int):
         raise AssertionError(f"{task} physics path: t is {state.t.min().item()}..{state.t.max().item()}, expected {total}")
     if int(sums["wrong_term"]) != 0:
         raise AssertionError(f"{task} physics path: {int(sums['wrong_term'])} envs' terminated flag disagrees with 0.2 < z < 1.0")
+    if penalty:
+        info = physics_fused.kernel_info(venv.env.model)
+        task += f" (library for {physics_fused.build_target(venv.env.model)[1][-1]}, {info['shared_bytes_per_env']} B per env)"
     lines = [
         f"{task} physics path: E={PHYS_E} T={steps} x 3 calls (eager warm-up, capture + replay, replay) obs "
         f"{tuple(out.obs.shape)} physics_fused launches {launches['physics_fused']} (1 per vector step); graph replay: "
@@ -1493,6 +1645,78 @@ def physics_path(torch, task: str, steps: int):
         f"step {float(out.reward.mean()):.4f}"
     ]
     return launches, lines
+
+
+def humanoid_physics_path(torch):
+    """``VectorDeviceEnv(Humanoid(), 2048)`` on the plain route (``dynamics.step`` with its 109 geom-pair
+    rows; neither package has a kernel for it): ``rollout_program`` of ``HUM_T`` random-action steps (the
+    depth cut from 64) called three times, the third timed; no kernel launch, finite states. Then the
+    graph against the eager loop: ``HUM_T`` steps of fixed actions from one state, once run eagerly and once
+    replayed from a captured graph, bit-identical. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.env.physics import dynamics
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    venv = VectorDeviceEnv(make("Humanoid"), PHYS_E, device="cuda")
+    model = venv.env.model
+    if venv.env.physics_route != "plain" or not model.enable_pair_contacts:
+        raise AssertionError(f"humanoid physics path: route {venv.env.physics_route}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    state, program, sums = rollout_program(torch, venv, HUM_T, gen, (1.0, 2.0), checks=True)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = program()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = _launches(gather, sumtree, physics_fused)
+    if any(launches.values()) or program.replays != 2:
+        raise AssertionError(f"humanoid physics path: launches {launches}, replays {program.replays}")
+    if not bool(sums["finite"]) or int(sums["wrong_term"]) != 0 or out.obs.shape != (PHYS_E, 123):
+        raise AssertionError(f"humanoid physics path: finite {bool(sums['finite'])}, wrong terminations "
+                             f"{int(sums['wrong_term'])}, obs {tuple(out.obs.shape)}")
+    contacts, limits = dynamics.active_rows(model, state.q)
+    pair_rows = dynamics.active_pair_rows(model, state.q)
+
+    # the graph against the eager loop, on fixed actions from one start state
+    start = tree_map(torch.clone, state)
+    acts = [venv.action_space.sample(PHYS_E, gen, venv.device) for _ in range(HUM_T)]
+    st = tree_map(torch.clone, start)
+
+    def fixed():
+        s = st
+        for a in acts:
+            s = venv.step(s, a, gen).state
+        tree_map(torch.Tensor.copy_, st, s)
+
+    fixed_graph = Graphed(fixed, GraphPool(venv.device), (gen,), name="humanoid fixed")
+    fixed_graph()  # eager
+    eager = tree_map(torch.clone, st)
+    tree_map(torch.Tensor.copy_, st, start)
+    t0 = time.perf_counter()
+    fixed_graph()  # capture and replay
+    torch.cuda.synchronize()
+    capture_replay = time.perf_counter() - t0
+    diff = max(float((a.double() - b.double()).abs().max()) for a, b in zip((st.q, st.qd), (eager.q, eager.qd)))
+    if not (torch.equal(st.q, eager.q) and torch.equal(st.qd, eager.qd) and torch.equal(st.t, eager.t)):
+        raise AssertionError(f"humanoid physics path: the graph differs from the eager loop by {diff:.3e}")
+    return launches, [
+        f"humanoid physics path: E={PHYS_E} T={HUM_T} (depth cut from 64) x 3 calls on the plain route (dynamics.step, "
+        f"{len(model.pair_body1)} candidate pair rows, no kernel in either package); launches {launches}; graph replay: "
+        f"env_steps_per_s {HUM_T * PHYS_E / walls[2]:.1f} us_per_vector_step {walls[2] / HUM_T * 1e6:.1f} (eager warm-up "
+        f"{walls[0] / HUM_T * 1e6:.1f}, capture + replay {walls[1] / HUM_T * 1e6:.1f}); {_graph_report(program.pool, 1)}; "
+        f"active per env at the end: pair rows {float(pair_rows.double().mean()):.3f} (envs with any "
+        f"{int((pair_rows > 0).sum())}), contacts {float(contacts.double().mean()):.2f}, limits "
+        f"{float(limits.double().mean()):.2f}; terminated reports {int(sums['terminated'])}",
+        f"humanoid physics path, graph against eager: {HUM_T} steps of fixed actions at E={PHYS_E}, q, qd and t "
+        f"bit-identical, max |diff| {diff:.3e}; capture + replay {capture_replay:.2f} s",
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -2117,6 +2341,8 @@ def offpolicy_path(torch, name: str):
     task, kind, prefill, epoch_steps, prio = OFF_PATHS[name]
     torch.manual_seed(SEED)
     env = make(task)
+    # on the plain route (Humanoid) the test phase runs after training, eagerly, in chunks of HUM_TEST_CHUNK steps
+    plain = env.physics_route == "plain"
     algo = make_offpolicy(torch, kind, env, OFF_HID, **OFF_ALGOS[kind])
     ts = algo.init("cuda")
     init = [p.detach().clone() for p in ts.model.parameters()]
@@ -2127,9 +2353,10 @@ def offpolicy_path(torch, name: str):
         tests.append(stats)
         return float(stats.returns.mean())
 
+    test_coll = DeviceCollector(VectorDeviceEnv(env, OFF_TEST_E, device="cuda"), algo, None)
     trainer = OffPolicyTrainer(
         algo, DeviceCollector(VectorDeviceEnv(env, OFF_E, device="cuda"), algo, buffer),
-        DeviceCollector(VectorDeviceEnv(env, OFF_TEST_E, device="cuda"), algo, None), buffer,
+        None if plain else test_coll, buffer,
         OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=epoch_steps, test_step_num_episodes=OFF_TEST_E,
                                batch_size=OFF_BATCH, collection_step_num_env_steps=OFF_T, update_per_step=1.0,
                                start_steps=prefill, start_random=True, fused_megastep=True, compute_score_fn=score,
@@ -2138,6 +2365,10 @@ def offpolicy_path(torch, name: str):
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
     res = trainer.run(ts, bs, gen)
+    if plain:
+        t0 = time.perf_counter()
+        score(test_coll.collect_episodes(ts, gen, OFF_TEST_E, chunk_steps=HUM_TEST_CHUNK, training=False))
+        res.timing["test"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = _launches(gather, sumtree, physics_fused)
 
@@ -2147,12 +2378,14 @@ def offpolicy_path(torch, name: str):
     train_steps = (prefill_chunks + chunks) * OFF_T  # vector steps, one buffer add each
     test_steps = sum(s.n_collected_steps for s in tests) // OFF_TEST_E
     graphs = {gr.name.split()[0]: gr for gr in trainer.graph_pool.graphs}
-    if sorted(graphs) != ["megastep", "test_chunk"] or graphs["megastep"].replays != chunks - 1:
+    programs = ["megastep"] if plain else ["megastep", "test_chunk"]
+    if sorted(graphs) != programs or graphs["megastep"].replays != chunks - 1:
         raise AssertionError(f"{name} path: programs { {n: gr.replays for n, gr in graphs.items()} }")
     if res.env_step != train_steps * OFF_E or res.gradient_step != chunks * n_updates or int(ts.step) != res.gradient_step:
         raise AssertionError(f"{name} path: env_step {res.env_step}, gradient_step {res.gradient_step}, step {int(ts.step)}")
     expect = {"gather_rows": 0, "prefix_sum_idx": res.gradient_step if prio else 0,
-              "tree_update": res.gradient_step + train_steps if prio else 0, "physics_fused": train_steps + test_steps}
+              "tree_update": res.gradient_step + train_steps if prio else 0,
+              "physics_fused": 0 if plain else train_steps + test_steps}
     if launches != expect:
         raise AssertionError(f"{name} path: kernel launches {launches}, expected {expect} ({train_steps} train and "
                              f"{test_steps} test vector steps, {res.gradient_step} updates)")
@@ -2180,8 +2413,10 @@ def offpolicy_path(torch, name: str):
     wall, dev = statistics.median(walls), statistics.median(device)
     t = res.timing
     captures = {n: round(gr.capture_s, 3) for n, gr in graphs.items()}
+    route = (f"; the plain route (dynamics.step with pair rows, no kernel); test phase eager, chunks of {HUM_TEST_CHUNK} "
+             f"steps, after the epoch" if plain else "")
     return launches, tree_line + [
-        f"{name} path: {kind} on {task}, E={OFF_E} T={OFF_T} batch={OFF_BATCH} nets {OFF_HID}, {n_updates} updates per "
+        f"{name} path{route}: {kind} on {task}, E={OFF_E} T={OFF_T} batch={OFF_BATCH} nets {OFF_HID}, {n_updates} updates per "
         f"megastep, {'PER alpha 0.6 beta 0.4 ' if prio else ''}replay of {OFF_BUFFER} rows; prefill {prefill_chunks * chunk} "
         f"random steps, 1 epoch of {chunks * chunk} steps (depth cut); test reward {float(tests[0].returns.mean()):.3f} "
         f"(10 episodes, lengths mean {tests[0].lens.mean():.1f}); launches {launches} = {train_steps} train + "
@@ -2195,23 +2430,31 @@ def offpolicy_path(torch, name: str):
     ]
 
 
-def pendulum_path(torch, kind: str):
-    """``kind`` (sac, td3 or ddpg) on ``Pendulum`` as ``tests/test_continuous.py:22-86`` trains it,
-    through ``OffPolicyTrainer`` and its collect, update and test graphs: 8 train and 10 test envs,
+def pendulum_path(torch, kind: str, task: str = "Pendulum"):
+    """``kind`` (sac, td3 or ddpg) on ``Pendulum`` as ``tests/test_continuous.py:22-86`` trains it, or SAC on
+    ``InvertedPendulum`` as ``tests/test_mujoco_table.py:41-53`` does (the ``IP_*`` settings), through
+    ``OffPolicyTrainer`` and its collect, update and test graphs: Pendulum with 8 train and 10 test envs,
     128x128 nets, a 50,000-row replay, batch 128, T 8, 0.5 updates per env step, a prefill of 2,000
     steps with the policy's own actions, at most 12 epochs of 4,000 steps; it must reach -250.
-    Returns ({kernel: launches}, report lines)."""
+    InvertedPendulum must reach 1,000. Returns ({kernel: launches}, report lines)."""
     from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.inverted_pendulum import InvertedPendulum
     from tianshou_tpu_torch.env.classic.pendulum import Pendulum
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
     from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
 
-    name = f"pendulum_{kind}"
+    if task == "Pendulum":
+        name, env, algo_kw = f"pendulum_{kind}", Pendulum(), PEND_ALGOS[kind]
+        n_env, hid, size, batch, T, utd = PEND_E, PEND_HID, PEND_BUFFER, PEND_BATCH, PEND_T, PEND_UTD
+        prefill, epochs, epoch_steps, threshold = PEND_PREFILL, PEND_EPOCHS, PEND_EPOCH_STEPS, PEND_THRESHOLD
+    else:
+        name, env, algo_kw = f"inverted_pendulum_{kind}", InvertedPendulum(), dict(lr=3e-4, alpha="auto")
+        n_env, hid, size, batch, T, utd = IP_E, IP_HID, IP_BUFFER, IP_BATCH, IP_T, IP_UTD
+        prefill, epochs, epoch_steps, threshold = IP_PREFILL, IP_EPOCHS, IP_EPOCH_STEPS, IP_THRESHOLD
     torch.manual_seed(SEED)
-    env = Pendulum()
-    algo = make_offpolicy(torch, kind, env, PEND_HID, **PEND_ALGOS[kind])
-    buffer, bs = offpolicy_buffer(torch, env, PEND_BUFFER, PEND_E)
+    algo = make_offpolicy(torch, kind, env, hid, **algo_kw)
+    buffer, bs = offpolicy_buffer(torch, env, size, n_env)
     tests = []
 
     def score(stats) -> float:
@@ -2219,30 +2462,30 @@ def pendulum_path(torch, kind: str):
         return float(stats.returns.mean())
 
     trainer = OffPolicyTrainer(
-        algo, DeviceCollector(VectorDeviceEnv(env, PEND_E, device="cuda"), algo, buffer),
+        algo, DeviceCollector(VectorDeviceEnv(env, n_env, device="cuda"), algo, buffer),
         DeviceCollector(VectorDeviceEnv(env, PEND_TEST_E, device="cuda"), algo, None), buffer,
-        OffPolicyTrainerParams(max_epochs=PEND_EPOCHS, epoch_num_steps=PEND_EPOCH_STEPS, test_step_num_episodes=10,
-                               batch_size=PEND_BATCH, collection_step_num_env_steps=PEND_T, update_per_step=PEND_UTD,
-                               start_steps=PEND_PREFILL, start_random=False, stop_fn=lambda r: r >= PEND_THRESHOLD,
+        OffPolicyTrainerParams(max_epochs=epochs, epoch_num_steps=epoch_steps, test_step_num_episodes=10,
+                               batch_size=batch, collection_step_num_env_steps=T, update_per_step=utd,
+                               start_steps=prefill, start_random=False, stop_fn=lambda r: r >= threshold,
                                compute_score_fn=score, verbose=False))
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
     res = trainer.run(algo.init("cuda"), bs, torch.Generator(device="cuda").manual_seed(SEED))
     launches = _launches(gather, sumtree, physics_fused)
-    if not res.best_reward >= PEND_THRESHOLD:
+    if not res.best_reward >= threshold:
         raise AssertionError(f"{name} path: best test reward {res.best_reward} after {res.epochs} epochs, below the "
-                             f"threshold {PEND_THRESHOLD}")
+                             f"threshold {threshold}")
     graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
     if any(launches.values()) or sorted(graphs) != ["collect_chunk", "test_chunk", "update_burst"]:
         raise AssertionError(f"{name} path: launches {launches}, programs {sorted(graphs)}")
     if res.gradient_step != int(res.train_state.step):
         raise AssertionError(f"{name} path: gradient_step {res.gradient_step}, step {int(res.train_state.step)}")
     t = res.timing
-    train_steps = res.env_step - PEND_PREFILL
+    train_steps = res.env_step - prefill
     alpha = (f"; alpha {float(res.train_state.model.log_alpha.detach().exp()):.4f}"
              if hasattr(res.train_state.model, "log_alpha") else "")
     return launches, [
-        f"{name} path: best test reward {res.best_reward:.1f} (threshold {PEND_THRESHOLD}) after {res.epochs} epochs "
+        f"{name} path: best test reward {res.best_reward:.1f} (threshold {threshold}) after {res.epochs} epochs "
         f"(test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}){alpha}; env_steps {res.env_step} "
         f"gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s (prefill {t['prefill']:.2f}, collect "
         f"{t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); train env_steps_per_s "
@@ -2673,8 +2916,10 @@ def main() -> int:
     from tianshou_tpu_torch.env.mujoco import make
     models = {}  # library file name -> a model it steps
     for task in PHYS_TASKS:
-        model = make(task).model
-        models[_build._resolve(physics_fused.build_target(model))[1].name] = model
+        for contact_model in ("constraint", "penalty"):
+            model = make(task).model
+            model.contact_model = contact_model
+            models[_build._resolve(physics_fused.build_target(model))[1].name] = model
     for lib in libs:
         found = re.search(r"fused_step_kernel\S*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
                           r"\nptxas info\s*: Used (\d+) registers([^\n]*)", _build.build_logs.get(lib.name, ""))
@@ -2722,6 +2967,13 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[task.lower()], lines = physics_path(torch, task, steps)  # raises unless one launch per step
         print("\n".join(lines), f"\n{task} physics path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    # the penalty branch: raises unless one launch per step
+    by_path["physics_penalty_halfcheetah"], lines = physics_path(torch, *PEN_PATH, penalty=True)
+    print("\n".join(lines), f"\nphysics_penalty_halfcheetah path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    by_path["humanoid_physics"], lines = humanoid_physics_path(torch)  # raises on a launch or a graph/eager difference
+    print("\n".join(lines), f"\nhumanoid_physics path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for task, steps in PPO_PATHS:
         t0 = time.perf_counter()
         name = f"ppo_{task.lower()}"
@@ -2739,10 +2991,11 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[name], lines = offpolicy_path(torch, name)  # raises unless one launch per vector step
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
-    for kind in ("sac", "td3", "ddpg"):
+    for kind, task in (("sac", "Pendulum"), ("td3", "Pendulum"), ("ddpg", "Pendulum"), ("sac", "InvertedPendulum")):
         t0 = time.perf_counter()
-        by_path[f"pendulum_{kind}"], lines = pendulum_path(torch, kind)  # raises below the threshold
-        print("\n".join(lines), f"\npendulum_{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+        name = f"pendulum_{kind}" if task == "Pendulum" else f"inverted_pendulum_{kind}"
+        by_path[name], lines = pendulum_path(torch, kind, task)  # raises below the threshold
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     t0 = time.perf_counter()
     lines = trust_region_graph_phase(torch)  # raises unless the graphs and the eager calls agree bit for bit
     print("\n".join(lines), f"\ntrust-region and gSDE graph phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)

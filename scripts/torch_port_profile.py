@@ -30,8 +30,10 @@ and the update kernel against its plain version at 1 to 1024 leaves (one
 launch) and above (one launch per 1024 leaves), each a replayed CUDA graph.
 
 For the physics paths (``VectorDeviceEnv`` of HalfCheetah and of Ant at 2048
-envs, random actions: ``bench.py:bench_physics_step``) it times 64 (Ant: 16)
-vector steps without the profiler and traces as many more: wall time per
+envs, random actions: ``bench.py:bench_physics_step``; then HalfCheetah under
+``contact_model="penalty"``, the kernel's penalty branch, and Humanoid, which
+steps through the plain ``dynamics.step``) it times 64 (Ant: 16, Humanoid:
+``chip_smoke.HUM_T``) vector steps without the profiler and traces as many more: wall time per
 vector step, device busy time, idle share, launches per step, and how the
 device time of one ``venv.step`` splits between the fused step kernel and the
 small kernels around it (action sampling, clip, reward, observation,
@@ -252,8 +254,10 @@ def profile_sumtree(smi: str) -> None:
         print(f"  tree_update k={k}: kernel {kern * 1e3:.3f} us ({per_call:.0f} launches per call), plain {plain * 1e3:.3f} us (eager)")
 
 
-def profile_physics(task: str, steps: int, smi: str) -> None:
-    """Time and trace ``steps`` vector steps of the physics path of ``task``."""
+def profile_physics(task: str, steps: int, smi: str, penalty: bool = False) -> None:
+    """Time and trace ``steps`` vector steps of the physics path of ``task`` (with ``penalty``, under
+    ``contact_model="penalty"``); then the kernel's sweep, for a task that steps through the kernel under
+    the constraint model (Humanoid takes the plain route: no kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -262,6 +266,9 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
 
     E = chip_smoke.PHYS_E
     venv = VectorDeviceEnv(make(task), E, device="cuda")
+    if penalty:
+        venv.env.model.contact_model = "penalty"
+    route = getattr(venv.env, "physics_route", "kernel")
     state, program, graphed = rollout_program(venv, steps)
     for _ in range(2):  # warm-up: library load, local memory, allocator; the graph's eager call and capture
         program()
@@ -280,7 +287,8 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
     launches = sum(len(v) for v in per_name.values())
     fused = {k: v for k, v in per_name.items() if "fused_step_kernel" in k}
     fused_us = sum(sum(v) for v in fused.values())
-    print(f"== {task} physics path ({'one CUDA graph of the rollout' if graphed else 'eager'}) ==")
+    print(f"== {task}{' penalty' if penalty else ''} physics path ({'one CUDA graph of the rollout' if graphed else 'eager'}"
+          f", {route} route) ==")
     print(f"device: {smi}")
     print(f"host launches per step {_host_launches(prof) / steps:.2f} (kernels and CUDA graphs)")
     print(f"E={E}, {steps} vector steps: wall us per step without the profiler {plain_wall / steps * 1e6:.1f} "
@@ -294,7 +302,8 @@ def profile_physics(task: str, steps: int, smi: str) -> None:
     print("top kernels by device time: total_ms, calls, mean_us, name")
     for name, v in sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
         print(f"  {sum(v) / 1e3:9.2f} {len(v):7d} {sum(v) / len(v):9.2f}  {name[:110]}")
-    kernel_scaling(venv.env, state, smi)
+    if route == "kernel" and not penalty:
+        kernel_scaling(venv.env, state, smi)
 
 
 def rollout_program(venv, steps: int):
@@ -805,6 +814,8 @@ def main() -> int:
     if "physics" in paths:
         for task, steps in chip_smoke.PHYS_PATHS:
             profile_physics(task, steps, smi)
+        profile_physics(*chip_smoke.PEN_PATH, smi, penalty=True)
+        profile_physics("Humanoid", chip_smoke.HUM_T, smi)
         for task in chip_smoke.PHYS_TASKS:
             if task not in dict(chip_smoke.PHYS_PATHS):
                 kernel_scaling(*rollout_state(task), smi)

@@ -1018,3 +1018,72 @@ def test_rmsprop_and_sgd_under_a_graph_match_the_cpu_steps_on_cuda(kind):
         torch.testing.assert_close(cuda.detach().cpu(), cpu.detach(), rtol=0, atol=2e-6)
     assert program.replays == 5
     assert float(opt_cuda.param_groups[0]["lr"]) == float(opt_cpu.param_groups[0]["lr"]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["HalfCheetah", "Hopper", "Ant"])
+@pytest.mark.parametrize("num_envs", [1, 33, 2053])
+def test_penalty_fused_step_kernel_matches_plain_version_on_cuda(task, num_envs):
+    """The penalty branch (contact_model set after construction) launches its own library and holds the
+    plain version at the fused step's tolerances on states in the floor and past joint limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+
+    env = make(task)
+    model = env.model
+    g = torch.Generator(device="cuda").manual_seed(1)
+    home = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")
+    q = home + 0.3 * torch.randn(num_envs, model.nq, device="cuda", generator=g)
+    q[:, 2 if task == "Ant" else 1] -= 0.2 if task == "Ant" else 0.1
+    qd = 0.5 * torch.randn(num_envs, model.nq, device="cuda", generator=g)
+    ctrl = torch.rand(num_envs, len(model.actuators), device="cuda", generator=g) * 2 - 1
+    constraint = pf.fused_step(model, q, qd, ctrl, frame_skip=env.frame_skip)
+    model.contact_model = "penalty"
+    before = pf.launch_count()
+    q_new, qd_new = pf.fused_step(model, q, qd, ctrl, frame_skip=env.frame_skip)
+    torch.cuda.synchronize()
+    assert pf.launch_count() == before + 1
+    q_ref, qd_ref = pf.fused_step_reference(model, q, qd, ctrl, frame_skip=env.frame_skip)
+    torch.testing.assert_close(q_new, q_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(qd_new, qd_ref, rtol=5e-3, atol=5e-3)
+    if num_envs > 1:  # another library than the constraint model's: other results on these states
+        assert not torch.equal(constraint[1], qd_new)
+
+
+@pytest.mark.cuda
+def test_humanoid_plain_route_graph_matches_eager_with_no_kernel_launch_on_cuda():
+    """Humanoid's pair rows step through dynamics.step; a CUDA graph of two steps replays the eager steps'
+    bits and launches no hand-written kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+    from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    venv = VectorDeviceEnv(make("Humanoid"), 64, device="cuda")
+    assert venv.env.physics_route == "plain"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    start, _ = venv.reset(g)
+    acts = [venv.action_space.sample(64, g, venv.device) for _ in range(2)]
+    st = tree_map(torch.clone, start)
+
+    def two_steps():
+        s = st
+        for a in acts:
+            s = venv.step(s, a, g).state
+        tree_map(torch.Tensor.copy_, st, s)
+
+    before = pf.launch_count()
+    program = Graphed(two_steps, GraphPool(venv.device), (g,), name="humanoid")
+    program()
+    eager = tree_map(torch.clone, st)
+    tree_map(torch.Tensor.copy_, st, start)
+    program()
+    torch.cuda.synchronize()
+    assert program.replays == 1 and pf.launch_count() == before
+    assert torch.equal(st.q, eager.q) and torch.equal(st.qd, eager.qd)
+    assert bool(torch.isfinite(st.q).all())

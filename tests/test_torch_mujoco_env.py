@@ -16,12 +16,12 @@ from tianshou_tpu_torch.env.mujoco import REGISTRY, make as torch_make
 
 TASKS = sorted(REGISTRY)
 E = 3
-OBS_DIM = {"HalfCheetah": 17, "Hopper": 11, "Walker2d": 17, "Ant": 27, "Swimmer": 8, "Reacher": 11}
+OBS_DIM = {"HalfCheetah": 17, "Hopper": 11, "Walker2d": 17, "Ant": 27, "Swimmer": 8, "Reacher": 11, "Humanoid": 123}
 
 
 def make_pair(task, **kw):
     jenv, tenv = jax_make(task, **kw), torch_make(task, **kw)
-    if task == "Ant":
+    if task in ("Ant", "Humanoid"):  # one substep, to bound the JAX compile
         jenv.frame_skip = tenv.frame_skip = 1
         jenv.substeps = tenv.substeps = 1
     return jenv, tenv
@@ -83,11 +83,11 @@ def test_step_from_handed_actions(task):
     assert tout.state.t.tolist() == [1] * E
 
 
-@pytest.mark.parametrize("task", ["Hopper", "Walker2d", "Ant"])
+@pytest.mark.parametrize("task", ["Hopper", "Walker2d", "Ant", "Humanoid"])
 def test_unhealthy_states_terminate(task):
     jenv, tenv = make_pair(task)
     q = np.tile(np.asarray(jenv.model.qpos0, np.float32), (2, 1))
-    q[1, 2 if task == "Ant" else 1] = 0.1  # the root far below its healthy height
+    q[1, 2 if task in ("Ant", "Humanoid") else 1] = 0.1  # the root far below its healthy height
     qd = np.zeros_like(q)
     want = np.asarray(jax.vmap(jenv._terminated)(q, qd))
     got = tenv._terminated(torch.from_numpy(q), torch.from_numpy(qd))
@@ -118,12 +118,73 @@ def test_box_sample_stays_inside_its_bounds():
     assert bool((x >= low).all() and (x <= high).all())
     assert bool(((x.mean(0) - (low + high) / 2).abs() < 0.05 * (high - low)).all())  # uniform, not clipped
     assert not torch.equal(x, box.sample(4096, g, torch.device("cpu")))
-    with pytest.raises(ValueError, match="finite"):
-        torch_make("Hopper").observation_space.sample(1, g, torch.device("cpu"))
+    # an unbounded box (Hopper's observation space) samples as the JAX package does: a standard normal
+    # where a bound is not finite; JAX's two draws of one key are handed over
+    space = torch_make("Hopper").observation_space
+    key = jax.random.key(0)
+    u, n = (np.array(f(key, space.shape)) for f in (jax.random.uniform, jax.random.normal))
+    want = np.asarray(jax_make("Hopper").observation_space.sample(key))
+    got = space.sample_from(torch.from_numpy(u)[None], torch.from_numpy(n)[None])[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert space.sample(5, g, torch.device("cpu")).shape == (5, 11)
     assert torch_make("Swimmer").action_space.sample(2, g, torch.device("cpu")).shape == (2, 2)
 
 
 def test_make_accepts_gym_suffixes_and_names_unported_tasks():
     assert type(torch_make("HalfCheetah-v4")).__name__ == "HalfCheetah"
+    assert type(torch_make("Humanoid-v4")).__name__ == "Humanoid"  # ported: every task of the JAX registry
+    assert sorted(REGISTRY) == sorted(__import__("tianshou_tpu.env.mujoco", fromlist=["REGISTRY"]).REGISTRY)
     with pytest.raises(KeyError, match="Humanoid"):
-        torch_make("Humanoid-v4")
+        torch_make("Humanoidd-v4")  # an unknown task names the ported ones
+
+
+def test_box_with_unbounded_dimensions_matches_jax_from_handed_draws():
+    """``Box([-1, -inf], [1, inf])``: the bounded dimension from the uniform, the other the normal,
+    bit-exact against the JAX package's ``Box.sample`` for the same key's draws."""
+    from tianshou_tpu.env.core import Box as JaxBox
+
+    lo, hi = [-1.0, -np.inf], [1.0, np.inf]
+    box, jbox = Box(lo, hi), JaxBox(lo, hi)
+    for seed in range(4):
+        key = jax.random.key(seed)
+        u, n = (np.array(f(key, box.shape)) for f in (jax.random.uniform, jax.random.normal))
+        got = box.sample_from(torch.from_numpy(u)[None], torch.from_numpy(n)[None])[0]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jbox.sample(key)))
+    x = box.sample(20000, torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert bool((x[:, 0].abs() <= 1).all()) and float(x[:, 1].abs().max()) > 2.5  # uniform and unbounded normal
+    assert abs(float(x[:, 1].std()) - 1.0) < 0.03
+
+
+def test_env_core_names_match_the_jax_package():
+    """``Env.empty_info``, ``Env.name``, ``VectorDeviceEnv.__len__`` and ``Box.low_arr`` / ``high_arr``."""
+    from tianshou_tpu.env.core import VectorDeviceEnv as JaxVector
+
+    jenv, tenv = jax_make("Walker2d"), torch_make("Walker2d")
+    assert tenv.name == jenv.name == "Walker2d"
+    assert len(tenv.empty_info().keys()) == len(jenv.empty_info().keys()) == 0
+    assert len(VectorDeviceEnv(tenv, 5, device="cpu")) == len(JaxVector(jenv, 5)) == 5
+    for space in ("action_space", "observation_space"):
+        for arr in ("low_arr", "high_arr"):
+            got, want = getattr(getattr(tenv, space), arr), getattr(getattr(jenv, space), arr)
+            assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+
+
+def test_humanoid_steps_through_the_plain_route_with_pair_rows():
+    """Humanoid enables geom-pair rows, which the fused kernel does not have: it reports the plain
+    route, refuses ``physics_mode="fused"``, and its step is ``dynamics.step``'s on any device."""
+    env = torch_make("Humanoid")
+    assert env.model.enable_pair_contacts and len(env.model.pair_body1) == 109
+    assert env.physics_route == "plain" and torch_make("Hopper").physics_route == "kernel"
+    assert torch_make("Hopper", physics_mode="plain").physics_route == "plain"
+    with pytest.raises(ValueError, match="pair"):
+        torch_make("Humanoid", physics_mode="fused")
+    venv = VectorDeviceEnv(env, 2, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    state, _ = venv.reset(g)
+    act = venv.action_space.sample(2, g, torch.device("cpu"))
+    out = venv.step(state, act, g)
+    from tianshou_tpu_torch.env.physics import dynamics
+
+    want = dynamics.step(env.model, state.q, state.qd, act, frame_skip=env.frame_skip)
+    assert torch.equal(out.state.q, want[0]) and torch.equal(out.state.qd, want[1])

@@ -177,12 +177,19 @@ def test_penalty_contact_model_step():
 
 
 def test_pair_contacts_are_refused():
-    tm = torch_load(TASK_ASSETS["Hopper"])
+    """Geom-pair rows: the fused kernel's wrapper refuses them, as the TPU kernel does; the plain
+    version computes them (held against JAX in tests/test_torch_physics_pairs.py)."""
+    from tianshou_tpu_torch.ops.kernels.physics_fused import fused_step
+
+    tm = torch_load("humanoid.xml")
     tm.enable_pair_contacts = True
-    tm.pair_body1 = np.zeros(1, np.int32)
-    z = torch.zeros(1, tm.nq)
+    q, qd = tdyn.init_state(tm, 2, device="cpu")
+    ctrl = torch.zeros(2, len(tm.actuators))
     with pytest.raises(NotImplementedError, match="pair"):
-        tdyn.step(tm, z, z, torch.zeros(1, 3))
+        fused_step(tm, q, qd, ctrl)
+    q1, qd1 = tdyn.step(tm, q, qd, ctrl, frame_skip=1, substeps=1)
+    assert q1.shape == (2, 23) and bool(torch.isfinite(q1).all() and torch.isfinite(qd1).all())
+    assert float((q1 - q).abs().max()) > 0  # gravity moves it
 
 
 @pytest.mark.parametrize("task", TASKS)

@@ -96,11 +96,13 @@ def test_packed_constants_match_the_kernels_layout(task):
     nq, nb, nj, nc, nl, nu = pf.signature(model)
     P, I = pf.pack_model(model)
     assert P.dtype == np.float32 and I.dtype == np.int32
-    assert P.size == 32 * nb + 7 * nj + 4 * nq + 3 + 13 * nc + 9 * nl + 3 * nu + 2
+    assert P.size == 32 * nb + 7 * nj + 4 * nq + 3 + 13 * nc + 9 * nl + 3 * nu + 2 + 2
     assert I.size == 2 * nb + 1 + 2 * nj + nc + nl + nu
     first = I[nb:2 * nb + 1]
     assert first[0] == 0 and first[-1] == nj and (np.diff(first) >= 0).all()
-    np.testing.assert_array_equal(P[-2:], np.float32([model.fluid_viscosity, model.fluid_density]))
+    np.testing.assert_array_equal(P[-4:-2], np.float32([model.fluid_viscosity, model.fluid_density]))
+    # the penalty model's contact stiffness and damping (P_CON_KP), packed for either contact model
+    np.testing.assert_array_equal(P[-2:], np.float32([model.contact_stiffness, model.contact_damping]))
     name, defines = pf.build_target(model)
     assert name == "physics_fused" and dict(defines) == dict(NQ=nq, NB=nb, NJ=nj, NC=nc, NL=nl, NU=nu)
     assert _build._resolve((name, defines))[1].name == f"libphysics_fused_nq{nq}_nb{nb}_nj{nj}_nc{nc}_nl{nl}_nu{nu}.so"
@@ -110,7 +112,10 @@ def test_default_build_targets_cover_every_task_and_kernel():
     targets = _build.default_targets()
     assert "gather" in targets and "sumtree" in targets and "physics_fused" not in targets
     sized = [t for t in targets if not isinstance(t, str)]
-    assert len(sized) == 6 and {pf.build_target(torch_make(t).model) for t in pf.TASK_ASSETS} == set(sized)
+    constraint = {pf.build_target(torch_make(t).model) for t in pf.TASK_ASSETS}
+    # each signature's library for the constraint model and for the penalty model
+    assert len(sized) == 12 and constraint <= set(sized)
+    assert {(name, defines + (("TT_PENALTY", 1),)) for name, defines in constraint} == set(sized) - constraint
 
 
 @functools.cache

@@ -87,4 +87,5 @@ def test_model_from_arrays_names_missing_fields():
 
 def test_unknown_asset_raises():
     with pytest.raises(FileNotFoundError):
-        tmjcf.load_mjcf("humanoid.xml")
+        tmjcf.load_mjcf("no_such_model.xml")
+    assert tmjcf.load_mjcf("humanoid.xml").nq == 23  # packaged since Humanoid was ported

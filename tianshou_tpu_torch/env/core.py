@@ -65,6 +65,18 @@ class Box(Space):
         object.__setattr__(self, "dtype", dtype)
         object.__setattr__(self, "_on_device", {})  # device -> (low, high) tensors, copied once
 
+    @property
+    def low_arr(self) -> np.ndarray:
+        return np.asarray(self.low, np.float32).reshape(self.shape)
+
+    @property
+    def high_arr(self) -> np.ndarray:
+        return np.asarray(self.high, np.float32).reshape(self.shape)
+
+    @property
+    def _bounded(self) -> bool:
+        return all(math.isfinite(b) for b in (*self.low, *self.high))
+
     def bounds(self, device: str | torch.device) -> tuple[torch.Tensor, torch.Tensor]:
         """``(low, high)`` as tensors of the box's shape on ``device``."""
         device = torch.device(device)
@@ -74,12 +86,22 @@ class Box(Space):
         return self._on_device[device]
 
     def sample(self, num: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
-        """``num`` uniform samples of a bounded box, ``[num, *shape]``; no host sync."""
-        if not all(math.isfinite(b) for b in (*self.low, *self.high)):
-            raise ValueError("Box.sample needs finite bounds")
-        low, high = self.bounds(device)
-        u = torch.rand((num, *self.shape), dtype=self.dtype, device=device, generator=generator)
-        return low + (high - low) * u
+        """``num`` samples, ``[num, *shape]``, as :meth:`sample_from` makes them from one ``torch.rand``
+        and, where a bound is not finite, one ``torch.randn``; no host sync."""
+        shape = (num, *self.shape)
+        u = torch.rand(shape, dtype=self.dtype, device=device, generator=generator)
+        g = None if self._bounded else torch.randn(shape, dtype=self.dtype, device=device, generator=generator)
+        return self.sample_from(u, g)
+
+    def sample_from(self, u: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+        """The samples of uniforms ``u`` in [0, 1) and standard normals ``g`` (needed only where a
+        bound is not finite), as the JAX package makes them: ``low + u (high - low)`` in the
+        dimensions with both bounds finite, ``g`` in the others."""
+        low, high = self.bounds(u.device)
+        box = low + (high - low) * u
+        if self._bounded:
+            return box
+        return torch.where(torch.isfinite(low) & torch.isfinite(high), box, g)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +164,16 @@ class Env:
         collector auto-resets a finished episode."""
         return reset_state
 
+    def empty_info(self) -> Any:
+        """The per-env info schema (fixed shapes); empty unless an env says otherwise."""
+        from tianshou_tpu_torch.data.batch import Batch
+
+        return Batch()
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
 
 class VectorDeviceEnv:
     """``num_envs`` identical envs on one device (the analogue of the
@@ -168,3 +200,6 @@ class VectorDeviceEnv:
 
     def carry_through_reset(self, old_state: Any, reset_state: Any) -> Any:
         return self.env.carry_through_reset(old_state, reset_state)
+
+    def __len__(self) -> int:
+        return self.num_envs

@@ -1,11 +1,11 @@
-"""Device MuJoCo-class benchmark environments (port of ``tianshou_tpu/env/mujoco``;
-Humanoid, which needs geom-pair contacts, is not ported yet)."""
+"""Device MuJoCo-class benchmark environments (port of ``tianshou_tpu/env/mujoco``)."""
 
 from tianshou_tpu_torch.env.mujoco.base import MujocoEnv, PhysState
-from tianshou_tpu_torch.env.mujoco.locomotion import Ant, HalfCheetah, Hopper, Reacher, Swimmer, Walker2d
+from tianshou_tpu_torch.env.mujoco.locomotion import Ant, HalfCheetah, Hopper, Humanoid, Reacher, Swimmer, Walker2d
 
 __all__ = [
-    "MujocoEnv", "PhysState", "HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher", "REGISTRY", "make",
+    "MujocoEnv", "PhysState", "HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher", "Humanoid", "REGISTRY",
+    "make",
 ]
 
 REGISTRY = {
@@ -15,6 +15,7 @@ REGISTRY = {
     "Ant": Ant,
     "Swimmer": Swimmer,
     "Reacher": Reacher,
+    "Humanoid": Humanoid,
 }
 
 

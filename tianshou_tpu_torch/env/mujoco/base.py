@@ -44,6 +44,10 @@ class MujocoEnv(Env):
     # gym reset_noise_scale
     reset_noise_scale: float = 0.1
     reset_noise_kind: str = "uniform"  # qpos noise; qvel noise is scaled normal
+    # geom-pair (self-collision) contact rows in the constraint QP; off unless a
+    # task turns them on (Humanoid). The plane-contact tasks ship no candidate
+    # pairs anyway: their contype/conaffinity masks disable self-collision.
+    enable_pair_contacts: bool = False
     # "auto": the fused kernel on CUDA tensors, the plain version on CPU
     # tensors; "fused": always the kernel (raises on CPU tensors); "plain":
     # always the plain version, for comparisons and timing
@@ -60,6 +64,9 @@ class MujocoEnv(Env):
         self._qpos0: dict[torch.device, torch.Tensor] = {}
         if self.contact_iterations is not None:
             self.model.contact_iterations = int(self.contact_iterations)
+        if self.enable_pair_contacts:
+            self.model.enable_pair_contacts = True
+        self.physics_route  # raises for physics_mode="fused" on a model the kernel does not step
         # gym MujocoEnv action space == actuator ctrlrange
         self.action_space = Box(
             low=[a.ctrlrange[0] for a in self.model.actuators],
@@ -113,8 +120,22 @@ class MujocoEnv(Env):
     def reset(self, num_envs: int, generator: torch.Generator, device: torch.device):
         return self.reset_from_noise(*self.reset_noise(num_envs, generator, device))
 
+    @property
+    def physics_route(self) -> str:
+        """How :meth:`step` runs the dynamics: ``"kernel"`` (``fused_step``: the hand-written kernel
+        on CUDA tensors, its plain version on CPU tensors) or ``"plain"`` (``dynamics.step`` on any
+        device; on the card a program captures it in its CUDA graph). A model with geom-pair contact
+        rows takes ``"plain"``: the kernel has no pair rows, as the TPU kernel has none, and the JAX
+        package steps such a model through its vmapped ``dynamics.step``."""
+        if dyn._pair_rows(self.model):
+            if self.physics_mode == "fused":
+                raise ValueError(f"physics_mode='fused': the fused kernel has no geom-pair rows, and "
+                                 f"{type(self).__name__} enables them; use 'auto' or 'plain'")
+            return "plain"
+        return "plain" if self.physics_mode == "plain" else "kernel"
+
     def _physics(self, q: torch.Tensor, qd: torch.Tensor, a: torch.Tensor):
-        if self.physics_mode == "plain":
+        if self.physics_route == "plain":
             return fused_step_reference(self.model, q, qd, a, frame_skip=self.frame_skip, substeps=self.substeps)
         if self.physics_mode == "fused" and q.device.type != "cuda":
             raise ValueError(f"physics_mode='fused' launches the CUDA kernel; the state is on {q.device}")

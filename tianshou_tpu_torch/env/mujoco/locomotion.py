@@ -1,5 +1,5 @@
 """Device MuJoCo-class benchmark environments (port of
-``tianshou_tpu/env/mujoco/locomotion.py`` without Humanoid).
+``tianshou_tpu/env/mujoco/locomotion.py``).
 
 Observation layouts, reward terms, healthy ranges, control costs, horizons
 and reset noise follow the Gymnasium v4 envs. Ant exposes a quaternion in
@@ -15,10 +15,18 @@ import torch
 
 from tianshou_tpu_torch.env.mujoco.base import MujocoEnv, PhysState
 from tianshou_tpu_torch.env.physics.algebra import rotvec_to_mat, rotvec_to_quat
-from tianshou_tpu_torch.env.physics.dynamics import _rotvec_jacobian, forward_kinematics
+from tianshou_tpu_torch.env.physics.dynamics import _rotvec_jacobian, body_velocities, center_of_mass, forward_kinematics
 from tianshou_tpu_torch.env.physics.linalg import mv
 
-__all__ = ["HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher"]
+__all__ = ["HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher", "Humanoid"]
+
+
+def _free_body_qvel(q, qd):
+    """MuJoCo's qvel of a free-joint root in the rotation-vector chart: linear velocity, the
+    angular velocity in the body frame, then the joints'."""
+    r = q[:, 3:6]
+    omega_world = mv(_rotvec_jacobian(r), qd[:, 3:6])
+    return torch.cat([qd[:, :3], mv(rotvec_to_mat(r).transpose(-1, -2), omega_world), qd[:, 6:]], -1)
 
 
 class _Forward(MujocoEnv):
@@ -99,14 +107,52 @@ class Ant(_Forward):
     def _obs(self, q, qd):
         # internal coords: q = (pos3, rotvec3, 8 joints); gym layout is
         # qpos[2:] = (z, quat4, joints8) and qvel = (v3, omega3, joints8)
-        r = q[:, 3:6]
-        omega_world = mv(_rotvec_jacobian(r), qd[:, 3:6])
-        omega_body = mv(rotvec_to_mat(r).transpose(-1, -2), omega_world)
-        return torch.cat([q[:, 2:3], rotvec_to_quat(r), q[:, 6:], qd[:, :3], omega_body, qd[:, 6:]], -1).to(torch.float32)
+        return torch.cat([q[:, 2:3], rotvec_to_quat(q[:, 3:6]), q[:, 6:], _free_body_qvel(q, qd)], -1).to(torch.float32)
 
     def _terminated(self, q, qd):
         healthy = torch.isfinite(q).all(-1) & torch.isfinite(qd).all(-1) & (q[:, 2] > 0.2) & (q[:, 2] < 1.0)
         return ~healthy
+
+
+class Humanoid(MujocoEnv):
+    """Humanoid-v4 task: a 17-DoF biped (free joint + 17 hinges, nq = 23 in the
+    rotation-vector chart). Reward = 5.0 (healthy) + 1.25 * centre-of-mass
+    x-velocity - 0.1*||a||^2; terminate outside 1.0 < z < 2.0; 1000-step
+    horizon; reset noise U(-0.01, 0.01) on qpos and qvel.
+
+    Observation [123]: qpos[2:] (quaternion from the rotation-vector chart),
+    qvel (angular velocity in the body frame, MuJoCo's layout), and each
+    body's centre-of-mass velocity and angular velocity (the core of gym's
+    ``cvel`` block). Gym's ``cinert``, ``qfrc_actuator`` and ``cfrc_ext``
+    blocks are left out, as the JAX package leaves them out.
+
+    Geom-pair contacts are on (humanoid.xml's body geoms are condim 1 and
+    collide), so the env steps through the plain ``dynamics.step``
+    (``physics_route == "plain"``).
+    """
+
+    xml = "humanoid.xml"
+    frame_skip = 5
+    contact_iterations = 30
+    enable_pair_contacts = True
+    reset_noise_scale = 1e-2
+    reset_noise_kind = "both_uniform"
+    ctrl_cost_weight = 0.1
+    healthy_reward = 5.0
+    forward_reward_weight = 1.25
+
+    def _obs(self, q, qd):
+        _, _, vcom, omega = body_velocities(self.model, q, qd)
+        E = q.shape[0]
+        return torch.cat([q[:, 2:3], rotvec_to_quat(q[:, 3:6]), q[:, 6:], _free_body_qvel(q, qd),
+                          vcom.reshape(E, -1), omega.reshape(E, -1)], -1).to(torch.float32)
+
+    def _reward(self, q0, qd0, q1, qd1, action):
+        x_vel = (center_of_mass(self.model, q1)[:, 0] - center_of_mass(self.model, q0)[:, 0]) / self.dt
+        return self.forward_reward_weight * x_vel + self.healthy_reward - self.ctrl_cost_weight * (action * action).sum(-1)
+
+    def _terminated(self, q, qd):
+        return ~((q[:, 2] > 1.0) & (q[:, 2] < 2.0))
 
 
 class Swimmer(_Forward):

@@ -42,7 +42,8 @@ from tianshou_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "forward_kinematics", "kinetic_energy", "potential_energy", "mass_matrix", "bias_force",
-    "actuation", "step", "init_state", "resolve_substeps", "quat_np", "active_rows",
+    "actuation", "step", "init_state", "resolve_substeps", "quat_np", "active_rows", "active_pair_rows", "body_velocities",
+    "center_of_mass",
 ]
 
 
@@ -76,7 +77,7 @@ def _consts(model: Model, ref: torch.Tensor) -> SimpleNamespace:
     """The model's float64 numpy constants as tensors of ``ref``'s dtype and
     device, cast once and kept on the model."""
     cache = model.__dict__.setdefault("_torch_consts", {})
-    key = (ref.dtype, ref.device)
+    key = (ref.dtype, ref.device, _pair_rows(model))
     if key not in cache:
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float64), dtype=ref.dtype, device=ref.device)
@@ -103,9 +104,28 @@ def _consts(model: Model, ref: torch.Tensor) -> SimpleNamespace:
         c.contact_friction = t(model.contact_friction)
         c.contact_solref, c.contact_solimp = t(model.contact_solref), t(model.contact_solimp)
         c.limit_lo, c.limit_hi = t(model.limit_range[:, 0]), t(model.limit_range[:, 1])
-        c.limit_idx = torch.as_tensor(np.asarray(model.limit_q_idx, np.int64), device=ref.device)
+
+        def idx(a):  # index tensors on the device: a CUDA graph cannot capture a numpy index's copy
+            return torch.as_tensor(np.asarray(a, np.int64), device=ref.device)
+
+        c.limit_idx = idx(model.limit_q_idx)
+        c.limit_onehot = t(np.eye(model.nq)[np.asarray(model.limit_q_idx, np.int64)])  # [nl, nq]
+        c.contact_body = idx(model.contact_body)
         c.limit_solref, c.limit_solimp = t(model.limit_solref), t(model.limit_solimp)
         c.facet_sign = t([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]])
+        if _pair_rows(model):
+            b1, b2 = np.asarray(model.pair_body1), np.asarray(model.pair_body2)
+            i1, i3 = (np.where(cond)[0] for cond in (model.pair_condim < 3, model.pair_condim >= 3))
+            # bodies of each pair; the condim-1 and the condim >= 3 pairs; the QP rows of each pair
+            c.pair_b1, c.pair_b2, c.pair_i1, c.pair_i3 = idx(b1), idx(b2), idx(i1), idx(i3)
+            c.pair_b1_3, c.pair_b2_3 = idx(b1[i3]), idx(b2[i3])
+            c.pair_row_count = idx(np.where(model.pair_condim < 3, 1, 4))
+            # segment ends of each candidate pair, relative to their bodies' centres of mass
+            c.pair_e = [t(model.pair_a1 - model.body_com[b1]), t(model.pair_b1 - model.body_com[b1]),
+                        t(model.pair_a2 - model.body_com[b2]), t(model.pair_b2 - model.body_com[b2])]
+            c.pair_radius, c.pair_r1, c.pair_margin = t(model.pair_radius), t(model.pair_r1), t(model.pair_margin)
+            c.pair_friction, c.pair_solref, c.pair_solimp = (t(model.pair_friction), t(model.pair_solref),
+                                                             t(model.pair_solimp))
         gear = np.zeros((len(model.actuators), model.nq))
         for i, a in enumerate(model.actuators):
             gear[i, a.q_idx] = a.gear
@@ -183,6 +203,22 @@ def forward_kinematics(model: Model, q: torch.Tensor) -> tuple[torch.Tensor, tor
     p, R = _fk(model, _consts(model, q), Jet(q[:, None, :]))
     E = q.shape[0]
     return p.v[:, 0].expand(E, -1, -1), R.v[:, 0].expand(E, -1, -1, -1)
+
+
+def center_of_mass(model: Model, q: torch.Tensor) -> torch.Tensor:
+    """The whole model's centre of mass ``[E, 3]``: the bodies' centres of mass weighted by mass."""
+    c = _consts(model, q)
+    pc, _ = _fk_com(model, c, Jet(q[:, None, :]))
+    return (c.mass[:, None] * pc.v[:, 0]).sum(-2).expand(q.shape[0], -1) / c.mass.sum()
+
+
+def body_velocities(model: Model, q: torch.Tensor, qd: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``(pcom, R, vcom, omega)`` of every body for ``q, qd [E, nq]``: centre-of-mass positions and
+    velocities ``[E, nb, 3]``, rotations ``[E, nb, 3, 3]`` and world angular velocities ``[E, nb, 3]``
+    (one first-order pass of FK along ``qd``)."""
+    pc, R = _fk_com(model, _consts(model, q), Jet(q[:, None, :], qd[:, None, :]))
+    omega = vee(mm(R.c[1][:, 0], R.v[:, 0].transpose(-1, -2)))
+    return pc.v[:, 0], R.v[:, 0], pc.c[1][:, 0], omega
 
 
 def _kinematics(model: Model, c: SimpleNamespace, q: torch.Tensor, qd: torch.Tensor | None) -> SimpleNamespace:
@@ -277,13 +313,118 @@ def _passive_joint_forces(c, q, m_diag, include_limits: bool):
     return tau, c.damping + torch.where(in_viol, d_lim, torch.zeros_like(d_lim))
 
 
+def _body_points(k, bodies, e, need_acc: bool = False):
+    """Points fixed in ``bodies`` at ``e`` (``[n, 3]`` or ``[E, n, 3]``) from each body's centre of
+    mass, in its frame: world positions ``[E, n, 3]``, Jacobians ``[E, n, 3, nq]`` and, with
+    ``need_acc``, the accelerations at ``qdd = 0`` (``Jdot qd``; :func:`_kinematics` with ``qd``)."""
+    x = k.pcom[:, bodies] + mv(k.R[:, bodies], e)
+    J = (k.Jv[:, :, bodies] + mv(k.dR[:, :, bodies], e[:, None] if e.dim() == 3 else e)).permute(0, 2, 3, 1)
+    if not need_acc:
+        return x, J
+    return x, J, k.acom[:, bodies] + mv(k.Rdd[:, bodies], e)
+
+
 def _contact_points(model, c, k, qd):
     """Contact-sphere centres ``x``, Jacobians ``J [E, nc, 3, nq]`` and velocities."""
-    cb = np.asarray(model.contact_body)
-    e = c.contact_e
-    x = k.pcom[:, cb] + mv(k.R[:, cb], e)
-    J = (k.Jv[:, :, cb] + mv(k.dR[:, :, cb], e)).permute(0, 2, 3, 1)
+    x, J = _body_points(k, c.contact_body, c.contact_e)
     return x, J, mv(J, qd[:, None, :])
+
+
+def _seg_seg_closest(p1, q1, p2, q2, eps: float = 1e-9):
+    """Closest-point parameters ``(s, t)`` in [0, 1] between segments ``[p1, q1]`` and ``[p2, q2]``
+    over the leading axes (Ericson, Real-Time Collision Detection 5.1.9, without branches).
+    Zero-length segments (spheres) degenerate safely."""
+    d1, d2, r = q1 - p1, q2 - p2, p1 - p2
+    a, e = (d1 * d1).sum(-1), (d2 * d2).sum(-1)
+    f, c, b = (d2 * r).sum(-1), (d1 * r).sum(-1), (d1 * d2).sum(-1)
+    one = torch.ones_like(a)
+    a_s, e_s = torch.where(a > eps, a, one), torch.where(e > eps, e, one)
+    denom = a * e - b * b
+    s0 = torch.where(denom > eps, torch.clamp((b * f - c * e) / torch.where(denom > eps, denom, one), 0.0, 1.0),
+                     torch.zeros_like(a))
+    t0 = (b * s0 + f) / e_s
+    # re-clamp s for t outside [0, 1] (the closest point on segment 2 is an end)
+    s = torch.where(t0 < 0.0, torch.clamp(-c / a_s, 0.0, 1.0),
+                    torch.where(t0 > 1.0, torch.clamp((b - c) / a_s, 0.0, 1.0), s0))
+    # degenerate segments: point against segment, point against point
+    s = torch.where(a > eps, s, torch.zeros_like(s))
+    s = torch.where((e > eps) | (a <= eps), s, torch.clamp(-c / a_s, 0.0, 1.0))
+    t = torch.where(e > eps, torch.clamp(t0, 0.0, 1.0), torch.zeros_like(t0))
+    return s, t
+
+
+def _pair_constraint_rows(model, c, k, qd, L_M):
+    """The QP rows of the geom pairs (self-collision), one contact per candidate pair at the
+    segment-segment closest points: a frictionless normal row for a condim-1 pair, the four
+    pyramid facets for a condim >= 3 pair. A row's Jacobian is the gradient of the pair distance:
+    ``n . (Jc1 - Jc2)`` at the fixed closest-point parameters (their minimizers, so the envelope
+    theorem holds). Friction rows act at the contact surface point, held fixed in each body's frame.
+    Returns ``(J, bias, aref, act, R)`` row blocks in the JAX package's order (condim-1 pairs, then
+    condim >= 3)."""
+    b1, b2 = c.pair_b1, c.pair_b2
+    ea1, eb1, ea2, eb2 = c.pair_e
+    A1, JA1, aA1 = _body_points(k, b1, ea1, True)
+    B1, JB1, aB1 = _body_points(k, b1, eb1, True)
+    A2, JA2, aA2 = _body_points(k, b2, ea2, True)
+    B2, JB2, aB2 = _body_points(k, b2, eb2, True)
+    s, t = _seg_seg_closest(A1, B1, A2, B2)
+    c1, c2 = A1 + s[..., None] * (B1 - A1), A2 + t[..., None] * (B2 - A2)
+    dvec = c1 - c2
+    dist = torch.sqrt((dvec * dvec).sum(-1) + 1e-12)
+    n = dvec / dist[..., None]
+    s4, t4 = s[..., None, None], t[..., None, None]
+    Jrel = JA1 + s4 * (JB1 - JA1) - JA2 - t4 * (JB2 - JA2)  # [E, np, 3, nq]
+    Jn = (n[..., None] * Jrel).sum(-2)                      # [E, np, nq]
+    sdist = dist - c.pair_radius
+    pos = sdist - c.pair_margin
+    active = (sdist < c.pair_margin).to(qd.dtype)
+    d, kk, b = _sol_kb(c.pair_solref, c.pair_solimp, pos)
+    vel_n = (Jn * qd[:, None, :]).sum(-1)
+    s3, t3 = s[..., None], t[..., None]
+    bias_n = (n * (aA1 + s3 * (aB1 - aA1) - aA2 - t3 * (aB2 - aA2))).sum(-1)  # Jdot qd at fixed (s, t)
+    Jn_act = Jn * active[..., None]
+    A_nn = (Jn_act * chol_solve(L_M, Jn_act.transpose(1, 2)).transpose(1, 2)).sum(-1)
+    E, nq = qd.shape
+    blocks = []
+    i1, i3 = c.pair_i1, c.pair_i3
+    if len(i1):
+        # frictionless rows regularize like limit rows: R = (1 - d) / d A_ii
+        blocks.append((Jn_act[:, i1], (bias_n * active)[:, i1], ((-b * vel_n - kk * pos) * active)[:, i1],
+                       active[:, i1], ((1.0 - d) / d * A_nn)[:, i1]))
+    if len(i3):
+        n3 = n[:, i3]
+        ex, ey = torch.zeros_like(n3), torch.zeros_like(n3)
+        ex[..., 0], ey[..., 1] = 1.0, 1.0
+        ref = torch.where((n3[..., 0].abs() < 0.9)[..., None], ex, ey)  # a tangent frame from the normal
+        tan1 = torch.linalg.cross(ref, n3)
+        tan1 = tan1 / torch.sqrt((tan1 * tan1).sum(-1, keepdim=True) + 1e-12)
+        tan2 = torch.linalg.cross(n3, tan1)
+        mu = c.pair_friction[i3]
+        r1, r2 = c.pair_r1[i3], (c.pair_radius - c.pair_r1)[i3]
+        bi1, bi2 = c.pair_b1_3, c.pair_b2_3
+        # the contact point midway between the two surfaces along the normal, in each body's frame
+        pc = 0.5 * (c1[:, i3] + c2[:, i3]) + 0.5 * (r2 - r1)[..., None] * n3
+        e1c = mv(k.R[:, bi1].transpose(-1, -2), pc - k.pcom[:, bi1])
+        e2c = mv(k.R[:, bi2].transpose(-1, -2), pc - k.pcom[:, bi2])
+        _, J1c, a1c = _body_points(k, bi1, e1c, True)
+        _, J2c, a2c = _body_points(k, bi2, e2c, True)
+        Jc, relc_bias = J1c - J2c, a1c - a2c
+        Jt1, Jt2 = (tan1[..., None] * Jc).sum(-2), (tan2[..., None] * Jc).sum(-2)
+        s0, s1 = c.facet_sign[:, 0], c.facet_sign[:, 1]
+        mu2 = mu[:, None]
+        Jf = Jn[:, i3, None] + mu2[..., None] * (s0[:, None] * Jt1[:, :, None] + s1[:, None] * Jt2[:, :, None])
+        vt1, vt2 = (Jt1 * qd[:, None, :]).sum(-1), (Jt2 * qd[:, None, :]).sum(-1)
+        vel_f = vel_n[:, i3, None] + mu2 * (s0 * vt1[..., None] + s1 * vt2[..., None])
+        bt1, bt2 = (tan1 * relc_bias).sum(-1), (tan2 * relc_bias).sum(-1)
+        bias_f = bias_n[:, i3, None] + mu2 * (s0 * bt1[..., None] + s1 * bt2[..., None])
+        act3 = active[:, i3]
+        muc = torch.clamp(mu, min=1.0)
+        R3 = (1.0 - d[:, i3]) / d[:, i3] * 2.0 * muc * muc * (1.0 + muc * muc) * A_nn[:, i3]
+        aref = (-b[..., i3, None] * vel_f - (kk * pos)[:, i3, None]) * act3[..., None]
+        k3 = len(i3)
+        blocks.append(((Jf * act3[..., None, None]).reshape(E, 4 * k3, nq), (bias_f * act3[..., None]).reshape(E, -1),
+                       aref.reshape(E, -1), act3.repeat_interleave(4, dim=1), R3.repeat_interleave(4, dim=1)))
+    return blocks
 
 
 def _external_forces(model, c, k, qd, include_contacts: bool) -> torch.Tensor:
@@ -333,13 +474,13 @@ def _sol_kb(solref: torch.Tensor, solimp: torch.Tensor, pos: torch.Tensor):
 
 
 def _constraint_force(model, c, k, q, qd, f_free) -> torch.Tensor:
-    """Generalized constraint force (plane contacts + joint limits) of
-    MuJoCo's soft-constraint model: the regularized dual QP
-    ``min_{lam>=0} 1/2 lam^T (A+R) lam + lam^T (a0 - aref)`` with contacts in
-    the pyramidal facet basis (rows ``n +- mu t``) and one row per joint
-    limit, ``A = J M^-1 J^T``. All candidate rows are computed and inactive
-    ones masked to zero; the QP is solved by a fixed number of accelerated
-    projected-gradient iterations with a Gershgorin step bound."""
+    """Generalized constraint force (plane contacts, geom pairs when the model
+    enables them, joint limits) of MuJoCo's soft-constraint model: the
+    regularized dual QP ``min_{lam>=0} 1/2 lam^T (A+R) lam + lam^T (a0 - aref)``
+    with contacts in the pyramidal facet basis (rows ``n +- mu t``) and one
+    row per joint limit, ``A = J M^-1 J^T``. All candidate rows are computed
+    and inactive ones masked to zero; the QP is solved by a fixed number of
+    accelerated projected-gradient iterations with a Gershgorin step bound."""
     nc, nl = len(model.contact_radius), len(model.limit_q_idx)
     E, nq = q.shape
     L_M = chol(k.M)
@@ -348,7 +489,7 @@ def _constraint_force(model, c, k, q, qd, f_free) -> torch.Tensor:
 
     if nc:
         x, J, v = _contact_points(model, c, k, qd)
-        cb = np.asarray(model.contact_body)
+        cb = c.contact_body
         a_bias = k.acom[:, cb] + mv(k.Rdd[:, cb], c.contact_e)  # Jdot qd of the contact points
         dist = x[..., 2] - c.contact_radius
         pos = dist - c.contact_margin          # < 0 when the constraint is violated
@@ -374,6 +515,14 @@ def _constraint_force(model, c, k, q, qd, f_free) -> torch.Tensor:
         act_rows.append(act.repeat_interleave(4, dim=1))
         R_rows.append(R_c.repeat_interleave(4, dim=1))
 
+    if _pair_rows(model):
+        for J_p, bias_p, aref_p, act_p, R_p in _pair_constraint_rows(model, c, k, qd, L_M):
+            J_rows.append(J_p)
+            bias_rows.append(bias_p)
+            aref_rows.append(aref_p)
+            act_rows.append(act_p)
+            R_rows.append(R_p)
+
     if nl:
         li = c.limit_idx
         d_lo = q[:, li] - c.limit_lo
@@ -382,7 +531,7 @@ def _constraint_force(model, c, k, q, qd, f_free) -> torch.Tensor:
         dist_l = torch.minimum(d_lo, d_hi)
         act_l = (dist_l < 0.0).to(q.dtype)                      # limits have no margin
         d_l, k_l, b_l = _sol_kb(c.limit_solref, c.limit_solimp, dist_l)
-        onehot = torch.nn.functional.one_hot(li, nq).to(q.dtype)
+        onehot = c.limit_onehot
         vel_l = side * qd[:, li]
         Minv = chol_solve(L_M, torch.eye(nq, dtype=q.dtype, device=q.device).expand(E, nq, nq))
         J_rows.append(onehot * (side * act_l)[..., None])
@@ -418,13 +567,29 @@ def active_rows(model: Model, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     contacts = limits = torch.zeros(E, dtype=torch.int64, device=q.device)
     if len(model.contact_radius):
         pc, R = _fk_com(model, c, Jet(q[:, None, :]))
-        cb = np.asarray(model.contact_body)
+        cb = c.contact_body
         z = pc.v[:, 0, cb, 2] + mv(R.v[:, 0, cb], c.contact_e)[..., 2]
         contacts = (z - c.contact_radius < c.contact_margin).sum(-1)
     if len(model.limit_q_idx):
         ql = q[:, c.limit_idx]
         limits = (torch.minimum(ql - c.limit_lo, c.limit_hi - ql) < 0.0).sum(-1)
     return contacts, limits
+
+
+def active_pair_rows(model: Model, q: torch.Tensor) -> torch.Tensor:
+    """Per env, the QP rows of the geom pairs active at ``q`` (one per condim-1
+    pair, four per condim >= 3 pair), ``[E]`` int64; 0 when the model does not
+    enable pair contacts."""
+    if not _pair_rows(model):
+        return torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    c = _consts(model, q)
+    pc, R = _fk_com(model, c, Jet(q[:, None, :]))
+    pc, R = pc.v[:, 0], R.v[:, 0]
+    ends = [pc[:, b] + mv(R[:, b], e) for b, e in zip((c.pair_b1, c.pair_b1, c.pair_b2, c.pair_b2), c.pair_e)]
+    s, t = _seg_seg_closest(*ends)
+    dvec = (ends[0] + s[..., None] * (ends[1] - ends[0])) - (ends[2] + t[..., None] * (ends[3] - ends[2]))
+    active = torch.sqrt((dvec * dvec).sum(-1) + 1e-12) - c.pair_radius < c.pair_margin
+    return (active.to(torch.int64) * c.pair_row_count).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +604,7 @@ def actuation(model: Model, ctrl: torch.Tensor) -> torch.Tensor:
 def _substep(model: Model, c, q, qd, tau_act, dt: float):
     k = _kinematics(model, c, q, qd)
     use_constraint = getattr(model, "contact_model", "penalty") == "constraint" and (
-        len(model.contact_radius) > 0 or len(model.limit_q_idx) > 0
+        len(model.contact_radius) > 0 or len(model.limit_q_idx) > 0 or _pair_rows(model) > 0
     )
     tau_p, D = _passive_joint_forces(c, q, torch.diagonal(k.M, dim1=-2, dim2=-1), include_limits=not use_constraint)
     f = tau_act - _bias_c(c, k) + _gravity(c, k) + tau_p + _external_forces(
@@ -498,8 +663,6 @@ def step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, fr
     """Advance ``frame_skip`` model timesteps, each split into ``substeps``
     integrator substeps (default: :func:`resolve_substeps`), for
     ``q, qd [E, nq]`` and ``ctrl [E, nu]``. Returns ``(q, qd)``."""
-    if _pair_rows(model):
-        raise NotImplementedError("geom-pair contacts are not ported yet; leave enable_pair_contacts off")
     substeps = resolve_substeps(model, substeps)
     c = _consts(model, q)
     tau = actuation(model, ctrl)

@@ -40,15 +40,19 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
 
 
 def chol(M: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of SPD ``M [..., n, n]``."""
-    return torch.linalg.cholesky(M)
+    """Lower Cholesky factor of SPD ``M [..., n, n]``. ``cholesky_ex`` does not read its error
+    code back to the host, so a CUDA graph can capture it."""
+    return torch.linalg.cholesky_ex(M)[0]
 
 
 def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve ``L L^T x = b`` with ``b`` ``[..., n]`` or ``[..., n, m]``."""
-    if b.dim() == L.dim() - 1:
-        return torch.cholesky_solve(b[..., None], L)[..., 0]
-    return torch.cholesky_solve(b, L)
+    """Solve ``L L^T x = b`` with ``b`` ``[..., n]`` or ``[..., n, m]``: the two triangular solves
+    that LAPACK's ``potrs`` makes (the same bits as ``torch.cholesky_solve`` on the CPU), each a
+    batched triangular solve that a CUDA graph can capture."""
+    x = b[..., None] if b.dim() == L.dim() - 1 else b
+    x = torch.linalg.solve_triangular(L, x, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), x, upper=True)
+    return x[..., 0] if b.dim() == L.dim() - 1 else x
 
 
 def spd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

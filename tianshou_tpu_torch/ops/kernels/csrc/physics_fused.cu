@@ -1,4 +1,4 @@
-// Fused physics step for Hopper: frame_skip x substeps semi-implicit Euler
+// Fused physics step: frame_skip x substeps semi-implicit Euler
 // substeps of articulated rigid-body dynamics with MuJoCo-style soft-constraint
 // contacts and joint limits, for a batch of independent envs, in ONE kernel.
 //
@@ -65,6 +65,13 @@
 //    timing. Every lane of a team takes the same branches, on values read from
 //    shared memory; teams of one warp may diverge, so a team syncs with
 //    __syncwarp(its own lanes).
+//  - The legacy contact_model="penalty" (batched.py:substep_b with use_constraint false) is a compile-time
+//    branch, -DTT_PENALTY=1: no QP and one factorization per substep. A body's lane adds its contact
+//    spheres' spring-dampers (normal kp depth - kd v_z where the sphere dips into the floor, viscous
+//    friction capped by mu fn) to the body's wrench, so they reach f through the composites as gravity
+//    does; after M, a dof's lane adds its violated limit's spring (m_ii omega^2 viol, omega = 2 / 0.02) to
+//    f and its damping 2 m_ii omega to the implicit integrator's diagonal. kp and kd come packed with the
+//    model's constants (P_CON_KP).
 //  - Sizes (NQ, NB, NJ, NC, NL, NU) are compile-time: one library per model
 //    signature, built with -DNQ=.. etc.; -DTEAM= and -DYCAP= override the
 //    defaults below. The model's constants come in as two device arrays (float
@@ -113,9 +120,16 @@
 #error "build with -DNQ= -DNB= -DNJ= -DNC= -DNL= -DNU= (the model's sizes)"
 #endif
 
+#ifndef TT_PENALTY
+#define TT_PENALTY 0
+#endif
+
 namespace {
 
-constexpr int NR = 4 * NC + NL;            // candidate QP rows
+// contact_model="penalty" (-DTT_PENALTY=1): no QP; contact spring-dampers in the body wrenches and joint-limit
+// springs in the force, their damping in the implicit integrator
+constexpr bool PENALTY = TT_PENALTY != 0;
+constexpr int NR = PENALTY ? 0 : 4 * NC + NL;  // candidate QP rows
 constexpr int NRA = NR > 0 ? NR : 1;
 constexpr int JT_FREE = 0, JT_SLIDE = 1;   // model.py joint type codes (HINGE = 2)
 constexpr float ROT_EPS = 1e-9f;
@@ -152,7 +166,8 @@ constexpr int P_GEAR = P_LIM_SOLIMP + 5 * NL;              // [NU]
 constexpr int P_CTRL_LO = P_GEAR + NU;                     // [NU]
 constexpr int P_CTRL_HI = P_CTRL_LO + NU;                  // [NU]
 constexpr int P_FLUID = P_CTRL_HI + NU;                    // viscosity, density
-constexpr int P_SIZE = P_FLUID + 2;
+constexpr int P_CON_KP = P_FLUID + 2;                      // penalty contact stiffness, damping
+constexpr int P_SIZE = P_CON_KP + 2;
 // ---- layout of the int constants; joints are sorted by body ----
 constexpr int I_PARENT = 0;                                // [NB], -1 = world
 constexpr int I_BODY_JOINTS = I_PARENT + NB;               // [NB + 1] first joint of each body
@@ -648,8 +663,32 @@ TT_BIG void body_kinematics(const float* __restrict__ P, const int* __restrict__
   for (int i = 0; i < 9; ++i) w.R[9 * b + i] = Rb[i];
 }
 
-// world inertia and wrench of body b: -(m a, I alpha + w x I w) + gravity + fluid drag
-TT_FN void body_wrench(const float* __restrict__ P, Work& w, int b) {
+// the penalty model's force on contact sphere c (of body b) and its torque about b's centre of mass, added to
+// force and torque: a spring-damper along z where the sphere dips below the floor, and viscous friction
+// capped by the Coulomb cone
+TT_FN void penalty_contact(const float* __restrict__ P, const Work& w, int b, int c, float* force, float* torque) {
+  float re[3], ore[3], f[3], rxf[3];
+  mvf(w.R + 9 * b, P + P_CON_E + 3 * c, re);
+  cross3(w.om + 3 * b, re, ore);
+  const float vx = w.vc[3 * b] + ore[0], vy = w.vc[3 * b + 1] + ore[1], vz = w.vc[3 * b + 2] + ore[2];
+  const float kp = P[P_CON_KP], kd = P[P_CON_KP + 1];
+  const float depth = P[P_CON_RADIUS + c] - (w.pc[3 * b + 2] + re[2]);
+  const float fn = depth > 0.0f ? fmaxf(kp * depth - kd * vz, 0.0f) : 0.0f;
+  const float speed = sqrtf(vx * vx + vy * vy + 1e-12f);
+  const float ft = fminf(2.0f * kd * speed, P[P_CON_MU + c] * fn) / speed;
+  f[0] = -vx * ft;
+  f[1] = -vy * ft;
+  f[2] = fn;
+  cross3(re, f, rxf);
+  for (int i = 0; i < 3; ++i) {
+    force[i] += f[i];
+    torque[i] += rxf[i];
+  }
+}
+
+// world inertia and wrench of body b: -(m a, I alpha + w x I w) + gravity + fluid drag, and under the penalty
+// model the forces of the body's contact spheres
+TT_FN void body_wrench(const float* __restrict__ P, const int* __restrict__ I, Work& w, int b) {
   const float* Rv = w.R + 9 * b;
   const float* Ib = P + P_BODY_INERTIA + 9 * b;
   float RI[9], Iw[9];
@@ -685,6 +724,11 @@ TT_FN void body_wrench(const float* __restrict__ P, Work& w, int b) {
       force[i] += Fw[i];
       torque[i] += Tw[i];
     }
+  }
+  if (PENALTY) {
+#pragma unroll 1
+    for (int c = 0; c < NC; ++c)
+      if (I[I_CON_BODY + c] == b) penalty_contact(P, w, b, c, force, torque);
   }
   for (int i = 0; i < 3; ++i) {
     w.wr[6 * b + i] = force[i];
@@ -792,6 +836,24 @@ TT_FN void force_entry(const float* __restrict__ P, Work& w, int k) {
   float om[3], v[3];
   dof_twist(w, k, w.po + 3 * top, om, v);
   w.f[k] = (dot3(v, c + C_F) + dot3(om, c + C_T)) + (w.tau[k] - P[P_STIFFNESS + k] * (w.q[k] - P[P_SPRINGREF + k]));
+}
+
+// the penalty model's joint-limit spring on dof k, added to w.f, and the dof's damping with the limit's,
+// into damp: k = m_kk omega^2 and d = 2 m_kk omega (omega = 2 / 0.02, m_kk the diagonal of M with armature)
+// where the limit is violated
+TT_FN void penalty_limit(const float* __restrict__ P, const int* __restrict__ I, Work& w, float* damp, int k) {
+  float d_k = P[P_DAMPING + k];
+#pragma unroll 1
+  for (int m = 0; m < NL; ++m) {
+    if (I[I_LIM_QIDX + m] != k) continue;
+    const float omega = 2.0f / 0.02f;
+    const float m_kk = w.M[k * NQP + k];
+    const float k_lim = m_kk * omega * omega, d_lim = 2.0f * m_kk * omega;
+    const float viol_hi = fmaxf(w.q[k] - P[P_LIM_HI + m], 0.0f), viol_lo = fmaxf(P[P_LIM_LO + m] - w.q[k], 0.0f);
+    w.f[k] += -k_lim * viol_hi + k_lim * viol_lo;
+    if (viol_hi > 0.0f || viol_lo > 0.0f) d_k += d_lim;
+  }
+  damp[k] = d_k;
 }
 
 // L <- the Cholesky factor of M (lower part read), row NQ of L <- L^-1 w.rhs, invd <- 1 / diag(L). Lane i owns
@@ -1134,7 +1196,7 @@ TT_FN void substep(const float* __restrict__ P, const int* __restrict__ I, float
   }
   TT_PHASE(0);
   TT_LANES(l) {
-    for (int b = l; b < NB; b += LANES) body_wrench(P, w, b);
+    for (int b = l; b < NB; b += LANES) body_wrench(P, I, w, b);
   }
   TT_SYNC();
   TT_LANES(l) {
@@ -1147,6 +1209,15 @@ TT_FN void substep(const float* __restrict__ P, const int* __restrict__ I, float
     for (int k = l; k < NQ; k += LANES) force_entry(P, w, k);
   }
   TT_SYNC();
+  // the damping of each dof in the implicit integrator: the joint's, and under the penalty model a violated
+  // limit's (kept in w.u, which only the QP uses)
+  float* damp = w.u;
+  if (PENALTY) {
+    TT_LANES(l) {
+      for (int k = l; k < NQ; k += LANES) penalty_limit(P, I, w, damp, k);
+    }
+    TT_SYNC();
+  }
   TT_PHASE(2);
   // two factorizations through one copy of the code: of M with z = L^-1 (f - D qd) for the constraint
   // rows (not needed when no row is active: an inactive row's force is zero), then of M + dt diag(D)
@@ -1161,7 +1232,7 @@ TT_FN void substep(const float* __restrict__ P, const int* __restrict__ I, float
           w.rhs[i] = w.f[i] - P[P_DAMPING + i] * w.qd[i];
         } else {
           w.rhs[i] = dotq(w.M + i * NQP, w.qd) + dt * w.f[i];
-          w.M[i * NQP + i] += dt * P[P_DAMPING + i];
+          w.M[i * NQP + i] += dt * (PENALTY ? damp[i] : P[P_DAMPING + i]);
         }
       }
     }

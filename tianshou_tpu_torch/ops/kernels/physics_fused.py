@@ -24,9 +24,12 @@ first use; the model's tables go in as two device arrays packed by
 :func:`pack_model`. The work is float32 operations outside the tensor cores;
 the bound by operations and the measured times are in ``PERF.md``.
 
-Limits: geom-pair contacts (Humanoid) and the legacy
-``contact_model="penalty"`` raise ``NotImplementedError``; the plain version
-computes the penalty model.
+The legacy ``contact_model="penalty"`` is a compile-time branch of the same
+source (``-DTT_PENALTY=1``, one more library per signature): it skips the QP
+and adds the contact spring-dampers to the body wrenches and the joint-limit
+springs to the force, their damping to the implicit integrator. Geom-pair
+contacts (Humanoid) raise ``NotImplementedError``, as the TPU kernel refuses
+them: such a model steps through the plain version (``MujocoEnv.physics_route``).
 
 :func:`fused_step` launches the kernel for CUDA tensors and takes the plain
 version, :func:`fused_step_reference` (the port's ``dynamics.step``), only for
@@ -46,7 +49,7 @@ from tianshou_tpu_torch.ops.kernels import counters
 
 __all__ = [
     "fused_step", "fused_step_reference", "launch_count", "reset_launch_count", "signature", "pack_model",
-    "build_target", "task_targets", "kernel_info", "phase_cycles", "PHASES", "TASK_ASSETS",
+    "uses_penalty", "build_target", "task_targets", "kernel_info", "phase_cycles", "PHASES", "TASK_ASSETS",
 ]
 
 _fns: dict = {}  # build target -> (the loaded C entry point, what the library says of itself)
@@ -92,10 +95,20 @@ def signature(model: Model) -> tuple[int, ...]:
             len(model.actuators))
 
 
+def uses_penalty(model: Model) -> bool:
+    """Whether ``model`` steps under the legacy penalty contact model: ``contact_model`` is not
+    ``"constraint"`` and the model has contacts or limits (else the two models are one)."""
+    return getattr(model, "contact_model", "penalty") != "constraint" and bool(
+        len(model.contact_radius) or len(model.limit_q_idx))
+
+
 def build_target(model: Model, team: int | None = None, profile: bool = False) -> tuple:
-    """The :mod:`_build` target of the library that steps ``model``, with ``team`` lanes per env
-    (None: the source's default for the model's sizes); ``profile`` adds the cycle counters."""
+    """The :mod:`_build` target of the library that steps ``model`` under its contact model, with
+    ``team`` lanes per env (None: the source's default for the model's sizes); ``profile`` adds the
+    cycle counters."""
     defines = tuple(zip(_MACROS, signature(model)))
+    if uses_penalty(model):
+        defines += (("TT_PENALTY", 1),)
     if profile:
         defines += (("TT_PROFILE", 1),)
     if team is not None:
@@ -106,10 +119,17 @@ def build_target(model: Model, team: int | None = None, profile: bool = False) -
 
 
 def task_targets() -> list[tuple]:
-    """One build target per distinct signature among the packaged tasks."""
+    """Two build targets per distinct signature among the packaged tasks: the constraint model's
+    library and the penalty model's."""
     from tianshou_tpu_torch.env.physics.mjcf import load_mjcf
 
-    return sorted({build_target(load_mjcf(xml)) for xml in TASK_ASSETS.values()})
+    targets = set()
+    for xml in TASK_ASSETS.values():
+        model = load_mjcf(xml)
+        targets.add(build_target(model))
+        model.contact_model = "penalty"
+        targets.add(build_target(model))
+    return sorted(targets)
 
 
 def pack_model(model: Model) -> tuple[np.ndarray, np.ndarray]:
@@ -151,6 +171,7 @@ def pack_model(model: Model) -> tuple[np.ndarray, np.ndarray]:
         model.limit_range[:, 0], model.limit_range[:, 1], model.limit_solref, model.limit_solimp,
         [a.gear for a in model.actuators], [a.ctrlrange[0] for a in model.actuators],
         [a.ctrlrange[1] for a in model.actuators], [model.fluid_viscosity, model.fluid_density],
+        [model.contact_stiffness, model.contact_damping],
     ]
     ints = [
         model.parent, first, [j.jtype for j in joints], [j.q_idx for j in joints], model.contact_body,
@@ -163,7 +184,8 @@ def pack_model(model: Model) -> tuple[np.ndarray, np.ndarray]:
 
 def _check(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, frame_skip: int) -> None:
     if dynamics._pair_rows(model):
-        raise NotImplementedError("geom-pair contacts are not ported yet; leave enable_pair_contacts off")
+        raise NotImplementedError("the fused kernel has no geom-pair rows (nor has the TPU kernel): a model with "
+                                  "enable_pair_contacts steps through dynamics.step (fused_step_reference)")
     nq, nu = model.nq, len(model.actuators)
     if q.dim() != 2 or q.shape[1] != nq or qd.shape != q.shape or ctrl.shape != (q.shape[0], nu):
         raise ValueError(f"fused_step takes q, qd [E, {nq}] and ctrl [E, {nu}], got {tuple(q.shape)}, "
@@ -232,13 +254,15 @@ def _envs_per_block(info: dict) -> int:
 
 
 def _device_consts(model: Model, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The packed constants on ``device``, copied once and kept on the model: a host-to-device copy,
-    so the first call is made outside a CUDA graph's capture (a program's eager warm-up makes it)."""
+    """The packed constants on ``device``, copied once per contact model and penalty gains and kept on
+    the model (a user may switch ``contact_model`` after construction): a host-to-device copy, so the
+    first call is made outside a CUDA graph's capture (a program's eager warm-up makes it)."""
     cache = model.__dict__.setdefault("_fused_consts", {})
-    if device not in cache:
+    key = (device, uses_penalty(model), float(model.contact_stiffness), float(model.contact_damping))
+    if key not in cache:
         P, I = pack_model(model)
-        cache[device] = (torch.from_numpy(P).to(device), torch.from_numpy(I).to(device))
-    return cache[device]
+        cache[key] = (torch.from_numpy(P).to(device), torch.from_numpy(I).to(device))
+    return cache[key]
 
 
 def fused_step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, frame_skip: int = 1,
@@ -257,10 +281,6 @@ def fused_step(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tens
         return fused_step_reference(model, q, qd, ctrl, frame_skip, substeps)
     if q.device.type != "cuda":
         raise ValueError(f"fused_step runs on cuda or cpu, got {q.device}")
-    if getattr(model, "contact_model", "penalty") != "constraint" and (
-            len(model.contact_radius) or len(model.limit_q_idx)):
-        raise NotImplementedError("the fused kernel computes contact_model='constraint' only; "
-                                  "the penalty model runs in fused_step_reference")
     if not (q.is_contiguous() and qd.is_contiguous() and ctrl.is_contiguous()):
         raise ValueError("fused_step needs contiguous q, qd and ctrl")
     substeps = dynamics.resolve_substeps(model, substeps)
