@@ -115,7 +115,7 @@ Phases, each of which fails the run:
    collect, update and test graphs; it must reach reward 195 within 20 epochs.
 14. The MuJoCo example path (``examples/mujoco/mujoco_ppo.py`` defaults on HalfCheetah: 16 envs,
    rollouts of 128, 10 passes of batch 64, the linear rate decay, ``target_kl`` 0.015, the PPO init,
-   ``NormObs``, 10 test episodes), cut to 2 epochs of 100,000 steps: finite test returns, the pooled
+   ``NormObs``, 10 test episodes), cut to 1 epoch of 100,000 steps: finite test returns, the pooled
    train statistics at every handoff to the test envs, the rate after the run the schedule's.
 
 15. Continuous graph phase: ``OffPolicyTrainer``'s collect chunk and update burst as CUDA graphs against
@@ -128,7 +128,7 @@ Phases, each of which fails the run:
    HalfCheetah, ``mujoco_td3.py``'s on Ant over prioritized replay (alpha 0.6, beta 0.4) and
    ``mujoco_redq.py``'s on HalfCheetah (32 envs, T 4, 128 updates per megastep of batch 256, a 1 M-row
    replay, 256x256 nets, the random prefill, ``fused_megastep``, 10 test episodes), each cut to one
-   epoch (20,000, 5,000 and 5,000 steps): exactly one ``physics_fused`` launch per vector step, prefill
+   epoch (10,000, 5,000 and 5,000 steps): exactly one ``physics_fused`` launch per vector step, prefill
    and test included; with PER one descent per update, one tree update per update and per collect
    step, and an exactly consistent tree; then the megastep graph replayed alone for its wall and device
    time.
@@ -171,6 +171,22 @@ Phases, each of which fails the run:
    cut (``HUM_SAC_*``); no kernel launch; the 10 test episodes run eagerly after the epoch.
 27. ``inverted_pendulum_sac`` (``tests/test_mujoco_table.py:41-53``): SAC on ``InvertedPendulum``; it must
    reach 1,000 within 12 epochs. No kernel.
+
+28. Distributional graph phase: ``graph_phase`` (phase 4) for QRDQN, IQN, FQF and discrete SAC on the pixel
+   pipeline of phase 29 (``DIST_KINDS``): collect chunks and update bursts as graphs against the eager loop
+   from one generator state, bit-identical (IQN's fractions and discrete SAC's actions come from the graph's
+   registered generator), every optimizer's state (FQF's Adam and RMSprop, discrete SAC's four Adams) too.
+29. Distributional pixel paths: ``main_path`` (phase 5) with the algorithm and net of each of
+   ``examples/atari/atari_{qrdqn,iqn,fqf,sac}.py`` at bench.py's widths and the DQN path's depth
+   (``build_pipeline``): QRDQN over ``QRDQNet(6, 200)`` at lr 5e-5, IQN over ``ImplicitQuantileAtariNet(6)``
+   with 32/8/8 fractions at 5e-5, FQF over the same net with 32 fractions and ``ent_coef`` 10 at 5e-5,
+   discrete SAC with ``DQNet`` actor and twin critics at 1e-4 and automatic alpha; n = 3, target sync every
+   500 steps (polyak 0.005 for SAC). Exactly two ``gather_rows`` launches per update; after the checks one
+   replayed update burst is traced (``torch.profiler``): kernels per update, device ms per update, the idle
+   share of the burst's span.
+30. Time to score of the family on the card (``tests/test_distributional.py:89-107``): FQF on CartPole to 195
+   and BDQN on ``ContinuousToDiscrete(Pendulum(), 25)`` to -250, the reference tests' settings and budgets
+   (``DIST_SCORE``), each stopping at its threshold and raising below it. No kernel.
 
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
@@ -231,8 +247,8 @@ PPO_PATHS = (("HalfCheetah", 32), ("Ant", 16))  # (task, rollout steps)
 # PPO on CartPole (tests/test_onpolicy.py:17-53): 16 train envs, T 128, repeat 10, batch 256, epochs of 10,000 steps
 PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 256, 20, 10000
 PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
-# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs to 2
-MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 2, 100_000
+# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs to 1
+MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 100_000
 
 # the continuous off-policy paths: examples/mujoco/mujoco_{sac,td3,redq}.py's defaults (32 envs, T 4, one update
 # per env step, batch 256, a 1 M-row replay, 256x256 nets, 10 test episodes), the depth cut to one epoch
@@ -240,9 +256,9 @@ OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 2
 # sac_humanoid: examples/mujoco/mujoco_sac.py --task Humanoid's defaults (as OFF_PATHS), the random prefill cut from
 # 10,000 steps to HUM_SAC_PREFILL and the epoch from 20,000 to HUM_SAC_EPOCH; the test phase's 10 episodes as eager
 # chunks of HUM_TEST_CHUNK steps (a 128-step test chunk warmed up eagerly on the plain route would take minutes)
-HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 1_024, 2_048, 32
+HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 512, 1_024, 32
 OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
-    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 20_000, False),
+    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 10_000, False),
     "td3_ant_per": ("Ant", "td3", 25_000, 5_000, True),
     "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 5_000, False),
     "sac_humanoid": ("Humanoid", "sac", HUM_SAC_PREFILL, HUM_SAC_EPOCH, False),  # the plain route: no kernel
@@ -278,6 +294,13 @@ HUM_T = 4
 # the policy's own actions, at most 12 epochs of 5,000 steps; it must reach the table's 1,000
 IP_E, IP_TEST_E, IP_HID, IP_BUFFER, IP_BATCH, IP_T, IP_UTD = 8, 10, (128, 128), 100_000, 256, 8, 0.5
 IP_PREFILL, IP_EPOCHS, IP_EPOCH_STEPS, IP_THRESHOLD = 2_000, 12, 5_000, 1000.0
+
+# the distributional and discrete Q family on the pixel pipeline (examples/atari/atari_{qrdqn,iqn,fqf,sac}.py)
+DIST_KINDS = ("qrdqn", "iqn", "fqf", "discrete_sac")
+# their time to score (tests/test_distributional.py:run, :89-107): 10 train and 10 test envs, a 20,000-row replay,
+# epochs of 5,000 steps, batch 64, T 10, 0.1 updates per env step, a 1,000-step prefill, eps 0.3 annealed to 0.1
+DIST_SCORE = {"fqf_cartpole": 195.0, "bdqn_pendulum": -250.0}  # name: threshold
+DS_E, DS_BUFFER, DS_EPOCH_STEPS, DS_BATCH, DS_T, DS_PREFILL, DS_EPOCHS = 10, 20_000, 5_000, 64, 10, 1_000, 15
 
 
 def _smi() -> str:
@@ -686,10 +709,15 @@ def _launches(gather, sumtree, physics_fused) -> dict[str, int]:
 
 def build_pipeline(torch, kind: str = "dqn"):
     """The bench.py pipeline (``_build_atari_pipeline``) in the port, with DQN over a uniform
-    replay (``kind="dqn"``) or RainbowDQN over a prioritized one (``kind="rainbow"``,
-    examples/atari/atari_rainbow.py): returns (algo, train state, buffer, buffer state, collector)."""
+    replay (``kind="dqn"``), RainbowDQN over a prioritized one (``kind="rainbow"``,
+    examples/atari/atari_rainbow.py), or one of ``DIST_KINDS`` over a uniform one with its example
+    script's net and settings: returns (algo, train state, buffer, buffer state, collector)."""
     from tianshou_tpu_torch.algorithm.modelfree.c51 import RainbowDQN
+    from tianshou_tpu_torch.algorithm.modelfree.discrete_sac import DiscreteSAC
     from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.modelfree.fqf import FQF
+    from tianshou_tpu_torch.algorithm.modelfree.iqn import IQN
+    from tianshou_tpu_torch.algorithm.modelfree.qrdqn import QRDQN
     from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
     from tianshou_tpu_torch.data.batch import Batch
     from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
@@ -697,7 +725,7 @@ def build_pipeline(torch, kind: str = "dqn"):
     from tianshou_tpu_torch.data.collector import DeviceCollector
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.env.wrappers import FrameStack
-    from tianshou_tpu_torch.models.atari import DQNet, RainbowAtariNet
+    from tianshou_tpu_torch.models.atari import DQNet, ImplicitQuantileAtariNet, QRDQNet, RainbowAtariNet
 
     device = "cuda"
     torch.manual_seed(SEED)
@@ -705,13 +733,28 @@ def build_pipeline(torch, kind: str = "dqn"):
     common = dict(action_space=env.action_space, gamma=0.99, n_step_return_horizon=3,
                   target_update_freq=500, eps_training=0.05, eps_inference=TEST_EPS)
     ring = dict(total_size=E * SLOTS, buffer_num=E, stack_num=4, save_only_last_obs=True)
+    buffer = VectorReplayBuffer(**ring)
     if kind == "dqn":
         algo = DQN(model=DQNet(action_dim=6), optim=AdamOptimizerFactory(lr=1e-4), **common)
-        buffer = VectorReplayBuffer(**ring)
-    else:
+    elif kind == "rainbow":
         algo = RainbowDQN(model=RainbowAtariNet(action_dim=6, num_atoms=51), optim=AdamOptimizerFactory(lr=6.25e-5),
                           num_atoms=51, v_min=-10.0, v_max=10.0, **common)
         buffer = PrioritizedVectorReplayBuffer(alpha=0.6, beta=0.4, **ring)
+    elif kind == "qrdqn":  # examples/atari/atari_qrdqn.py
+        algo = QRDQN(model=QRDQNet(action_dim=6, num_quantiles=200), optim=AdamOptimizerFactory(lr=5e-5),
+                     num_quantiles=200, **common)
+    elif kind == "iqn":  # examples/atari/atari_iqn.py
+        algo = IQN(model=ImplicitQuantileAtariNet(action_dim=6), optim=AdamOptimizerFactory(lr=5e-5), sample_size=32,
+                   online_sample_size=8, target_sample_size=8, **common)
+    elif kind == "fqf":  # examples/atari/atari_fqf.py (its fraction optimizer the default RMSprop)
+        algo = FQF(model=ImplicitQuantileAtariNet(action_dim=6), optim=AdamOptimizerFactory(lr=5e-5), num_fractions=32,
+                   ent_coef=10.0, **common)
+    elif kind == "discrete_sac":  # examples/atari/atari_sac.py
+        algo = DiscreteSAC(actor=DQNet(action_dim=6), critic=DQNet(action_dim=6), action_space=env.action_space,
+                           policy_optim=AdamOptimizerFactory(lr=1e-4), critic_optim=AdamOptimizerFactory(lr=1e-4),
+                           alpha="auto", gamma=0.99, tau=0.005, n_step_return_horizon=3)
+    else:
+        raise ValueError(f"unknown pipeline {kind!r}")
     ts = algo.init(device)
     buf_state = buffer.init(Batch(
         obs=torch.zeros((84, 84, 1), dtype=torch.uint8), act=torch.tensor(0), rew=torch.tensor(0.0),
@@ -901,7 +944,52 @@ def main_path(torch, kind: str, fused: bool = False):
     )
     if isinstance(state, PrioState):
         lines.append(f"{name} path: " + _check_tree(torch, buffer, state, gen))
+    if kind in DIST_KINDS:
+        lines.append(f"{name} path: " + _trace_burst(torch, trainer, ts, state, gen, n_updates))
     return res, launches, lines
+
+
+def _trace_burst(torch, trainer, ts, state, gen, n_updates: int) -> str:
+    """One update burst of a pixel path replayed (its graph already captured) between CUDA events, then
+    once under ``torch.profiler`` (device activity only): device ms per update, kernels per update, the
+    ``gather_rows`` kernels (exactly 2 per update, or it raises) and their share of busy time, and the
+    idle share: the traced busy time against the untraced replay's time, and against the traced span
+    from the first kernel's start to the last kernel's end, which the tracer stretches. Returns a report
+    line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = next(g for g in trainer.graph_pool.graphs if g.name.startswith("update_burst"))
+    replays = graph.replays
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    trainer.update_burst(ts, state, gen, n_updates)
+    b.record()
+    b.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.update_burst(ts, state, gen, n_updates)
+        torch.cuda.synchronize()
+    if graph.replays != replays + 2:
+        raise AssertionError(f"the traced update burst was not a replay of the captured graph ({graph.replays - replays})")
+    busy = kernels = gathers = gather_us = 0.0
+    first, last = float("inf"), float("-inf")
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            us = e.duration_ns() / 1e3
+            busy, kernels = busy + us, kernels + 1
+            first, last = min(first, e.start_ns()), max(last, e.start_ns() + e.duration_ns())
+            if "gather_spread_kernel" in e.name() or "gather_bytes_kernel" in e.name():  # csrc/gather.cu
+                gathers, gather_us = gathers + 1, gather_us + us
+    span = max(last - first, 1) / 1e3
+    if kernels == 0 or gathers != 2 * n_updates:
+        raise AssertionError(f"the traced update burst shows {kernels} kernels, {gathers} of gather_rows for "
+                             f"{n_updates} updates")
+    untraced = a.elapsed_time(b)
+    return (f"one replayed update burst of {n_updates} updates: {untraced:.3f} ms between CUDA events "
+            f"({untraced / n_updates:.4f} ms per update); traced: device busy {busy / 1e3:.3f} ms, idle share "
+            f"{1 - busy / 1e3 / untraced:.4f} against the untraced replay (a tracer's gaps widen: "
+            f"{1 - busy / span:.4f} of the traced span of {span / 1e3:.3f} ms); kernels per update {kernels / n_updates:.1f}, "
+            f"device ms per update {busy / 1e3 / n_updates:.4f}; gather_rows kernels {int(gathers)} "
+            f"({gathers / n_updates:g} per update), {gather_us / busy:.4f} of busy")
 
 
 def graph_phase(torch, kind: str) -> list[str]:
@@ -997,6 +1085,8 @@ def graph_phase(torch, kind: str) -> list[str]:
     for a, b in ((sd["ts"].model, eager["ts"].model), (sd["ts"].target, eager["ts"].target)):
         for x, y in zip(a.state_dict().values(), b.state_dict().values()):
             worst = max(worst, float((x.float() - y.float()).abs().max()))
+    for x, y in zip(_optimizer_state(sd["ts"]), _optimizer_state(eager["ts"])):  # every optimizer's state
+        worst = max(worst, float((x.detach().float() - y.detach().float()).abs().max()))
     if not int(sd["ts"].step) == int(eager["ts"].step) == GRAPH_CALLS * GRAPH_K:
         raise AssertionError(f"graph phase {kind}: step {int(sd['ts'].step)}, eager {int(eager['ts'].step)}")
     sb, eb = sd["bs"], eager["bs"]
@@ -1011,14 +1101,23 @@ def graph_phase(torch, kind: str) -> list[str]:
     if sd["launches"] != eager["launches"]:
         raise AssertionError(f"graph phase {kind}: launches {sd['launches']}, eager {eager['launches']}")
     test_lines = [test_chunk_check(torch, algo, coll, buffer, sd["ts"])] if kind == "dqn" else []
+    factory = algo.critic_optim if kind == "discrete_sac" else algo.optim
     return test_lines + [
-        f"graph phase {kind}: " + adam_check(torch, algo.optim, list(sd["ts"].model.parameters())),
+        f"graph phase {kind}: " + adam_check(torch, factory, list(sd["ts"].model.parameters())),
         f"graph phase {kind}, graphs against eager: {GRAPH_CALLS} collect chunks of T={T} and "
         f"{GRAPH_CALLS} x {GRAPH_K} updates; sampled indices, rings, collect state and output"
         f"{' and the sum tree' if prio else ''} bit-identical; losses, TD errors and parameters max |diff| "
         f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
         f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
     ]
+
+
+def _optimizer_state(ts) -> list:
+    """Every tensor a step of the train state's optimizer (or optimizers) writes."""
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+
+    opts = ts.optim.values() if isinstance(ts.optim, dict) else [ts.optim]
+    return [t for opt in opts for t in optimizer_tensors(opt)]
 
 
 def test_chunk_check(torch, algo, coll, buffer, ts) -> str:
@@ -2494,6 +2593,79 @@ def pendulum_path(torch, kind: str, task: str = "Pendulum"):
     ]
 
 
+def dist_score_path(torch, name: str):
+    """``fqf_cartpole`` or ``bdqn_pendulum`` as ``tests/test_distributional.py:89-107`` trains them (its ``run``:
+    the ``DS_*`` settings, ``COMMON`` for FQF, eps 0.3 annealed to 0.1 over 30,000 steps), on the card through
+    ``OffPolicyTrainer`` and its collect, update and test graphs; stops at the threshold of ``DIST_SCORE``
+    and raises below it. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.modelfree.bdqn import BDQN
+    from tianshou_tpu_torch.algorithm.modelfree.fqf import FQF
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.classic.pendulum import Pendulum
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.wrappers import ContinuousToDiscrete
+    from tianshou_tpu_torch.models.discrete import ImplicitQuantileNetwork
+    from tianshou_tpu_torch.models.mlp import BranchingNet
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    threshold = DIST_SCORE[name]
+    torch.manual_seed(SEED)
+    if name == "fqf_cartpole":
+        env = CartPole()
+        algo = FQF(model=ImplicitQuantileNetwork((64, 64), 2, input_dim=4), action_space=env.action_space,
+                   num_fractions=32, ent_coef=10.0, optim=AdamOptimizerFactory(lr=1e-3), gamma=0.95,
+                   n_step_return_horizon=3, target_update_freq=320, eps_training=0.3)
+        act = torch.tensor(0)
+    else:
+        env = ContinuousToDiscrete(Pendulum(), 25)
+        algo = BDQN(model=BranchingNet((128, 128), 1, 25, input_dim=3), action_space=env.action_space, gamma=0.99,
+                    target_update_freq=320, eps_training=0.3, optim=AdamOptimizerFactory(lr=1e-3))
+        act = torch.zeros(1, dtype=torch.int64)
+    obs_shape = env.observation_space.shape
+    buffer = VectorReplayBuffer(DS_BUFFER, DS_E)
+    bs = buffer.init(Batch(obs=torch.zeros(obs_shape), act=act, rew=torch.tensor(0.0), terminated=torch.tensor(False),
+                           truncated=torch.tensor(False), obs_next=torch.zeros(obs_shape)), device="cuda")
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OffPolicyTrainer(
+        algo, DeviceCollector(VectorDeviceEnv(env, DS_E, device="cuda"), algo, buffer),
+        DeviceCollector(VectorDeviceEnv(env, DS_E, device="cuda"), algo, None), buffer,
+        OffPolicyTrainerParams(max_epochs=DS_EPOCHS, epoch_num_steps=DS_EPOCH_STEPS, test_step_num_episodes=10,
+                               batch_size=DS_BATCH, collection_step_num_env_steps=DS_T, update_per_step=0.1,
+                               start_steps=DS_PREFILL, stop_fn=lambda r: r >= threshold, compute_score_fn=score,
+                               train_fn=lambda epoch, step: {"eps_training": max(0.1, 0.3 * (1 - step / 30000))},
+                               verbose=False))
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = trainer.run(algo.init("cuda"), bs, torch.Generator(device="cuda").manual_seed(SEED))
+    launches = _launches(gather, sumtree, physics_fused)
+    if not res.best_reward >= threshold:
+        raise AssertionError(f"{name} path: best test reward {res.best_reward} after {res.epochs} epochs, below the "
+                             f"threshold {threshold}")
+    graphs = {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+    if any(launches.values()) or sorted(graphs) != ["collect_chunk", "test_chunk", "update_burst"]:
+        raise AssertionError(f"{name} path: launches {launches}, programs {sorted(graphs)}")
+    t = res.timing
+    train_steps = res.env_step - DS_PREFILL
+    return launches, [
+        f"{name} path: best test reward {res.best_reward:.1f} (threshold {threshold}) after {res.epochs} epochs "
+        f"(test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}); env_steps {res.env_step} "
+        f"gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s (prefill {t['prefill']:.2f}, collect "
+        f"{t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); train env_steps_per_s "
+        f"{train_steps / (t['collect'] + t['update']):.1f} (collect and update time, captures included); capture s "
+        f"{ {n: round(g.capture_s, 3) for n, g in graphs.items()} }",
+    ]
+
+
 # ---------------------------------------------------------------------------
 # the rest of the on-policy family: NPG and TRPO on the device physics and on CartPole, gSDE, the MLP PPO bench
 # ---------------------------------------------------------------------------
@@ -3005,6 +3177,19 @@ def main() -> int:
     for name, path in paths:
         t0 = time.perf_counter()
         by_path[name], lines = path()  # raises on a failed check, or below the threshold (trpo_cartpole)
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for kind in DIST_KINDS:
+        t0 = time.perf_counter()
+        lines = graph_phase(torch, kind)  # raises unless graphs and the eager loop agree
+        print("\n".join(lines), f"\n{kind} graph phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for kind in DIST_KINDS:
+        t0 = time.perf_counter()
+        # raises unless the gather kernel ran exactly twice per update
+        _, by_path[kind], lines = main_path(torch, kind)
+        print("\n".join(lines), f"\n{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for name in DIST_SCORE:
+        t0 = time.perf_counter()
+        by_path[name], lines = dist_score_path(torch, name)  # raises below the threshold
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}

@@ -63,8 +63,10 @@ def test_map_copy_pop_and_setters():
     assert "d" not in c and "d" in t
     with pytest.raises(AttributeError):
         _ = t.missing
-    with pytest.raises(TypeError):
-        Batch(x="not a tensor")
+    # a value no tensor can hold stays a numpy array, as the JAX package keeps it
+    s = Batch(x="not a tensor").x
+    assert isinstance(s, np.ndarray) and not isinstance(s, torch.Tensor)
+    assert s == np.asarray(JBatch(x="not a tensor").x)
 
 
 def test_to_device_moves_every_leaf():

@@ -285,13 +285,26 @@ def _pixel_pipeline(kind: str, eps: float = 0.1):
     kw = dict(action_space=core.Discrete(4), optim=AdamOptimizerFactory(lr=1e-3), gamma=0.9, n_step_return_horizon=3,
               target_update_freq=3, eps_training=eps)
     ring = dict(total_size=n_envs * 64, buffer_num=n_envs, stack_num=4, save_only_last_obs=True)
+    buffer = VectorReplayBuffer(**ring)
     if kind == "dqn":
         algo = DQN(model=DQNet(4, features=64, input_hw=(hw, hw)), **kw)
-        buffer = VectorReplayBuffer(**ring)
-    else:
+    elif kind == "rainbow":
         algo = RainbowDQN(model=RainbowAtariNet(4, 11, 64, input_hw=(hw, hw)), num_atoms=11, v_min=-2.0, v_max=2.0,
                           **kw)
         buffer = PrioritizedVectorReplayBuffer(alpha=0.6, beta=0.4, **ring)
+    elif kind == "iqn":
+        from tianshou_tpu_torch.algorithm.modelfree.iqn import IQN
+        from tianshou_tpu_torch.models.atari import ImplicitQuantileAtariNet
+
+        algo = IQN(model=ImplicitQuantileAtariNet(4, 64, num_cosines=16, input_hw=(hw, hw)), sample_size=8,
+                   online_sample_size=4, target_sample_size=6, **kw)
+    else:
+        from tianshou_tpu_torch.algorithm.modelfree.fqf import FQF
+        from tianshou_tpu_torch.algorithm.optim import RMSpropOptimizerFactory
+        from tianshou_tpu_torch.models.atari import ImplicitQuantileAtariNet
+
+        algo = FQF(model=ImplicitQuantileAtariNet(4, 64, num_cosines=16, input_hw=(hw, hw)), num_fractions=8,
+                   fraction_optim=RMSpropOptimizerFactory(lr=1e-3, alpha=0.9), **kw)
     ts = algo.init("cuda")
     bs = buffer.init(Batch(obs=torch.zeros((hw, hw, 1), dtype=torch.uint8), act=torch.tensor(0), rew=torch.tensor(0.0),
                            terminated=torch.tensor(False), truncated=torch.tensor(False),
@@ -343,6 +356,46 @@ def test_graphed_programs_match_the_eager_loop_on_cuda(kind, monkeypatch):
     assert torch.equal(base.cursor, ebase.cursor) and int(ts.step) == int(ets.step) == 3
     if kind == "rainbow":
         assert torch.equal(bs.tree, ebs.tree) and torch.equal(bs.max_prio, ebs.max_prio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["iqn", "fqf"])
+def test_captured_quantile_update_matches_the_eager_update_on_cuda(kind, monkeypatch):
+    """IQN's fractions (acting, target and loss) drawn from the generator the graphs registered, and FQF's two
+    optimizers, through three collect chunks and three bursts of two updates: the same bits as eagerly."""
+    import copy
+
+    from tianshou_tpu_torch.algorithm.base import optimizer_tensors
+
+    _needs_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    algo, ts, buffer, bs, coll = _pixel_pipeline(kind)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, 8, random=True)
+    ets, ebs, ecs = copy.deepcopy((ts, bs, cstate))
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    trainer = _trainer(algo, coll, buffer)
+    for _ in range(3):
+        out = trainer.collect_chunk(ts, cstate, bs, gen, 4).map(torch.clone)
+        eout = coll.collect(ets, ecs, ebs, egen, 4)[2]
+        assert all(torch.equal(out[k], eout[k]) for k in eout.keys())
+    for _ in range(3):
+        stats = trainer.update_burst(ts, bs, gen, 2).map(torch.clone)
+        for i in range(2):
+            estats = algo.update(ets, buffer, ebs, egen, 16)[2]
+            assert all(torch.equal(stats[k][i], estats[k]) for k in estats.keys())
+    torch.cuda.synchronize()
+    assert all(g.replays == 2 for g in trainer.graph_pool.graphs)
+    for a, b in zip(ts.model.state_dict().values(), ets.model.state_dict().values()):
+        assert torch.equal(a, b)
+    for a, b in zip(ts.target.state_dict().values(), ets.target.state_dict().values()):
+        assert torch.equal(a, b)
+    opts, eopts = (ts.optim, ets.optim) if kind == "fqf" else ({"model": ts.optim}, {"model": ets.optim})
+    for k in opts:
+        assert all(torch.equal(a, b) for a, b in zip(optimizer_tensors(opts[k]), optimizer_tensors(eopts[k])))
+    assert int(ts.step) == int(ets.step) == 6
 
 
 @pytest.mark.cuda

@@ -9,3 +9,36 @@ are hand-written CUDA kernels here (``ops/kernels``).
 """
 
 __version__ = "0.1.0"
+
+from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.data.buffer.base import ReplayBuffer, VectorReplayBuffer
+from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer, PrioritizedVectorReplayBuffer
+from tianshou_tpu_torch.data.collector import CollectStats, DeviceCollector
+from tianshou_tpu_torch.env.core import Box, Discrete, Env, MultiDiscrete, VectorDeviceEnv
+from tianshou_tpu_torch.trainer.trainer import (
+    OffPolicyTrainer,
+    OffPolicyTrainerParams,
+    OnPolicyTrainer,
+    OnPolicyTrainerParams,
+)
+
+# the HER buffers and the offline trainer come with their ports (ROADMAP.md, Queue 1)
+__all__ = [
+    "Batch",
+    "Box",
+    "CollectStats",
+    "DeviceCollector",
+    "Discrete",
+    "Env",
+    "MultiDiscrete",
+    "OffPolicyTrainer",
+    "OffPolicyTrainerParams",
+    "OnPolicyTrainer",
+    "OnPolicyTrainerParams",
+    "PrioritizedReplayBuffer",
+    "PrioritizedVectorReplayBuffer",
+    "ReplayBuffer",
+    "VectorDeviceEnv",
+    "VectorReplayBuffer",
+    "__version__",
+]

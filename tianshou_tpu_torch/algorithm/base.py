@@ -33,16 +33,17 @@ import math
 from collections.abc import Iterable
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
-from tianshou_tpu_torch.env.core import Box, Discrete, Space
+from tianshou_tpu_torch.env.core import Box, Discrete, MultiDiscrete, Space
 from tianshou_tpu_torch.ops.returns import nstep_returns, value_mask
 
 __all__ = ["ActOut", "Algorithm", "Draws", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "Snapshot", "TrainState",
-           "optimizer_tensors", "polyak_update", "standard_normal"]
+           "optimizer_tensors", "polyak_update", "standard_normal", "uniform", "weighted_mean"]
 
 
 @dataclasses.dataclass
@@ -78,6 +79,23 @@ class Draws:
     subset: torch.Tensor | None = None
     #: the gradient step's standard normals ``[B, A]``: SAC's and REDQ's actor sample (k3)
     actor: torch.Tensor | None = None
+    #: IQN's fractions in ``[0, 1)``: the gradient step's ``[B, sample_size]`` (k3; ``update_step`` draws
+    #: ``uniform(k3, (B, sample_size))``), or in ``forward`` the act's own ``uniform(key, (B, sample_size))``
+    taus: torch.Tensor | None = None
+    #: IQN's target fractions ``[B, target_sample_size]``: ``_target_q`` splits k2 into two keys and draws
+    #: these from the first (``iqn.py:_target_q``: ``k1, k2 = split(key)``, ``uniform(k1, ...)``)
+    target_taus: torch.Tensor | None = None
+    #: IQN's fractions of the double-Q selection ``[B, online_sample_size]``, from the second of k2's halves
+    online_taus: torch.Tensor | None = None
+
+
+def uniform(source: torch.Generator | Draws, field: str, shape: tuple[int, ...],
+            device: torch.device | str) -> torch.Tensor:
+    """float32 uniforms in ``[0, 1)`` of ``shape`` on ``device``: drawn from the
+    generator ``source``, or the ``field`` of handed :class:`Draws`."""
+    if isinstance(source, Draws):
+        return getattr(source, field).to(device=device, dtype=torch.float32)
+    return torch.rand(shape, generator=source, device=device)
 
 
 def standard_normal(source: torch.Generator | Draws, field: str, like: torch.Tensor) -> torch.Tensor:
@@ -86,6 +104,11 @@ def standard_normal(source: torch.Generator | Draws, field: str, like: torch.Ten
     if isinstance(source, Draws):
         return getattr(source, field).to(device=like.device, dtype=like.dtype)
     return torch.randn(like.shape, generator=source, device=like.device, dtype=like.dtype)
+
+
+def weighted_mean(elem: torch.Tensor, weight: torch.Tensor | None) -> torch.Tensor:
+    """``mean(weight * elem)``, or ``mean(elem)`` without prioritized replay's weights."""
+    return (elem if weight is None else weight * elem).mean()
 
 
 @torch.no_grad()
@@ -168,7 +191,7 @@ class Algorithm:
         self.optim = optim if optim is not None else AdamOptimizerFactory(lr=1e-3)
         self.action_scaling = action_scaling
         self.action_bound_method = action_bound_method
-        self.is_discrete = isinstance(action_space, Discrete)
+        self.is_discrete = isinstance(action_space, (Discrete, MultiDiscrete))
 
     @property
     def action_dim(self) -> int:
@@ -235,6 +258,18 @@ class Algorithm:
             eps = 1e-6
             act = torch.atanh(act.clamp(-1 + eps, 1 - eps))
         return act
+
+    def compute_action(self, ts: TrainState, obs: np.ndarray, generator: torch.Generator | None = None) -> np.ndarray:
+        """One observation in, its env action out, both numpy (reference
+        Policy.compute_action :317): the deterministic action, mapped, computed
+        on the algorithm's device (the train state's); a policy that samples
+        draws from ``generator`` (default: one seeded 0 on that device)."""
+        device = ts.step.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        obs_b = torch.as_tensor(np.asarray(obs), device=device)[None]
+        out = self.forward(ts, obs_b, generator, deterministic=True)
+        return self.map_action(out.act)[0].cpu().numpy()
 
     # ------------------------------------------------------------------
     def preprocess(self, ts: TrainState, buffer, buf_state, batch: Batch,

@@ -23,7 +23,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algorithm.base import ActOut, Draws, OffPolicyAlgorithm, TrainState, polyak_update
+from tianshou_tpu_torch.algorithm.base import ActOut, Draws, OffPolicyAlgorithm, TrainState, polyak_update, weighted_mean
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory, init_adam_state
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
@@ -117,9 +117,7 @@ class ContinuousOffPolicyBase(OffPolicyAlgorithm):
         polyak_update((p for k in self.target_keys for p in ts.target[k].parameters()),
                       (p for k in self.target_keys for p in ts.model[k].parameters()), self.tau)
 
-    @staticmethod
-    def _weighted_mean(elem: torch.Tensor, weight: torch.Tensor | None) -> torch.Tensor:
-        return (elem if weight is None else weight * elem).mean()
+    _weighted_mean = staticmethod(weighted_mean)
 
     def postprocess(self, ts: TrainState, buffer, buf_state, batch: Batch, indices: torch.Tensor, stats: Batch):
         """PER priority writeback of the TD error (reference prio.py:81)."""

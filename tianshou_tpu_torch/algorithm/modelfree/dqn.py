@@ -29,7 +29,7 @@ from tianshou_tpu_torch.algorithm.base import ActOut, OffPolicyAlgorithm, TrainS
 from tianshou_tpu_torch.algorithm.optim import OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
-from tianshou_tpu_torch.env.core import Discrete, Space
+from tianshou_tpu_torch.env.core import Discrete, MultiDiscrete, Space
 from tianshou_tpu_torch.models.distributions import Categorical
 from tianshou_tpu_torch.utils.device import resolve_device
 
@@ -51,8 +51,8 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         eps_training: float = 0.0,
         eps_inference: float = 0.0,
     ) -> None:
-        if not isinstance(action_space, Discrete):
-            raise TypeError(f"Q-learning needs a Discrete action space, got {action_space}")
+        if not isinstance(action_space, (Discrete, MultiDiscrete)):
+            raise TypeError(f"Q-learning needs a Discrete or MultiDiscrete action space, got {action_space}")
         super().__init__(action_space=action_space, gamma=gamma, optim=optim)
         self.model = model
         self.n_step = n_step_return_horizon
@@ -135,6 +135,11 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         return torch.where(uniform < eps, rand_act, act)
 
     # ------------------------------------------------------------------
+    def _online(self, ts: TrainState) -> nn.Module:
+        """The online net the target net copies (FQF's train state also holds
+        the fraction net)."""
+        return ts.model
+
     def _sync_target(self, ts: TrainState) -> TrainState:
         """Copy the online weights into the target net when the gradient-step
         count, already advanced past this step, is a multiple of the period:
@@ -145,7 +150,7 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         if self.use_target:
             sync = ts.step % self.target_update_freq == 0
             with torch.no_grad():
-                for t, o in zip(ts.target.parameters(), ts.model.parameters()):
+                for t, o in zip(ts.target.parameters(), self._online(ts).parameters()):
                     torch.where(sync, o, t, out=t)
         return ts
 

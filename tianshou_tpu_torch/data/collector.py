@@ -281,14 +281,18 @@ class DeviceCollector:
         return cstate, buf_state, out
 
     # ------------------------------------------------------------------
-    def stats_from(self, out: Batch) -> CollectStats:
-        """Summarize a :meth:`collect` output on the host."""
+    def stats_from(self, out: Batch, max_episodes: int | None = None) -> CollectStats:
+        """Summarize a :meth:`collect` output on the host; with ``max_episodes``
+        only the first that many finished episodes, in step order."""
         done = out.done.cpu().numpy()
+        rets, lens = out.ep_ret.cpu().numpy()[done], out.ep_len.cpu().numpy()[done]
+        if max_episodes is not None:
+            rets, lens = rets[:max_episodes], lens[:max_episodes]
         return CollectStats(
             n_collected_steps=int(done.size),
-            n_collected_episodes=int(done.sum()),
-            returns=out.ep_ret.cpu().numpy()[done],
-            lens=out.ep_len.cpu().numpy()[done],
+            n_collected_episodes=int(done.sum() if max_episodes is None else len(rets)),
+            returns=rets,
+            lens=lens,
         )
 
     # ------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Atari network family (port of ``tianshou_tpu/models/atari.py``; reference
 env/atari/atari_network.py: ``DQNet:60`` NatureCNN, ``C51Net:125``,
-``RainbowNet:154`` noisy dueling). ``QRDQNet`` and the implicit-quantile net
-are not ported yet.
+``RainbowNet:154`` noisy dueling, ``QRDQNet:211``) and the implicit-quantile
+head of IQN and FQF over the NatureCNN trunk (``ImplicitQuantileAtariNet``).
 
 The public layout is the JAX package's: observations are NHWC
 ``[B, H, W, C]`` or frame-stacked ``[B, L, H, W, C]`` (the stack folded into
@@ -22,10 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.models.discrete import Noise, NoisyLinear
+from tianshou_tpu_torch.models.discrete import Noise, NoisyLinear, _QuantileHead
 from tianshou_tpu_torch.models.mlp import _lecun_normal_
 
-__all__ = ["NatureCNN", "DQNet", "C51Net", "RainbowAtariNet", "same_out", "same_pads"]
+__all__ = ["NatureCNN", "DQNet", "C51Net", "QRDQNet", "ImplicitQuantileAtariNet", "RainbowAtariNet", "same_out",
+           "same_pads"]
 
 
 def same_out(n: int, stride: int) -> int:
@@ -60,6 +61,9 @@ class NatureCNN(nn.Module):
         self.convs = nn.ModuleList(convs)
         self.flat_hw = (h, w)
         self.fc = nn.Linear(c * h * w, features)
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
         for m in (*self.convs, self.fc):
             _lecun_normal_(m.weight, m.weight[0].numel())
             nn.init.zeros_(m.bias)
@@ -97,7 +101,13 @@ class DQNet(nn.Module):
         super().__init__()
         self.cnn = NatureCNN(in_channels, features, compute_dtype, input_hw)
         self.head = nn.Linear(features, action_dim)
-        _lecun_normal_(self.head.weight, features)
+        self.reset_parameters(trunk=False)
+
+    def reset_parameters(self, trunk: bool = True) -> None:
+        """New weights by the rules of construction (a second critic of the same shape)."""
+        if trunk:
+            self.cnn.reset_parameters()
+        _lecun_normal_(self.head.weight, self.head.in_features)
         nn.init.zeros_(self.head.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -127,6 +137,50 @@ class C51Net(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         logits = self.head(self.cnn(x))
         return F.softmax(logits.reshape(-1, self.action_dim, self.num_atoms), dim=-1)
+
+
+class QRDQNet(nn.Module):
+    """NatureCNN -> quantiles ``[B, action_dim, num_quantiles]`` (reference
+    atari_network.py:211); the head a float32 ``Linear``."""
+
+    def __init__(
+        self,
+        action_dim: int,
+        num_quantiles: int = 200,
+        features: int = 512,
+        in_channels: int = 4,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        input_hw: tuple[int, int] = (84, 84),
+    ) -> None:
+        super().__init__()
+        self.action_dim, self.num_quantiles = action_dim, num_quantiles
+        self.cnn = NatureCNN(in_channels, features, compute_dtype, input_hw)
+        self.head = nn.Linear(features, action_dim * num_quantiles)
+        _lecun_normal_(self.head.weight, features)
+        nn.init.zeros_(self.head.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.cnn(x)).reshape(-1, self.action_dim, self.num_quantiles)
+
+
+class ImplicitQuantileAtariNet(_QuantileHead):
+    """The NatureCNN trunk (bf16 by default, float32 features) with the
+    cosine embedding of the fractions: ``Q(tau)`` ``[B, K, action_dim]``, the
+    Atari IQN / FQF head. ``features`` and ``quantiles`` apart, as
+    :class:`tianshou_tpu_torch.models.discrete.ImplicitQuantileNetwork`."""
+
+    def __init__(
+        self,
+        action_dim: int,
+        features_dim: int = 512,
+        num_cosines: int = 64,
+        in_channels: int = 4,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        input_hw: tuple[int, int] = (84, 84),
+    ) -> None:
+        super().__init__()
+        self.trunk = NatureCNN(in_channels, features_dim, compute_dtype, input_hw)
+        self._make_head(features_dim, action_dim, num_cosines)
 
 
 class RainbowAtariNet(nn.Module):

@@ -1,9 +1,14 @@
-"""flax -> torch weight conversion for the Atari nets, the MLPs and the
-actor-critic nets (on-policy and continuous off-policy).
+"""flax -> torch weight conversion for the Atari nets, the MLPs, the
+discrete heads and the actor-critic nets (on-policy and continuous
+off-policy).
 
 Takes the parameter tree of a ``tianshou_tpu.models.atari`` net (``DQNet``,
-``C51Net``, ``RainbowAtariNet``), of a ``tianshou_tpu.models.mlp`` net
-(``MLP``, ``Net``, ``DuelingNet``) or of an actor-critic net
+``C51Net``, ``QRDQNet``, ``RainbowAtariNet``, ``ImplicitQuantileAtariNet``),
+of a ``tianshou_tpu.models.mlp`` net (``MLP``, ``Net``, ``DuelingNet``,
+``BranchingNet``, ``DictObsNet``), of a ``tianshou_tpu.models.discrete``
+head (``RainbowNet``, ``ImplicitQuantileNetwork``,
+``FractionProposalNetwork``, ``IntrinsicCuriosityModule``, ``MaskedQNet``)
+or of an actor-critic net
 (``ContinuousActorProbabilistic``, ``ContinuousActorDeterministic``,
 ``ContinuousCritic``, ``EnsembleCritic``, ``DiscreteActor``,
 ``DiscreteCritic``) with numpy leaves (``{"params": {...}}`` or the inner
@@ -33,7 +38,10 @@ __all__ = [
     "continuous_actor_prob_params_from_flax", "continuous_critic_params_from_flax", "discrete_actor_params_from_flax",
     "discrete_critic_params_from_flax", "ensemble_critic_params_from_flax",
     "dqnet_params_from_flax", "mlp_params_from_flax", "nature_cnn_params_from_flax", "net_params_from_flax",
-    "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax",
+    "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax", "qrdqnet_params_from_flax",
+    "iqn_params_from_flax", "fraction_params_from_flax", "rainbow_net_params_from_flax",
+    "branching_net_params_from_flax", "icm_params_from_flax", "masked_qnet_params_from_flax",
+    "dict_obs_net_params_from_flax",
 ]
 
 
@@ -75,7 +83,7 @@ def dqnet_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-c51net_params_from_flax = dqnet_params_from_flax
+c51net_params_from_flax = qrdqnet_params_from_flax = dqnet_params_from_flax
 
 
 def noisy_linear_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -201,3 +209,69 @@ def actor_critic_params_from_flax(params: dict, model) -> dict[str, torch.Tensor
     if hasattr(model, "log_alpha"):
         out["log_alpha"] = _t(params["log_alpha"])
     return out
+
+
+def _params(tree: dict) -> dict:
+    return tree["params"] if "params" in tree else tree
+
+
+def iqn_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``ImplicitQuantileNetwork`` (an MLP trunk)
+    or ``ImplicitQuantileAtariNet`` (a NatureCNN trunk, told apart by its
+    ``Conv_0``) from the flax net's tree (scopes ``trunk``, ``cos_emb``,
+    ``merge``, ``head``)."""
+    p = _params(tree)
+    trunk = p["trunk"]
+    out = nature_cnn_params_from_flax(trunk, "trunk.") if "Conv_0" in trunk else mlp_params_from_flax(trunk, "trunk.")
+    out.update(_dense_params(p["cos_emb"]["Dense_0"], "cos_emb.linear"))
+    out.update(_dense_params(p["merge"], "merge"))
+    out.update(_dense_params(p["head"], "head"))
+    return out
+
+
+def fraction_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``FractionProposalNetwork`` (scope ``Dense_0``)."""
+    return _dense_params(_params(tree)["Dense_0"], "linear")
+
+
+def rainbow_net_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of the torch MLP ``RainbowNet`` (scopes ``trunk``, an MLP,
+    and the noisy ``v1``, ``v2``, ``a1``, ``a2``)."""
+    p = _params(tree)
+    out = mlp_params_from_flax(p["trunk"], "trunk.")
+    for name in ("v1", "v2", "a1", "a2"):
+        out.update(noisy_linear_params_from_flax(p[name], prefix=f"{name}."))
+    return out
+
+
+def branching_net_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``BranchingNet``: the trunk ``MLP_0``, the value
+    head ``MLP_1`` and the branch layers ``EnsembleLinear_0`` / ``_1``."""
+    p = _params(tree)
+    out = mlp_params_from_flax(p["MLP_0"], "trunk.")
+    out.update(mlp_params_from_flax(p["MLP_1"], "val."))
+    for name, scope in (("branch", "EnsembleLinear_0"), ("adv", "EnsembleLinear_1")):
+        out[f"{name}.weight"], out[f"{name}.bias"] = _t(p[scope]["kernel"]), _t(p[scope]["bias"])
+    return out
+
+
+def icm_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``IntrinsicCuriosityModule``: ``MLP_0`` ->
+    ``phi``, ``MLP_1`` -> ``phi_next``, ``MLP_2`` -> ``forward_model``,
+    ``MLP_3`` -> ``inverse_model`` (flax's order of creation)."""
+    p = _params(tree)
+    out: dict[str, torch.Tensor] = {}
+    for i, name in enumerate(("phi", "phi_next", "forward_model", "inverse_model")):
+        out.update(mlp_params_from_flax(p[f"MLP_{i}"], f"{name}."))
+    return out
+
+
+def masked_qnet_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``MaskedQNet`` (scope ``MLP_0``)."""
+    return mlp_params_from_flax(_params(tree)["MLP_0"], "mlp.")
+
+
+def dict_obs_net_params_from_flax(tree: dict, convert) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``DictObsNet``: the wrapped net's scope ``net``
+    through ``convert``, the converter of the wrapped net's class."""
+    return {f"net.{k}": v for k, v in convert(_params(tree)["net"]).items()}

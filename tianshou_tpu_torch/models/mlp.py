@@ -16,7 +16,9 @@ weights across. ``EnsembleLinear`` keeps flax's ``[K, I, O]`` kernel and
 fan-in (a receptive field of K), so each member starts at std
 ``1/sqrt(K * I)``, as in the JAX package. ``reset_parameters`` draws a net's
 weights anew by the same rules (a second critic of the same shape).
-``BranchingNet``, ``RandomActor`` and ``DictObsNet`` are not ported yet.
+``BranchingNet`` (:553, BDQN), ``RandomActor`` (:746) and ``DictObsNet``
+with ``flatten_dict_obs`` (the reference's ``get_dict_state_decorator``,
+:677) complete the module.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "Net", "DuelingNet", "EnsembleLinear"]
+__all__ = ["MLP", "Net", "DuelingNet", "EnsembleLinear", "BranchingNet", "RandomActor", "DictObsNet",
+           "flatten_dict_obs"]
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
@@ -168,3 +171,82 @@ class EnsembleLinear(nn.Module):
         if x.dim() == 2:
             x = x.expand(self.weight.shape[0], *x.shape)
         return torch.bmm(x, self.weight) + self.bias
+
+
+class BranchingNet(nn.Module):
+    """Branching dueling Q-network (reference BranchingNet, net/common.py:553;
+    BDQN): a shared trunk, one value head, and per-branch advantage heads as
+    two :class:`EnsembleLinear` layers, ``[K, B, A]`` transposed to
+    ``[B, K, A]``; ``Q = V + A - mean_a(A)`` per branch."""
+
+    def __init__(self, hidden_sizes: Sequence[int], num_branches: int, action_per_branch: int,
+                 value_hidden: Sequence[int] = (128,), branch_hidden: int = 128, *, input_dim: int) -> None:
+        super().__init__()
+        self.num_branches = num_branches
+        self.action_per_branch = action_per_branch
+        self.trunk = MLP(input_dim, hidden_sizes)
+        self.val = MLP(self.trunk.output_dim, value_hidden, 1)
+        self.branch = EnsembleLinear(num_branches, self.trunk.output_dim, branch_hidden)
+        self.adv = EnsembleLinear(num_branches, branch_hidden, action_per_branch)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        feat = self.trunk(obs)
+        val = self.val(feat)  # [B, 1]
+        adv = self.adv(F.relu(self.branch(feat))).transpose(0, 1)  # [B, K, A]
+        return val[:, :, None] + adv - adv.mean(dim=-1, keepdim=True)
+
+
+class RandomActor(nn.Module):
+    """A uniform-random "actor" (reference net/common.py:746): flat logits
+    (discrete) or zero mean and unit sigma (continuous), whatever the
+    observation."""
+
+    def __init__(self, action_dim: int, discrete: bool = True) -> None:
+        super().__init__()
+        self.action_dim = action_dim
+        self.discrete = discrete
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+        shape = (obs.shape[0], self.action_dim)
+        zeros = torch.zeros(shape, device=obs.device)
+        return zeros if self.discrete else (zeros, torch.ones(shape, device=obs.device))
+
+
+def _key_path_str(path: tuple[str, ...]) -> str:
+    """``str`` of the JAX key path of a leaf, the key the JAX package sorts
+    the leaves by: ``str`` of a tuple of ``DictKey``s."""
+    return "(" + ", ".join(f"DictKey(key={k!r})" for k in path) + ("," if len(path) == 1 else "") + ")"
+
+
+def _leaves_with_paths(obs, prefix: tuple[str, ...] = ()) -> list[tuple[tuple[str, ...], torch.Tensor]]:
+    if isinstance(obs, torch.Tensor):
+        return [(prefix, obs)]
+    out = []
+    for k, v in obs.items():
+        out += _leaves_with_paths(v, prefix + (k,))
+    return out
+
+
+def flatten_dict_obs(obs) -> torch.Tensor:
+    """A dict or Batch observation as one feature row per sample (the
+    reference's ``get_dict_state_decorator``, net/common.py:677): every leaf
+    raveled per sample and concatenated in the JAX package's order, sorted
+    by the string of the leaf's JAX key path (``str`` of a tuple of
+    ``DictKey``s, so a nested key sorts by ``"(DictKey(key='a'), ..."``,
+    not by the plain key names)."""
+    leaves = sorted(_leaves_with_paths(obs), key=lambda kv: _key_path_str(kv[0]))
+    return torch.cat([v.reshape(v.shape[0], -1) for _, v in leaves], dim=-1)
+
+
+class DictObsNet(nn.Module):
+    """Any obs -> out module over dict or Batch observations, flattened by
+    :func:`flatten_dict_obs` first (reference get_dict_state_decorator)."""
+
+    def __init__(self, net: nn.Module) -> None:
+        super().__init__()
+        self.net = net
+
+    def forward(self, obs, *args, **kwargs):
+        if not isinstance(obs, torch.Tensor):
+            obs = flatten_dict_obs(obs)
+        return self.net(obs, *args, **kwargs)
