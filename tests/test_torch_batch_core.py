@@ -497,3 +497,38 @@ def test_to_numpy_and_to_torch_inplace():
     assert isinstance(b.a, torch.Tensor)
     b.to_torch_(dtype_map={torch.float32: torch.float64})
     assert b.a.dtype == torch.float64
+
+
+PROTOCOLS = ["ObsBatchProtocol", "RolloutBatchProtocol", "BatchWithReturnsProtocol", "PrioBatchProtocol",
+             "RecurrentStateBatch", "ActBatchProtocol", "ActStateBatchProtocol", "ModelOutputBatchProtocol",
+             "FQFBatchProtocol", "BatchWithAdvantagesProtocol", "DistBatchProtocol", "DistLogProbBatchProtocol",
+             "LogpOldProtocol", "QuantileRegressionBatchProtocol", "ImitationBatchProtocol"]
+
+
+def _keys(cls) -> set:
+    """Every key a protocol declares, its bases' included."""
+    return {k for c in cls.__mro__ for k in getattr(c, "__annotations__", {})}
+
+
+@pytest.mark.parametrize("name", PROTOCOLS)
+def test_typed_protocols_declare_the_jax_packages_keys(name):
+    from tianshou_tpu.data import types as jtypes
+    from tianshou_tpu_torch.data import types as ttypes
+
+    t, j = getattr(ttypes, name), getattr(jtypes, name)
+    assert _keys(t) == _keys(j) and _keys(t)
+    assert [c.__name__ for c in t.__mro__ if c.__name__ in PROTOCOLS] == \
+        [c.__name__ for c in j.__mro__ if c.__name__ in PROTOCOLS]  # the same inheritance
+
+
+def test_key_contracts_and_the_runtime_check_match_jax():
+    from tianshou_tpu.data import types as jtypes
+    from tianshou_tpu_torch.data import types as ttypes
+
+    for name in ("ROLLOUT_KEYS", "RETURNS_KEYS", "ADVANTAGE_KEYS", "PRIO_KEYS", "LOGP_OLD_KEYS", "TRANSITION_EXAMPLE_KEYS"):
+        assert getattr(ttypes, name) == getattr(jtypes, name), name
+    # a runtime check of the protocol reads attributes statically, so neither package's Batch passes it
+    assert isinstance(Batch(obs=torch.zeros(2)), ttypes.ObsBatchProtocol) == \
+        isinstance(JBatch(obs=jnp.zeros(2)), jtypes.ObsBatchProtocol)
+    with pytest.raises(KeyError):
+        ttypes.validate_keys(Batch(obs=torch.zeros(2)), ttypes.ROLLOUT_KEYS)

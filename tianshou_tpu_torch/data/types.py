@@ -4,9 +4,9 @@
 The reference defines 15 structural ``BatchProtocol`` subclasses that
 document the keys each stage of the pipeline produces and consumes. The
 carrier here is always :class:`~tianshou_tpu_torch.data.batch.Batch`, so
-the protocols are ``typing.Protocol`` classes over it for static annotation
-(``ObsBatchProtocol`` is also checkable at run time), and ``validate_keys``
-checks the reserved keys at run time (reference buffer_base.py:41).
+the protocols are ``typing.Protocol`` classes over it for static annotation,
+and ``validate_keys`` checks the reserved keys at run time (reference
+buffer_base.py:41).
 """
 
 from __future__ import annotations
