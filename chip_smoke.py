@@ -188,6 +188,29 @@ Phases, each of which fails the run:
    and BDQN on ``ContinuousToDiscrete(Pendulum(), 25)`` to -250, the reference tests' settings and budgets
    (``DIST_SCORE``), each stopping at its threshold and raising below it. No kernel.
 
+31. Host venvs (``host_ring_identity``): one chunk of ``HD_T`` steps of ``HD_E`` envs of ``ScriptedAtari`` (210x160x3
+   uint8 frames, lives, FIRE; a numpy game defined here, since no ALE is installed) under ``wrap_deepmind``, at eps 0
+   from one train state, collected by ``HostCollector`` over ``DummyVectorEnv``, ``SubprocVectorEnv`` and
+   ``ShmemVectorEnv``: rings bit-identical. ``PipelinedHostCollector`` over 4 Subproc CartPole twins
+   (``NumpyCartPole``, Gymnasium's CartPole-v1 in numpy): ``tests/test_host_env.py:175-205``'s properties, and at
+   eps 0 the sequential collector's rings bit for bit.
+32. ``host_dqn_pixels`` (``examples/atari/_runner.py:_run_offpolicy_host``): DQN over ``DQNet(4)`` through
+   ``HostOffPolicyTrainer`` and a ``HostCollector`` of 16 envs, a 100,000-frame uint8 ring, the random prefill and the
+   epoch cut (``HD_*``), a test phase of 10 episodes; once sequentially and once with ``overlap_updates``. Exactly 2
+   ``gather_rows`` per update; env-steps/s and the host/device split of a vector step.
+33. ``host_ppo_cartpole``: PPO at ``tests/test_onpolicy.py:17-53``'s settings through ``HostOnPolicyTrainer`` over
+   ``VectorEnvNormObs(SubprocVectorEnv(NumpyCartPole))``, the test venv reading the train venv's statistics; 195.
+34. ``recurrent_dqn_pomdp`` (``tests/test_recurrent.py:62-92``): the collect chunk (the LSTM carry under the graph)
+   and the update burst as graphs against eager, bit-identical; then RecurrentDQN to 100, 2 ``gather_rows`` of 256 rows
+   of 8 B per update.
+35. ``her_ddpg_goal_reach_n1`` / ``_n3`` (``tests/test_her.py:110-145``): the same graph check with the HER buffer
+   (its future-goal draws from the graph's generator), then HER-DDPG from seeds 0, 1 and 2; the median best test
+   reward within 8 epochs must reach -20.
+36. ``cached_buffer``: ``tests/test_cached_buffer.py``'s episodes and random ones on the card against the CPU; rings,
+   caches and stacked gets bit-identical (2 ``gather_rows`` per stacked get).
+37. Finite envs: a ``FiniteSubprocVectorEnv`` collect through ``HostCollector`` on the card, the CPU's step counts.
+   The kernel phase (3) also holds ``gather_rows`` at the recurrent path's 256 rows of 8 bytes.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -205,6 +228,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores, same sheet
@@ -426,6 +451,10 @@ def gather_phase(torch, gather) -> tuple[list[dict], list[str]]:
     rep = torch.tensor([5, 5, 5, 0, 512, 512, 7, 5, -4, 10_000], device="cuda")
     cases.append(("uint8[513,3] repeated and out-of-range indices", rag, rep))
     cases.append(("uint8 main ring, repeated indices", src, torch.full((128,), 77, device="cuda")))
+    # the recurrent path's ring: 20,000 rows of 2 float32 (8 bytes), 64 samples x 4 frames per gather
+    ring8 = torch.randn(20_000, 2, device="cuda", generator=g).view(torch.uint8)
+    idx8 = torch.randint(0, 20_000, (256,), device="cuda", generator=g)
+    cases.append(("uint8[20000,8] (float32[20000,2]) x 256 rows", ring8, idx8))
     for width in (16, 2032, 2064, 7057):  # around the 16-byte chunk and the block's edge
         edge = torch.randint(0, 256, (300, width), dtype=torch.uint8, device="cuda", generator=g)
         cases.append((f"uint8[300,{width}] x 200 rows", edge, torch.randint(-2, 302, (200,), device="cuda", generator=g)))
@@ -456,6 +485,13 @@ def gather_phase(torch, gather) -> tuple[list[dict], list[str]]:
             f"bound {bound * 1e3:.3f} (kernel at {bound / kern:.3f} of the bound's rate, {kern / lib:.3f} of the library's time); "
             f"eager us per call: kernel {kern_e * 1e3:.2f} plain {plain_e * 1e3:.2f} library {lib_e * 1e3:.2f}"
         )
+    kern, kern_e = _time_ms(lambda: gather.gather_rows(ring8, idx8))
+    plain, _ = _time_ms(lambda: gather.gather_rows_reference(ring8, idx8))
+    lib, _ = _time_ms(lambda: ring8[idx8])
+    bound = (2 * 256 * 8 + idx8.numel() * idx8.element_size()) / H100_HBM_BYTES_PER_S * 1e3
+    lines.append(f"gather_rows 256 rows x 8 B (the recurrent path's stacked gather), device us (CUDA graph): kernel "
+                 f"{kern * 1e3:.3f} plain {plain * 1e3:.3f} library(src[idx]) {lib * 1e3:.3f} bound {bound * 1e3:.4f}; "
+                 f"eager us per call: kernel {kern_e * 1e3:.2f}")
     if gather.launch_count() == count:
         raise AssertionError("the timed gather_rows calls did not launch the kernel")
     kern, plain, lib, bound = timings[128]  # 32 samples x 4 frames on the main path
@@ -3063,6 +3099,843 @@ def ppo_mlp_cartpole_path(torch):
     ]
 
 
+# ---------------------------------------------------------------------------
+# the host env path, the recurrent Q path, HER and the cached buffer
+# ---------------------------------------------------------------------------
+DEV = "cuda"  # the device of these phases' policies, buffers and updates (the host envs are numpy)
+WAIT_S = 120.0  # the longest any phase waits for one env worker's reply
+# host_dqn_pixels (examples/atari/_runner.py:_run_offpolicy_host): 16 train and 10 test envs of the scripted Atari
+# under wrap_deepmind (the test envs without episodic lives and reward clipping, as the reference's), a
+# 100,000-frame uint8 ring (stack 4, newest frame only, obs_next from the next row), DQN over DQNet at lr 1e-4, n 3,
+# target sync 500, batch 32, T 10, 0.1 updates per env step; the prefill cut from 50,000 steps to HD_PREFILL and the
+# epoch from 100,000 steps to HD_EPOCH_STEPS
+HD_E, HD_TEST_E, HD_BUFFER, HD_T, HD_BATCH, HD_PREFILL, HD_EPOCH_STEPS = 16, 10, 100_000, 10, 32, 2_000, 3_200
+ATARI_FRAMES = 400  # the scripted Atari's frames per game, 100 agent steps under MaxAndSkipEnv
+HD_SPLIT_STEPS = 20  # vector steps of the instrumented collect that splits a step's time
+# recurrent_dqn_pomdp (tests/test_recurrent.py:62-92): MaskVelocity(CartPole), RecurrentQNet(64, 2), a 20,000-row
+# replay of 10 rings with stack 4, n 3, target sync 320, batch 64, T 10, 0.2 updates per env step, a 1,000-step
+# prefill, eps 0.3 annealed to 0.05 over 40,000 steps, at most 12 epochs of 5,000 steps; it must reach 100
+RQ_E, RQ_BUFFER, RQ_STACK, RQ_BATCH, RQ_T, RQ_UPS, RQ_PREFILL = 10, 20_000, 4, 64, 10, 0.2, 1_000
+RQ_EPOCHS, RQ_EPOCH_STEPS, RQ_THRESHOLD = 12, 5_000, 100.0
+# her_ddpg_goal_reach (tests/test_her.py:110-145): GoalReach(1.0, 0.05, 0.05, 60), 128x128 goal nets, HER over a
+# 50,000-row replay of 8 rings (horizon 60, future_k 8), batch 128, T 8, 0.25 updates per env step, a 2,000-step
+# prefill of the policy, 20 test episodes over 10 envs, at most 8 epochs of 4,000 steps; the median best test reward
+# of HER_SEEDS must reach -20
+HER_E, HER_TEST_E, HER_BUFFER, HER_BATCH, HER_T, HER_UPS, HER_PREFILL = 8, 10, 50_000, 128, 8, 0.25, 2_000
+HER_EPOCHS, HER_EPOCH_STEPS, HER_THRESHOLD, HER_SEEDS = 8, 4_000, -20.0, (0, 1, 2)
+
+
+class HostDiscrete:
+    """A host action space of ``n`` actions; ``sample`` draws from its own generator."""
+
+    def __init__(self, n: int, seed: int = 0) -> None:
+        self.n = n
+        self._rng = np.random.default_rng(seed)
+
+    def sample(self) -> int:
+        return int(self._rng.integers(self.n))
+
+
+class NumpyCartPole:
+    """Gymnasium's CartPole-v1 in numpy (its constants, its Euler step in float64, its reset draw of
+    U(-0.05, 0.05) from the seeded generator, its 500-step time limit) with the Gymnasium API, so that this
+    script needs no gymnasium."""
+
+    def __init__(self) -> None:
+        self.action_space = HostDiscrete(2)
+        self._rng = np.random.default_rng()
+        self.theta_threshold = 12 * 2 * 3.141592653589793 / 360
+        self.state = None
+        self.t = 0
+
+    def reset(self, seed=None, **kw):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(-0.05, 0.05, 4)
+        self.t = 0
+        return self.state.astype(np.float32), {}
+
+    def step(self, action):
+        import math
+
+        x, x_dot, theta, theta_dot = self.state
+        force = 10.0 if int(action) == 1 else -10.0
+        costheta, sintheta = math.cos(theta), math.sin(theta)
+        temp = (force + 0.05 * theta_dot**2 * sintheta) / 1.1
+        thetaacc = (9.8 * sintheta - costheta * temp) / (0.5 * (4.0 / 3.0 - 0.1 * costheta**2 / 1.1))
+        xacc = temp - 0.05 * thetaacc * costheta / 1.1
+        x, x_dot = x + 0.02 * x_dot, x_dot + 0.02 * xacc
+        theta, theta_dot = theta + 0.02 * theta_dot, theta_dot + 0.02 * thetaacc
+        self.state = np.array([x, x_dot, theta, theta_dot])
+        self.t += 1
+        terminated = bool(abs(x) > 2.4 or abs(theta) > self.theta_threshold)
+        return self.state.astype(np.float32), 1.0, terminated, self.t >= 500, {}
+
+    def close(self) -> None:
+        pass
+
+
+class _Lives:
+    def __init__(self, env) -> None:
+        self.env = env
+
+    def lives(self) -> int:
+        return self.env.lives
+
+
+class ScriptedAtari:
+    """A raw-frame Atari game in numpy with the ALE surface that the DeepMind wrappers read (the model is
+    ``tests/test_atari_wrappers.py:37`` ``FakeAtari``): ``210x160x3`` uint8 frames, ``ale.lives()``, the
+    action meanings NOOP, FIRE, RIGHT and LEFT, a reset seeded by ``reset(seed=...)``. A ball falls and a
+    paddle that RIGHT and LEFT move catches it: a catch scores 1, a miss costs one of 3 lives; a game
+    ends with the lives or after ``ATARI_FRAMES`` frames."""
+
+    def __init__(self) -> None:
+        self.action_space = HostDiscrete(4)
+        self.unwrapped = self
+        self.ale = _Lives(self)
+        self._rng = np.random.default_rng()
+        self.lives = 3
+
+    def get_action_meanings(self) -> list[str]:
+        return ["NOOP", "FIRE", "RIGHT", "LEFT"]
+
+    def _serve(self) -> None:
+        self.ball = [0, int(self._rng.integers(12, 148))]
+
+    def _frame(self):
+        f = np.zeros((210, 160, 3), np.uint8)
+        f[..., 2] = 40
+        f[186:190, self.paddle - 10:self.paddle + 10] = 200
+        by, bx = self.ball
+        f[by:by + 4, bx - 2:bx + 2] = 255
+        return f
+
+    def reset(self, seed=None, **kw):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.t, self.lives, self.paddle = 0, 3, 80
+        self._serve()
+        return self._frame(), {}
+
+    def step(self, action):
+        self.t += 1
+        a = int(action)
+        self.paddle = min(max(self.paddle + (4 if a == 2 else -4 if a == 3 else 0), 12), 148)
+        self.ball[0] += 6
+        reward = 0.0
+        if self.ball[0] >= 186:
+            if abs(self.ball[1] - self.paddle) <= 12:
+                reward = 1.0
+            else:
+                self.lives -= 1
+            self._serve()
+        return self._frame(), reward, self.lives <= 0, self.t >= ATARI_FRAMES, {}
+
+    def close(self) -> None:
+        pass
+
+
+def pixel_env(test: bool = False):
+    """The scripted Atari under ``wrap_deepmind``: ``[4, 84, 84]`` uint8 observations."""
+    from tianshou_tpu_torch.env.atari import wrap_deepmind
+
+    return wrap_deepmind(ScriptedAtari(), episode_life=not test, clip_rewards=not test)
+
+
+def pixel_test_env():
+    return pixel_env(test=True)
+
+
+def _host_launches():
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    return lambda: _launches(gather, sumtree, physics_fused)
+
+
+def _pixel_example(torch):
+    from tianshou_tpu_torch.data.batch import Batch
+
+    frame = torch.zeros((84, 84), dtype=torch.uint8)
+    return Batch(obs=frame, act=torch.tensor(0), rew=torch.tensor(0.0), terminated=torch.tensor(False),
+                 truncated=torch.tensor(False), obs_next=frame.clone())
+
+
+def _pixel_buffer(size: int):
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+
+    return VectorReplayBuffer(size, HD_E, stack_num=4, save_only_last_obs=True, ignore_obs_next=True)
+
+
+def host_dqn(torch, eps: float = 1.0):
+    """``examples/atari/atari_dqn.py``'s DQN over ``DQNet(4)`` on ``DEV``: (algo, train state)."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.env.core import Discrete
+    from tianshou_tpu_torch.models.atari import DQNet
+
+    torch.manual_seed(SEED)
+    algo = DQN(model=DQNet(action_dim=4), action_space=Discrete(4), optim=AdamOptimizerFactory(lr=1e-4), gamma=0.99,
+               n_step_return_horizon=3, target_update_freq=500, eps_training=eps, eps_inference=TEST_EPS)
+    return algo, algo.init(DEV)
+
+
+def host_ring_identity(torch) -> list[str]:
+    """One chunk (T steps of every env) of the pixel path at eps 0 from one train state and one seed,
+    collected over ``DummyVectorEnv``, ``SubprocVectorEnv`` and ``ShmemVectorEnv``: the rings, cursors
+    and episode statistics must be bit-identical."""
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.env.shmem import ShmemVectorEnv
+    from tianshou_tpu_torch.env.venvs import DummyVectorEnv, SubprocVectorEnv
+
+    algo, ts = host_dqn(torch, eps=0.0)
+    rings, stats = {}, {}
+    for name, cls in (("dummy", DummyVectorEnv), ("subproc", SubprocVectorEnv), ("shmem", ShmemVectorEnv)):
+        venv = cls([pixel_env] * HD_E, **({} if name == "dummy" else {"recv_timeout": WAIT_S}))
+        try:
+            buffer = _pixel_buffer(HD_E * 32)
+            coll = HostCollector(venv, algo, buffer, device=DEV)
+            coll.reset(seed=SEED)
+            coll.reset_buffer(_pixel_example(torch))
+            st = coll.collect(ts, torch.Generator(device=DEV).manual_seed(SEED), n_step=HD_T * HD_E)
+            bs = coll.buf_state
+            rings[name] = [bs.cursor, bs.size, bs.last_idx, *bs.data.values()]
+            stats[name] = (st.n_collected_episodes, st.returns.tolist(), st.lens.tolist())
+        finally:
+            venv.close()
+    for name in ("subproc", "shmem"):
+        if stats[name] != stats["dummy"] or not all(torch.equal(a, b) for a, b in zip(rings[name], rings["dummy"])):
+            raise AssertionError(f"host_dqn_pixels: the {name} venv's rings differ from the dummy venv's")
+    obs = rings["dummy"][3]
+    return [f"host_dqn_pixels, venvs: one chunk of {HD_T} steps x {HD_E} envs at eps 0 from one train state: Dummy, "
+            f"Subproc and Shmem rings {tuple(obs.shape)} uint8 bit-identical ({int(rings['dummy'][1].sum())} rows, "
+            f"{stats['dummy'][0]} episodes)"]
+
+
+def _step_split(torch, coll, ts, gen, steps: int) -> str:
+    """An instrumented collect of ``steps`` vector steps: the time in the forward with its action copy
+    to the host (``_act``, which synchronises), in the envs (``venv.step``), and the rest (the observations'
+    copy to the device, the buffer's insert, the books). Returns a report fragment."""
+    spent = {"act": 0.0, "env": 0.0}
+    act, step = coll._act, coll.venv.step
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    coll._act, coll.venv.step = timed("act", act), timed("env", step)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coll.collect(ts, gen, n_step=steps * len(coll.venv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del coll._act
+        coll.venv.step = step
+    per = 1e3 / steps
+    return (f"a vector step of {len(coll.venv)} envs {wall * per:.2f} ms: envs {spent['env'] * per:.2f} ms, forward with "
+            f"the action copy {spent['act'] * per:.2f} ms, observation copy to the device, buffer insert and books "
+            f"{(wall - spent['env'] - spent['act']) * per:.2f} ms ({steps} steps)")
+
+
+def host_dqn_pixels_path(torch, overlap: bool):
+    """The twin of ``examples/atari/_runner.py:_run_offpolicy_host`` on the card: ``HostOffPolicyTrainer``
+    over a ``HostCollector`` of ``DummyVectorEnv`` (with ``overlap_updates``: the chunk's updates launched
+    from the step hook), the random prefill, one epoch, a test phase over 10 envs. Exactly 2
+    ``gather_rows`` per update and no other kernel. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.env.venvs import DummyVectorEnv
+    from tianshou_tpu_torch.trainer.trainer import HostOffPolicyTrainer, OffPolicyTrainerParams
+
+    name = "host_dqn_pixels" + ("_overlap" if overlap else "")
+    algo, ts = host_dqn(torch)
+    buffer = _pixel_buffer(HD_BUFFER)
+    bs = buffer.init(_pixel_example(torch), device=DEV)
+    venvs = [DummyVectorEnv([pixel_env] * HD_E), DummyVectorEnv([pixel_test_env] * HD_TEST_E)]
+    try:
+        tc = HostCollector(venvs[0], algo, buffer, device=DEV)
+        ec = HostCollector(venvs[1], algo, None, device=DEV)
+        tests = []
+
+        def score(stats) -> float:
+            tests.append(stats)
+            return float(stats.returns.mean())
+
+        params = OffPolicyTrainerParams(
+            max_epochs=1, epoch_num_steps=HD_EPOCH_STEPS, test_step_num_episodes=TEST_EPISODES, batch_size=HD_BATCH,
+            collection_step_num_env_steps=HD_T, update_per_step=0.1, start_steps=HD_PREFILL, compute_score_fn=score,
+            train_fn=lambda epoch, step: {"eps_training": max(0.05, 1.0 - step / 1_000_000)}, verbose=False, seed=SEED,
+            overlap_updates=overlap)
+        trainer = HostOffPolicyTrainer(algo, tc, ec, buffer, params)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        read = _host_launches()
+        res = trainer.run(ts, bs, gen)
+        torch.cuda.synchronize()
+        launches = read()
+        n_updates = round(0.1 * HD_T * HD_E)
+        chunks = HD_EPOCH_STEPS // (HD_T * HD_E)
+        if res.gradient_step != chunks * n_updates or int(ts.step) != res.gradient_step:
+            raise AssertionError(f"{name}: {res.gradient_step} updates ({int(ts.step)} on the device), expected "
+                                 f"{chunks * n_updates}")
+        expect = {"gather_rows": 2 * res.gradient_step, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
+        if launches != expect:
+            raise AssertionError(f"{name}: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
+        if len(tests) != 1 or tests[0].n_collected_episodes != TEST_EPISODES or not np.isfinite(tests[0].returns).all():
+            raise AssertionError(f"{name}: the test phase returned {[t.n_collected_episodes for t in tests]} episodes")
+        rows = int(tc.buf_state.size.sum())
+        if rows != HD_PREFILL + HD_EPOCH_STEPS or not bool(torch.isfinite(res.last_chunk_stats.loss).all()):
+            raise AssertionError(f"{name}: {rows} rows stored, loss {res.last_chunk_stats.loss}")
+        graphs = {g.name: g for g in trainer.graph_pool.graphs}
+        t = res.timing
+        train_s = t["collect"] + t["update"]
+        split = _step_split(torch, tc, ts, gen, HD_SPLIT_STEPS)
+    finally:
+        for v in venvs:
+            v.close()
+    return launches, [
+        f"{name} path: E={HD_E} T={HD_T} ring uint8 {tuple(bs.data.obs.shape)} ({bs.data.obs.numel() / 1e9:.3f} GB); "
+        f"prefill {HD_PREFILL} in {t['prefill']:.2f} s; epoch of {HD_EPOCH_STEPS} steps and {res.gradient_step} updates: "
+        f"collect {t['collect']:.2f} s, update {t['update']:.2f} s (with overlap_updates the updates run inside the "
+        f"collect and update is what the env steps did not hide); env_steps_per_s {HD_EPOCH_STEPS / train_s:.1f} "
+        f"(collect and update); test {t['test']:.2f} s for {TEST_EPISODES} episodes (returns mean "
+        f"{tests[0].returns.mean():.2f}, length mean {tests[0].lens.mean():.1f}); gather_rows {launches['gather_rows']} "
+        f"= 2 per update; programs and captures "
+        f"{ {n: (g.replays, None if g.capture_s is None else round(g.capture_s, 2)) for n, g in graphs.items()} }",
+        f"{name} path, host/device split: {split}",
+    ]
+
+
+def pipelined_check(torch) -> list[str]:
+    """``PipelinedHostCollector`` on the card over 4 ``SubprocVectorEnv`` CartPole twins
+    (``tests/test_host_env.py:175-205``): every ring advanced by exactly T, ``obs_next`` of a step the
+    next step's ``obs`` inside an episode, integer actions, consistent episode books; then at eps 0
+    its rings against the sequential collector's, bit-identical."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.data.pipelined_collector import PipelinedHostCollector
+    from tianshou_tpu_torch.env.core import Discrete
+    from tianshou_tpu_torch.env.venvs import SubprocVectorEnv
+    from tianshou_tpu_torch.models.mlp import Net
+
+    E, steps = 4, 15
+    torch.manual_seed(SEED)
+    algo = DQN(model=Net((32, 32), 2, input_dim=4), action_space=Discrete(2), optim=AdamOptimizerFactory(lr=1e-3),
+               gamma=0.97, target_update_freq=16, eps_training=0.2)
+    ts = algo.init(DEV)
+    ex = Batch(obs=torch.zeros(4), act=torch.tensor(0), rew=torch.tensor(0.0), terminated=torch.tensor(False),
+               truncated=torch.tensor(False), obs_next=torch.zeros(4))
+    rings = []
+    venvs = [SubprocVectorEnv([NumpyCartPole] * E, recv_timeout=WAIT_S) for _ in range(3)]
+    try:
+        for k, (cls, eps) in enumerate(((PipelinedHostCollector, 0.2), (PipelinedHostCollector, 0.0),
+                                        (HostCollector, 0.0))):
+            ts.hparams["eps_training"].fill_(eps)
+            col = cls(venvs[k], algo, VectorReplayBuffer(E * 100, E), device=DEV)
+            col.reset(seed=3)
+            col.reset_buffer(ex)
+            stats = col.collect(ts, torch.Generator(device=DEV).manual_seed(1), n_step=E * steps)
+            bs = col.buf_state
+            if k == 0:
+                obs, obs_next, done = (bs.data[key].cpu().numpy() for key in ("obs", "obs_next", "done"))
+                inside = all(np.array_equal(obs_next[e, i], obs[e, i + 1]) for e in range(E) for i in range(steps - 1)
+                             if not done[e, i])
+                if (stats.n_collected_steps != E * steps or bs.size.tolist() != [steps] * E or not inside
+                        or bs.data.act.dtype != torch.int64
+                        or not stats.n_collected_episodes == len(stats.returns) == len(stats.lens)):
+                    raise AssertionError("pipelined collector: its rings or books are off")
+            else:
+                rings.append([bs.cursor, bs.size, *bs.data.values()])
+    finally:
+        for v in venvs:
+            v.close()
+    if not all(torch.equal(a, b) for a, b in zip(*rings)):
+        raise AssertionError("pipelined collector: its rings differ from the sequential collector's at eps 0")
+    return [f"pipelined collector on the card ({E} Subproc CartPole twins, {steps} steps): rings advanced by {steps} each, "
+            f"obs_next chained to the next obs, integer actions, consistent books; at eps 0 bit-identical to the "
+            f"sequential collector's rings"]
+
+
+def host_ppo_cartpole_path(torch):
+    """PPO on CartPole at ``tests/test_onpolicy.py:17-53``'s settings through ``HostOnPolicyTrainer`` over
+    ``VectorEnvNormObs(SubprocVectorEnv(16 numpy CartPole twins))``; the test venv (10 envs) reads the
+    train venv's ``RunningMeanStd``, frozen (``examples/mujoco/_runner.py:242-246``). It must reach
+    ``CP_THRESHOLD`` within the reference test's 20 epochs. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.env.core import Discrete
+    from tianshou_tpu_torch.env.venvs import SubprocVectorEnv, VectorEnvNormObs
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+    from tianshou_tpu_torch.trainer.trainer import HostOnPolicyTrainer, OnPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    algo = PPO(actor=DiscreteActor((64, 64), 2, input_dim=4), critic=DiscreteCritic((64, 64), input_dim=4),
+               action_space=Discrete(2), optim=AdamOptimizerFactory(lr=3e-4, max_grad_norm=0.5), gamma=0.99,
+               gae_lambda=0.95, eps_clip=0.2, ent_coef=0.01, deterministic_eval=True)
+    train = VectorEnvNormObs(SubprocVectorEnv([NumpyCartPole] * PCP_E, recv_timeout=WAIT_S))
+    test = VectorEnvNormObs(SubprocVectorEnv([NumpyCartPole] * CP_E, recv_timeout=WAIT_S), update_obs_rms=False)
+    test.set_obs_rms(train.get_obs_rms())
+    try:
+        tests = []
+
+        def score(stats) -> float:
+            tests.append(stats)
+            return float(stats.returns.mean())
+
+        params = OnPolicyTrainerParams(
+            max_epochs=PCP_EPOCHS, epoch_num_steps=PCP_EPOCH_STEPS, test_step_num_episodes=10, batch_size=PCP_BATCH,
+            collection_step_num_env_steps=PCP_T, update_step_num_repetitions=PCP_REPEAT,
+            stop_fn=lambda r: r >= CP_THRESHOLD, compute_score_fn=score, verbose=False, seed=SEED)
+        trainer = HostOnPolicyTrainer(algo, HostCollector(train, algo, None, device=DEV),
+                                      HostCollector(test, algo, None, device=DEV), params)
+        read = _host_launches()
+        res = trainer.run(algo.init(DEV), torch.Generator(device=DEV).manual_seed(SEED))
+        launches = read()
+        rms = train.get_obs_rms()
+    finally:
+        train.close()
+        test.close()
+    if not res.best_reward >= CP_THRESHOLD:
+        raise AssertionError(f"host_ppo_cartpole: best test reward {res.best_reward} after {res.epochs} epochs, below "
+                             f"{CP_THRESHOLD}")
+    if any(launches.values()) or int(res.train_state.step) != res.gradient_step:
+        raise AssertionError(f"host_ppo_cartpole: launches {launches}, steps {res.gradient_step} / "
+                             f"{int(res.train_state.step)}")
+    if test.get_obs_rms() is not rms or not rms.count > res.env_step:
+        raise AssertionError("host_ppo_cartpole: the test venv does not read the train venv's statistics")
+    t = res.timing
+    graphs = {g.name.split()[0]: (g.replays, None if g.capture_s is None else round(g.capture_s, 2))
+              for g in trainer.graph_pool.graphs}
+    return launches, [
+        f"host_ppo_cartpole path: best test reward {res.best_reward:.1f} (threshold {CP_THRESHOLD}) after {res.epochs} "
+        f"epochs (test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}); env_steps {res.env_step} "
+        f"gradient_steps {res.gradient_step}; collect {t['collect']:.2f} s, update {t['update']:.2f} s, test "
+        f"{t['test']:.2f} s; train env_steps_per_s {res.env_step / (t['collect'] + t['update']):.1f}; the train venv's "
+        f"RunningMeanStd ({rms.count:.0f} rows) read frozen by the test venv; programs {graphs}; no kernel"]
+
+
+def mask_velocity_cartpole():
+    """``tests/test_recurrent.py:21`` ``MaskVelocity(CartPole())``: only the position and the angle."""
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import Box, Env
+
+    class MaskVelocity(Env):
+        def __init__(self, env) -> None:
+            self.env = env
+            self.observation_space = Box(low=[-4.8, -0.5], high=[4.8, 0.5])
+            self.action_space = env.action_space
+            self.max_episode_steps = env.max_episode_steps
+
+        def reset(self, num_envs, generator, device):
+            s, obs = self.env.reset(num_envs, generator, device)
+            return s, obs[:, 0::2]  # a slice: an index list would be a host-to-device copy in a graph
+
+        def step(self, state, action, generator):
+            s = self.env.step(state, action, generator)
+            return s._replace(obs=s.obs[:, 0::2])
+
+    return MaskVelocity(CartPole())
+
+
+def build_recurrent(torch):
+    """(algo, buffer, train collector, test collector) of the recurrent POMDP path on ``DEV``."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import RecurrentDQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.recurrent import RecurrentQNet
+
+    torch.manual_seed(SEED)
+    env = mask_velocity_cartpole()
+    algo = RecurrentDQN(model=RecurrentQNet(64, 2, input_dim=2), action_space=env.action_space,
+                        optim=AdamOptimizerFactory(lr=1e-3), gamma=0.97, n_step_return_horizon=3,
+                        target_update_freq=320, eps_training=0.3)
+    buffer = VectorReplayBuffer(RQ_BUFFER, RQ_E, stack_num=RQ_STACK)
+    return (algo, buffer, DeviceCollector(VectorDeviceEnv(env, RQ_E, device=DEV), algo, buffer),
+            DeviceCollector(VectorDeviceEnv(env, CP_E, device=DEV), algo, None))
+
+
+def _vector_example(torch, obs, act):
+    from tianshou_tpu_torch.data.batch import Batch
+
+    return Batch(obs=obs, act=act, rew=torch.tensor(0.0), terminated=torch.tensor(False),
+                 truncated=torch.tensor(False), obs_next=obs.map(torch.clone) if hasattr(obs, "map") else obs.clone())
+
+
+def offpolicy_graph_check(torch, name: str, algo, buffer, example, coll, T_: int, batch: int,
+                          prefill_chunks: int) -> str:
+    """The trainer's collect chunk and update burst as CUDA graphs against the same calls run eagerly,
+    from one prefilled state and one generator state on deep copies: ``GRAPH_CALLS`` collect chunks of
+    ``T_`` steps, then ``GRAPH_CALLS`` bursts of ``GRAPH_K`` updates. The collect outputs, the rings, the
+    collect state (the policy's carry included), the stats, every weight and optimizer tensor must be
+    bit-identical, and the kernels launched the same. Returns a report line."""
+    import copy
+
+    from tianshou_tpu_torch.ops.kernels import counters
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    ts = algo.init(DEV)
+    bs = buffer.init(example, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    cstate = coll.reset(gen)
+    for _ in range(prefill_chunks):
+        coll.collect(ts, cstate, bs, gen, T_, random=True)
+    sides = {}
+    for side in ("graph", "eager"):
+        s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
+        s_gen = torch.Generator(device=DEV)
+        s_gen.set_state(gen.get_state())
+        trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
+            batch_size=batch, collection_step_num_env_steps=T_, verbose=False)) if side == "graph" else None
+        before = counters.snapshot()
+        outs, stats = [], []
+        for _ in range(GRAPH_CALLS):
+            out = (coll.collect(s_ts, s_cs, s_bs, s_gen, T_)[2] if trainer is None
+                   else trainer.collect_chunk(s_ts, s_cs, s_bs, s_gen, T_))
+            outs.append(out.map(torch.clone))
+        for _ in range(GRAPH_CALLS):
+            if trainer is None:
+                st = [algo.update(s_ts, buffer, s_bs, s_gen, batch)[2] for _ in range(GRAPH_K)]
+                st = {k: torch.stack([x[k] for x in st]) for k in st[0].keys()}
+            else:
+                st = trainer.update_burst(s_ts, s_bs, s_gen, GRAPH_K)
+            stats.append({k: v.clone() for k, v in st.items()})
+        torch.cuda.synchronize()
+        after = counters.snapshot()
+        sides[side] = dict(ts=s_ts, bs=s_bs, cstate=s_cs, outs=outs, stats=stats, trainer=trainer,
+                           launches={k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)})
+    g, e = sides["graph"], sides["eager"]
+    replays = {x.name.split()[0]: x.replays for x in g["trainer"].graph_pool.graphs}
+    if replays != {"collect_chunk": GRAPH_CALLS - 1, "update_burst": GRAPH_CALLS - 1}:
+        raise AssertionError(f"{name} graph check: replays {replays}")
+    pairs = [(x, y) for call in range(GRAPH_CALLS) for x, y in zip(_leaves(g["outs"][call]), _leaves(e["outs"][call]))]
+    pairs += [(g["stats"][c][k], e["stats"][c][k]) for c in range(GRAPH_CALLS) for k in e["stats"][c]]
+    pairs += list(zip(_leaves(g["cstate"]), _leaves(e["cstate"])))
+    pairs += [(g["bs"].cursor, e["bs"].cursor), (g["bs"].size, e["bs"].size), *zip(_leaves(g["bs"].data), _leaves(e["bs"].data))]
+    for a, b in ((g["ts"].model, e["ts"].model), (g["ts"].target, e["ts"].target)):
+        pairs += list(zip(a.state_dict().values(), b.state_dict().values()))
+    pairs += list(zip(_optimizer_state(g["ts"]), _optimizer_state(e["ts"])))
+    differ = sum(not torch.equal(x, y) for x, y in pairs)
+    if differ or not int(g["ts"].step) == int(e["ts"].step) == GRAPH_CALLS * GRAPH_K:
+        raise AssertionError(f"{name} graph check: {differ} of {len(pairs)} tensors differ from eager")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"{name} graph check: launches {g['launches']}, eager {e['launches']}")
+    return (f"{name} graph check, graphs against eager: {GRAPH_CALLS} collect chunks of T={T_} (the policy's carry "
+            f"under the graph) and {GRAPH_CALLS} x {GRAPH_K} updates: {len(pairs)} tensors (collect outputs and state, "
+            f"rings, stats, weights, targets, optimizer state) bit-identical, max |diff| 0; launches {g['launches']} as "
+            f"eager; replays {replays}")
+
+
+def recurrent_dqn_pomdp_path(torch):
+    """``tests/test_recurrent.py:62-92`` on the card: the graph check, then RecurrentDQN trained through the
+    graphed ``OffPolicyTrainer`` to ``RQ_THRESHOLD``; exactly 2 ``gather_rows`` per update (the stacked obs
+    and the n-step terminal row's stacked obs_next, rows of 8 bytes). Returns ({kernel: launches}, lines)."""
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    algo, buffer, tc, ec = build_recurrent(torch)
+    example = _vector_example(torch, torch.zeros(2), torch.tensor(0))
+    check = offpolicy_graph_check(torch, "recurrent_dqn_pomdp", algo, buffer, example, tc, RQ_T, RQ_BATCH, 2)
+    algo, buffer, tc, ec = build_recurrent(torch)
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    params = OffPolicyTrainerParams(
+        max_epochs=RQ_EPOCHS, epoch_num_steps=RQ_EPOCH_STEPS, test_step_num_episodes=10, batch_size=RQ_BATCH,
+        collection_step_num_env_steps=RQ_T, update_per_step=RQ_UPS, start_steps=RQ_PREFILL,
+        stop_fn=lambda r: r >= RQ_THRESHOLD, compute_score_fn=score,
+        train_fn=lambda epoch, step: {"eps_training": max(0.05, 0.3 * (1 - step / 40000))}, verbose=False)
+    trainer = OffPolicyTrainer(algo, tc, ec, buffer, params)
+    read = _host_launches()
+    res = trainer.run(algo.init(DEV), buffer.init(example, device=DEV), torch.Generator(device=DEV).manual_seed(SEED))
+    launches = read()
+    if not res.best_reward >= RQ_THRESHOLD:
+        raise AssertionError(f"recurrent_dqn_pomdp: best test reward {res.best_reward} after {res.epochs} epochs (by "
+                             f"epoch {[round(float(s.returns.mean()), 1) for s in tests]}), below {RQ_THRESHOLD}")
+    expect = {"gather_rows": 2 * res.gradient_step, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
+    if launches != expect:
+        raise AssertionError(f"recurrent_dqn_pomdp: launches {launches} for {res.gradient_step} updates, expected {expect}")
+    t = res.timing
+    train_steps = res.env_step - RQ_PREFILL
+    graphs = {g.name.split()[0]: round(g.capture_s, 2) for g in trainer.graph_pool.graphs if g.capture_s is not None}
+    return launches, [check, (
+        f"recurrent_dqn_pomdp path: best test reward {res.best_reward:.1f} (threshold {RQ_THRESHOLD}) after {res.epochs} "
+        f"epochs (test reward by epoch {[round(float(s.returns.mean()), 1) for s in tests]}); env_steps {res.env_step} "
+        f"gradient_steps {res.gradient_step}; collect {t['collect']:.2f} s, update {t['update']:.2f} s ("
+        f"{t['update'] / res.gradient_step * 1e3:.3f} ms per update with the captures), test {t['test']:.2f} s; train "
+        f"env_steps_per_s {train_steps / (t['collect'] + t['update']):.1f}; gather_rows {launches['gather_rows']} = 2 per "
+        f"update, rows of {2 * 4} B, {RQ_BATCH * RQ_STACK} rows a gather; capture s {graphs}")]
+
+
+def goal_nets():
+    """``tests/test_her.py:64-80``'s goal-conditioned actor and critic (128x128 MLPs) in the port."""
+    import torch
+    from torch import nn
+
+    from tianshou_tpu_torch.models.mlp import MLP
+
+    class GoalActor(nn.Module):
+        def __init__(self) -> None:
+            super().__init__()
+            self.mlp = MLP(4, (128, 128), 2)
+
+        def forward(self, obs):
+            return torch.tanh(self.mlp(torch.cat([obs.observation, obs.desired_goal], dim=-1)))
+
+    class GoalCritic(nn.Module):
+        def __init__(self) -> None:
+            super().__init__()
+            self.mlp = MLP(6, (128, 128), 1)
+
+        def forward(self, obs, act):
+            return self.mlp(torch.cat([obs.observation, obs.desired_goal, act], dim=-1))[:, 0]
+
+    return GoalActor(), GoalCritic()
+
+
+def build_her(torch, n_step: int, seed: int):
+    """(algo, HER buffer, example, train collector, test collector) of ``tests/test_her.py:run_goal_ddpg``."""
+    from tianshou_tpu_torch.algorithm.modelfree.ddpg import DDPG
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.her import HERVectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.goal_reach import GoalReach
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.exploration.noise import GaussianNoise
+
+    torch.manual_seed(seed)
+    env = GoalReach(size=1.0, step_size=0.05, eps=0.05, max_episode_steps=60)
+    actor, critic = goal_nets()
+    algo = DDPG(actor=actor, critic=critic, action_space=env.action_space,
+                policy_optim=AdamOptimizerFactory(lr=1e-3), critic_optim=AdamOptimizerFactory(lr=1e-3), gamma=0.98,
+                tau=0.005, exploration_noise=GaussianNoise(sigma=0.3), action_scaling=False,
+                n_step_return_horizon=n_step)
+    buffer = HERVectorReplayBuffer(HER_BUFFER, HER_E, compute_reward_fn=env.compute_reward, horizon=60, future_k=8.0)
+    goal = Batch(observation=torch.zeros(2), achieved_goal=torch.zeros(2), desired_goal=torch.zeros(2))
+    example = _vector_example(torch, goal, torch.zeros(2))
+    return (algo, buffer, example, DeviceCollector(VectorDeviceEnv(env, HER_E, device=DEV), algo, buffer),
+            DeviceCollector(VectorDeviceEnv(env, HER_TEST_E, device=DEV), algo, None))
+
+
+def her_ddpg_goal_reach_path(torch, n_step: int):
+    """``tests/test_her.py:110-145`` at ``n_step`` on the card: the graph check (the relabelled update burst,
+    its future-goal draws from the graph's generator, against eager), then HER-DDPG through the graphed
+    ``OffPolicyTrainer`` from each of ``HER_SEEDS``; the median of their best test rewards within
+    ``HER_EPOCHS`` epochs must reach ``HER_THRESHOLD`` (one seed's best reward spreads over about 2 in both
+    packages: PERF.md, section 6). No kernel. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    name = f"her_ddpg_goal_reach_n{n_step}"
+    algo, buffer, example, tc, ec = build_her(torch, n_step, SEED)
+    lines = [offpolicy_graph_check(torch, name, algo, buffer, example, tc, HER_T, HER_BATCH, 8)]
+    read = _host_launches()
+    bests = []
+    for seed in HER_SEEDS:
+        algo, buffer, example, tc, ec = build_her(torch, n_step, seed)
+        tests = []
+
+        def score(stats, tests=tests) -> float:
+            tests.append(stats)
+            return float(stats.returns.mean())
+
+        params = OffPolicyTrainerParams(
+            max_epochs=HER_EPOCHS, epoch_num_steps=HER_EPOCH_STEPS, test_step_num_episodes=20, batch_size=HER_BATCH,
+            collection_step_num_env_steps=HER_T, update_per_step=HER_UPS, start_steps=HER_PREFILL, start_random=False,
+            stop_fn=lambda r: r >= -12, compute_score_fn=score, verbose=False)
+        trainer = OffPolicyTrainer(algo, tc, ec, buffer, params)
+        res = trainer.run(algo.init(DEV), buffer.init(example, device=DEV), torch.Generator(device=DEV).manual_seed(seed))
+        bests.append(res.best_reward)
+        t = res.timing
+        lines.append(
+            f"{name} path, seed {seed}: best test reward {res.best_reward:.2f} after {res.epochs} epochs (test reward by "
+            f"epoch {[round(float(s.returns.mean()), 2) for s in tests]}); env_steps {res.env_step} gradient_steps "
+            f"{res.gradient_step}; collect {t['collect']:.2f} s, update {t['update']:.2f} s "
+            f"({t['update'] / res.gradient_step * 1e3:.3f} ms per update with the captures), test {t['test']:.2f} s; "
+            f"train env_steps_per_s {(res.env_step - HER_PREFILL) / (t['collect'] + t['update']):.1f}")
+    launches = read()
+    median = statistics.median(bests)
+    if not median >= HER_THRESHOLD:
+        raise AssertionError(f"{name}: the median best test reward of seeds {HER_SEEDS} is {median} ({bests}), below "
+                             f"{HER_THRESHOLD}")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: kernel launches {launches}, expected none")
+    lines.append(f"{name} path: median best test reward {median:.2f} of seeds {HER_SEEDS} ({[round(b, 2) for b in bests]}; "
+                 f"threshold {HER_THRESHOLD}); no kernel")
+    return launches, lines
+
+
+CACHED_SCRIPTS = (  # tests/test_cached_buffer.py: (buffer kwargs, adds of (obs per env, done per env))
+    (dict(main_size=16, num_envs=1, max_episode_len=4), [([0.0], [0]), ([1.0], [0]), ([2.0], [0]), ([3.0], [1])]),
+    (dict(main_size=16, num_envs=2, max_episode_len=8), [([0.0, 100.0], [0, 0]), ([1.0, 101.0], [1, 0])]),
+    (dict(main_size=16, num_envs=2, max_episode_len=8), [([i, 10.0 + i], [i == 2] * 2) for i in range(3)]),
+    (dict(main_size=4, num_envs=1, max_episode_len=4), [([b + j], [j == 1]) for b in (0.0, 10.0, 20.0) for j in (0, 1)]),
+    (dict(main_size=16, num_envs=3, max_episode_len=8), [([1.0, 2.0, 3.0], [0, 1, 0])]),
+    (dict(main_size=8, num_envs=1, max_episode_len=4), [([5.0], [0]), ([6.0], [1])]),
+    (dict(main_size=8, num_envs=2, max_episode_len=4, stack_num=2),
+     [([0.0, 50.0], [0, 0]), ([1.0, 51.0], [0, 1]), ([2.0, 60.0], [1, 0])]),
+    (dict(main_size=16, num_envs=2, max_episode_len=4, stack_num=3),
+     [([s, 100.0 + s], [s % 3 == 2, s % 4 == 3]) for s in range(12)]),
+)
+
+
+def cached_buffer_phase(torch):
+    """The episodes of ``tests/test_cached_buffer.py`` (and 40 adds of random episodes over 3 envs) replayed
+    into a ``CachedReplayBuffer`` on the card and on the CPU: the main ring and the caches (data,
+    cursors, sizes, newest rows) and the stacked gets of every main row (``gather_rows`` on the card)
+    bit-identical. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.cached import CachedReplayBuffer
+
+    rng = np.random.default_rng(SEED)
+    scripts = list(CACHED_SCRIPTS)
+    length, adds = np.zeros(3, int), []
+    for _ in range(40):
+        done = (rng.random(3) < 0.3) | (length == 4)
+        adds.append((rng.standard_normal(3).tolist(), done.tolist()))
+        length = np.where(done, 0, length + 1)
+    scripts.append((dict(main_size=24, num_envs=3, max_episode_len=5, stack_num=2), adds))
+    ex = Batch(obs=torch.tensor(0.0), act=torch.tensor(0), rew=torch.tensor(0.0), terminated=torch.tensor(False),
+               truncated=torch.tensor(False), obs_next=torch.tensor(0.0))
+    read = _host_launches()
+    tensors, launches = 0, dict.fromkeys(read(), 0)
+    for kw, script in scripts:
+        states = {}
+        for side, dev in enumerate(("cpu", DEV)):
+            before = read()
+            buf = CachedReplayBuffer(**kw)
+            state = buf.init(ex, device=dev)
+            for obs, done in script:
+                o = torch.tensor(obs, dtype=torch.float32, device=dev)
+                buf.add(state, Batch(obs=o, act=torch.zeros(len(obs), dtype=torch.int64, device=dev), rew=o * 0.1,
+                                     terminated=torch.tensor(done, dtype=torch.bool, device=dev),
+                                     truncated=torch.zeros(len(obs), dtype=torch.bool, device=dev), obs_next=o + 1))
+            got = buf.get(state, torch.arange(buf.main.capacity, device=dev))
+            states[side] = [*_leaves(state.main.data), *_leaves(state.cache.data), state.main.cursor, state.main.size,
+                            state.main.last_idx, state.cache.cursor, state.cache.size, *_leaves(got)]
+            if side:  # the card's adds and gets only
+                launches = {k: n + read()[k] - before[k] for k, n in launches.items()}
+        pairs = list(zip(states[0], states[1]))
+        if not all(torch.equal(a, b.cpu()) for a, b in pairs):
+            raise AssertionError(f"cached buffer {kw}: the card's rings or stacked gets differ from the CPU's")
+        tensors += len(pairs)
+    stacked = sum(kw.get("stack_num", 1) > 1 for kw, _ in scripts)
+    if launches != {"gather_rows": 2 * stacked, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}:
+        raise AssertionError(f"cached buffer: launches {launches}, expected 2 gather_rows for each of {stacked} stacked gets")
+    return launches, [f"cached buffer: {len(scripts)} scripts ({sum(len(s) for _, s in scripts)} adds) on the card and "
+                      f"on the CPU: {tensors} tensors (main ring, caches, stacked gets) bit-identical; gather_rows "
+                      f"{launches['gather_rows']} (obs and obs_next of {stacked} stacked gets)"]
+
+
+class FiniteDataset:
+    """``tests/test_env_finite.py:20``: 100 samples; sample i lasts (3 i mod 5) + 1 env steps."""
+
+    def __init__(self, length: int) -> None:
+        self.episodes = [3 * i % 5 + 1 for i in range(length)]
+
+    def __len__(self) -> int:
+        return len(self.episodes)
+
+
+class FiniteStreamEnv:
+    """One shard of the dataset; ``reset`` gives ``(None, {})`` once the shard is exhausted."""
+
+    def __init__(self, dataset: FiniteDataset, replicas: int, rank: int) -> None:
+        self.dataset = dataset
+        self.indices = list(range(rank, len(dataset), replicas))
+        self.iterator = None
+
+    def reset(self, seed=None, **kw):
+        if self.iterator is None:
+            self.iterator = iter(self.indices)
+        try:
+            self.sample = next(self.iterator)
+        except StopIteration:
+            self.iterator = None
+            return None, {}
+        self.step_count, self.current = self.dataset.episodes[self.sample], 0
+        return np.float32(self.sample), {}
+
+    def step(self, action):
+        self.current += 1
+        return np.float32(0), 1.0, self.current >= self.step_count, False, {"sample": self.sample}
+
+    def close(self) -> None:
+        pass
+
+
+class _Counter:
+    """The finite venv's tracker: env steps and finished samples."""
+
+    def __init__(self) -> None:
+        self.steps, self.finished = 0, []
+
+    def log(self, obs, rew, terminated, truncated, info) -> None:
+        self.steps += 1
+        if terminated or truncated:
+            self.finished.append(info["sample"])
+
+
+def finite_env_phase(torch) -> list[str]:
+    """``tests/test_env_finite.py``'s sharded dataset through ``HostCollector`` (action 1 for every env, on
+    the card) over ``FiniteSubprocVectorEnv``, three epochs, against the same collect on the CPU over
+    ``FiniteDummyVectorEnv``: every sample finishes once per epoch, ``StopIteration`` ends each epoch,
+    the step counts are the CPU's."""
+    from tianshou_tpu_torch.algorithm.base import ActOut
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.env.finite import FiniteDummyVectorEnv, FiniteSubprocVectorEnv
+
+    class ActOne:
+        def forward(self, ts, obs, generator=None, state=None, deterministic=False):
+            return ActOut(act=torch.ones(obs.shape[0], dtype=torch.int64, device=obs.device), state=state, info=Batch())
+
+        def exploration_noise(self, ts, act, obs, generator, training=True):
+            return act
+
+        def map_action(self, act):
+            return act
+
+    counts = []  # steps per epoch: the CPU's, the card's
+    for dev, cls, kw in (("cpu", FiniteDummyVectorEnv, {}), (DEV, FiniteSubprocVectorEnv, {"recv_timeout": WAIT_S})):
+        dataset = FiniteDataset(100)
+        venv = cls([(lambda r=r: FiniteStreamEnv(dataset, 5, r)) for r in range(5)], **kw)
+        try:
+            coll = HostCollector(venv, ActOne(), None, device=dev)
+            coll.reset()
+            counts.append([])
+            for _ in range(3):
+                venv.tracker = _Counter()
+                try:
+                    coll.collect(None, torch.Generator(device=dev), n_step=10**9)
+                except StopIteration:
+                    pass
+                else:
+                    raise AssertionError("finite envs: a collect ended without StopIteration")
+                if sorted(venv.tracker.finished) != list(range(100)):
+                    raise AssertionError(f"finite envs on {dev}: {len(venv.tracker.finished)} samples finished")
+                counts[-1].append(venv.tracker.steps)
+        finally:
+            venv.close()
+    if counts[0] != counts[1]:
+        raise AssertionError(f"finite envs: steps per epoch {counts[1]} on the card, {counts[0]} on the CPU")
+    return [f"finite envs: 3 epochs of the 100-sample dataset over FiniteSubprocVectorEnv through HostCollector on the "
+            f"card: every sample once per epoch, StopIteration at each end, {counts[1]} env steps per epoch as on the CPU"]
+
+
 def main() -> int:
     import torch
 
@@ -3191,6 +4064,21 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path[name], lines = dist_score_path(torch, name)  # raises below the threshold
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    lines = host_ring_identity(torch) + pipelined_check(torch)  # raise unless the rings agree
+    print("\n".join(lines), f"\nhost venv and pipelined checks: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    paths = [(f"host_dqn_pixels{'_overlap' if o else ''}", lambda o=o: host_dqn_pixels_path(torch, o)) for o in (False, True)]
+    paths += [("host_ppo_cartpole", lambda: host_ppo_cartpole_path(torch)),
+              ("recurrent_dqn_pomdp", lambda: recurrent_dqn_pomdp_path(torch))]
+    paths += [(f"her_ddpg_goal_reach_n{n}", lambda n=n: her_ddpg_goal_reach_path(torch, n)) for n in (1, 3)]
+    paths += [("cached_buffer", lambda: cached_buffer_phase(torch))]
+    for name, path in paths:
+        t0 = time.perf_counter()
+        by_path[name], lines = path()  # raises on a failed check or below the threshold
+        print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    lines = finite_env_phase(torch)  # raises unless the card's counts are the CPU's
+    print("\n".join(lines), f"\nfinite env phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -12,6 +12,7 @@ __version__ = "0.1.0"
 
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.base import ReplayBuffer, VectorReplayBuffer
+from tianshou_tpu_torch.data.buffer.her import HERReplayBuffer, HERVectorReplayBuffer
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer, PrioritizedVectorReplayBuffer
 from tianshou_tpu_torch.data.collector import CollectStats, DeviceCollector
 from tianshou_tpu_torch.env.core import Box, Discrete, Env, MultiDiscrete, VectorDeviceEnv
@@ -22,7 +23,7 @@ from tianshou_tpu_torch.trainer.trainer import (
     OnPolicyTrainerParams,
 )
 
-# the HER buffers and the offline trainer come with their ports (ROADMAP.md, Queue 1)
+# the offline trainer comes with its port (ROADMAP.md, Queue 1)
 __all__ = [
     "Batch",
     "Box",
@@ -30,6 +31,8 @@ __all__ = [
     "DeviceCollector",
     "Discrete",
     "Env",
+    "HERReplayBuffer",
+    "HERVectorReplayBuffer",
     "MultiDiscrete",
     "OffPolicyTrainer",
     "OffPolicyTrainerParams",

@@ -87,6 +87,11 @@ class Draws:
     target_taus: torch.Tensor | None = None
     #: IQN's fractions of the double-Q selection ``[B, online_sample_size]``, from the second of k2's halves
     online_taus: torch.Tensor | None = None
+    #: HER's future-goal draws ``[B]`` in ``[0, 1)``: the offset into the episode's remaining steps and the
+    #: relabel coin (the JAX buffer's ``sample`` splits k1 into the indices' key and ``k_her``, and
+    #: ``relabel_plan`` splits ``k_her`` into these two)
+    her_offset: torch.Tensor | None = None
+    her_relabel: torch.Tensor | None = None
 
 
 def uniform(source: torch.Generator | Draws, field: str, shape: tuple[int, ...],
@@ -292,9 +297,14 @@ class Algorithm:
                batch_size: int) -> tuple[TrainState, Any, Batch]:
         """sample -> preprocess -> update_step -> postprocess (reference
         Algorithm._update, algorithm_base.py:586). With :class:`Draws` for
-        ``generator`` the buffer takes ``generator.indices`` as its draw."""
-        rows = generator.indices if isinstance(generator, Draws) else generator
-        batch, indices = buffer.sample(buf_state, rows, batch_size, drop_keys=self.update_sample_drop_keys)
+        ``generator`` the buffer takes ``generator.indices`` as its draw. A
+        buffer that relabels on sample (HER) gets the generator or the draws
+        itself and every field, since relabelling reads ``obs_next``."""
+        if getattr(buffer, "relabels_on_sample", False):
+            batch, indices = buffer.sample(buf_state, generator, batch_size)
+        else:
+            rows = generator.indices if isinstance(generator, Draws) else generator
+            batch, indices = buffer.sample(buf_state, rows, batch_size, drop_keys=self.update_sample_drop_keys)
         batch = self.preprocess(ts, buffer, buf_state, batch, indices, generator)
         ts, stats = self.update_step(ts, batch, generator)
         buf_state = self.postprocess(ts, buffer, buf_state, batch, indices, stats)
@@ -334,9 +344,35 @@ class OffPolicyAlgorithm(Algorithm):
     @torch.no_grad()
     def preprocess(self, ts, buffer, buf_state, batch: Batch, indices: torch.Tensor,
                    generator: torch.Generator) -> Batch:
-        rews, ends, obs_next_t, terminated_t = self._nstep_terminal(buffer, buf_state, batch, indices)
-        tq = self._target_q(ts, obs_next_t, generator)
-        mask = value_mask(terminated_t)
-        tq = tq * mask.reshape(mask.shape + (1,) * (tq.dim() - 1))
-        batch.returns = nstep_returns(rews, ends, tq, self.gamma)
+        """``batch.returns``: the n-step returns bootstrapped by ``_target_q``
+        at the chain's terminal row. Under HER (``relabels_on_sample``) the
+        buffer's relabel plan (``her_new_goal``, ``her_relabel``, popped here)
+        relabels the n-step chain as it relabelled the sample (the reference
+        rewrites the buffer before ``compute_nstep_return``, her.py:100 and
+        algorithm_base.py:721); at n = 1 the bootstrap comes straight off the
+        relabelled batch."""
+        if getattr(buffer, "relabels_on_sample", False):
+            new_goal, relabel = batch.pop("her_new_goal"), batch.pop("her_relabel")
+            if self.n_step == 1:
+                tq = self._masked_target(ts, batch.obs_next, batch.terminated, generator)
+                rew = batch.rew.reshape(batch.rew.shape + (1,) * (tq.dim() - 1))
+                batch.returns = rew + self.gamma * tq
+                return batch
+            base_state = buf_state.base if hasattr(buf_state, "base") else buf_state
+            rews, ends, term_idx = buffer.n_step_gather_relabeled(base_state, indices, self.n_step, new_goal, relabel)
+            terminal = buffer.get(buf_state, term_idx, keys=("obs_next", "terminated"))
+            terminal.obs_next = terminal.obs_next.copy()
+            terminal.obs_next.desired_goal = buffer._splice(new_goal, terminal.obs_next.desired_goal, relabel)
+            obs_next_t, terminated_t = terminal.obs_next, terminal.terminated
+        else:
+            rews, ends, obs_next_t, terminated_t = self._nstep_terminal(buffer, buf_state, batch, indices)
+        batch.returns = nstep_returns(rews, ends, self._masked_target(ts, obs_next_t, terminated_t, generator),
+                                      self.gamma)
         return batch
+
+    def _masked_target(self, ts, obs_next: Any, terminated: torch.Tensor,
+                       generator: torch.Generator | Draws | None) -> torch.Tensor:
+        """``_target_q`` zeroed where the episode terminated."""
+        tq = self._target_q(ts, obs_next, generator)
+        mask = value_mask(terminated)
+        return tq * mask.reshape(mask.shape + (1,) * (tq.dim() - 1))

@@ -33,7 +33,7 @@ from tianshou_tpu_torch.env.core import Discrete, MultiDiscrete, Space
 from tianshou_tpu_torch.models.distributions import Categorical
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["DQN", "QLearningOffPolicyAlgorithm"]
+__all__ = ["DQN", "QLearningOffPolicyAlgorithm", "RecurrentDQN", "RecurrentDQN_Mixin"]
 
 
 class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
@@ -162,6 +162,29 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         return buf_state
 
 
+class RecurrentDQN_Mixin:
+    """LSTM-carry acting for a Q-learning algorithm whose model is a
+    :class:`tianshou_tpu_torch.models.recurrent.RecurrentQNet` (reference
+    Recurrent net/common.py:372 and the collector's hidden-state carry).
+    Training reads frame-stacked samples (the buffer's ``stack_num``) through
+    the model's sequence path; acting steps the cell once per env step from
+    the carry the collector holds, zeros at the start and where an episode
+    ended."""
+
+    def init_policy_state(self, num_envs: int, device: str | torch.device | None = None):
+        """The zero carry ``(c, h)``, ``[num_envs, hidden_size]`` each."""
+        return self.model.zero_carry(num_envs, resolve_device(device))
+
+    @torch.no_grad()
+    def forward(self, ts: TrainState, obs: Any, generator: torch.Generator | None = None,
+                state: Any = None, deterministic: bool = False) -> ActOut:
+        q, new_state = ts.model.step(obs, state)
+        mask = self._action_mask(obs)
+        if mask is not None:
+            q = torch.where(mask, q, -torch.inf)
+        return ActOut(act=q.argmax(dim=-1), state=new_state, info=Batch(q=q))
+
+
 class DQN(QLearningOffPolicyAlgorithm):
     def __init__(self, *args, is_double: bool = True, huber_loss_delta: float | None = None,
                  **kwargs) -> None:
@@ -205,3 +228,7 @@ class DQN(QLearningOffPolicyAlgorithm):
         self._sync_target(ts)
         stats = Batch(loss=loss.detach(), q_mean=q.detach().mean(), td_error=td.detach())
         return ts, stats
+
+
+class RecurrentDQN(RecurrentDQN_Mixin, DQN):
+    """DQN over a ``RecurrentQNet`` with the collector-carried LSTM state."""

@@ -134,6 +134,11 @@ class DeviceCollector:
         self.on_episode_done_hook = on_episode_done_hook
         self._episodes: EpisodeState | None = None  # collect_episodes' state, reset in place by each call
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the envs and the collector's state."""
+        return self.venv.device
+
     # ------------------------------------------------------------------
     def reset(self, generator: torch.Generator, into: CollectState | None = None) -> CollectState:
         """A fresh state, every leaf its own tensor (an env may hand back one

@@ -8,7 +8,8 @@ of a ``tianshou_tpu.models.mlp`` net (``MLP``, ``Net``, ``DuelingNet``,
 ``BranchingNet``, ``DictObsNet``), of a ``tianshou_tpu.models.discrete``
 head (``RainbowNet``, ``ImplicitQuantileNetwork``,
 ``FractionProposalNetwork``, ``IntrinsicCuriosityModule``, ``MaskedQNet``)
-or of an actor-critic net
+of a ``tianshou_tpu.models.recurrent`` net (``RecurrentQNet``,
+``RecurrentActorProb``, ``RecurrentCritic``) or of an actor-critic net
 (``ContinuousActorProbabilistic``, ``ContinuousActorDeterministic``,
 ``ContinuousCritic``, ``EnsembleCritic``, ``DiscreteActor``,
 ``DiscreteCritic``) with numpy leaves (``{"params": {...}}`` or the inner
@@ -41,7 +42,7 @@ __all__ = [
     "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax", "qrdqnet_params_from_flax",
     "iqn_params_from_flax", "fraction_params_from_flax", "rainbow_net_params_from_flax",
     "branching_net_params_from_flax", "icm_params_from_flax", "masked_qnet_params_from_flax",
-    "dict_obs_net_params_from_flax",
+    "dict_obs_net_params_from_flax", "recurrent_params_from_flax",
 ]
 
 
@@ -275,3 +276,27 @@ def dict_obs_net_params_from_flax(tree: dict, convert) -> dict[str, torch.Tensor
     """``state_dict`` of a torch ``DictObsNet``: the wrapped net's scope ``net``
     through ``convert``, the converter of the wrapped net's class."""
     return {f"net.{k}": v for k, v in convert(_params(tree)["net"]).items()}
+
+
+def recurrent_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``RecurrentQNet``, ``RecurrentActorProb`` or
+    ``RecurrentCritic`` from the flax net's parameter tree. flax's
+    ``OptimizedLSTMCell`` keeps one Dense per gate: ``ii/if/ig/io`` on the
+    input (no bias) and ``hi/hf/hg/ho`` on the hidden state (with bias);
+    ``torch.nn.LSTMCell`` stacks the gates in the same i, f, g, o order, so
+    ``weight_ih`` and ``weight_hh`` are the transposed concatenations, the
+    hidden gates' biases go to ``bias_hh`` and ``bias_ih`` is zero."""
+    p = _params(tree)
+    cell = p["core"]["cell"]
+    out = {f"core.{k}": v for k, v in _dense_params(p["embed"], "embed").items()}
+    gates = "ifgo"
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]) for g in gates], axis=1)
+    w_hh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]) for g in gates], axis=1)
+    out["core.cell.weight_ih"] = _t(w_ih.T)
+    out["core.cell.weight_hh"] = _t(w_hh.T)
+    out["core.cell.bias_hh"] = _t(np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates]))
+    out["core.cell.bias_ih"] = torch.zeros_like(out["core.cell.bias_hh"])
+    for name in ("head", "mu", "sigma"):
+        if name in p:
+            out.update(_dense_params(p[name], name))
+    return out

@@ -42,10 +42,18 @@ run at the same time. A replay does only device work, so whatever the JAX
 package does on the host after a jitted call (trace lines,
 ``on_episode_done_hook``, logger writes) runs here after the replay. On the
 CPU the same code runs eagerly. The random prefill stays eager.
+
+The host trainers (:class:`HostOffPolicyTrainer`, :class:`HostOnPolicyTrainer`,
+``tianshou_tpu/trainer/trainer.py:614-846``) train over host envs through a
+:class:`tianshou_tpu_torch.data.host_collector.HostCollector`: the collect
+is host code that moves each step's observations to the device, and the
+update burst and the rollout update are the same programs as above.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import time
 from collections.abc import Callable
@@ -63,9 +71,10 @@ from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
 from tianshou_tpu_torch.utils.print import DataclassPPrintMixin
 from tianshou_tpu_torch.utils.progress import progress_bar
 from tianshou_tpu_torch.utils.statistics import MovAvg
+from tianshou_tpu_torch.utils.tree import tree_map
 
-__all__ = ["OffPolicyTrainer", "OffPolicyTrainerParams", "OnPolicyTrainer", "OnPolicyTrainerParams", "TrainResult",
-           "TrainerParams"]
+__all__ = ["HostOffPolicyTrainer", "HostOnPolicyTrainer", "OffPolicyTrainer", "OffPolicyTrainerParams",
+           "OnPolicyTrainer", "OnPolicyTrainerParams", "TrainResult", "TrainerParams"]
 
 
 @dataclasses.dataclass
@@ -87,7 +96,7 @@ class TrainerParams(DataclassPPrintMixin):
     show_progress: bool = False
     test_in_train: bool = False
     resume_from_log: bool = False   # restore epoch/step counters (trainer.py:448)
-    seed: int = 0                   # read by the JAX package's host-env trainers, which are not ported yet
+    seed: int = 0                   # the host trainers' first env reset (HostOffPolicyTrainer, HostOnPolicyTrainer)
 
 
 @dataclasses.dataclass
@@ -101,6 +110,11 @@ class OffPolicyTrainerParams(TrainerParams):
     # the card); the burst follows the collect, so the actor's params stay
     # chunk-stale as in the sequential loop (tianshou_tpu trainer.py:76)
     fused_megastep: bool = False
+    # host path only: launch the chunk's gradient steps from the collector's
+    # step hook, so that the device runs them while the host steps the envs;
+    # the chunk acts on a copy of its start's parameters, as the sequential
+    # loop does (tianshou_tpu trainer.py:84)
+    overlap_updates: bool = False
 
 
 @dataclasses.dataclass
@@ -194,7 +208,7 @@ class _TrainerBase:
         held = self._programs.get(key)
         if held is None or any(a is not b for a, b in zip(held[0], states)):
             if self.graph_pool is None:
-                self.graph_pool = GraphPool(self.train_collector.venv.device)
+                self.graph_pool = GraphPool(self.train_collector.device)
             elif held is not None:
                 self.graph_pool.graphs.remove(held[1])
             held = (states, Graphed(fn, self.graph_pool, (generator,), name=" ".join(map(str, key))))
@@ -238,17 +252,25 @@ class _TrainerBase:
         place and the values they replaced are written back afterwards (a key
         that only ``test_fn`` sets keeps its value)."""
         p = self.params
+        rms = None
+        if self._cstate is not None:
+            rms = extract_pooled_rms(self.train_collector.venv.env, self._cstate.env_state)
+        with self._test_hparams(ts):
+            return self.test_collector.collect_episodes(ts, generator, p.test_step_num_episodes, training=False,
+                                                        rms=rms, chunk_fn=self.test_chunk)
+
+    @contextlib.contextmanager
+    def _test_hparams(self, ts):
+        """``test_fn``'s overrides written into the train state for the
+        block, the values they replaced written back after it."""
+        p = self.params
         saved = {}
         if p.test_fn is not None:
             overrides = p.test_fn(self._epoch, self.env_step) or {}
             saved = {k: ts.hparams[k].clone() for k in overrides if k in ts.hparams}
             self._apply_hparams(ts, overrides)
-        rms = None
-        if self._cstate is not None:
-            rms = extract_pooled_rms(self.train_collector.venv.env, self._cstate.env_state)
         try:
-            return self.test_collector.collect_episodes(ts, generator, p.test_step_num_episodes, training=False,
-                                                        rms=rms, chunk_fn=self.test_chunk)
+            yield
         finally:
             for k, v in saved.items():
                 ts.hparams[k].copy_(v)
@@ -535,6 +557,214 @@ class OnPolicyTrainer(_TrainerBase):
                 timing["update"] += time.perf_counter() - tu
                 self.gradient_step += p.update_step_num_repetitions * n_mb
                 last_stats = stats.map(torch.clone)  # a graph's output: the next replay overwrites it
+                self._log_update(last_stats)
+            pbar.close()
+            if self._end_epoch(epoch, t0, timing, ts, test):
+                break
+        return self._result(epoch, t0, timing, ts, None, last_stats)
+
+
+class _HostTrainerMixin:
+    """What the two host trainers share: the first env reset from
+    ``params.seed``, the test phase through the host test collector
+    (``n_episode`` from a reset, ``test_fn``'s overrides for the phase only),
+    and the host side of a training collect."""
+
+    def _test(self, ts, generator: torch.Generator) -> CollectStats:
+        with self._test_hparams(ts):
+            return self.test_collector.collect(ts, generator, n_episode=self.params.test_step_num_episodes,
+                                               training=False, reset_before_collect=True)
+
+    def _start(self, ts) -> None:
+        if self.train_collector._obs is None:
+            self.train_collector.reset(seed=self.params.seed)
+        self._ts = ts
+
+    def _after_host_collect(self, stats: CollectStats, pbar) -> None:
+        self.env_step += stats.n_collected_steps
+        pbar.update(stats.n_collected_steps)
+        if self.params.logger is not None and stats.n_collected_episodes:
+            self.params.logger.log_train_data(
+                {"train/reward": float(stats.returns.mean()), "train/length": float(stats.lens.mean())},
+                self.env_step)
+
+
+class HostOffPolicyTrainer(_HostTrainerMixin, OffPolicyTrainer):
+    """Off-policy training over host envs (the JAX package's
+    ``HostOffPolicyTrainer``, ``tianshou_tpu/trainer/trainer.py:720-846``):
+    the epoch, test and stop semantics of :class:`OffPolicyTrainer`, with
+    collection through a :class:`tianshou_tpu_torch.data.host_collector.HostCollector`
+    (or a pipelined or async one) that writes the device buffer, and the
+    update burst on the device (a CUDA graph on the card). Each chunk
+    collects ``collection_step_num_env_steps * len(venv)`` env steps, then
+    takes ``round(update_per_step * that)`` gradient steps.
+
+    ``overlap_updates``: the chunk's gradient steps are launched one at a
+    time from the collector's step hook (one graph of one update, replayed),
+    so that the device runs them while the host steps the envs; the rest run
+    after the collect, so a chunk takes as many steps as in the sequential
+    loop. The updates change the parameters in place, so the chunk acts on a
+    copy of its start's parameters, as the JAX chunk's forwards read the
+    chunk-start train state."""
+
+    def __init__(self, algo, train_collector, test_collector, buffer, params: OffPolicyTrainerParams) -> None:
+        super().__init__(algo, train_collector, test_collector, buffer, params)
+        self._act_model = None
+
+    def _acting_state(self, ts):
+        """The train state with its model replaced by a copy of the current
+        parameters (the copy is made once and written in place after)."""
+        if self._act_model is None:
+            self._act_model = copy.deepcopy(ts.model).requires_grad_(False)
+        with torch.no_grad():
+            for dst, src in zip(self._act_model.state_dict().values(), ts.model.state_dict().values()):
+                dst.copy_(src)
+        return dataclasses.replace(ts, model=self._act_model)
+
+    def _overlapped_chunk(self, ts, generator: torch.Generator, n_steps: int, n_updates: int):
+        """One chunk with its updates launched from the step hook; returns
+        (collect stats, the last update's stats)."""
+        p, tc = self.params, self.train_collector
+        st = {"pend": 0.0, "n": 0, "stats": None}
+
+        def one() -> None:
+            st["stats"] = self.update_burst(ts, tc.buf_state, generator, 1)
+            st["n"] += 1
+
+        def hook(n_env_steps: int) -> None:
+            st["pend"] += p.update_per_step * n_env_steps
+            while st["pend"] >= 1.0 and st["n"] < n_updates:
+                st["pend"] -= 1.0
+                one()
+
+        tc.step_hook = hook
+        try:
+            stats = tc.collect(self._acting_state(ts), generator, n_step=n_steps)
+        finally:
+            tc.step_hook = None
+        while st["n"] < n_updates:  # the rounding remainder: the sequential loop's count per chunk
+            one()
+        return stats, st["stats"]
+
+    def run(self, ts, buf_state, generator: torch.Generator) -> TrainResult:
+        """Train in place; ``generator`` lives on the collector's device."""
+        p, tc = self.params, self.train_collector
+        dev = tc.device
+        t0 = time.perf_counter()
+        timing = dict.fromkeys(("prefill", "collect", "update", "test"), 0.0)
+        tc.buf_state = buf_state
+        self._start(ts)
+        T = p.collection_step_num_env_steps * len(tc.venv)
+        if p.start_steps > 0:
+            tp = time.perf_counter()
+            tc.collect(ts, generator, n_step=p.start_steps, random=p.start_random)
+            self.env_step += p.start_steps
+            _sync(dev)
+            timing["prefill"] = time.perf_counter() - tp
+
+        def test() -> CollectStats:
+            tt = time.perf_counter()
+            stats = self._test(ts, generator)
+            timing["test"] += time.perf_counter() - tt
+            return stats
+
+        n_updates = max(1, round(p.update_per_step * T))
+        last_stats = None
+        epoch = self.start_epoch
+        for epoch in range(self.start_epoch + 1, p.max_epochs + 1):
+            self._epoch = epoch
+            steps_this_epoch = 0
+            pbar = progress_bar(p.epoch_num_steps, f"epoch {epoch}", p.show_progress)
+            while steps_this_epoch < p.epoch_num_steps:
+                if p.train_fn is not None:
+                    self._apply_hparams(ts, p.train_fn(epoch, self.env_step))
+                tc0 = time.perf_counter()
+                if p.overlap_updates:
+                    stats, burst = self._overlapped_chunk(ts, generator, T, n_updates)
+                    timing["collect"] += time.perf_counter() - tc0
+                    tu = time.perf_counter()
+                    _sync(dev)  # what the env steps did not hide
+                    timing["update"] += time.perf_counter() - tu
+                else:
+                    stats = tc.collect(ts, generator, n_step=T)
+                    _sync(dev)
+                    timing["collect"] += time.perf_counter() - tc0
+                if config.ENABLE_VALIDATION:
+                    _validate_collect(Batch(obs=tc._obs_dev))
+                steps_this_epoch += stats.n_collected_steps
+                self._after_host_collect(stats, pbar)
+                if not p.overlap_updates:
+                    tu = time.perf_counter()
+                    burst = self.update_burst(ts, tc.buf_state, generator, n_updates)
+                    _sync(dev)
+                    timing["update"] += time.perf_counter() - tu
+                self.gradient_step += n_updates
+                last_stats = burst.map(torch.clone)  # a graph's output: the next replay overwrites it
+                self._log_update(last_stats)
+            pbar.close()
+            if self._end_epoch(epoch, t0, timing, ts, test):
+                break
+        return self._result(epoch, t0, timing, ts, tc.buf_state, last_stats)
+
+
+class HostOnPolicyTrainer(_HostTrainerMixin, OnPolicyTrainer):
+    """On-policy training over host envs (the JAX package's
+    ``HostOnPolicyTrainer``, ``tianshou_tpu/trainer/trainer.py:614-718``):
+    rollouts from :meth:`HostCollector.collect_rollout`, moved to the device
+    step by step, then ``update_rollout`` on the device (a CUDA graph on the
+    card, over a rollout the trainer keeps and each chunk's rollout is
+    copied into)."""
+
+    def __init__(self, algo, train_collector, test_collector, params: OnPolicyTrainerParams) -> None:
+        super().__init__(algo, train_collector, test_collector, params)
+        self._rollout: Batch | None = None
+
+    def _static_rollout(self, rollout: Batch) -> Batch:
+        if self._rollout is None:
+            self._rollout = rollout
+        else:
+            tree_map(torch.Tensor.copy_, self._rollout, rollout)
+        return self._rollout
+
+    def run(self, ts, generator: torch.Generator) -> TrainResult:
+        """Train in place; ``generator`` lives on the collector's device."""
+        p, tc = self.params, self.train_collector
+        dev = tc.device
+        t0 = time.perf_counter()
+        timing = dict.fromkeys(("collect", "update", "test"), 0.0)
+        self._start(ts)
+        T = p.collection_step_num_env_steps
+        n_mb, _ = self.algo.minibatch_shape(T * len(tc.venv), p.batch_size)
+
+        def test() -> CollectStats:
+            tt = time.perf_counter()
+            stats = self._test(ts, generator)
+            timing["test"] += time.perf_counter() - tt
+            return stats
+
+        last_stats = None
+        epoch = self.start_epoch
+        for epoch in range(self.start_epoch + 1, p.max_epochs + 1):
+            self._epoch = epoch
+            steps_this_epoch = 0
+            pbar = progress_bar(p.epoch_num_steps, f"epoch {epoch}", p.show_progress)
+            while steps_this_epoch < p.epoch_num_steps:
+                if p.train_fn is not None:
+                    self._apply_hparams(ts, p.train_fn(epoch, self.env_step))
+                tc0 = time.perf_counter()
+                rollout, stats = tc.collect_rollout(ts, generator, T)
+                _sync(dev)
+                timing["collect"] += time.perf_counter() - tc0
+                if config.ENABLE_VALIDATION:
+                    _validate_collect(rollout)
+                steps_this_epoch += stats.n_collected_steps
+                self._after_host_collect(stats, pbar)
+                tu = time.perf_counter()
+                upd = self.update_rollout(ts, self._static_rollout(rollout), generator)
+                _sync(dev)
+                timing["update"] += time.perf_counter() - tu
+                self.gradient_step += p.update_step_num_repetitions * n_mb
+                last_stats = upd.map(torch.clone)
                 self._log_update(last_stats)
             pbar.close()
             if self._end_epoch(epoch, t0, timing, ts, test):
