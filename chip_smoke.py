@@ -211,6 +211,32 @@ Phases, each of which fails the run:
 37. Finite envs: a ``FiniteSubprocVectorEnv`` collect through ``HostCollector`` on the card, the CPU's step counts.
    The kernel phase (3) also holds ``gather_rows`` at the recurrent path's 256 rows of 8 bytes.
 
+38. The offline ring (``fill_offline_ring``): ``bench.py``'s uint8 ring (256 x 512 frames, stack 4, newest frame
+   only) filled once by the DQN pipeline's collector from its seeded untrained weights at eps 0.2: 512 steps of
+   256 envs as collect chunks of T = 16 (the trainer's graph), no updates; its line gives the eps and the fill time.
+39. The offline pixel paths (``offline_pixel_path``, ``examples/offline/atari_{bcq,cql,crr}.py``'s defaults,
+   ``build_offline``): ``DiscreteBCQ(DQNet(6), DQNet(6))``, ``DiscreteCQL(QRDQNet(6, 200))`` and
+   ``DiscreteCRR(DQNet(6), DQNet(6))``, each from its own copy of the ring. First ``offline_graph_check``:
+   ``OfflineTrainer``'s update burst as a graph against ``algo.update`` eager, 3 x 8 updates from one state and one
+   generator state, sampled indices, stats, weights, targets and optimizer state bit-identical. Then one epoch of
+   ``OFF_UPDATES`` = 1,000 updates of batch 32 (cut from 100 epochs of 10,000) in bursts of ``OFF_BURST`` = 100 (one
+   graph, 9 replays) and the pixel test phase; counters zeroed just before and read just after the run:
+   ``gather_rows`` exactly ``OFFLINE_GATHERS`` (2) per update and nothing else; then one replayed burst traced
+   (``_trace_burst``: kernels and device ms per update, ``gather_rows``' share of busy, the idle share).
+40. ``offline_cartpole``: the CartPole dataset of ``tests/conftest.py:66-113`` (``expert_dataset``: DQN to 195 through
+   the graphed trainer, then 2,000 steps of 10 envs at eps 0.2), then BC, discrete BCQ, CQL and CRR at
+   ``tests/test_offline.py:67-112``'s settings (``build_offline_classic``), each held graph against eager first,
+   through ``OfflineTrainer`` (up to 8 epochs of 500 updates, 10 test episodes); each must reach 150. No kernel.
+41. ``offline_pendulum``: the Pendulum dataset (SAC to -250, then 2,500 steps of 8 envs), then BC, TD3+BC, BCQ and CQL
+   at ``tests/test_offline.py:116-161``'s settings the same way; BC and BCQ must reach -800, TD3+BC's and CQL's best
+   rewards are reported and not gated (``OFF_UNGATED``: on this dataset the threshold is a draw of the seed). No kernel.
+42. ``gail_pendulum`` (``tests/test_modelbased.py:30``): GAIL from the Pendulum dataset's rows; its ``update_rollout``
+   graph against eager (``rollout_graph_check``), then ``OnPolicyTrainer`` to -1,100 within 15 epochs.
+43. ``icm_dqn_cartpole`` / ``icm_ppo_cartpole`` (``:67``, ``:99``): the ICM wrappers over DQN and PPO, their update
+   programs against eager, then to 195.
+44. ``psrl_nchain`` (``:127``): PSRL on ``NChain(5, 0.2)``, the posterior update graph (counts, Dirichlet and normal
+   draws, 200 value-iteration sweeps) against eager, then to 340. The phases 38-44 print their total time.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -763,7 +789,7 @@ def build_pipeline(torch, kind: str = "dqn"):
     from tianshou_tpu_torch.env.wrappers import FrameStack
     from tianshou_tpu_torch.models.atari import DQNet, ImplicitQuantileAtariNet, QRDQNet, RainbowAtariNet
 
-    device = "cuda"
+    device = DEV
     torch.manual_seed(SEED)
     env = FrameStack(make_synthetic_atari(), 4)
     common = dict(action_space=env.action_space, gamma=0.99, n_step_return_horizon=3,
@@ -807,7 +833,7 @@ def make_test_collector(algo):
     from tianshou_tpu_torch.env.core import VectorDeviceEnv
     from tianshou_tpu_torch.env.wrappers import FrameStack
 
-    return DeviceCollector(VectorDeviceEnv(FrameStack(make_synthetic_atari(), 4), TEST_E, device="cuda"), algo, None)
+    return DeviceCollector(VectorDeviceEnv(FrameStack(make_synthetic_atari(), 4), TEST_E, device=DEV), algo, None)
 
 
 def _check_tests(name: str, tests: list, n_phases: int) -> None:
@@ -3936,6 +3962,582 @@ def finite_env_phase(torch) -> list[str]:
             f"card: every sample once per epoch, StopIteration at each end, {counts[1]} env steps per epoch as on the CPU"]
 
 
+# ---------------------------------------------------------------------------
+# the offline trainer and the offline, imitation and model-based family
+# ---------------------------------------------------------------------------
+# the offline pixel paths (examples/offline/atari_{bcq,cql,crr}.py's defaults at bench.py's widths): the DQN pipeline's
+# collector fills the whole ring once (SLOTS steps of E envs, no updates) at eps OFF_FILL_EPS; each algorithm then
+# trains from a copy of that ring for one epoch of OFF_UPDATES updates (cut from 100 epochs of 10,000) in bursts of
+# OFF_BURST (the trainer's ``OfflineTrainer.BURST``), one CUDA graph replayed (PERF.md says why 100), with the pixel
+# paths' test phase after it
+OFFLINE_KINDS = ("bcq", "cql", "crr")
+OFF_FILL_EPS, OFF_UPDATES, OFF_BURST = 0.2, 1_000, 100
+# gather_rows per update, counted from the fields each JAX update reads: every update samples obs and obs_next (one
+# [B * 4]-row gather each); at n = 1 discrete BCQ and CQL reuse the sampled obs_next as the n-step terminal row
+# (algorithm/base.py:_nstep_terminal), and CRR reads the sampled row itself
+OFFLINE_GATHERS = {"bcq": 2, "cql": 2, "crr": 2}
+# the classic offline paths (tests/test_offline.py:67-161): the datasets of tests/conftest.py:66-149 (DQN trained on
+# CartPole to 195, then 2,000 steps of 10 envs at eps 0.2; SAC trained on Pendulum to -250, then 2,500 steps of 8
+# envs), up to 8 epochs of 500 updates of batch 64 (CQL: 10 of batch 128), 10 test episodes; thresholds 150 / -800
+OFF_CLASSIC = {"offline_cartpole": ("bc", "discrete_bcq", "discrete_cql", "discrete_crr"),
+               "offline_pendulum": ("bc", "td3_bc", "bcq", "cql")}
+OFF_THRESHOLD = {"offline_cartpole": 150.0, "offline_pendulum": -800.0}
+# run at the reference settings and reported, their threshold not gated: on this path's dataset (SAC's, seed 0) TD3+BC
+# reached -800 from 5 of 10 seeds and CQL from none, while on the JAX package's dataset the port's TD3+BC reached it
+# from 4 of 4 seeds, as the JAX package's does from 8 of 8, and the JAX package's CQL reaches it from 2 of 8 seeds, its
+# own test's key among them (PERF.md, the offline findings; ROADMAP, Queue 3)
+OFF_UNGATED = {("offline_pendulum", "td3_bc"), ("offline_pendulum", "cql")}
+# the model-based paths (tests/test_modelbased.py): name -> threshold
+MB_THRESHOLD = {"gail_pendulum": -1100.0, "icm_dqn_cartpole": 195.0, "icm_ppo_cartpole": 195.0, "psrl_nchain": 340.0}
+
+
+def build_offline(torch, kind: str, action_space):
+    """The pixel path's algorithm of ``kind`` with its example script's nets and defaults: ``DiscreteBCQ`` over
+    two ``DQNet(6)`` (lr 6.25e-5, n 1, target sync 8,000, threshold 0.3, logits penalty 0.01), ``DiscreteCQL`` over
+    ``QRDQNet(6, 200)`` (lr 1e-4, n 1, target sync 500, min_q_weight 10), ``DiscreteCRR`` over two ``DQNet(6)``
+    (lr 1e-4, exp mode, ratio bound 20, beta 1, min_q_weight 10, target sync 500); gamma 0.99."""
+    from tianshou_tpu_torch.algorithm.imitation.discrete_bcq import DiscreteBCQ
+    from tianshou_tpu_torch.algorithm.imitation.discrete_cql import DiscreteCQL
+    from tianshou_tpu_torch.algorithm.imitation.discrete_crr import DiscreteCRR
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.models.atari import DQNet, QRDQNet
+
+    torch.manual_seed(SEED)
+    if kind == "bcq":
+        return DiscreteBCQ(model=DQNet(6), imitator=DQNet(6), action_space=action_space,
+                           optim=AdamOptimizerFactory(lr=6.25e-5), gamma=0.99, n_step_return_horizon=1,
+                           target_update_freq=8000, unlikely_action_threshold=0.3, imitation_logits_penalty=0.01)
+    if kind == "cql":
+        return DiscreteCQL(model=QRDQNet(6, 200), action_space=action_space, num_quantiles=200,
+                           optim=AdamOptimizerFactory(lr=1e-4), gamma=0.99, n_step_return_horizon=1,
+                           target_update_freq=500, min_q_weight=10.0)
+    return DiscreteCRR(actor=DQNet(6), critic=DQNet(6), action_space=action_space, optim=AdamOptimizerFactory(lr=1e-4),
+                       gamma=0.99, policy_improvement_mode="exp", ratio_upper_bound=20.0, beta=1.0, min_q_weight=10.0,
+                       target_update_freq=500)
+
+
+def fill_offline_ring(torch):
+    """The dataset of the offline pixel paths: ``bench.py``'s ring (E rings of SLOTS uint8 84x84 frames, stack 4,
+    newest frame only) filled once by the DQN pipeline's collector at eps ``OFF_FILL_EPS`` from its seeded,
+    untrained weights: SLOTS steps of every env, as collect chunks of T steps (the trainer's program, a CUDA
+    graph), no updates. Returns (buffer, buffer state, action space, report line)."""
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    algo, ts, buffer, bs, coll = build_pipeline(torch, "dqn")
+    ts.hparams["eps_training"].fill_(OFF_FILL_EPS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(collection_step_num_env_steps=T,
+                                                                              verbose=False))
+    cstate = coll.reset(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episodes = 0
+    for _ in range(SLOTS // T):
+        episodes += int(trainer.collect_chunk(ts, cstate, bs, gen, T).done.sum())
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    if not bool((bs.size == SLOTS).all()) or bs.data.obs.dtype != torch.uint8:
+        raise AssertionError(f"offline ring: sizes {bs.size.min().item()}..{bs.size.max().item()}, expected {SLOTS}")
+    line = (f"offline ring: {E} x {SLOTS} rows of uint8 {tuple(bs.data.obs.shape[2:])} frames (obs and obs_next, "
+            f"{2 * bs.data.obs.numel() / 1e9:.3f} GB) filled by the DQN pipeline's collector from its untrained seeded "
+            f"weights at eps {OFF_FILL_EPS} in {fill_s:.2f} s ({SLOTS // T} collect chunks of T={T}, the first eager "
+            f"and the second captured; {episodes} episodes ended), no updates")
+    del trainer, ts, coll
+    return buffer, bs, algo.action_space, line
+
+
+def offline_graph_check(torch, name: str, algo, buffer, bs, batch: int) -> str:
+    """``OfflineTrainer``'s update burst as a CUDA graph against ``algo.update`` run eagerly, on deep copies of one
+    fresh train state from one generator state: ``GRAPH_CALLS`` bursts of ``GRAPH_K`` updates (the first the
+    program's eager warm-up, the second its capture). The sampled indices (logged on the device), the stats,
+    every weight, target and optimizer tensor and the step must be bit-identical (cuDNN held to deterministic
+    algorithms), and the kernels launched the same. The buffer is only read. Returns a report line."""
+    import copy
+
+    from tianshou_tpu_torch.ops.kernels import counters
+    from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ts = algo.init(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    sample_indices = buffer.sample_indices
+    sides = {}
+    try:
+        for side in ("graph", "eager"):
+            s_ts = copy.deepcopy(ts)
+            s_gen = torch.Generator(device=DEV)
+            s_gen.set_state(gen.get_state())
+            log = torch.full((GRAPH_CALLS * GRAPH_K, batch), -1, dtype=torch.int64, device=DEV)
+            row = torch.zeros((), dtype=torch.int64, device=DEV)
+
+            def logging_sampler(*args, log=log, row=row):
+                idx = sample_indices(*args)
+                log.index_copy_(0, row.view(1), idx.unsqueeze(0))
+                row.add_(1)
+                return idx
+
+            buffer.sample_indices = logging_sampler
+            trainer = OfflineTrainer(algo, buffer, None, OfflineTrainerParams(batch_size=batch, verbose=False)) \
+                if side == "graph" else None
+            before = counters.snapshot()
+            stats = []
+            for _ in range(GRAPH_CALLS):
+                if trainer is None:
+                    st = [algo.update(s_ts, buffer, bs, s_gen, batch)[2] for _ in range(GRAPH_K)]
+                    st = {k: torch.stack([x[k] for x in st]) for k in st[0].keys()}
+                else:
+                    st = trainer.update_burst(s_ts, bs, s_gen, GRAPH_K)
+                stats.append({k: v.clone() for k, v in st.items()})
+            torch.cuda.synchronize()
+            after = counters.snapshot()
+            sides[side] = dict(ts=s_ts, stats=stats, idx=log, trainer=trainer,
+                               launches={k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)})
+    finally:
+        buffer.sample_indices = sample_indices
+        torch.backends.cudnn.deterministic = deterministic
+    g, e = sides["graph"], sides["eager"]
+    replays = {x.name.split()[0]: x.replays for x in g["trainer"].graph_pool.graphs}
+    if replays != {"update_burst": GRAPH_CALLS - 1} or int((e["idx"] < 0).sum()) != 0:
+        raise AssertionError(f"{name} graph check: replays {replays}, eager batches {int(e['idx'][:, 0].ge(0).sum())}")
+    pairs = [(g["idx"], e["idx"])]
+    pairs += [(g["stats"][c][k], e["stats"][c][k]) for c in range(GRAPH_CALLS) for k in e["stats"][c]]
+    for a, b in ((g["ts"].model, e["ts"].model), (g["ts"].target, e["ts"].target)):
+        if a is not None:
+            pairs += list(zip(a.state_dict().values(), b.state_dict().values()))
+    pairs += list(zip(_optimizer_state(g["ts"]), _optimizer_state(e["ts"])))
+    differ = sum(not torch.equal(x, y) for x, y in pairs)
+    if differ or not int(g["ts"].step) == int(e["ts"].step) == GRAPH_CALLS * GRAPH_K:
+        raise AssertionError(f"{name} graph check: {differ} of {len(pairs)} tensors differ from eager")
+    if torch.equal(g["idx"][GRAPH_K:2 * GRAPH_K], g["idx"][2 * GRAPH_K:]):
+        raise AssertionError(f"{name} graph check: two replays drew the same indices")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"{name} graph check: launches {g['launches']}, eager {e['launches']}")
+    return (f"{name} graph check, graphs against eager: {GRAPH_CALLS} x {GRAPH_K} updates of batch {batch}: "
+            f"{len(pairs)} tensors (sampled indices, stats, weights, targets, optimizer state) bit-identical, max |diff| "
+            f"0; launches {g['launches']} as eager; replays {replays}")
+
+
+def _timed_test(torch, trainer) -> dict:
+    """Wrap the trainer's test phase to time it (synchronized); returns the dict the times add up in."""
+    spent = {"test": 0.0}
+    real = trainer._test
+
+    def timed(ts, generator):
+        t0 = time.perf_counter()
+        stats = real(ts, generator)
+        torch.cuda.synchronize()
+        spent["test"] += time.perf_counter() - t0
+        return stats
+
+    trainer._test = timed
+    return spent
+
+
+def offline_pixel_path(torch, kind: str, buffer, ring, action_space):
+    """``examples/offline/atari_{kind}.py``'s defaults at bench.py's widths: the graph check, then one epoch of
+    ``OFF_UPDATES`` updates of batch 32 through ``OfflineTrainer`` from a copy of the offline ring (bursts of
+    ``OFF_BURST``, one CUDA graph), then the test phase (10 episodes on ``TEST_E`` envs). Launch counters are zeroed
+    just before the run and read just after it: ``gather_rows`` must run exactly ``OFFLINE_GATHERS[kind]`` times per
+    update, and no other kernel. Then one replayed burst is timed and traced (``_trace_burst``). Returns
+    ({kernel: launches}, report lines)."""
+    import copy
+
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams
+
+    name = f"offline_{kind}_pixels"
+    bs = copy.deepcopy(ring)  # every algorithm trains from its own copy of the one ring
+    algo = build_offline(torch, kind, action_space)
+    lines = [offline_graph_check(torch, name, algo, buffer, bs, BATCH)]
+    ts = algo.init(DEV)
+    init = [p.detach().clone() for p in ts.model.parameters()]
+    tests = []
+
+    def score(stats) -> float:
+        tests.append(stats)
+        return float(stats.returns.mean())
+
+    trainer = OfflineTrainer(algo, buffer, make_test_collector(algo), OfflineTrainerParams(
+        max_epochs=1, update_step_num_gradient_steps_per_epoch=OFF_UPDATES, batch_size=BATCH,
+        test_step_num_episodes=TEST_EPISODES, compute_score_fn=score, verbose=False))
+    if trainer.BURST != OFF_BURST:
+        raise AssertionError(f"{name} path: the trainer's bursts are {trainer.BURST} updates, this path's {OFF_BURST}")
+    spent = _timed_test(torch, trainer)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.run(ts, bs, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(gather, sumtree, physics_fused)
+    expect = {"gather_rows": OFFLINE_GATHERS[kind] * OFF_UPDATES, "prefix_sum_idx": 0, "tree_update": 0,
+              "physics_fused": 0}
+    if launches != expect:
+        raise AssertionError(f"{name} path: kernel launches {launches} for {OFF_UPDATES} updates, expected {expect}")
+    if res.gradient_step != OFF_UPDATES or int(ts.step) != OFF_UPDATES or res.env_step != 0 or res.timing:
+        raise AssertionError(f"{name} path: gradient_step {res.gradient_step}, step {int(ts.step)}, env_step "
+                             f"{res.env_step}, timing {res.timing}")
+    burst = next(g for g in trainer.graph_pool.graphs if g.name.startswith("update_burst"))
+    if burst.replays != OFF_UPDATES // OFF_BURST - 1 or len(trainer.graph_pool.graphs) != 2:
+        raise AssertionError(f"{name} path: {burst.replays} burst replays, programs "
+                             f"{[g.name for g in trainer.graph_pool.graphs]}")
+    _check_tests(f"{name} path", tests, 1)
+    loss = res.last_chunk_stats.loss
+    if loss.shape != (OFF_UPDATES,) or not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"{name} path: losses of shape {tuple(loss.shape)}, finite {bool(torch.isfinite(loss).all())}")
+    if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()) or \
+            all(torch.equal(a, b) for a, b in zip(init, ts.model.parameters())):
+        raise AssertionError(f"{name} path: parameters non-finite or unchanged after training")
+    update_s = wall - spent["test"]
+    lines += [
+        f"{name} path: {type(algo).__name__} from a copy of the offline ring (E={E}, {SLOTS} slots, stack 4, batch "
+        f"{BATCH}); one epoch of {OFF_UPDATES} updates in bursts of {OFF_BURST} ({burst.replays} replays of one graph, "
+        f"capture {burst.capture_s:.2f} s), then {TEST_EPISODES} test episodes; gather_rows {launches['gather_rows']} "
+        f"({launches['gather_rows'] / OFF_UPDATES:g} per update, as counted from the fields)",
+        f"{name} path: epoch wall {wall:.3f} s: updates {update_s:.3f} s ({update_s / OFF_UPDATES * 1e3:.3f} ms per "
+        f"update, the eager warm-up burst and the capture included), test phase {spent['test']:.3f} s; test reward "
+        f"{res.best_reward:.3f} (length mean {tests[0].lens.mean():.1f}); loss first/last "
+        f"{float(loss[0]):.5f}/{float(loss[-1]):.5f}; test chunk capture "
+        f"{next(g for g in trainer.graph_pool.graphs if g.name.startswith('test_chunk')).capture_s:.2f} s; graph pool "
+        f"{trainer.graph_pool.memory_bytes() / 2**20:.1f} MiB",
+        f"{name} path: " + _trace_burst(torch, trainer, ts, bs, gen, OFF_BURST),
+    ]
+    del trainer, ts, bs
+    torch.cuda.empty_cache()
+    return launches, lines
+
+
+def _classic_buffer(torch, env, size: int, num: int):
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.env.core import Discrete
+
+    shape = env.observation_space.shape
+    act = torch.tensor(0) if isinstance(env.action_space, Discrete) else torch.zeros(env.action_space.shape)
+    buffer = VectorReplayBuffer(size, num)
+    return buffer, buffer.init(Batch(obs=torch.zeros(shape), act=act, rew=torch.tensor(0.0),
+                                     terminated=torch.tensor(False), truncated=torch.tensor(False),
+                                     obs_next=torch.zeros(shape)), device=DEV)
+
+
+def expert_dataset(torch, task: str):
+    """``tests/conftest.py:66-149`` on the card: DQN trained on CartPole to 195 (10 + 10 envs, a 20,000-row
+    replay, batch 64, T 10, 0.1 updates per env step, a 1,000-step prefill, eps 0.3 annealed to 0.1) and 2,000
+    steps of 10 envs collected at eps 0.2 into a 20,000-row replay; or SAC trained on Pendulum to -250 (8 + 10
+    envs, 128x128 nets, the ``PEND_*`` settings) and 2,500 steps of 8 envs collected by its policy. Returns (env,
+    buffer, buffer state, the trained train state, report line)."""
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.classic.pendulum import Pendulum
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.mlp import Net
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    if task == "cartpole":
+        env, threshold, n_env, steps = CartPole(), CP_THRESHOLD, 10, 2000
+        algo = DQN(model=Net((64, 64), 2, input_dim=4), action_space=env.action_space,
+                   optim=AdamOptimizerFactory(lr=1e-3), gamma=0.97, n_step_return_horizon=3, target_update_freq=320,
+                   eps_training=0.3)
+        buffer, bs = _classic_buffer(torch, env, 20000, 10)
+        params = OffPolicyTrainerParams(
+            max_epochs=12, epoch_num_steps=5000, test_step_num_episodes=10, batch_size=64,
+            collection_step_num_env_steps=10, update_per_step=0.1, start_steps=1000, stop_fn=lambda r: r >= threshold,
+            train_fn=lambda ep, step: {"eps_training": max(0.1, 0.3 * (1 - step / 30000))}, verbose=False)
+    else:
+        env, threshold, n_env, steps = Pendulum(), PEND_THRESHOLD, PEND_E, 2500
+        algo = make_offpolicy(torch, "sac", env, PEND_HID, **PEND_ALGOS["sac"])
+        buffer, bs = _classic_buffer(torch, env, PEND_BUFFER, PEND_E)
+        params = OffPolicyTrainerParams(
+            max_epochs=PEND_EPOCHS, epoch_num_steps=PEND_EPOCH_STEPS, test_step_num_episodes=10, batch_size=PEND_BATCH,
+            collection_step_num_env_steps=PEND_T, update_per_step=PEND_UTD, start_steps=PEND_PREFILL,
+            start_random=False, stop_fn=lambda r: r >= threshold, verbose=False)
+    trainer = OffPolicyTrainer(algo, DeviceCollector(VectorDeviceEnv(env, n_env, device=DEV), algo, buffer),
+                               DeviceCollector(VectorDeviceEnv(env, 10, device=DEV), algo, None), buffer, params)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    res = trainer.run(algo.init(DEV), bs, gen)
+    if not res.best_reward >= threshold:
+        raise AssertionError(f"{task} expert: best test reward {res.best_reward} after {res.epochs} epochs")
+    data, ds = _classic_buffer(torch, env, 20000, n_env)
+    ts = res.train_state
+    if task == "cartpole":
+        ts.hparams["eps_training"].fill_(0.2)
+    coll = DeviceCollector(VectorDeviceEnv(env, n_env, device=DEV), algo, data)
+    t0 = time.perf_counter()
+    coll.collect(ts, coll.reset(gen), ds, gen, steps, training=True)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    if int(ds.size.sum()) != min(20000, n_env * steps):
+        raise AssertionError(f"{task} expert: {int(ds.size.sum())} rows gathered")
+    return env, data, ds, ts, (
+        f"{task} expert dataset: {type(algo).__name__} reached {res.best_reward:.1f} after {res.epochs} epochs "
+        f"({res.train_time:.2f} s), then {steps} steps of {n_env} envs collected eagerly in {gather_s:.2f} s "
+        f"({int(ds.size.sum())} rows{', eps 0.2' if task == 'cartpole' else ''})")
+
+
+def build_offline_classic(torch, name: str, env):
+    """The algorithm of ``tests/test_offline.py`` called ``name`` on ``env``: (algo, epochs, batch)."""
+    from tianshou_tpu_torch.algorithm.imitation.bc import ImitationLearning
+    from tianshou_tpu_torch.algorithm.imitation.bcq import BCQ
+    from tianshou_tpu_torch.algorithm.imitation.cql import CQL
+    from tianshou_tpu_torch.algorithm.imitation.discrete_bcq import DiscreteBCQ
+    from tianshou_tpu_torch.algorithm.imitation.discrete_cql import DiscreteCQL
+    from tianshou_tpu_torch.algorithm.imitation.discrete_crr import DiscreteCRR
+    from tianshou_tpu_torch.algorithm.imitation.td3_bc import TD3BC
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory as Adam
+    from tianshou_tpu_torch.env.core import Discrete
+    from tianshou_tpu_torch.models.continuous import (
+        VAE,
+        ContinuousActorDeterministic,
+        ContinuousActorProbabilistic,
+        ContinuousCritic,
+        Perturbation,
+    )
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+    from tianshou_tpu_torch.models.mlp import Net
+
+    torch.manual_seed(SEED)
+    space = env.action_space
+    if isinstance(space, Discrete):
+        q = dict(gamma=0.97, n_step_return_horizon=3, target_update_freq=320)
+        algo = {
+            "bc": lambda: ImitationLearning(model=DiscreteActor((64, 64), 2, input_dim=4), action_space=space,
+                                            optim=Adam(lr=1e-3)),
+            "discrete_bcq": lambda: DiscreteBCQ(model=Net((64, 64), 2, input_dim=4),
+                                                imitator=DiscreteActor((64, 64), 2, input_dim=4), action_space=space,
+                                                optim=Adam(lr=3e-4), unlikely_action_threshold=0.6, **q),
+            "discrete_cql": lambda: DiscreteCQL(model=Net((64, 64), 2, num_atoms=64, input_dim=4), action_space=space,
+                                                num_quantiles=64, optim=Adam(lr=3e-4), min_q_weight=10.0, **q),
+            "discrete_crr": lambda: DiscreteCRR(actor=DiscreteActor((64, 64), 2, input_dim=4),
+                                                critic=DiscreteCritic((64, 64), last_size=2, input_dim=4),
+                                                action_space=space, optim=Adam(lr=3e-4), gamma=0.97,
+                                                target_update_freq=320),
+        }[name]()
+        return algo, 8, 64
+    hid, opts = (128, 128), dict(policy_optim=Adam(lr=3e-4), critic_optim=Adam(lr=3e-4))
+    algo = {
+        "bc": lambda: ImitationLearning(model=ContinuousActorDeterministic((64, 64), 1, max_action=2.0, input_dim=3),
+                                        action_space=space, optim=Adam(lr=1e-3), action_bound_method=None),
+        "td3_bc": lambda: TD3BC(actor=ContinuousActorDeterministic(hid, 1, input_dim=3),
+                                critic=ContinuousCritic(hid, input_dim=3, action_dim=1), action_space=space, gamma=0.99,
+                                tau=0.005, alpha=2.5, **opts),
+        "bcq": lambda: BCQ(actor_perturbation=Perturbation((64, 64), 1, max_action=1.0, phi=0.05, input_dim=3),
+                           critic=ContinuousCritic((64, 64), input_dim=3, action_dim=1),
+                           vae=VAE((64,), (64,), 1, 2, max_action=1.0, input_dim=3), action_space=space, gamma=0.99,
+                           tau=0.005, forward_sampled_times=20, num_sampled_action=10),
+        "cql": lambda: CQL(actor=ContinuousActorProbabilistic(hid, 1, conditioned_sigma=True, input_dim=3),
+                           critic=ContinuousCritic(hid, input_dim=3, action_dim=1), action_space=space, cql_weight=1.0,
+                           with_lagrange=True, num_repeat_actions=10, **opts),
+    }[name]()
+    return algo, (10 if name == "cql" else 8), (128 if name == "cql" else 64)
+
+
+def offline_classic_path(torch, path: str, data) -> tuple[dict, list[str]]:
+    """Each algorithm of ``OFF_CLASSIC[path]`` on the phase's one expert dataset, as ``tests/test_offline.py:run_offline``
+    trains it: its update graph held bit-identical to eager once (``offline_graph_check``), then up to its epochs
+    of 500 updates through ``OfflineTrainer`` (bursts of 100: five graph replays an epoch), 10 test episodes on 10
+    envs, stopping at ``OFF_THRESHOLD[path]`` and raising below it (``OFF_UNGATED``: the reward is reported and
+    must be finite). No kernel (the rows are not frame-stacked). Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams
+
+    env, buffer, bs = data
+    threshold = OFF_THRESHOLD[path]
+    lines, total = [], {}
+    for name in OFF_CLASSIC[path]:
+        algo, epochs, batch = build_offline_classic(torch, name, env)
+        lines.append(offline_graph_check(torch, f"{path} {name}", algo, buffer, bs, batch))
+        tests = []
+
+        def score(stats) -> float:
+            tests.append(float(stats.returns.mean()))
+            return tests[-1]
+
+        trainer = OfflineTrainer(algo, buffer, DeviceCollector(VectorDeviceEnv(env, 10, device=DEV), algo, None),
+                                 OfflineTrainerParams(max_epochs=epochs, update_step_num_gradient_steps_per_epoch=500,
+                                                      batch_size=batch, test_step_num_episodes=10,
+                                                      stop_fn=lambda r: r >= threshold, compute_score_fn=score,
+                                                      verbose=False))
+        spent = _timed_test(torch, trainer)
+        for module in (gather, sumtree, physics_fused):
+            module.reset_launch_count()
+        res = trainer.run(algo.init(DEV), bs, torch.Generator(device=DEV).manual_seed(SEED))
+        launches = _launches(gather, sumtree, physics_fused)
+        gated = (path, name) not in OFF_UNGATED
+        if not (res.best_reward >= threshold if gated else np.isfinite(res.best_reward)):
+            raise AssertionError(f"{path} {name}: best test reward {res.best_reward} after {res.epochs} epochs, below "
+                                 f"the threshold {threshold}")
+        if any(launches.values()) or res.gradient_step != 500 * res.epochs or int(res.train_state.step) != res.gradient_step:
+            raise AssertionError(f"{path} {name}: launches {launches}, gradient_step {res.gradient_step}")
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+        upd = res.train_time - spent["test"]
+        gate = f"threshold {threshold}" if gated else f"threshold {threshold} not gated: the dataset decides, OFF_UNGATED"
+        lines.append(f"{path} {name}: best test reward {res.best_reward:.1f} ({gate}) after {res.epochs} "
+                     f"epochs (test reward by epoch {[round(x, 1) for x in tests]}); {res.gradient_step} updates of batch "
+                     f"{batch} in {upd:.2f} s ({upd / res.gradient_step * 1e3:.3f} ms per update, captures included), "
+                     f"test phases {spent['test']:.2f} s")
+    return total, lines
+
+
+def rollout_graph_check(torch, name: str, algo, env, n_env: int, T_: int, repeat: int, batch: int) -> str:
+    """``OnPolicyTrainer``'s ``update_rollout`` as a CUDA graph against ``algo.update_rollout`` run eagerly, on deep
+    copies of one fresh train state from one generator state, over one rollout of ``T_`` steps of ``n_env`` envs
+    collected eagerly: ``GRAPH_CALLS`` updates (the program's eager warm-up, its capture, a replay). Stats, weights,
+    optimizer state, the carried ``extra`` tensors and the step bit-identical. Returns a report line."""
+    import copy
+
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    ts = algo.init(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    coll = DeviceCollector(VectorDeviceEnv(env, n_env, device=DEV), algo, None)
+    rollout = coll.collect(ts, coll.reset(gen), None, gen, T_, keep_rollout=True)[2].rollout
+    sides = {}
+    for side in ("graph", "eager"):
+        s_ts = copy.deepcopy(ts)
+        s_gen = torch.Generator(device=DEV)
+        s_gen.set_state(gen.get_state())
+        trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+            batch_size=batch, update_step_num_repetitions=repeat, verbose=False)) if side == "graph" else None
+        stats = []
+        for _ in range(GRAPH_CALLS):
+            st = (algo.update_rollout(s_ts, rollout, s_gen, repeat, batch)[1] if trainer is None
+                  else trainer.update_rollout(s_ts, rollout, s_gen))
+            stats.append(st.map(torch.clone))
+        torch.cuda.synchronize()
+        sides[side] = dict(ts=s_ts, stats=stats, trainer=trainer)
+    g, e = sides["graph"], sides["eager"]
+    replays = {x.name.split()[0]: x.replays for x in g["trainer"].graph_pool.graphs}
+    if replays != {"update_rollout": GRAPH_CALLS - 1}:
+        raise AssertionError(f"{name} graph check: replays {replays}")
+    pairs = [(x, y) for c in range(GRAPH_CALLS) for x, y in zip(_leaves(g["stats"][c]), _leaves(e["stats"][c]))]
+    pairs += list(zip(g["ts"].model.state_dict().values(), e["ts"].model.state_dict().values()))
+    pairs += list(zip(_optimizer_state(g["ts"]), _optimizer_state(e["ts"])))
+    pairs += [(g["ts"].extra[k], e["ts"].extra[k]) for k in e["ts"].extra]
+    differ = sum(not torch.equal(x, y) for x, y in pairs)
+    if differ or int(g["ts"].step) != int(e["ts"].step):
+        raise AssertionError(f"{name} graph check: {differ} of {len(pairs)} tensors differ from eager")
+    return (f"{name} graph check, graphs against eager: {GRAPH_CALLS} rollout updates ({n_env} envs x T={T_}, repeat "
+            f"{repeat}, batch {batch}): {len(pairs)} tensors (stats, weights, optimizer state, extra) bit-identical, "
+            f"max |diff| 0; replays {replays}")
+
+
+def modelbased_path(torch, name: str, pendulum=None) -> tuple[dict, list[str]]:
+    """``tests/test_modelbased.py``'s test called ``name`` on the card, at its settings: GAIL on Pendulum from the
+    Pendulum expert rows (16 + 10 envs, T 128, 5 passes of batch 256, 2 discriminator steps, to -1,100 within 15
+    epochs of 10,000), ICM over DQN on CartPole (the CartPole DQN settings, to 195 within 15 epochs), ICM over PPO
+    on CartPole (16 + 10 envs, T 128, 10 passes of batch 256, to 195 within 20 epochs), PSRL on ``NChain(5, 0.2)``
+    (8 + 8 envs, T 100, 200 value-iteration sweeps, to 340 within 10 epochs of 2,000). The update program is held
+    bit-identical to eager first. Returns ({kernel: launches}, report lines)."""
+    from tianshou_tpu_torch.algorithm.imitation.gail import GAIL
+    from tianshou_tpu_torch.algorithm.modelbased.icm import ICMOffPolicyWrapper, ICMOnPolicyWrapper
+    from tianshou_tpu_torch.algorithm.modelbased.psrl import PSRL
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory as Adam
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.classic.nchain import NChain
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.continuous import ContinuousActorProbabilistic, ContinuousCritic
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic, IntrinsicCuriosityModule
+    from tianshou_tpu_torch.models.mlp import Net
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import (
+        OffPolicyTrainer,
+        OffPolicyTrainerParams,
+        OnPolicyTrainer,
+        OnPolicyTrainerParams,
+    )
+
+    threshold = MB_THRESHOLD[name]
+    torch.manual_seed(SEED)
+    stop = dict(stop_fn=lambda r: r >= threshold, verbose=False)
+    if name == "gail_pendulum":
+        env, buffer, bs = pendulum
+        stored = (torch.arange(buffer.capacity, device=DEV)[None, :] < bs.size[:, None]).reshape(-1)
+        algo = GAIL(actor=ContinuousActorProbabilistic((64, 64), 1, input_dim=3),
+                    critic=DiscreteCritic((64, 64), input_dim=3), action_space=env.action_space,
+                    optim=Adam(lr=3e-4, max_grad_norm=0.5), disc_net=ContinuousCritic((64, 64), input_dim=3, action_dim=1),
+                    expert_obs=bs.data.obs.reshape(-1, 3)[stored], expert_act=bs.data.act.reshape(-1, 1)[stored],
+                    disc_optim=Adam(lr=1e-3), disc_update_num=2, gamma=0.95, gae_lambda=0.95, eps_clip=0.2,
+                    deterministic_eval=True)
+        n_train, n_test, T_, kw = 16, 10, 128, dict(max_epochs=15, epoch_num_steps=10000, batch_size=256,
+                                                    update_step_num_repetitions=5)
+    elif name == "icm_ppo_cartpole":
+        env = CartPole()
+        algo = ICMOnPolicyWrapper(PPO(actor=DiscreteActor((64, 64), 2, input_dim=4),
+                                      critic=DiscreteCritic((64, 64), input_dim=4), action_space=env.action_space,
+                                      optim=Adam(lr=3e-4, max_grad_norm=0.5), deterministic_eval=True),
+                                  IntrinsicCuriosityModule((64, 32), 2, (64,), input_dim=4), lr_scale=1.0,
+                                  reward_scale=0.01, forward_loss_weight=0.2)
+        n_train, n_test, T_, kw = 16, 10, 128, dict(max_epochs=20, epoch_num_steps=10000, batch_size=256,
+                                                    update_step_num_repetitions=10)
+    elif name == "psrl_nchain":
+        env = NChain(n=5, slip=0.2)
+        algo = PSRL(n_state=5, n_action=2, action_space=env.action_space, gamma=0.95, value_iterations=200)
+        n_train, n_test, T_, kw = 8, 8, 100, dict(max_epochs=10, epoch_num_steps=2000, batch_size=1024,
+                                                  update_step_num_repetitions=1)
+    else:  # icm_dqn_cartpole
+        env = CartPole()
+        algo = ICMOffPolicyWrapper(DQN(model=Net((64, 64), 2, input_dim=4), action_space=env.action_space,
+                                       optim=Adam(lr=1e-3), gamma=0.97, n_step_return_horizon=3, target_update_freq=320,
+                                       eps_training=0.3),
+                                   IntrinsicCuriosityModule((64, 32), 2, (64,), input_dim=4), lr_scale=1.0,
+                                   reward_scale=0.01, forward_loss_weight=0.2)
+        buffer, bs = _classic_buffer(torch, env, 20000, 10)
+        check = offpolicy_graph_check(torch, name, algo, buffer, bs_example(torch, env), DeviceCollector(
+            VectorDeviceEnv(env, 10, device=DEV), algo, buffer), 10, 64, prefill_chunks=10)
+        trainer = OffPolicyTrainer(
+            algo, DeviceCollector(VectorDeviceEnv(env, 10, device=DEV), algo, buffer),
+            DeviceCollector(VectorDeviceEnv(env, 10, device=DEV), algo, None), buffer,
+            OffPolicyTrainerParams(max_epochs=15, epoch_num_steps=5000, test_step_num_episodes=10, batch_size=64,
+                                   collection_step_num_env_steps=10, update_per_step=0.1, start_steps=1000,
+                                   train_fn=lambda ep, step: {"eps_training": max(0.1, 0.3 * (1 - step / 30000))}, **stop))
+        run = lambda: trainer.run(algo.init(DEV), bs, torch.Generator(device=DEV).manual_seed(SEED))  # noqa: E731
+    if name != "icm_dqn_cartpole":
+        check = rollout_graph_check(torch, name, algo, env, n_train, T_, kw["update_step_num_repetitions"],
+                                    kw["batch_size"])
+        trainer = OnPolicyTrainer(
+            algo, DeviceCollector(VectorDeviceEnv(env, n_train, device=DEV), algo, None),
+            DeviceCollector(VectorDeviceEnv(env, n_test, device=DEV), algo, None),
+            OnPolicyTrainerParams(test_step_num_episodes=n_test, collection_step_num_env_steps=T_, **kw, **stop))
+        run = lambda: trainer.run(algo.init(DEV), torch.Generator(device=DEV).manual_seed(SEED))  # noqa: E731
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+    res = run()
+    launches = _launches(gather, sumtree, physics_fused)
+    if not res.best_reward >= threshold:
+        raise AssertionError(f"{name} path: best test reward {res.best_reward} after {res.epochs} epochs, below the "
+                             f"threshold {threshold}")
+    if any(launches.values()) or res.gradient_step != int(res.train_state.step):
+        raise AssertionError(f"{name} path: launches {launches}, gradient_step {res.gradient_step}, step "
+                             f"{int(res.train_state.step)}")
+    t = res.timing
+    return launches, [check, (
+        f"{name} path: best test reward {res.best_reward:.1f} (threshold {threshold}) after {res.epochs} epochs; "
+        f"env_steps {res.env_step} gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s (collect "
+        f"{t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); capture s "
+        f"{ {g.name.split()[0]: round(g.capture_s, 3) for g in trainer.graph_pool.graphs if g.capture_s} }")]
+
+
+def bs_example(torch, env):
+    """A one-row transition of ``env``'s shapes, for ``offpolicy_graph_check``."""
+    from tianshou_tpu_torch.env.core import Discrete
+
+    act = torch.tensor(0) if isinstance(env.action_space, Discrete) else torch.zeros(env.action_space.shape)
+    return _vector_example(torch, torch.zeros(env.observation_space.shape), act)
+
+
 def main() -> int:
     import torch
 
@@ -4079,6 +4681,29 @@ def main() -> int:
     t0 = time.perf_counter()
     lines = finite_env_phase(torch)  # raises unless the card's counts are the CPU's
     print("\n".join(lines), f"\nfinite env phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t_slice = time.perf_counter()
+    buffer, ring, space, line = fill_offline_ring(torch)  # raises unless every ring is full
+    print(line, f"\noffline ring phase: {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
+    for kind in OFFLINE_KINDS:
+        t0 = time.perf_counter()
+        name = f"offline_{kind}_pixels"
+        # raises unless graphs equal eager and gather_rows ran exactly as counted per update
+        by_path[name], lines = offline_pixel_path(torch, kind, buffer, ring, space)
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    del buffer, ring
+    torch.cuda.empty_cache()
+    expert = {}
+    for path, task in (("offline_cartpole", "cartpole"), ("offline_pendulum", "pendulum")):
+        t0 = time.perf_counter()
+        env, data, data_state, _, line = expert_dataset(torch, task)  # raises below the expert's threshold
+        expert[task] = (env, data, data_state)
+        by_path[path], lines = offline_classic_path(torch, path, expert[task])  # raises below the threshold
+        print(line, "\n" + "\n".join(lines), f"\n{path} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for name in MB_THRESHOLD:
+        t0 = time.perf_counter()
+        by_path[name], lines = modelbased_path(torch, name, expert["pendulum"])  # raises below the threshold
+        print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    print(f"the offline slice's phases (38-44): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -1,6 +1,6 @@
 """Where the time of the PyTorch port's main paths goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo,offpolicy,trust_region,distributional]
+    python3 scripts/torch_port_profile.py [--chunks 1] [--paths dqn,rainbow,physics,sumtree,ppo,offpolicy,trust_region,distributional,offline]
     python3 scripts/torch_port_profile.py --compare PARENT_TREE [--pairs 10]
 
 For the DQN-on-pixels pipeline of ``bench.py`` and then for the Rainbow +
@@ -74,6 +74,10 @@ For the distributional and discrete Q family (``--paths distributional``: ``chip
 ``iqn``, ``fqf`` and ``discrete_sac`` pipelines at bench.py's widths) it traces one replayed update burst
 of each (410 updates of batch 32 after a random prefill): kernels per update, device ms per update and by
 kernel class, and the ``gather_rows`` kernels' launches and share of the busy time.
+
+For the offline pixel paths (``--paths offline``: ``chip_smoke``'s ``offline_{bcq,cql,crr}_pixels``, discrete
+BCQ, CQL and CRR at bench.py's widths from the ring the DQN pipeline's collector fills at eps 0.2) it traces one
+replayed burst of ``chip_smoke.OFF_BURST`` updates of ``OfflineTrainer`` the same way.
 
 The pixel paths run through one trainer: a warm-up run of the prefill and two
 chunks (where the trainer captures its CUDA graphs: a program's first call is
@@ -593,12 +597,36 @@ def profile_offpolicy(smi: str, prefill_chunks: int = 40) -> None:
                 print(f"  {cls}: {n} kernels, {us / 1e3:.3f} ms ({us / busy:.3f} of busy)")
 
 
+def _report_burst(title: str, burst, n_updates: int, smi: str) -> None:
+    """Trace ``burst()`` (a replayed update burst of ``n_updates`` updates) and print its kernels per update,
+    device ms per update and by kernel class, and the ``gather_rows`` kernels' launches and share of busy time."""
+    import torch
+
+    plain, traced, per_name, host, span = _trace_kernels(burst, torch)
+    busy = sum(sum(v) for v in per_name.values())
+    kernels = sum(len(v) for v in per_name.values())
+    gathers = [t for name, v in per_name.items() if "gather_spread_kernel" in name or "gather_bytes_kernel" in name
+               for t in v]  # csrc/gather.cu's kernels
+    print(f"== {title} ==")
+    print(f"device: {smi}")
+    print(f"burst: wall ms {plain * 1e3:.3f} without the profiler ({plain * 1e3 / n_updates:.4f} per update), "
+          f"{traced * 1e3:.3f} under it; device busy ms {busy / 1e3:.3f}, idle share {1 - busy / 1e6 / plain:.4f} "
+          f"against the wall without the profiler ({1 - busy / span:.4f} of the traced span of {span / 1e3:.3f} ms, "
+          f"which the tracer stretches); device kernels {kernels} ({kernels / n_updates:.1f} per update), "
+          f"device ms per update {busy / 1e3 / n_updates:.4f}; host launches {host}; gather_rows {len(gathers)} "
+          f"kernels ({len(gathers) / n_updates:g} per update), {sum(gathers) / busy:.4f} of busy")
+    for cls, (n, us) in sorted(_kernel_classes(per_name).items(), key=lambda kv: -kv[1][1]):
+        print(f"  {cls}: {n} kernels ({n / n_updates:.1f} per update), {us / 1e3:.3f} ms ({us / busy:.3f} of busy)")
+    print("  top kernels by device time: total_ms, calls, mean_us, name")
+    for name, v in sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
+        print(f"    {sum(v) / 1e3:9.3f} {len(v):7d} {sum(v) / len(v):9.2f}  {name[:100]}")
+
+
 def profile_distributional(smi: str, prefill_chunks: int = 4) -> None:
     """Where the update time of the distributional and discrete Q family goes: for each pipeline of
     ``chip_smoke.DIST_KINDS`` at bench.py's widths, after ``prefill_chunks`` random collect chunks of T
     steps, one update burst of the chunk's 410 updates as the trainer's CUDA graph (its eager warm-up and
-    its capture first), replayed once untraced and once traced: kernels per update, device ms per update,
-    device ms by kernel class, and the ``gather_rows`` kernels' launches and share of busy time."""
+    its capture first), replayed once untraced and once traced (``_report_burst``)."""
     import torch
 
     from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
@@ -618,25 +646,37 @@ def profile_distributional(smi: str, prefill_chunks: int = 4) -> None:
             trainer.update_burst(ts, bs, gen, n_updates)
 
         burst(), burst()  # eager warm-up, capture
-        plain, traced, per_name, host, span = _trace_kernels(burst, torch)
-        busy = sum(sum(v) for v in per_name.values())
-        kernels = sum(len(v) for v in per_name.values())
-        gathers = [t for name, v in per_name.items() if "gather_spread_kernel" in name or "gather_bytes_kernel" in name
-                   for t in v]  # csrc/gather.cu's kernels
-        print(f"== {kind}: the pixel pipeline at E={cs.E}, an update burst of {n_updates} updates of batch {cs.BATCH} ==")
-        print(f"device: {smi}")
-        print(f"burst: wall ms {plain * 1e3:.3f} without the profiler ({plain * 1e3 / n_updates:.4f} per update), "
-              f"{traced * 1e3:.3f} under it; device busy ms {busy / 1e3:.3f}, idle share {1 - busy / 1e6 / plain:.4f} "
-              f"against the wall without the profiler ({1 - busy / span:.4f} of the traced span of {span / 1e3:.3f} ms, "
-              f"which the tracer stretches); device kernels {kernels} ({kernels / n_updates:.1f} per update), "
-              f"device ms per update {busy / 1e3 / n_updates:.4f}; host launches {host}; gather_rows {len(gathers)} "
-              f"kernels ({len(gathers) / n_updates:g} per update), {sum(gathers) / busy:.4f} of busy")
-        for cls, (n, us) in sorted(_kernel_classes(per_name).items(), key=lambda kv: -kv[1][1]):
-            print(f"  {cls}: {n} kernels ({n / n_updates:.1f} per update), {us / 1e3:.3f} ms ({us / busy:.3f} of busy)")
-        print("  top kernels by device time: total_ms, calls, mean_us, name")
-        for name, v in sorted(per_name.items(), key=lambda kv: -sum(kv[1]))[:8]:
-            print(f"    {sum(v) / 1e3:9.3f} {len(v):7d} {sum(v) / len(v):9.2f}  {name[:100]}")
+        _report_burst(f"{kind}: the pixel pipeline at E={cs.E}, an update burst of {n_updates} updates of batch "
+                      f"{cs.BATCH}", burst, n_updates, smi)
         del algo, ts, buffer, bs, coll, trainer
+        torch.cuda.empty_cache()
+
+
+def profile_offline(smi: str) -> None:
+    """Where the update time of the offline pixel paths goes: the ring of ``chip_smoke.fill_offline_ring``, then
+    for each of ``chip_smoke.OFFLINE_KINDS`` one burst of ``chip_smoke.OFF_BURST`` updates of ``OfflineTrainer``
+    as its CUDA graph (eager warm-up and capture first), replayed once untraced and once traced."""
+    import torch
+
+    from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams
+
+    cs = chip_smoke
+    buffer, bs, space, line = cs.fill_offline_ring(torch)
+    print(line)
+    for kind in cs.OFFLINE_KINDS:
+        algo = cs.build_offline(torch, kind, space)
+        ts = algo.init("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        trainer = OfflineTrainer(algo, buffer, None, OfflineTrainerParams(batch_size=cs.BATCH, verbose=False))
+
+        def burst():
+            trainer.update_burst(ts, bs, gen, cs.OFF_BURST)
+
+        burst(), burst()  # eager warm-up, capture
+        _report_burst(f"offline_{kind}_pixels: {type(algo).__name__} from the offline ring (E={cs.E}, "
+                      f"{cs.SLOTS} slots), an update burst of {cs.OFF_BURST} updates of batch {cs.BATCH}", burst,
+                      cs.OFF_BURST, smi)
+        del algo, ts, trainer
         torch.cuda.empty_cache()
 
 
@@ -829,14 +869,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chunks", type=int, default=1)
     ap.add_argument("--paths", default="dqn,rainbow,physics",
-                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo, offpolicy, trust_region, distributional")
+                    help="comma-separated: dqn, rainbow, physics, sumtree, ppo, offpolicy, trust_region, distributional, "
+                         "offline")
     ap.add_argument("--compare", metavar="PARENT_TREE", help="measure this tree against PARENT_TREE in turns")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--measure", action="store_true", help="measure the paths once and print one MEASURE line")
     ap.add_argument("--tree", default=ROOT, help="the checkout whose chip_smoke and tianshou_tpu_torch to import")
     args = ap.parse_args()
     paths = set(args.paths.split(","))
-    if not paths <= {"dqn", "rainbow", "physics", "sumtree", "ppo", "offpolicy", "trust_region", "distributional"}:
+    extra = {"sumtree", "ppo", "offpolicy", "trust_region", "distributional", "offline"}  # not in --compare
+    if not paths <= {"dqn", "rainbow", "physics"} | extra:
         ap.error(f"unknown path in {args.paths!r}")
     sys.path.insert(0, os.path.abspath(args.tree))
     import chip_smoke as module
@@ -852,7 +894,7 @@ def main() -> int:
     smi = chip_smoke._smi()
     if args.compare:
         compare(args.compare, args.pairs,
-                ",".join(sorted(paths - {"sumtree", "ppo", "offpolicy", "trust_region", "distributional"})), smi)
+                ",".join(sorted(paths - extra)), smi)
         return 0
     if args.measure:
         print("MEASURE " + json.dumps({"device": smi, "paths": measure(paths)}), flush=True)
@@ -880,6 +922,8 @@ def main() -> int:
         profile_trust_region(smi)
     if "distributional" in paths:
         profile_distributional(smi)
+    if "offline" in paths:
+        profile_offline(smi)
     return 0
 
 

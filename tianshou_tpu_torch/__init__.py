@@ -17,13 +17,14 @@ from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer, Priorit
 from tianshou_tpu_torch.data.collector import CollectStats, DeviceCollector
 from tianshou_tpu_torch.env.core import Box, Discrete, Env, MultiDiscrete, VectorDeviceEnv
 from tianshou_tpu_torch.trainer.trainer import (
+    OfflineTrainer,
+    OfflineTrainerParams,
     OffPolicyTrainer,
     OffPolicyTrainerParams,
     OnPolicyTrainer,
     OnPolicyTrainerParams,
 )
 
-# the offline trainer comes with its port (ROADMAP.md, Queue 1)
 __all__ = [
     "Batch",
     "Box",
@@ -34,6 +35,8 @@ __all__ = [
     "HERReplayBuffer",
     "HERVectorReplayBuffer",
     "MultiDiscrete",
+    "OfflineTrainer",
+    "OfflineTrainerParams",
     "OffPolicyTrainer",
     "OffPolicyTrainerParams",
     "OnPolicyTrainer",

@@ -42,8 +42,9 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env.core import Box, Discrete, MultiDiscrete, Space
 from tianshou_tpu_torch.ops.returns import nstep_returns, value_mask
 
-__all__ = ["ActOut", "Algorithm", "Draws", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "Snapshot", "TrainState",
-           "optimizer_tensors", "polyak_update", "standard_normal", "uniform", "weighted_mean"]
+__all__ = ["ActOut", "Algorithm", "Draws", "OfflineAlgorithm", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "Snapshot",
+           "TrainState", "optimizer_tensors", "polyak_update", "standard_normal", "sync_target", "uniform",
+           "weighted_mean"]
 
 
 @dataclasses.dataclass
@@ -92,6 +93,28 @@ class Draws:
     #: ``relabel_plan`` splits ``k_her`` into these two)
     her_offset: torch.Tensor | None = None
     her_relabel: torch.Tensor | None = None
+    #: BCQ's standard normals (JAX's ``update_step`` splits k3 into ``k_vae, k_dec, k_actor``): the VAE's
+    #: reparameterization ``[B, latent]`` (``k_vae``), the decoded candidates of the target ``[B * n, latent]``
+    #: (``k_dec``) and of the actor's loss ``[B, latent]`` (``k_actor``); in ``forward`` the act's own
+    #: ``[B * forward_sampled_times, latent]``, ``normal(key, ...)``, under ``decode``
+    vae: torch.Tensor | None = None
+    decode_next: torch.Tensor | None = None
+    decode_actor: torch.Tensor | None = None
+    decode: torch.Tensor | None = None
+    #: CQL's candidate actions (k3 splits into ``k_actor, k_rand, k_cur, k_next``; ``actor`` above is
+    #: ``k_actor``'s): the random actions in ``[-1, 1)`` ``[B * R, A]``, and the standard normals of the
+    #: current and the next policy's samples ``[B * R, A]``
+    cql_rand: torch.Tensor | None = None
+    cql_cur: torch.Tensor | None = None
+    cql_next: torch.Tensor | None = None
+    #: GAIL's discriminator batches, ``[disc_update_num, batch_size]`` row indices into the expert data and
+    #: into the flattened rollout (``randint`` of the two halves of each step's key)
+    expert_indices: torch.Tensor | None = None
+    policy_indices: torch.Tensor | None = None
+    #: PSRL's posterior sample: the transition model ``[S, A, S]`` (``dirichlet(k1, ...)``) and the
+    #: reward's standard normals ``[S, A]`` (``normal(k2, ...)``)
+    psrl_trans: torch.Tensor | None = None
+    psrl_rew: torch.Tensor | None = None
 
 
 def uniform(source: torch.Generator | Draws, field: str, shape: tuple[int, ...],
@@ -124,6 +147,19 @@ def polyak_update(target: Iterable[torch.Tensor], online: Iterable[torch.Tensor]
     target, online = list(target), list(online)
     torch._foreach_mul_(target, 1.0 - tau)
     torch._foreach_add_(target, torch._foreach_mul(online, tau))
+
+
+@torch.no_grad()
+def sync_target(target: nn.Module, online: nn.Module, step: torch.Tensor, period: int) -> None:
+    """Copy ``online``'s weights into ``target`` when the gradient-step count
+    ``step``, already advanced past this step, is a multiple of ``period``: a
+    select on the device (``tianshou_tpu`` ``jnp.where(sync, online,
+    target)``), no host branch. On a sync step the target takes the online
+    weights' bits; on any other step it keeps its own. One pointwise kernel
+    per parameter, written in place."""
+    sync = step % period == 0
+    for t, o in zip(target.parameters(), online.parameters()):
+        torch.where(sync, o, t, out=t)
 
 
 def optimizer_tensors(opt: torch.optim.Optimizer) -> list[torch.Tensor]:
@@ -329,6 +365,14 @@ class Algorithm:
 class OnPolicyAlgorithm(Algorithm):
     """Updates from whole fresh rollouts (reference :828)."""
 
+    run_mode = "on_policy"
+
+    def rollout_grad_steps(self, n: int, repeat: int, batch_size: int) -> int:
+        """The gradient steps one ``update_rollout`` over ``n`` rows takes: the
+        count the trainer adds, as the JAX trainer adds its stats'
+        ``n_grad_steps``."""
+        raise NotImplementedError
+
 
 class OffPolicyAlgorithm(Algorithm):
     """Updates from replayed minibatches (reference :868). Subclasses that
@@ -336,6 +380,7 @@ class OffPolicyAlgorithm(Algorithm):
     targets from :meth:`preprocess` (reference ``compute_nstep_return``,
     :721); ``generator`` draws the target's noise (TD3, SAC, REDQ)."""
 
+    run_mode = "off_policy"
     n_step: int = 1
 
     def _target_q(self, ts: TrainState, obs_next: Any, generator: torch.Generator | Draws | None) -> torch.Tensor:
@@ -376,3 +421,13 @@ class OffPolicyAlgorithm(Algorithm):
         tq = self._target_q(ts, obs_next, generator)
         mask = value_mask(terminated)
         return tq * mask.reshape(mask.shape + (1,) * (tq.dim() - 1))
+
+
+class OfflineAlgorithm(Algorithm):
+    """Updates from a fixed dataset (reference :906), trained by
+    :class:`tianshou_tpu_torch.trainer.trainer.OfflineTrainer`. The offline
+    members built on an off-policy algorithm (``DiscreteCQL``, ``TD3BC``,
+    ``CQL``) subclass that algorithm and set ``run_mode = "offline"``, as the
+    JAX package does."""
+
+    run_mode = "offline"

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.algorithm.base import ActOut, OffPolicyAlgorithm, TrainState
+from tianshou_tpu_torch.algorithm.base import ActOut, OffPolicyAlgorithm, TrainState, sync_target
 from tianshou_tpu_torch.algorithm.optim import OptimizerFactory
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
@@ -141,17 +141,10 @@ class QLearningOffPolicyAlgorithm(OffPolicyAlgorithm):
         return ts.model
 
     def _sync_target(self, ts: TrainState) -> TrainState:
-        """Copy the online weights into the target net when the gradient-step
-        count, already advanced past this step, is a multiple of the period:
-        a select on the device (tianshou_tpu dqn.py:115-123), no host branch.
-        On a sync step the target takes the online weights' bits; on any
-        other step it keeps its own. One pointwise kernel per parameter,
-        written in place."""
+        """The target net takes the online weights every ``target_update_freq``
+        gradient steps (tianshou_tpu dqn.py:115-123), by :func:`sync_target`."""
         if self.use_target:
-            sync = ts.step % self.target_update_freq == 0
-            with torch.no_grad():
-                for t, o in zip(ts.target.parameters(), self._online(ts).parameters()):
-                    torch.where(sync, o, t, out=t)
+            sync_target(ts.target, self._online(ts), ts.step, self.target_update_freq)
         return ts
 
     def postprocess(self, ts: TrainState, buffer, buf_state, batch: Batch,

@@ -278,6 +278,10 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         ts.step += 1
         return stats.map(torch.Tensor.detach)
 
+    def rollout_grad_steps(self, n: int, repeat: int, batch_size: int) -> int:
+        """``repeat`` passes of ``minibatch_shape``'s minibatches."""
+        return repeat * self.minibatch_shape(n, batch_size)[0]
+
     @staticmethod
     def minibatch_shape(n: int, batch_size: int) -> tuple[int, int]:
         """``(n_mb, mb_size)`` for ``n`` rows: ``max(1, n // batch_size)``

@@ -1,1 +1,1 @@
-"""Classic control tasks (port of ``tianshou_tpu/env/classic``: CartPole and Pendulum so far)."""
+"""Classic control tasks (port of ``tianshou_tpu/env/classic``)."""

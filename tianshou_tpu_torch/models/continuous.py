@@ -3,7 +3,7 @@
 ``ContinuousActorDeterministic`` (DDPG, TD3), ``ContinuousActorProbabilistic``
 (PPO, and with ``conditioned_sigma`` SAC and REDQ), ``ContinuousCritic`` and
 ``EnsembleCritic`` (REDQ's N critics as one batched product, output
-``[N, B]``). The BCQ nets (``Perturbation``, ``VAE``) are not ported yet.
+``[N, B]``), and BCQ's ``Perturbation`` and conditional ``VAE``.
 
 Like the MLPs of :mod:`tianshou_tpu_torch.models.mlp` they take
 ``input_dim``. ``ppo_init`` is the reference MuJoCo-PPO recipe
@@ -24,7 +24,7 @@ from torch import nn
 from tianshou_tpu_torch.models.mlp import MLP, EnsembleLinear, _dense
 
 __all__ = ["ContinuousActorDeterministic", "ContinuousActorProbabilistic", "ContinuousCritic", "EnsembleCritic",
-           "SIGMA_MIN", "SIGMA_MAX"]
+           "Perturbation", "SIGMA_MIN", "SIGMA_MAX", "VAE"]
 
 SIGMA_MIN, SIGMA_MAX = -20.0, 2.0  # reference continuous.py:25
 
@@ -133,3 +133,56 @@ class EnsembleCritic(nn.Module):
         for layer in self.layers[:-1]:
             x = F.relu(layer(x))
         return self.layers[-1](x)[..., 0]
+
+
+class Perturbation(nn.Module):
+    """BCQ's action perturbation (reference continuous.py:378): ``(obs, act) ->
+    clip(act + phi * max_action * tanh(MLP([obs, act])), +-max_action)``."""
+
+    def __init__(self, hidden_sizes: Sequence[int], action_dim: int, max_action: float = 1.0, phi: float = 0.05, *,
+                 input_dim: int) -> None:
+        super().__init__()
+        self.max_action, self.phi = max_action, phi
+        self.mlp = MLP(input_dim + action_dim, hidden_sizes, action_dim)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        noise = self.phi * self.max_action * torch.tanh(self.mlp(torch.cat([obs, act], dim=-1)))
+        return (act + noise).clamp(-self.max_action, self.max_action)
+
+
+class VAE(nn.Module):
+    """BCQ's conditional VAE (reference continuous.py:415): the encoder MLP on
+    ``[obs, act]``, the latent's mean and log-std heads (log-std clipped to
+    ``[-4, 15]``), and the decoder MLP on ``[obs, z]`` with a
+    ``max_action * tanh`` output. The forward takes the reparameterization's
+    standard normals ``noise [B, latent_dim]``; ``decode`` without ``z`` draws
+    them from ``generator`` and uses ``clip(0.5 * noise, -0.5, 0.5)``
+    (:meth:`latent`)."""
+
+    def __init__(self, encoder_hidden: Sequence[int], decoder_hidden: Sequence[int], action_dim: int,
+                 latent_dim: int, max_action: float = 1.0, *, input_dim: int) -> None:
+        super().__init__()
+        self.latent_dim, self.max_action = latent_dim, max_action
+        self.encoder = MLP(input_dim + action_dim, encoder_hidden)
+        self.mean_head = _dense(self.encoder.output_dim, latent_dim)
+        self.logstd_head = _dense(self.encoder.output_dim, latent_dim)
+        self.decoder = MLP(input_dim + latent_dim, decoder_hidden, action_dim, flatten_input=False)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor, noise: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(reconstruction, mean, std)`` of ``act`` given ``obs``."""
+        h = self.encoder(torch.cat([obs, act], dim=-1))
+        mean = self.mean_head(h)
+        std = torch.exp(self.logstd_head(h).clamp(-4.0, 15.0))
+        return self.decode(obs, mean + std * noise), mean, std
+
+    @staticmethod
+    def latent(noise: torch.Tensor) -> torch.Tensor:
+        """The latent of a decode without ``z``: ``clip(0.5 * noise, -0.5, 0.5)``."""
+        return (noise * 0.5).clamp(-0.5, 0.5)
+
+    def decode(self, obs: torch.Tensor, z: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+        if z is None:
+            z = self.latent(torch.randn((obs.shape[0], self.latent_dim), generator=generator, device=obs.device))
+        return self.max_action * torch.tanh(self.decoder(torch.cat([obs, z], dim=-1)))

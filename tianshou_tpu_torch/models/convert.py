@@ -12,7 +12,7 @@ of a ``tianshou_tpu.models.recurrent`` net (``RecurrentQNet``,
 ``RecurrentActorProb``, ``RecurrentCritic``) or of an actor-critic net
 (``ContinuousActorProbabilistic``, ``ContinuousActorDeterministic``,
 ``ContinuousCritic``, ``EnsembleCritic``, ``DiscreteActor``,
-``DiscreteCritic``) with numpy leaves (``{"params": {...}}`` or the inner
+``DiscreteCritic``, BCQ's ``Perturbation`` and ``VAE``) with numpy leaves (``{"params": {...}}`` or the inner
 ``"params"`` dict) and returns a ``state_dict`` for its counterpart in
 :mod:`tianshou_tpu_torch.models`. It needs no flax:
 
@@ -42,7 +42,8 @@ __all__ = [
     "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax", "qrdqnet_params_from_flax",
     "iqn_params_from_flax", "fraction_params_from_flax", "rainbow_net_params_from_flax",
     "branching_net_params_from_flax", "icm_params_from_flax", "masked_qnet_params_from_flax",
-    "dict_obs_net_params_from_flax", "recurrent_params_from_flax",
+    "dict_obs_net_params_from_flax", "recurrent_params_from_flax", "perturbation_params_from_flax",
+    "vae_params_from_flax",
 ]
 
 
@@ -186,6 +187,23 @@ def ensemble_critic_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def perturbation_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``Perturbation`` (one scope, ``MLP_0``)."""
+    return mlp_params_from_flax(_params(tree)["MLP_0"], "mlp.")
+
+
+def vae_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a torch ``VAE``: the flax module's ``setup`` names its
+    scopes ``encoder`` and ``decoder`` (MLPs) and the Dense ``mean_head`` and
+    ``logstd_head``, as the torch module names them."""
+    p = _params(tree)
+    out = mlp_params_from_flax(p["encoder"], "encoder.")
+    out.update(mlp_params_from_flax(p["decoder"], "decoder."))
+    for name in ("mean_head", "logstd_head"):
+        out.update(_dense_params(p[name], name))
+    return out
+
+
 _ACTOR_CRITIC_CONVERTERS = {
     "ContinuousActorProbabilistic": continuous_actor_prob_params_from_flax,
     "ContinuousActorDeterministic": continuous_actor_det_params_from_flax,
@@ -193,6 +211,8 @@ _ACTOR_CRITIC_CONVERTERS = {
     "EnsembleCritic": ensemble_critic_params_from_flax,
     "DiscreteActor": discrete_actor_params_from_flax,
     "DiscreteCritic": discrete_critic_params_from_flax,
+    "Perturbation": perturbation_params_from_flax,
+    "VAE": vae_params_from_flax,
 }
 
 
@@ -202,13 +222,15 @@ def actor_critic_params_from_flax(params: dict, model) -> dict[str, torch.Tensor
     the nets go) from the JAX train state's ``params`` or ``target_params``
     (``{"actor": tree, "critic": tree, ...}``), each net through the
     converter of its class; a 0-d ``log_alpha`` (SAC's and REDQ's
-    ``alpha="auto"``) is carried across where the model holds one."""
+    ``alpha="auto"``) and CQL's ``log_cql_alpha`` are carried across where the
+    model holds them."""
     out: dict[str, torch.Tensor] = {}
     for name, net in model.items():
         for k, v in _ACTOR_CRITIC_CONVERTERS[type(net).__name__](params[name]).items():
             out[f"{name}.{k}"] = v
-    if hasattr(model, "log_alpha"):
-        out["log_alpha"] = _t(params["log_alpha"])
+    for name in ("log_alpha", "log_cql_alpha"):
+        if hasattr(model, name):
+            out[name] = _t(params[name])
     return out
 
 

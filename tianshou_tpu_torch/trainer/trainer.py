@@ -1,6 +1,6 @@
 """Trainers (port of ``tianshou_tpu/trainer/trainer.py``; reference
-``tianshou/trainer.py``: ``TrainerParams`` :81, ``OffPolicyTrainer`` :1043,
-``OnPolicyTrainer`` :1098).
+``tianshou/trainer.py``: ``TrainerParams`` :81, ``OfflineTrainer`` :780,
+``OffPolicyTrainer`` :1043, ``OnPolicyTrainer`` :1098).
 
 The epoch and update cadence are the JAX package's. Off-policy: after an
 optional prefill (uniform random actions, or the policy's with
@@ -8,7 +8,9 @@ optional prefill (uniform random actions, or the policy's with
 steps from every env and then takes ``round(update_per_step * T * E)``
 gradient steps. On-policy: each chunk collects a rollout of T steps per env
 (``keep_rollout=True``, no replay buffer) and ``update_rollout`` takes
-``update_step_num_repetitions`` passes of shuffled minibatches over it. The
+``update_step_num_repetitions`` passes of shuffled minibatches over it.
+Offline: each epoch takes ``update_step_num_gradient_steps_per_epoch``
+gradient steps from a fixed buffer and collects nothing. The
 host reads back only the per-chunk episode and loss statistics. At the end
 of each epoch a test phase collects ``test_step_num_episodes`` episodes with
 the test collector (``training=False``), under the train envs' pooled
@@ -25,7 +27,8 @@ programs) is :class:`_TrainerBase`, as in the JAX package.
 
 The JAX package jits the collect chunk, the update burst (on-policy: the
 rollout update), the test chunk and with ``fused_megastep`` collect and
-burst as one program. Here they are the trainers' programs
+burst as one program; the offline trainer jits the epoch's updates as one
+scan. Here they are the trainers' programs
 (:meth:`_TrainerBase.collect_chunk`, :meth:`OffPolicyTrainer.update_burst`,
 :meth:`OnPolicyTrainer.update_rollout`, :meth:`_TrainerBase.test_chunk` and
 :meth:`OffPolicyTrainer.megastep`), each a CUDA graph on the card
@@ -41,7 +44,10 @@ graphs of a trainer share one memory pool, and train and test programs never
 run at the same time. A replay does only device work, so whatever the JAX
 package does on the host after a jitted call (trace lines,
 ``on_episode_done_hook``, logger writes) runs here after the replay. On the
-CPU the same code runs eagerly. The random prefill stays eager.
+CPU the same code runs eagerly. The random prefill stays eager. An offline
+epoch runs as bursts of ``OfflineTrainer.BURST`` updates, one
+graph replayed, and one burst of the remainder, so that no graph holds the
+reference's 10,000 updates of an epoch and the count is the JAX trainer's.
 
 The host trainers (:class:`HostOffPolicyTrainer`, :class:`HostOnPolicyTrainer`,
 ``tianshou_tpu/trainer/trainer.py:614-846``) train over host envs through a
@@ -73,8 +79,8 @@ from tianshou_tpu_torch.utils.progress import progress_bar
 from tianshou_tpu_torch.utils.statistics import MovAvg
 from tianshou_tpu_torch.utils.tree import tree_map
 
-__all__ = ["HostOffPolicyTrainer", "HostOnPolicyTrainer", "OffPolicyTrainer", "OffPolicyTrainerParams",
-           "OnPolicyTrainer", "OnPolicyTrainerParams", "TrainResult", "TrainerParams"]
+__all__ = ["HostOffPolicyTrainer", "HostOnPolicyTrainer", "OfflineTrainer", "OfflineTrainerParams", "OffPolicyTrainer",
+           "OffPolicyTrainerParams", "OnPolicyTrainer", "OnPolicyTrainerParams", "TrainResult", "TrainerParams"]
 
 
 @dataclasses.dataclass
@@ -125,6 +131,12 @@ class OnPolicyTrainerParams(TrainerParams):
 
 
 @dataclasses.dataclass
+class OfflineTrainerParams(TrainerParams):
+    batch_size: int = 64
+    update_step_num_gradient_steps_per_epoch: int = 500
+
+
+@dataclasses.dataclass
 class TrainResult(DataclassPPrintMixin):
     """Summary, mirroring reference InfoStats (data/stats.py:83)."""
 
@@ -168,7 +180,7 @@ class _TrainerBase:
     and the logger writes. ``test_collector=None`` runs no test phase: no
     best score, no stop."""
 
-    def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
+    def __init__(self, algo, train_collector: DeviceCollector | None, test_collector: DeviceCollector | None,
                  params: TrainerParams) -> None:
         self.algo = algo
         self.train_collector = train_collector
@@ -208,7 +220,7 @@ class _TrainerBase:
         held = self._programs.get(key)
         if held is None or any(a is not b for a, b in zip(held[0], states)):
             if self.graph_pool is None:
-                self.graph_pool = GraphPool(self.train_collector.device)
+                self.graph_pool = GraphPool(generator.device)
             elif held is not None:
                 self.graph_pool.graphs.remove(held[1])
             held = (states, Graphed(fn, self.graph_pool, (generator,), name=" ".join(map(str, key))))
@@ -389,18 +401,10 @@ class _TrainerBase:
         )
 
 
-class OffPolicyTrainer(_TrainerBase):
-    """Collect chunk -> burst of gradient steps, repeated; a test phase at the
-    end of each epoch (reference :1043)."""
+class _ReplayUpdates:
+    """The update burst of the trainers that sample a replay buffer
+    (``self.buffer``): the off-policy and the offline trainer."""
 
-    def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
-                 buffer, params: OffPolicyTrainerParams) -> None:
-        super().__init__(algo, train_collector, test_collector, params)
-        self.buffer = buffer
-
-    # ------------------------------------------------------------------
-    # programs
-    # ------------------------------------------------------------------
     def _updates(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
         stats = [self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)[2]
                  for _ in range(n_updates)]
@@ -414,6 +418,20 @@ class OffPolicyTrainer(_TrainerBase):
         times, took 1.5% longer per chunk on an H100: PERF.md.)"""
         return self._program(("update_burst", n_updates, self.params.batch_size), (ts, buf_state, generator),
                              generator, lambda: self._updates(ts, buf_state, generator, n_updates))()
+
+
+class OffPolicyTrainer(_ReplayUpdates, _TrainerBase):
+    """Collect chunk -> burst of gradient steps, repeated; a test phase at the
+    end of each epoch (reference :1043)."""
+
+    def __init__(self, algo, train_collector: DeviceCollector, test_collector: DeviceCollector | None,
+                 buffer, params: OffPolicyTrainerParams) -> None:
+        super().__init__(algo, train_collector, test_collector, params)
+        self.buffer = buffer
+
+    # ------------------------------------------------------------------
+    # programs
+    # ------------------------------------------------------------------
 
     def megastep(self, ts, cstate, buf_state, generator: torch.Generator, n_steps: int,
                  n_updates: int) -> tuple[Batch, Batch]:
@@ -524,7 +542,7 @@ class OnPolicyTrainer(_TrainerBase):
         cstate = self._cstate = coll.reset(generator, into=self._cstate)
         E = coll.venv.num_envs
         T = p.collection_step_num_env_steps
-        n_mb, _ = self.algo.minibatch_shape(T * E, p.batch_size)
+        n_grad = self.algo.rollout_grad_steps(T * E, p.update_step_num_repetitions, p.batch_size)
         self._ts = ts
 
         def test() -> CollectStats:
@@ -555,13 +573,65 @@ class OnPolicyTrainer(_TrainerBase):
                 stats = self.update_rollout(ts, out.rollout, generator)
                 _sync(dev)
                 timing["update"] += time.perf_counter() - tu
-                self.gradient_step += p.update_step_num_repetitions * n_mb
+                self.gradient_step += n_grad
                 last_stats = stats.map(torch.clone)  # a graph's output: the next replay overwrites it
                 self._log_update(last_stats)
             pbar.close()
             if self._end_epoch(epoch, t0, timing, ts, test):
                 break
         return self._result(epoch, t0, timing, ts, None, last_stats)
+
+
+class OfflineTrainer(_ReplayUpdates, _TrainerBase):
+    """Fixed-dataset training (reference :780; ``tianshou_tpu/trainer/trainer.py:556``):
+    each epoch takes ``update_step_num_gradient_steps_per_epoch`` gradient
+    steps from ``buffer``, as bursts of :attr:`BURST` updates (one CUDA graph
+    on the card, replayed) and one burst of the remainder,
+    then runs the test phase, ``stop_fn``, the logger's writes and
+    ``save_checkpoint_fn``. Nothing is collected: the result's ``env_step`` is
+    0 and its ``timing`` empty, as the JAX trainer's."""
+
+    #: the updates of one replayed CUDA graph: a graph of a whole 10,000-update epoch (the reference's Atari
+    #: scripts) would hold millions of nodes, and a capture's cost grows with it (PERF.md says why 100)
+    BURST = 100
+
+    def __init__(self, algo, buffer, test_collector: DeviceCollector | None, params: OfflineTrainerParams) -> None:
+        super().__init__(algo, None, test_collector, params)
+        self.buffer = buffer
+
+    def bursts(self) -> list[int]:
+        """The update bursts of one epoch, in order."""
+        n, k = self.params.update_step_num_gradient_steps_per_epoch, self.BURST
+        return [k] * (n // k) + ([n % k] if n % k else [])
+
+    def run(self, ts, buf_state, generator: torch.Generator) -> TrainResult:
+        """Train in place; ``generator`` lives on the buffer's device."""
+        p = self.params
+        dev = generator.device
+        t0 = time.perf_counter()
+        self._ts = ts
+        last_stats = None
+        epoch = self.start_epoch
+        for epoch in range(self.start_epoch + 1, p.max_epochs + 1):
+            self._epoch = epoch
+            # copies: a burst's stats are a graph's output, which its next replay overwrites
+            bursts = [self.update_burst(ts, buf_state, generator, n).map(torch.clone) for n in self.bursts()]
+            _sync(dev)
+            self.gradient_step += p.update_step_num_gradient_steps_per_epoch
+            last_stats = Batch({k: torch.cat([b[k] for b in bursts]) for k in bursts[0].keys()})
+            self._log_update(last_stats)
+            stop = False
+            if self.test_collector is not None:
+                stop = self._log_test(self._test(ts, generator), epoch)
+            self._log_info(epoch, t0, {})
+            self._save_counters(epoch)
+            if p.save_checkpoint_fn is not None:
+                p.save_checkpoint_fn(epoch, self.env_step, self.gradient_step, ts)
+            if stop:
+                break
+        result = self._result(epoch, t0, {}, ts, buf_state, last_stats)
+        result.env_step = 0
+        return result
 
 
 class _HostTrainerMixin:
@@ -734,7 +804,7 @@ class HostOnPolicyTrainer(_HostTrainerMixin, OnPolicyTrainer):
         timing = dict.fromkeys(("collect", "update", "test"), 0.0)
         self._start(ts)
         T = p.collection_step_num_env_steps
-        n_mb, _ = self.algo.minibatch_shape(T * len(tc.venv), p.batch_size)
+        n_grad = self.algo.rollout_grad_steps(T * len(tc.venv), p.update_step_num_repetitions, p.batch_size)
 
         def test() -> CollectStats:
             tt = time.perf_counter()
@@ -763,7 +833,7 @@ class HostOnPolicyTrainer(_HostTrainerMixin, OnPolicyTrainer):
                 upd = self.update_rollout(ts, self._static_rollout(rollout), generator)
                 _sync(dev)
                 timing["update"] += time.perf_counter() - tu
-                self.gradient_step += p.update_step_num_repetitions * n_mb
+                self.gradient_step += n_grad
                 last_stats = upd.map(torch.clone)
                 self._log_update(last_stats)
             pbar.close()
