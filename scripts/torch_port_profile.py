@@ -77,7 +77,7 @@ kernel class, and the ``gather_rows`` kernels' launches and share of the busy ti
 
 For the offline pixel paths (``--paths offline``: ``chip_smoke``'s ``offline_{bcq,cql,crr}_pixels``, discrete
 BCQ, CQL and CRR at bench.py's widths from the ring the DQN pipeline's collector fills at eps 0.2) it traces one
-replayed burst of ``chip_smoke.OFF_BURST`` updates of ``OfflineTrainer`` the same way.
+replayed burst of ``OfflineTrainer.BURST`` updates the same way.
 
 The pixel paths run through one trainer: a warm-up run of the prefill and two
 chunks (where the trainer captures its CUDA graphs: a program's first call is
@@ -654,7 +654,7 @@ def profile_distributional(smi: str, prefill_chunks: int = 4) -> None:
 
 def profile_offline(smi: str) -> None:
     """Where the update time of the offline pixel paths goes: the ring of ``chip_smoke.fill_offline_ring``, then
-    for each of ``chip_smoke.OFFLINE_KINDS`` one burst of ``chip_smoke.OFF_BURST`` updates of ``OfflineTrainer``
+    for each of ``chip_smoke.OFFLINE_KINDS`` one burst of ``OfflineTrainer.BURST`` updates
     as its CUDA graph (eager warm-up and capture first), replayed once untraced and once traced."""
     import torch
 
@@ -670,12 +670,12 @@ def profile_offline(smi: str) -> None:
         trainer = OfflineTrainer(algo, buffer, None, OfflineTrainerParams(batch_size=cs.BATCH, verbose=False))
 
         def burst():
-            trainer.update_burst(ts, bs, gen, cs.OFF_BURST)
+            trainer.update_burst(ts, bs, gen, trainer.BURST)
 
         burst(), burst()  # eager warm-up, capture
         _report_burst(f"offline_{kind}_pixels: {type(algo).__name__} from the offline ring (E={cs.E}, "
-                      f"{cs.SLOTS} slots), an update burst of {cs.OFF_BURST} updates of batch {cs.BATCH}", burst,
-                      cs.OFF_BURST, smi)
+                      f"{cs.SLOTS} slots), an update burst of {trainer.BURST} updates of batch {cs.BATCH}", burst,
+                      trainer.BURST, smi)
         del algo, ts, trainer
         torch.cuda.empty_cache()
 

@@ -20,7 +20,9 @@ Tolerances:
   and ``log_cql_alpha``): all within 2e-5 and 99.9% of each tensor within
   2e-6, ``tests/test_torch_dqn.py``'s rule for Adam's first step;
 - at a delayed TD3+BC step the actor and its Adam state bit-identical to
-  what they were; acting: BC's and BCQ's actions at rtol 1e-5 / atol 1e-6.
+  what they were; acting: BC's and BCQ's actions at rtol 1e-5 / atol 1e-6;
+- 40 TD3+BC or CQL updates in a row: losses rtol 1e-4 / atol 1e-5, the
+  final state within 2e-4 (``test_many_updates_track_jax`` says why).
 """
 
 import jax
@@ -231,6 +233,37 @@ def test_cql_preprocess_is_the_one_step_target(rings):
     tbatch = talgo.preprocess(tts, tb, ts, tb.get(ts, _t(idx)), _t(idx),
                               Draws(target=_t(jax.random.normal(key, (B, 2)))))
     np.testing.assert_allclose(tbatch.returns.numpy(), np.asarray(jbatch.returns), **TOL)
+
+
+TRAJECTORY_UPDATES = 40
+
+
+@pytest.mark.parametrize("kind", ["td3bc", "cql"])
+def test_many_updates_track_jax(rings, kind):
+    """``TRAJECTORY_UPDATES`` updates in a row, each with fresh rows and the JAX key's own draws: the losses
+    step by step and the train state at the end stay with the JAX package's (CQL with its Lagrange multiplier
+    and the entropy alpha). Tolerances: losses rtol 1e-4 / atol 1e-5 and every weight, target and multiplier
+    within 2e-4 at the end, wider than one update's because Adam divides each step by the root of a small
+    second moment and so carries float32 rounding forward; a fault in a step's arithmetic, its optimizer state
+    or its order moves them by far more (a trajectory of 300 CQL updates drifts 3e-3 at most)."""
+    jb, js, tb, ts, _ = rings[1]
+    jalgo, jts, talgo, tts = _pair(kind, 1)
+    rng = np.random.default_rng(11)
+    pre = jax.jit(lambda t, s, b, i, k: jalgo.preprocess(t, jb, s, b, i, k))
+    upd = jax.jit(jalgo.update_step)
+    for step in range(TRAJECTORY_UPDATES):
+        idx = rng.integers(0, E * 13, B)
+        key = jax.random.key(100 + step)
+        _, k2, k3 = jax.random.split(key, 3)
+        jidx = jnp.asarray(idx)
+        jts, jstats = upd(jts, pre(jts, js, jb.get(js, jidx), jidx, k2), k3)
+        tstats = talgo.update(tts, tb, ts, _draws(kind, key, 1, idx), B)[2]
+        np.testing.assert_allclose(tstats.loss.item(), float(jstats.loss), rtol=1e-4, atol=1e-5, err_msg=str(step))
+    assert int(tts.step) == int(jts.step) == TRAJECTORY_UPDATES
+    got, want = _state(tts), _jax_state(jts, tts)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].detach().numpy(), w.numpy(), rtol=0, atol=2e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("act_dim", [1, 2])

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``tianshou_tpu_torch``, nor
-``chip_smoke.py``, ``scripts/torch_port_profile.py``,
-``scripts/her_seed_spread.py`` or ``scripts/offline_seed_spread.py``, imports ``jax``,
+``chip_smoke.py``, ``scripts/torch_port_profile.py`` or
+``scripts/seed_spread.py``, imports ``jax``,
 ``flax``, ``optax`` or the JAX package ``tianshou_tpu`` (read from each
 file's syntax tree, imports inside functions included). Nor do they import
 ``cloudpickle`` or ``gymnasium``, which a GPU host need not have, apart from
@@ -13,8 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "tianshou_tpu_torch").rglob("*.py"))
-FILES += ["chip_smoke.py", "scripts/torch_port_profile.py", "scripts/her_seed_spread.py",
-          "scripts/offline_seed_spread.py"]
+FILES += ["chip_smoke.py", "scripts/torch_port_profile.py", "scripts/seed_spread.py"]
 BANNED = {"jax", "jaxlib", "flax", "optax", "tianshou_tpu"}
 HOST_BANNED = {"cloudpickle", "gymnasium", "gym"}
 
