@@ -239,6 +239,28 @@ Phases, each of which fails the run:
 44. ``psrl_nchain`` (``:127``): PSRL on ``NChain(5, 0.2)``, the posterior update graph (counts, Dirichlet and normal
    draws, 200 value-iteration sweeps) against eager, then to 340. The phases 38-44 print their total time.
 
+45. ``hl_sac_halfcheetah``: ``examples/mujoco/mujoco_sac_hl.py`` through the port's ``SACExperimentBuilder`` (16 + 10
+   envs, a 1 M-row replay, batch 256, one update per env step, 256x256 nets, ``SACParams(actor_lr=1e-3, critic_lr=1e-3,
+   alpha=0.2, tau=0.005)``), the random prefill cut from 10,000 to ``HL_SAC_PREFILL`` steps and the epoch from 20,000 to
+   ``HL_SAC_EPOCH``: exactly one ``physics_fused`` launch per vector step (prefill, training, test) and no other kernel;
+   the trainer's three programs as graphs; the builder's algorithm in the graph check of phase 34; one replayed burst
+   traced (kernels and device ms per update).
+46. ``hl_ppo_halfcheetah``: ``examples/mujoco/mujoco_ppo_hl.py`` through ``PPOExperimentBuilder`` (64 + 10 envs, rollouts
+   of 2,048 steps per env, 10 passes of batch 64, ``PPOParams(lr=3e-4, eps_clip=0.2, gae_lambda=0.95,
+   advantage_normalization=True, ent_coef=0.0)``), the epoch cut from 20,000 steps to one rollout: one ``physics_fused``
+   launch per vector step, train and test; the gradient-step count; minibatch steps traced per gradient step.
+47. ``hl_dqn_cartpole`` (``tests/test_highlevel.py:34-55``, nothing cut): 195 with persistence on, ``best`` and
+   ``experiment.pkl`` written, ``Experiment.from_directory`` re-runs, ``best`` restores bit for bit. No kernel.
+48. ``hl_dqn_cartpole_per`` (``tests/test_highlevel.py:270-278``): PER through ``with_buffer_factory``; one descent per
+   update, one tree update per update and per collect step, the final tree checked by ``_check_tree``.
+49. ``marl_tictactoe`` (``examples/marl/tictactoe_selfplay.py``'s settings, ``MARL_*``): DQN self-play through
+   ``HostOffPolicyTrainer``; agent 0 must win at least 0.7 of 100 games against ``MARLRandomPolicy``; the multi-agent
+   update as a graph against eager, bit for bit (``offline_graph_check``), its replay traced; a run through
+   ``MARLExperimentBuilder``. No kernel.
+50. ``classic_envs``: ``CLASSIC_STEPS`` vector steps of Acrobot, MountainCar and MountainCarContinuous at E = 2,048 as
+   one graph against eager, bit for bit; ``examples/box2d/acrobot_dualdqn.py``'s setup for one epoch cut from 10,000
+   steps to 2,000. No kernel. The phases 45-50 print their total time.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -4054,11 +4076,12 @@ def offline_graph_check(torch, name: str, algo, buffer, bs, batch: int) -> str:
     fresh train state from one generator state: ``GRAPH_CALLS`` bursts of ``GRAPH_K`` updates (the first the
     program's eager warm-up, the second its capture). The sampled indices (logged on the device), the stats,
     every weight, target and optimizer tensor and the step must be bit-identical (cuDNN held to deterministic
-    algorithms), and the kernels launched the same. The buffer is only read. Returns a report line."""
+    algorithms), and the kernels launched the same. A multi-agent train state (a dict) is compared agent by agent.
+    The buffer is only read. Returns a report line."""
     import copy
 
     from tianshou_tpu_torch.ops.kernels import counters
-    from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams
+    from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams, _stack_stats
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -4087,11 +4110,10 @@ def offline_graph_check(torch, name: str, algo, buffer, bs, batch: int) -> str:
             stats = []
             for _ in range(GRAPH_CALLS):
                 if trainer is None:
-                    st = [algo.update(s_ts, buffer, bs, s_gen, batch)[2] for _ in range(GRAPH_K)]
-                    st = {k: torch.stack([x[k] for x in st]) for k in st[0].keys()}
+                    st = _stack_stats([algo.update(s_ts, buffer, bs, s_gen, batch)[2] for _ in range(GRAPH_K)])
                 else:
                     st = trainer.update_burst(s_ts, bs, s_gen, GRAPH_K)
-                stats.append({k: v.clone() for k, v in st.items()})
+                stats.append([x.clone() for x in _leaves(st)])
             torch.cuda.synchronize()
             after = counters.snapshot()
             sides[side] = dict(ts=s_ts, stats=stats, idx=log, trainer=trainer,
@@ -4104,13 +4126,15 @@ def offline_graph_check(torch, name: str, algo, buffer, bs, batch: int) -> str:
     if replays != {"update_burst": GRAPH_CALLS - 1} or int((e["idx"] < 0).sum()) != 0:
         raise AssertionError(f"{name} graph check: replays {replays}, eager batches {int(e['idx'][:, 0].ge(0).sum())}")
     pairs = [(g["idx"], e["idx"])]
-    pairs += [(g["stats"][c][k], e["stats"][c][k]) for c in range(GRAPH_CALLS) for k in e["stats"][c]]
-    for a, b in ((g["ts"].model, e["ts"].model), (g["ts"].target, e["ts"].target)):
-        if a is not None:
-            pairs += list(zip(a.state_dict().values(), b.state_dict().values()))
-    pairs += list(zip(_optimizer_state(g["ts"]), _optimizer_state(e["ts"])))
+    pairs += [(x, y) for c in range(GRAPH_CALLS) for x, y in zip(g["stats"][c], e["stats"][c])]
+    agents = list(zip(*(list(side["ts"].values()) if isinstance(side["ts"], dict) else [side["ts"]] for side in (g, e))))
+    for gts, ets in agents:
+        for a, b in ((gts.model, ets.model), (gts.target, ets.target)):
+            if a is not None:
+                pairs += list(zip(a.state_dict().values(), b.state_dict().values()))
+        pairs += list(zip(_optimizer_state(gts), _optimizer_state(ets)))
     differ = sum(not torch.equal(x, y) for x, y in pairs)
-    if differ or not int(g["ts"].step) == int(e["ts"].step) == GRAPH_CALLS * GRAPH_K:
+    if differ or not all(int(gts.step) == int(ets.step) == GRAPH_CALLS * GRAPH_K for gts, ets in agents):
         raise AssertionError(f"{name} graph check: {differ} of {len(pairs)} tensors differ from eager")
     if torch.equal(g["idx"][GRAPH_K:2 * GRAPH_K], g["idx"][2 * GRAPH_K:]):
         raise AssertionError(f"{name} graph check: two replays drew the same indices")
@@ -4417,11 +4441,14 @@ def offline_classic_path(torch, path: str, data) -> tuple[dict, list[str]]:
     return total, lines
 
 
-def rollout_graph_check(torch, name: str, algo, env, n_env: int, T_: int, repeat: int, batch: int) -> str:
+def rollout_graph_check(torch, name: str, algo, env, n_env: int, T_: int, repeat: int, batch: int,
+                        step_graphs: bool = False) -> str:
     """``OnPolicyTrainer``'s ``update_rollout`` as a CUDA graph against ``algo.update_rollout`` run eagerly, on deep
     copies of one fresh train state from one generator state, over one rollout of ``T_`` steps of ``n_env`` envs
-    collected eagerly: ``GRAPH_CALLS`` updates (the program's eager warm-up, its capture, a replay). Stats, weights,
-    optimizer state, the carried ``extra`` tensors and the step bit-identical. Returns a report line."""
+    collected eagerly: ``GRAPH_CALLS`` updates (the program's eager warm-up, its capture, a replay; with
+    ``step_graphs``, the trainer's route for long rollouts, in each update the first step eager and the rest replays of
+    a graph of one step). Stats, weights, optimizer state, the carried ``extra`` tensors and the step bit-identical. Returns a
+    report line."""
     import copy
 
     from tianshou_tpu_torch.data.collector import DeviceCollector
@@ -4439,6 +4466,8 @@ def rollout_graph_check(torch, name: str, algo, env, n_env: int, T_: int, repeat
         s_gen.set_state(gen.get_state())
         trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
             batch_size=batch, update_step_num_repetitions=repeat, verbose=False)) if side == "graph" else None
+        if trainer is not None and step_graphs:
+            trainer.STEP_GRAPHS_ABOVE = 0
         stats = []
         for _ in range(GRAPH_CALLS):
             st = (algo.update_rollout(s_ts, rollout, s_gen, repeat, batch)[1] if trainer is None
@@ -4447,9 +4476,15 @@ def rollout_graph_check(torch, name: str, algo, env, n_env: int, T_: int, repeat
         torch.cuda.synchronize()
         sides[side] = dict(ts=s_ts, stats=stats, trainer=trainer)
     g, e = sides["graph"], sides["eager"]
-    replays = {x.name.split()[0]: x.replays for x in g["trainer"].graph_pool.graphs}
-    if replays != {"update_rollout": GRAPH_CALLS - 1}:
-        raise AssertionError(f"{name} graph check: replays {replays}")
+    pool = g["trainer"].graph_pool
+    replays = {x.name.split()[0]: x.replays for x in (pool.graphs if pool is not None else [])}
+    expect = {"update_rollout": GRAPH_CALLS - 1}
+    if step_graphs:
+        sg = g["trainer"].step_graphs
+        replays.update({"steps captured": sg.captures, "steps replayed": sg.replays})
+        expect = {"steps captured": 1, "steps replayed": algo.rollout_grad_steps(n_env * T_, repeat, batch) - 1}
+    if replays != expect:
+        raise AssertionError(f"{name} graph check: replays {replays}, expected {expect}")
     pairs = [(x, y) for c in range(GRAPH_CALLS) for x, y in zip(_leaves(g["stats"][c]), _leaves(e["stats"][c]))]
     pairs += list(zip(g["ts"].model.state_dict().values(), e["ts"].model.state_dict().values()))
     pairs += list(zip(_optimizer_state(g["ts"]), _optimizer_state(e["ts"])))
@@ -4457,8 +4492,8 @@ def rollout_graph_check(torch, name: str, algo, env, n_env: int, T_: int, repeat
     differ = sum(not torch.equal(x, y) for x, y in pairs)
     if differ or int(g["ts"].step) != int(e["ts"].step):
         raise AssertionError(f"{name} graph check: {differ} of {len(pairs)} tensors differ from eager")
-    return (f"{name} graph check, graphs against eager: {GRAPH_CALLS} rollout updates ({n_env} envs x T={T_}, repeat "
-            f"{repeat}, batch {batch}): {len(pairs)} tensors (stats, weights, optimizer state, extra) bit-identical, "
+    return (f"{name} graph check, {'step ' if step_graphs else ''}graphs against eager: {GRAPH_CALLS} rollout updates "
+            f"({n_env} envs x T={T_}, repeat {repeat}, batch {batch}): {len(pairs)} tensors (stats, weights, optimizer state, extra) bit-identical, "
             f"max |diff| 0; replays {replays}")
 
 
@@ -4559,6 +4594,546 @@ def modelbased_path(torch, name: str, pendulum=None) -> tuple[dict, list[str]]:
         f"env_steps {res.env_step} gradient_steps {res.gradient_step}; wall {res.train_time:.2f} s (collect "
         f"{t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f}); capture s "
         f"{ {g.name.split()[0]: round(g.capture_s, 3) for g in trainer.graph_pool.graphs if g.capture_s} }")]
+
+
+# ---------------------------------------------------------------------------
+# the high-level Experiment API, the multi-agent dispatcher and the classic envs (phases 45-50)
+# ---------------------------------------------------------------------------
+# examples/mujoco/mujoco_sac_hl.py: 16 + 10 envs, a 1 M-row replay, batch 256, one update per env step, 256x256 nets,
+# T 10 (OffPolicyTrainingConfig's default); the random prefill cut from 10,000 steps and the epoch from 20,000
+HL_SAC_E, HL_SAC_TEST_E, HL_SAC_BUFFER, HL_SAC_BATCH, HL_SAC_HID = 16, 10, 1_000_000, 256, (256, 256)
+HL_SAC_PREFILL, HL_SAC_EPOCH = 1_024, 2_048
+# examples/mujoco/mujoco_ppo_hl.py: 64 + 10 envs, rollouts of 2,048 steps per env, 10 passes of batch 64; the epoch
+# cut from 20,000 steps to 4,096 (one rollout)
+HL_PPO_E, HL_PPO_TEST_E, HL_PPO_T, HL_PPO_REPEAT, HL_PPO_BATCH, HL_PPO_EPOCH = 64, 10, 2_048, 10, 64, 4_096
+HL_PPO_PROFILE_STEPS = 16  # minibatch steps traced for kernels and device time per gradient step
+# examples/marl/tictactoe_selfplay.py: 8 envs, a 20,000-row ring, 500 prefill steps, 200 rounds of 64 steps and one
+# update of batch 64; agent 0 against the random policy over 100 episodes must win tests/test_marl.py:40's share
+MARL_E, MARL_RING, MARL_PREFILL, MARL_ROUNDS, MARL_T, MARL_BATCH, MARL_EVAL, MARL_BAR = 8, 20_000, 500, 200, 64, 64, 100, 0.7
+MARL_REPLAYS = 20
+# the classic envs: one vector step at E = 2,048 as a graph against eager; examples/box2d/acrobot_dualdqn.py's setup
+# (DuelingNet 128x128, 16 + 10 envs, a 20,000-row ring, lr 1e-3, n 3, target 320, eps 0.73 decayed), one epoch cut
+# from 10,000 steps to 2,000
+CLASSIC_E, CLASSIC_STEPS, ACRO_E, ACRO_RING, ACRO_EPOCH = 2_048, 8, 16, 20_000, 2_000
+
+
+def _halfcheetah():
+    from tianshou_tpu_torch.env.mujoco import make
+
+    return make("HalfCheetah")
+
+
+def _cartpole():
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+
+    return CartPole()
+
+
+def _per_buffer(num_envs: int):
+    from tianshou_tpu_torch.data.buffer.prio import PrioritizedVectorReplayBuffer
+
+    return PrioritizedVectorReplayBuffer(2000, num_envs, alpha=0.6, beta=0.4)
+
+
+class _Recording:
+    """Records the trainers an ``Experiment`` builds and every test phase's stats, by wrapping the trainer
+    base's ``__init__`` and both ``_test`` methods for the ``with`` block (they still run as they were)."""
+
+    def __enter__(self):
+        from tianshou_tpu_torch.trainer import trainer as tm
+
+        self.trainers, self.tests = [], []
+        self._saved = [(tm._TrainerBase, "__init__", tm._TrainerBase.__init__)]
+        self._saved += [(cls, "_test", cls._test) for cls in (tm._TrainerBase, tm._HostTrainerMixin)]
+        init = tm._TrainerBase.__init__
+
+        def recording_init(trainer, *args, **kwargs):
+            init(trainer, *args, **kwargs)
+            self.trainers.append(trainer)
+
+        def recording(fn):
+            def _test(trainer, ts, generator):
+                stats = fn(trainer, ts, generator)
+                self.tests.append(stats)
+                return stats
+            return _test
+
+        tm._TrainerBase.__init__ = recording_init
+        for cls, _, fn in self._saved[1:]:
+            cls._test = recording(fn)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def _zero_launches():
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+
+    for module in (gather, sumtree, physics_fused):
+        module.reset_launch_count()
+
+
+def _read_launches():
+    from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+
+    return _launches(gather, sumtree, physics_fused)
+
+
+def _trace_calls(torch, call, n_units: int, replays: int = 5) -> tuple[float, float, float, float]:
+    """``call()`` (a graph replay, or eager work) timed between CUDA events (median of ``replays``), then once
+    under ``torch.profiler``: (ms per unit between events, kernels per unit, device busy ms per unit, the idle
+    share of the untraced time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        call()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    busy = kernels = 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            busy, kernels = busy + e.duration_ns() / 1e6, kernels + 1
+    untraced = statistics.median(times)
+    if kernels == 0:
+        raise AssertionError("the traced call ran no kernel on the device")
+    return untraced / n_units, kernels / n_units, busy / n_units, 1 - busy / untraced
+
+
+def _graphs(trainer) -> dict:
+    return {g.name.split()[0]: g for g in trainer.graph_pool.graphs}
+
+
+def hl_sac_halfcheetah_path(torch):
+    """``examples/mujoco/mujoco_sac_hl.py`` through the port's ``SACExperimentBuilder`` (phase 45): the example's
+    widths, the depth cut (``HL_SAC_*``). Exactly one ``physics_fused`` launch per vector step, prefill, training and
+    test, and no other kernel; the trainer's collect, update and test programs as CUDA graphs; then the builder's
+    algorithm in ``offpolicy_graph_check`` (graphs against eager, bit for bit) and the replayed update burst traced.
+    Returns ({kernel: launches}, lines)."""
+    import numpy as np
+
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.highlevel.config import ExperimentConfig, OffPolicyTrainingConfig
+    from tianshou_tpu_torch.highlevel.experiment import SACExperimentBuilder
+    from tianshou_tpu_torch.highlevel.module import ActorFactoryDefault, CriticFactoryDefault
+    from tianshou_tpu_torch.highlevel.params import SACParams
+
+    training = OffPolicyTrainingConfig(max_epochs=1, epoch_num_steps=HL_SAC_EPOCH, num_train_envs=HL_SAC_E,
+                                       num_test_envs=HL_SAC_TEST_E, buffer_size=HL_SAC_BUFFER,
+                                       start_timesteps=HL_SAC_PREFILL, start_timesteps_random=True,
+                                       batch_size=HL_SAC_BATCH, update_step_num_gradient_steps_per_sample=1.0)
+    builder = (SACExperimentBuilder(_halfcheetah, ExperimentConfig(seed=SEED, persistence_enabled=False), training)
+               .with_params(SACParams(actor_lr=1e-3, critic_lr=1e-3, alpha=0.2, tau=0.005))
+               .with_actor_factory(ActorFactoryDefault(hidden_sizes=HL_SAC_HID, conditioned_sigma=True))
+               .with_critic_factory(CriticFactoryDefault(hidden_sizes=HL_SAC_HID, use_action=True)))
+    exp = builder.build()
+    _zero_launches()
+    with _Recording() as rec:
+        res = exp.run("hl_sac_halfcheetah", device=DEV)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    (trainer,) = rec.trainers
+    T, E = training.collection_step_num_env_steps, HL_SAC_E
+    chunk = T * E
+    n_updates = round(chunk * training.update_step_num_gradient_steps_per_sample)
+    prefill_chunks, chunks = -(-HL_SAC_PREFILL // chunk), -(-HL_SAC_EPOCH // chunk)
+    train_steps = (prefill_chunks + chunks) * T
+    test_steps = sum(s.n_collected_steps for s in rec.tests) // HL_SAC_TEST_E
+    expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": train_steps + test_steps}
+    if launches != expect:
+        raise AssertionError(f"hl_sac_halfcheetah: launches {launches}, expected {expect} ({train_steps} train and "
+                             f"{test_steps} test vector steps)")
+    ts = res.train_state
+    if res.env_step != train_steps * E or res.gradient_step != chunks * n_updates or int(ts.step) != res.gradient_step:
+        raise AssertionError(f"hl_sac_halfcheetah: env_step {res.env_step}, gradient_step {res.gradient_step}")
+    graphs = _graphs(trainer)
+    if sorted(graphs) != ["collect_chunk", "test_chunk", "update_burst"] or graphs["update_burst"].replays != chunks - 1:
+        raise AssertionError(f"hl_sac_halfcheetah: programs { {n: g.replays for n, g in graphs.items()} }")
+    if len(rec.tests) != 1 or rec.tests[0].n_collected_episodes != HL_SAC_TEST_E or not np.isfinite(rec.tests[0].returns).all():
+        raise AssertionError(f"hl_sac_halfcheetah: test phases {[(s.n_collected_episodes, s.returns) for s in rec.tests]}")
+    if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()):
+        raise AssertionError("hl_sac_halfcheetah: non-finite weights")
+    per_update, kernels, busy, idle = _trace_calls(torch, graphs["update_burst"], n_updates)
+    # the builder's algorithm: the trainer's programs as graphs against eager, bit for bit
+    torch.manual_seed(SEED)
+    env = _halfcheetah()
+    algo = exp.algo_factory(env)
+    buffer = VectorReplayBuffer(HL_SAC_BUFFER, E)
+    check = offpolicy_graph_check(torch, "hl_sac_halfcheetah", algo, buffer, bs_example(torch, env),
+                                  DeviceCollector(VectorDeviceEnv(env, E, device=DEV), algo, buffer), T, HL_SAC_BATCH,
+                                  prefill_chunks=2)
+    t = res.timing
+    return launches, [
+        f"hl_sac_halfcheetah path: SACExperimentBuilder, E={E} T={T} batch {HL_SAC_BATCH} nets {HL_SAC_HID}, {n_updates} "
+        f"updates per chunk, replay of {HL_SAC_BUFFER} rows; prefill {prefill_chunks * chunk} random steps, 1 epoch of "
+        f"{chunks * chunk} steps (cut from 10,000 and 20,000); test reward {float(rec.tests[0].returns.mean()):.3f}; "
+        f"launches {launches} = {train_steps} train + {test_steps} test vector steps; wall {res.train_time:.2f} s (prefill "
+        f"{t['prefill']:.2f}, collect {t['collect']:.2f}, update {t['update']:.2f}, test {t['test']:.2f})",
+        f"hl_sac_halfcheetah path: one replayed update burst of {n_updates} updates: {per_update:.4f} ms per update "
+        f"between CUDA events, kernels per update {kernels:.1f}, device ms per update {busy:.4f}, idle share {idle:.4f}; "
+        f"replays { {n: g.replays for n, g in graphs.items()} }",
+        check,
+    ]
+
+
+def hl_ppo_halfcheetah_path(torch):
+    """``examples/mujoco/mujoco_ppo_hl.py`` through the port's ``PPOExperimentBuilder`` (phase 46): the example's
+    widths, the epoch cut to one rollout (``HL_PPO_*``). Exactly one ``physics_fused`` launch per vector step, train
+    and test, no other kernel; the gradient-step count; the rollout's update through the trainer's step graphs (the
+    first step eager, the rest replays of one step's graph), which ``rollout_graph_check`` holds to the eager update bit for bit; then
+    ``HL_PPO_PROFILE_STEPS`` replayed minibatch steps of the trained algorithm traced for kernels and device time per
+    gradient step. Returns ({kernel: launches}, lines)."""
+    import copy
+
+    import numpy as np
+
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.highlevel.config import ExperimentConfig, OnPolicyTrainingConfig
+    from tianshou_tpu_torch.highlevel.experiment import PPOExperimentBuilder
+    from tianshou_tpu_torch.highlevel.params import PPOParams
+    from tianshou_tpu_torch.utils.graph import StepGraphs
+
+    training = OnPolicyTrainingConfig(max_epochs=1, epoch_num_steps=HL_PPO_EPOCH, num_train_envs=HL_PPO_E,
+                                      num_test_envs=HL_PPO_TEST_E, collection_step_num_env_steps=HL_PPO_T,
+                                      update_step_num_repetitions=HL_PPO_REPEAT, batch_size=HL_PPO_BATCH)
+    exp = (PPOExperimentBuilder(_halfcheetah, ExperimentConfig(seed=SEED, persistence_enabled=False), training)
+           .with_params(PPOParams(lr=3e-4, eps_clip=0.2, gae_lambda=0.95, advantage_normalization=True, ent_coef=0.0))
+           .build())
+    _zero_launches()
+    with _Recording() as rec:
+        res = exp.run("hl_ppo_halfcheetah", device=DEV)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    (trainer,) = rec.trainers
+    rollouts = -(-HL_PPO_EPOCH // (HL_PPO_T * HL_PPO_E))
+    test_steps = sum(s.n_collected_steps for s in rec.tests) // HL_PPO_TEST_E
+    expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0,
+              "physics_fused": rollouts * HL_PPO_T + test_steps}
+    if launches != expect:
+        raise AssertionError(f"hl_ppo_halfcheetah: launches {launches}, expected {expect}")
+    algo, ts = trainer.algo, res.train_state
+    n_grad = rollouts * algo.rollout_grad_steps(HL_PPO_T * HL_PPO_E, HL_PPO_REPEAT, HL_PPO_BATCH)
+    if res.gradient_step != n_grad or int(ts.step) != n_grad or res.env_step != rollouts * HL_PPO_T * HL_PPO_E:
+        raise AssertionError(f"hl_ppo_halfcheetah: gradient_step {res.gradient_step} step {int(ts.step)}, expected {n_grad}")
+    if len(rec.tests) != 1 or not np.isfinite(rec.tests[0].returns).all() or \
+            not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()):
+        raise AssertionError("hl_ppo_halfcheetah: a non-finite test return or weight")
+    sg = trainer.step_graphs  # the rollout's update: its first step eager, the rest replays of one step's graph
+    if sg is None or (sg.captures, sg.replays) != (1, n_grad // rollouts - 1):
+        raise AssertionError(f"hl_ppo_halfcheetah: the update's step graphs {sg and (sg.captures, sg.replays)}")
+    env = _halfcheetah()
+    check = rollout_graph_check(torch, "hl_ppo_halfcheetah", algo, env, HL_PPO_E, HL_PPO_PROFILE_STEPS, 2,
+                                HL_PPO_BATCH, step_graphs=True)
+    # kernels and device time per gradient step: replayed minibatch steps of a copy of the trained state on a
+    # fresh rollout
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    ts2 = copy.deepcopy(ts)
+    coll = DeviceCollector(VectorDeviceEnv(env, HL_PPO_E, device=DEV), algo, None)
+    roll = coll.rollout(ts2, coll.reset(gen), None, gen, HL_PPO_PROFILE_STEPS, keep_rollout=True).rollout
+    batch = algo.process_rollout(ts2, roll)
+    perm = algo.minibatch_indices(HL_PPO_PROFILE_STEPS * HL_PPO_E, 1, HL_PPO_BATCH, gen, torch.device(DEV))
+    with StepGraphs(DEV, (gen,)):
+        algo.run_minibatch_updates(ts2, batch, 1, HL_PPO_BATCH, gen, perm)  # the step's warm-up and capture
+        per_step, kernels, busy, idle = _trace_calls(torch, lambda: algo.run_minibatch_updates(
+            ts2, batch, 1, HL_PPO_BATCH, gen, perm), perm.shape[1])
+    t = res.timing
+    return launches, [
+        f"hl_ppo_halfcheetah path: PPOExperimentBuilder, E={HL_PPO_E} T={HL_PPO_T} repeat {HL_PPO_REPEAT} batch "
+        f"{HL_PPO_BATCH}, {rollouts} rollout of {HL_PPO_T * HL_PPO_E} rows (the epoch cut from 20,000 steps), {n_grad} "
+        f"gradient steps; test reward {float(rec.tests[0].returns.mean()):.3f}; launches {launches} = "
+        f"{rollouts * HL_PPO_T} train + {test_steps} test vector steps; wall {res.train_time:.2f} s (collect "
+        f"{t['collect']:.2f}, update {t['update']:.2f} = {t['update'] / n_grad * 1e3:.4f} ms per gradient step: "
+        f"step graphs, {sg.captures} captured and {sg.replays} replays; test {t['test']:.2f})",
+        check,
+        f"hl_ppo_halfcheetah path: {perm.shape[1]} replayed minibatch steps traced: {per_step:.4f} ms per gradient "
+        f"step between CUDA events, kernels per gradient step {kernels:.1f}, device ms per gradient step {busy:.4f}, "
+        f"idle share {idle:.4f}",
+    ]
+
+
+def hl_dqn_cartpole_path(torch):
+    """``tests/test_highlevel.py:34-55`` on the card (phase 47), nothing cut: DQN through the builder with persistence
+    on must reach 195 and write ``best`` and ``experiment.pkl``; ``Experiment.from_directory`` re-runs it; the ``best``
+    checkpoint restores into a fresh train state bit for bit. No kernel. Returns ({kernel: launches}, lines)."""
+    import os
+
+    from tianshou_tpu_torch.highlevel.config import ExperimentConfig, OffPolicyTrainingConfig
+    from tianshou_tpu_torch.highlevel.experiment import DQNExperimentBuilder, Experiment
+    from tianshou_tpu_torch.utils.persistence import restore_train_state
+
+    with tempfile.TemporaryDirectory() as root:
+        training = OffPolicyTrainingConfig(max_epochs=12, epoch_num_steps=5000, buffer_size=20000, num_train_envs=10,
+                                           num_test_envs=10, start_timesteps=1000, stop_threshold=195)
+        exp = (DQNExperimentBuilder(_cartpole, ExperimentConfig(seed=SEED, persistence_base_dir=root), training)
+               .with_dqn_params(gamma=0.97, n_step_return_horizon=3, target_update_freq=320, eps_training=0.3)
+               .build())
+        _zero_launches()
+        res = exp.run("dqn_cartpole", device=DEV)
+        launches = _read_launches()
+        run_dir = f"{root}/dqn_cartpole"
+        if not res.best_reward >= 195 or not os.path.isfile(f"{run_dir}/experiment.pkl") or \
+                not os.path.isdir(f"{run_dir}/best"):
+            raise AssertionError(f"hl_dqn_cartpole: best {res.best_reward}, files {os.listdir(run_dir)}")
+        saved = torch.load(f"{run_dir}/best/train_state.pt", map_location=DEV, weights_only=False)
+        fresh = exp.algo_factory(_cartpole()).init(DEV)
+        restored = restore_train_state(f"{run_dir}/best", fresh)
+        pairs = [(restored.model.state_dict()[k], v) for k, v in saved["model"].items()]
+        pairs += [(restored.target.state_dict()[k], v) for k, v in saved["target"].items()]
+        pairs += [(restored.step, saved["step"])] + [(restored.hparams[k], v) for k, v in saved["hparams"].items()]
+        opt = restored.optim.state_dict()["state"]
+        pairs += [(opt[i][k], v) for i, st in saved["optim"]["state"].items() for k, v in st.items()]
+        if any(not torch.equal(a, b) for a, b in pairs):
+            raise AssertionError("hl_dqn_cartpole: the restored best train state differs from the saved one")
+        again = Experiment.from_directory(run_dir)
+        res2 = again.run("dqn_cartpole_again", device=DEV)
+        if res2.env_step <= 0 or not os.path.isdir(f"{root}/dqn_cartpole_again/best"):
+            raise AssertionError("hl_dqn_cartpole: from_directory's experiment did not run")
+    if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}:
+        raise AssertionError(f"hl_dqn_cartpole: launches {launches}")
+    return launches, [
+        f"hl_dqn_cartpole path: best test reward {res.best_reward:.1f} (threshold 195) after {res.epochs} epochs, "
+        f"{res.env_step} env steps, wall {res.train_time:.2f} s; best and experiment.pkl written; the best "
+        f"checkpoint restored into a fresh train state: {len(pairs)} tensors bit-identical; from_directory re-ran: best "
+        f"{res2.best_reward:.1f} after {res2.epochs} epochs ({'the same run' if res2.best_reward == res.best_reward and res2.env_step == res.env_step else 'another run'})",
+    ]
+
+
+def hl_dqn_cartpole_per_path(torch):
+    """``tests/test_highlevel.py:270-278`` on the card (phase 48): DQN through the builder over
+    ``PrioritizedVectorReplayBuffer(2000, n, alpha=0.6, beta=0.4)`` (``with_buffer_factory``): one descent per
+    update, one tree update per update and per collect step, the final tree exactly consistent and both kernels
+    on it against their plain versions (``_check_tree``). Returns ({kernel: launches}, lines)."""
+    from tianshou_tpu_torch.highlevel.config import ExperimentConfig, OffPolicyTrainingConfig
+    from tianshou_tpu_torch.highlevel.experiment import DQNExperimentBuilder
+
+    training = OffPolicyTrainingConfig(max_epochs=1, epoch_num_steps=400, buffer_size=2000, num_train_envs=4,
+                                       num_test_envs=4, start_timesteps=100, test_step_num_episodes=2, batch_size=32)
+    exp = (DQNExperimentBuilder(_cartpole, ExperimentConfig(seed=SEED, persistence_enabled=False), training)
+           .with_dqn_params(eps_training=0.3).with_buffer_factory(_per_buffer).build())
+    _zero_launches()
+    with _Recording() as rec:
+        res = exp.run("per", device=DEV)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    (trainer,) = rec.trainers
+    vector_steps = res.env_step // training.num_train_envs
+    expect = {"gather_rows": 0, "prefix_sum_idx": res.gradient_step, "tree_update": res.gradient_step + vector_steps,
+              "physics_fused": 0}
+    if launches != expect or res.gradient_step == 0:
+        raise AssertionError(f"hl_dqn_cartpole_per: launches {launches}, expected {expect}")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    return launches, [
+        f"hl_dqn_cartpole_per path: {res.env_step} env steps ({vector_steps} vector steps, prefill included), "
+        f"{res.gradient_step} updates; launches {launches}",
+        "hl_dqn_cartpole_per path: " + _check_tree(torch, trainer.buffer, res.buf_state, gen, training.batch_size),
+    ]
+
+
+def _board_dqn(torch):
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.env.core import Discrete
+    from tianshou_tpu_torch.models.discrete import MaskedQNet
+
+    return DQN(model=MaskedQNet((128, 128), 9, input_dim=18), action_space=Discrete(9),
+               optim=AdamOptimizerFactory(lr=1e-3), gamma=0.9, n_step_return_horizon=1, target_update_freq=200,
+               eps_training=0.2)
+
+
+def _board_example(torch):
+    from tianshou_tpu_torch.data.batch import Batch
+
+    obs = Batch(agent_id=torch.tensor(0, dtype=torch.int32), obs=torch.zeros(3, 3, 2), mask=torch.ones(9, dtype=torch.bool))
+    return Batch(obs=obs, act=torch.tensor(0), rew=torch.zeros(2), terminated=torch.tensor(False),
+                 truncated=torch.tensor(False), obs_next=obs.map(torch.clone))
+
+
+def marl_tictactoe_path(torch):
+    """``examples/marl/tictactoe_selfplay.py`` on the card (phase 49): two DQN agents over ``MaskedQNet(128, 128)``
+    in self-play through ``HostOffPolicyTrainer`` (the host TicTacToe envs, the update burst a CUDA graph; the
+    example's ``MARL_*`` settings); agent 0 against ``MARLRandomPolicy`` must win at least ``MARL_BAR`` of
+    ``MARL_EVAL`` episodes. Then the update as a graph against eager (``offline_graph_check``), its replay traced, and
+    the same self-play through ``MARLExperimentBuilder``, held to the same bar. No kernel. Returns ({kernel: launches},
+    lines)."""
+    import numpy as np
+
+    from tianshou_tpu_torch.algorithm.multiagent.marl import MARLRandomPolicy, MultiAgentOffPolicyAlgorithm
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.env.core import Discrete
+    from tianshou_tpu_torch.env.tictactoe import TicTacToeEnv
+    from tianshou_tpu_torch.env.venvs import DummyVectorEnv
+    from tianshou_tpu_torch.highlevel.config import ExperimentConfig, OffPolicyTrainingConfig
+    from tianshou_tpu_torch.highlevel.experiment import MARLExperimentBuilder
+    from tianshou_tpu_torch.trainer.trainer import HostOffPolicyTrainer, OffPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    marl = MultiAgentOffPolicyAlgorithm([_board_dqn(torch), _board_dqn(torch)], action_space=Discrete(9))
+    ts = marl.init(DEV)
+    buffer = VectorReplayBuffer(MARL_RING, MARL_E)
+    bs = buffer.init(_board_example(torch), device=DEV)
+    tcol = HostCollector(DummyVectorEnv([TicTacToeEnv for _ in range(MARL_E)]), marl, buffer, device=DEV)
+    ecol = HostCollector(DummyVectorEnv([TicTacToeEnv for _ in range(MARL_E)]), marl, None, device=DEV)
+    params = OffPolicyTrainerParams(max_epochs=1, epoch_num_steps=MARL_ROUNDS * MARL_T, batch_size=MARL_BATCH,
+                                    collection_step_num_env_steps=MARL_T // MARL_E, update_per_step=1 / MARL_T,
+                                    start_steps=MARL_PREFILL, start_random=False, verbose=False, seed=SEED)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    _zero_launches()
+    trainer = HostOffPolicyTrainer(marl, tcol, ecol, buffer, params)
+    res = trainer.run(ts, bs, gen)
+    torch.cuda.synchronize()
+    if res.gradient_step != MARL_ROUNDS or any(int(t.step) != MARL_ROUNDS for t in ts.values()):
+        raise AssertionError(f"marl_tictactoe: gradient_step {res.gradient_step}, steps {[int(t.step) for t in ts.values()]}")
+    rp = MARLRandomPolicy(Discrete(9))
+
+    def win_rate(agent, agent_ts, who: str) -> tuple[float, float]:
+        """Agent 0 against the random policy over ``MARL_EVAL`` episodes: (wins, losses) as shares."""
+        ev = MultiAgentOffPolicyAlgorithm([agent, rp], action_space=Discrete(9))
+        ec = HostCollector(DummyVectorEnv([TicTacToeEnv for _ in range(MARL_E)]), ev, None, device=DEV)
+        ec.reset(seed=1)
+        stats = ec.collect({"agent0": agent_ts, "agent1": rp.init(DEV)}, gen, n_episode=MARL_EVAL, training=False)
+        win, loss = float((stats.returns > 0).mean()), float((stats.returns < 0).mean())
+        if not win >= MARL_BAR or stats.n_collected_episodes != MARL_EVAL:
+            raise AssertionError(f"marl_tictactoe ({who}): win rate {win} (losses {loss}) over "
+                                 f"{stats.n_collected_episodes} episodes, below {MARL_BAR}")
+        return win, loss
+
+    win, loss = win_rate(marl.algorithms[0], ts["agent0"], "direct")
+    graph = _graphs(trainer)["update_burst"]
+    per_update, kernels, busy, idle = _trace_calls(torch, graph, 1, MARL_REPLAYS)
+    check = offline_graph_check(torch, "marl_tictactoe", marl, buffer, tcol.buf_state, MARL_BATCH)
+    # the same self-play through MARLExperimentBuilder (its default agents are _board_dqn's), held to the same bar
+    t0 = time.perf_counter()
+    with _Recording() as rec:
+        built = (MARLExperimentBuilder(TicTacToeEnv, n_agents=2, config=ExperimentConfig(seed=SEED, persistence_enabled=False),
+                                       training=OffPolicyTrainingConfig(
+                                           max_epochs=1, epoch_num_steps=MARL_ROUNDS * MARL_T, buffer_size=MARL_RING,
+                                           num_train_envs=MARL_E, num_test_envs=MARL_E, test_step_num_episodes=MARL_E,
+                                           batch_size=MARL_BATCH, collection_step_num_env_steps=MARL_T // MARL_E,
+                                           update_step_num_gradient_steps_per_sample=1 / MARL_T,
+                                           start_timesteps=MARL_PREFILL, start_timesteps_random=False))
+                 .build().run("marl_builder", device=DEV))
+    built_s = time.perf_counter() - t0
+    if built.gradient_step != MARL_ROUNDS or any(int(t.step) != MARL_ROUNDS for t in built.train_state.values()):
+        raise AssertionError(f"marl_tictactoe: the builder's run took {built.env_step} steps, {built.gradient_step} updates")
+    b_win, b_loss = win_rate(rec.trainers[0].algo.algorithms[0], built.train_state["agent0"], "builder")
+    launches = _read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"marl_tictactoe: launches {launches}")
+    tm = res.timing
+    return launches, [
+        f"marl_tictactoe path: self-play of two DQNs over MaskedQNet(128, 128), {MARL_E} envs, {MARL_PREFILL} prefill "
+        f"steps, {MARL_ROUNDS} rounds of {MARL_T} steps and 1 update of batch {MARL_BATCH}; agent 0 against the random "
+        f"policy: win rate {win:.3f} (bar {MARL_BAR}), losses {loss:.3f}, over {MARL_EVAL} episodes; wall "
+        f"{res.train_time:.2f} s (prefill {tm['prefill']:.2f}, collect {tm['collect']:.2f}, update {tm['update']:.2f}, "
+        f"test {tm['test']:.2f}); launches {launches}",
+        f"marl_tictactoe path: the replayed multi-agent update: {per_update:.4f} ms between CUDA events, kernels per "
+        f"update {kernels:.1f}, device ms per update {busy:.4f}, idle share {idle:.4f}",
+        check,
+        f"marl_tictactoe path: MARLExperimentBuilder at the same settings ran {built.env_step} env steps and "
+        f"{built.gradient_step} updates in {built_s:.2f} s; agent 0 against the random policy: win rate {b_win:.3f} "
+        f"(bar {MARL_BAR}), losses {b_loss:.3f}",
+    ]
+
+
+def classic_envs_phase(torch):
+    """The classic envs (phase 50): ``CLASSIC_STEPS`` vector steps of ``Acrobot``, ``MountainCar`` and
+    ``MountainCarContinuous`` at E = ``CLASSIC_E`` as one CUDA graph against the same steps eager, from one reset and
+    the same actions: states, observations, rewards and flags bit-identical. Then
+    ``examples/box2d/acrobot_dualdqn.py``'s setup for one cut epoch through ``OffPolicyTrainer``. No kernel.
+    Returns ({kernel: launches}, lines)."""
+    import numpy as np
+
+    from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.acrobot import Acrobot
+    from tianshou_tpu_torch.env.classic.mountain_car import MountainCar, MountainCarContinuous
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.mlp import DuelingNet
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+    from tianshou_tpu_torch.utils.tree import tree_map
+
+    _zero_launches()
+    lines = []
+    for env in (Acrobot(), MountainCar(), MountainCarContinuous()):
+        venv = VectorDeviceEnv(env, CLASSIC_E, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        start, _ = venv.reset(gen)
+        acts = [venv.action_space.sample(CLASSIC_E, gen, DEV) for _ in range(CLASSIC_STEPS)]
+
+        def steps(state):
+            outs = []
+            for a in acts:
+                out = venv.step(state, a, gen)
+                outs.append(out)
+                state = out.state
+            return outs
+
+        eager = steps(start)
+        static = tree_map(torch.clone, start)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            steps(static)  # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = steps(static)
+        graph.replay()
+        torch.cuda.synchronize()
+        pairs = [(x, y) for a, b in zip(captured, eager) for x, y in zip(_leaves([a.state, a.obs, a.reward, a.terminated,
+                                                                                   a.truncated]),
+                                                                           _leaves([b.state, b.obs, b.reward, b.terminated,
+                                                                                    b.truncated]))]
+        differ = sum(not torch.equal(x, y) for x, y in pairs)
+        if differ or not all(bool(torch.isfinite(o.obs).all()) for o in eager):
+            raise AssertionError(f"classic_envs {env.name}: {differ} of {len(pairs)} tensors differ from eager")
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(10):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        lines.append(f"classic_envs {env.name}: {CLASSIC_STEPS} vector steps at E={CLASSIC_E} as a graph against eager: "
+                     f"{len(pairs)} tensors bit-identical, max |diff| 0; {a.elapsed_time(b) / 10 / CLASSIC_STEPS * 1e3:.2f} "
+                     f"us per vector step replayed; terminations {int(sum(o.terminated.sum() for o in eager))}")
+    torch.manual_seed(SEED)
+    env = Acrobot()
+    algo = DQN(model=DuelingNet((128, 128), 3, input_dim=6), action_space=env.action_space,
+               optim=AdamOptimizerFactory(lr=1e-3), gamma=0.99, n_step_return_horizon=3, target_update_freq=320,
+               eps_training=0.73)
+    ts = algo.init(DEV)
+    buffer = VectorReplayBuffer(ACRO_RING, ACRO_E)
+    bs = buffer.init(bs_example(torch, env), device=DEV)
+    params = OffPolicyTrainerParams(
+        max_epochs=1, epoch_num_steps=ACRO_EPOCH, test_step_num_episodes=10, batch_size=64,
+        collection_step_num_env_steps=10, update_per_step=0.1, start_steps=1000, stop_fn=lambda r: r >= -80,
+        train_fn=lambda ep, step: {"eps_training": max(0.1, 0.73 * (1 - step / 50_000))}, verbose=False, seed=SEED)
+    with _Recording() as rec:
+        res = OffPolicyTrainer(algo, DeviceCollector(VectorDeviceEnv(env, ACRO_E, device=DEV), algo, buffer),
+                               DeviceCollector(VectorDeviceEnv(env, 10, device=DEV), algo, None), buffer,
+                               params).run(ts, bs, torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    if any(launches.values()) or len(rec.tests) != 1 or not np.isfinite(rec.tests[0].returns).all() or res.gradient_step == 0:
+        raise AssertionError(f"classic_envs acrobot: launches {launches}, tests {len(rec.tests)}, updates {res.gradient_step}")
+    lines.append(f"classic_envs acrobot_dualdqn: DuelingNet(128, 128), {ACRO_E} envs, a {ACRO_RING}-row ring, 1 epoch of "
+                 f"{ACRO_EPOCH} steps (cut from 10,000): test reward {float(rec.tests[0].returns.mean()):.1f} (10 episodes), "
+                 f"{res.env_step} env steps, {res.gradient_step} updates, wall {res.train_time:.2f} s; launches {launches}")
+    return launches, lines
 
 
 def bs_example(torch, env):
@@ -4735,6 +5310,16 @@ def main() -> int:
         by_path[name], lines = modelbased_path(torch, name, expert["pendulum"])  # raises below the threshold
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     print(f"the offline slice's phases (38-44): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
+    t_slice = time.perf_counter()
+    paths = [("hl_sac_halfcheetah", hl_sac_halfcheetah_path), ("hl_ppo_halfcheetah", hl_ppo_halfcheetah_path),
+             ("hl_dqn_cartpole", hl_dqn_cartpole_path), ("hl_dqn_cartpole_per", hl_dqn_cartpole_per_path),
+             ("marl_tictactoe", marl_tictactoe_path), ("classic_envs", classic_envs_phase)]
+    for name, path in paths:
+        t0 = time.perf_counter()
+        by_path[name], lines = path(torch)  # raises on a failed check, a launch count or below a threshold
+        print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    print(f"the high-level, multi-agent and classic-env phases (45-50): {time.perf_counter() - t_slice:.1f} s [{smi}]",
+          flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

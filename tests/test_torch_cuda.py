@@ -1140,3 +1140,54 @@ def test_humanoid_plain_route_graph_matches_eager_with_no_kernel_launch_on_cuda(
     assert program.replays == 1 and pf.launch_count() == before
     assert torch.equal(st.q, eager.q) and torch.equal(st.qd, eager.qd)
     assert bool(torch.isfinite(st.q).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [False, True])
+def test_step_graphs_match_the_eager_update_on_cuda(recompute, monkeypatch):
+    """Two PPO rollout updates on the trainer's step route (each minibatch step a replayed graph of one step)
+    against ``algo.update_rollout`` run eagerly on a deep copy: stats, weights, Adam's state and the step bit for
+    bit. A step is captured once per update, or once per pass with recomputed advantages (the batch's advantage
+    tensors change between passes), and no graph outlives its update."""
+    import copy
+
+    from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
+    from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.classic.cartpole import CartPole
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+    from tianshou_tpu_torch.utils import graph
+
+    _needs_cuda()
+    captures = []
+    capture = graph.Graphed._capture
+    monkeypatch.setattr(graph.Graphed, "_capture", lambda self: captures.append(self.name) or capture(self))
+    torch.manual_seed(0)
+    algo = PPO(actor=DiscreteActor((64, 64), 2, input_dim=4), critic=DiscreteCritic((64, 64), input_dim=4),
+               action_space=CartPole().action_space, optim=AdamOptimizerFactory(lr=3e-4, max_grad_norm=0.5),
+               recompute_advantage=recompute, target_kl=0.01 if recompute else None)
+    coll = DeviceCollector(VectorDeviceEnv(CartPole(), 8, device="cuda"), algo, None)
+    ts = algo.init("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rollout = coll.collect(ts, coll.reset(gen), None, gen, 32, keep_rollout=True)[2].rollout
+    ets = copy.deepcopy(ts)
+    egen = torch.Generator(device="cuda")
+    egen.set_state(gen.get_state())
+    trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(batch_size=32, update_step_num_repetitions=3,
+                                                                      verbose=False))
+    trainer.STEP_GRAPHS_ABOVE = 0
+    for _ in range(2):
+        stats = trainer.update_rollout(ts, rollout, gen).map(torch.clone)
+        estats = algo.update_rollout(ets, rollout, egen, 3, 32)[1]
+        assert stats.keys() == estats.keys() and all(torch.equal(stats[k], estats[k]) for k in estats.keys())
+    torch.cuda.synchronize()
+    assert captures == ["PPO step"] * (6 if recompute else 2) and trainer.graph_pool is None
+    assert trainer.step_graphs.captures == (3 if recompute else 1) and not trainer.step_graphs._held
+    for a, b in zip(ts.model.state_dict().values(), ets.model.state_dict().values()):
+        assert torch.equal(a, b)
+    for st, est in zip(ts.optim.state_dict()["state"].values(), ets.optim.state_dict()["state"].values()):
+        assert all(torch.equal(st[k], est[k]) for k in st)
+    # the KL guard (with recomputed advantages here) takes back the step of a minibatch past its bound
+    assert int(ts.step) == int(ets.step) and (recompute or int(ts.step) == 2 * 3 * 8)

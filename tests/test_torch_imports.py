@@ -3,8 +3,9 @@
 ``scripts/seed_spread.py``, imports ``jax``,
 ``flax``, ``optax`` or the JAX package ``tianshou_tpu`` (read from each
 file's syntax tree, imports inside functions included). Nor do they import
-``cloudpickle`` or ``gymnasium``, which a GPU host need not have, apart from
-the lazy ``gymnasium`` import of ``env/atari.py:make_atari_env``."""
+``cloudpickle``, ``gymnasium``, ``pettingzoo`` or ``h5py``, which a GPU host
+need not have, apart from the functions of ``LAZY``, which import one when
+they are called; ``chip_smoke.py`` imports none of them, nor TensorBoard."""
 
 import ast
 import pathlib
@@ -15,7 +16,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "tianshou_tpu_torch").rglob("*.py"))
 FILES += ["chip_smoke.py", "scripts/torch_port_profile.py", "scripts/seed_spread.py"]
 BANNED = {"jax", "jaxlib", "flax", "optax", "tianshou_tpu"}
-HOST_BANNED = {"cloudpickle", "gymnasium", "gym"}
+HOST_BANNED = {"cloudpickle", "gymnasium", "gym", "pettingzoo", "h5py"}
+#: functions that import a host-only library when called: {file: {function name: the libraries}}
+LAZY = {
+    "tianshou_tpu_torch/env/atari.py": {"make_atari_env": {"gymnasium"}},
+    "tianshou_tpu_torch/env/pettingzoo_env.py": {"__init__": {"pettingzoo"}},
+    "tianshou_tpu_torch/highlevel/env.py": {"_make": {"gymnasium"}, "make": {"gymnasium"}},
+    "tianshou_tpu_torch/highlevel/experiment.py": {"save": {"cloudpickle"}},
+    "tianshou_tpu_torch/utils/persistence.py": {name: {"h5py"} for name in (
+        "_read_tree", "save_buffer_hdf5", "load_buffer_hdf5", "load_d4rl_hdf5")},
+}
 
 
 def imported_roots(source: str) -> set[str]:
@@ -36,11 +46,20 @@ def test_port_file_imports_no_jax(path):
 @pytest.mark.parametrize("path", FILES)
 def test_port_file_imports_no_gymnasium_or_cloudpickle(path):
     tree = ast.parse((ROOT / path).read_text())
-    if path == "tianshou_tpu_torch/env/atari.py":  # make_atari_env imports gymnasium when it is called
-        make = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "make_atari_env")
-        assert imported_roots(ast.unparse(make)) == {"gymnasium"}
-        tree.body.remove(make)
+    lazy = LAZY.get(path, {})
+    funcs = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name in lazy]
+    assert {n.name for n in funcs} == set(lazy)
+    for fn in funcs:  # each imports its library when it is called
+        assert imported_roots(ast.unparse(fn)) & HOST_BANNED == lazy[fn.name], fn.name
+    for fn in funcs:
+        fn.body = [ast.Pass()]
     assert not imported_roots(ast.unparse(tree)) & HOST_BANNED
+
+
+def test_chip_smoke_imports_no_host_only_library():
+    """The card's machine has none of these: the script imports none, lazily or not."""
+    banned = HOST_BANNED | {"tensorboard", "tensorboardX", "wandb"}
+    assert not imported_roots((ROOT / "chip_smoke.py").read_text()) & banned
 
 
 def test_the_check_sees_imports():

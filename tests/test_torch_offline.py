@@ -184,10 +184,10 @@ def test_offline_crr_trains_over_a_second_run_with_the_same_programs():
 
 
 def test_the_namespaces_hold_the_offline_family():
-    """Every JAX algorithm but the multi-agent ones, and the offline trainer, importable from the port's
+    """Every JAX algorithm, the multi-agent ones included, and the offline trainer, importable from the port's
     namespaces, each offline and model-based class with the JAX class's ``run_mode``."""
     missing = set(jalgorithms.__all__) - set(talgorithms.__all__)
-    assert missing == {"MARLRandomPolicy", "MultiAgentOffPolicyAlgorithm"}
+    assert missing == set()
     assert set(tianshou_tpu.__all__) == set(tianshou_tpu_torch.__all__)
     for name in ("ImitationLearning", "DiscreteBCQ", "DiscreteCQL", "DiscreteCRR", "TD3BC", "BCQ", "CQL", "GAIL",
                  "ICMOffPolicyWrapper", "ICMOnPolicyWrapper", "PSRL", "OfflineAlgorithm", "OffPolicyAlgorithm",

@@ -1,5 +1,4 @@
-"""Algorithm namespace: every ported algorithm importable from one place
-(the multi-agent ones come with their port: ROADMAP.md, Queue 1)."""
+"""Algorithm namespace: every algorithm importable from one place."""
 
 from tianshou_tpu_torch.algorithm.base import (
     Algorithm,
@@ -34,13 +33,15 @@ from tianshou_tpu_torch.algorithm.modelfree.reinforce import Reinforce
 from tianshou_tpu_torch.algorithm.modelfree.sac import SAC
 from tianshou_tpu_torch.algorithm.modelfree.td3 import TD3
 from tianshou_tpu_torch.algorithm.modelfree.trpo import TRPO
+from tianshou_tpu_torch.algorithm.multiagent.marl import MARLRandomPolicy, MultiAgentOffPolicyAlgorithm
 from tianshou_tpu_torch.algorithm.random_policy import RandomActionPolicy
 
 __all__ = [
     "A2C", "Algorithm", "BCQ", "BDQN", "C51", "CQL", "DDPG", "DQN",
     "DiscreteBCQ", "DiscreteCQL", "DiscreteCRR", "DiscreteSAC", "FQF",
     "GAIL", "ICMOffPolicyWrapper", "ICMOnPolicyWrapper", "IQN",
-    "ImitationLearning", "NPG", "OfflineAlgorithm", "OffPolicyAlgorithm", "OnPolicyAlgorithm",
+    "ImitationLearning", "MARLRandomPolicy", "MultiAgentOffPolicyAlgorithm",
+    "NPG", "OfflineAlgorithm", "OffPolicyAlgorithm", "OnPolicyAlgorithm",
     "PPO", "PSRL", "QRDQN", "REDQ", "RainbowDQN", "RandomActionPolicy",
     "RecurrentDQN", "Reinforce", "SAC", "TD3", "TD3BC", "TRPO", "TrainState",
 ]

@@ -46,6 +46,7 @@ class DiscreteSAC(SAC):
         if not isinstance(action_space, Discrete):
             raise TypeError(f"DiscreteSAC needs a Discrete action space, got {action_space}")
         kwargs.setdefault("action_scaling", False)
+        kwargs.setdefault("action_bound_method", "clip")  # the JAX class's default (a discrete action ignores it)
         if target_entropy is None:  # 0.98 x the entropy of the uniform policy
             target_entropy = 0.98 * float(torch.log(torch.tensor(float(action_space.n), dtype=torch.float32)))
         super().__init__(actor=actor, critic=critic, action_space=action_space, alpha=alpha,

@@ -52,6 +52,8 @@ from tianshou_tpu_torch.env.core import Discrete, Space
 from tianshou_tpu_torch.models.distributions import Categorical, Normal
 from tianshou_tpu_torch.ops.returns import gae_advantages, mc_return_to_go
 from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.utils.graph import graphed_step
+from tianshou_tpu_torch.utils.tree import tree_leaves
 
 __all__ = ["OnPolicyActorCritic"]
 
@@ -211,8 +213,8 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         old log-probabilities and distribution parameters."""
         T, E = rollout.rew.shape
 
-        def flat(x: torch.Tensor) -> torch.Tensor:
-            return x.reshape(T * E, *x.shape[2:])
+        def flat(x: Any) -> Any:  # merge the [T, E] axes (a Batch observation leaf by leaf)
+            return x.map(flat) if isinstance(x, Batch) else x.reshape(T * E, *x.shape[2:])
 
         obs = flat(rollout.obs)
         term = rollout.terminated.to(torch.float32)
@@ -278,6 +280,13 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         ts.step += 1
         return stats.map(torch.Tensor.detach)
 
+    def _minibatch_step(self, ts: TrainState, batch: Batch, idx: torch.Tensor) -> Batch:
+        """:meth:`_update_minibatch` on rows ``idx`` of ``batch``; inside a
+        :class:`~tianshou_tpu_torch.utils.graph.StepGraphs` block (a long
+        rollout's update on the card) a replay of its CUDA graph."""
+        return graphed_step(self, (ts, *tree_leaves(batch)),
+                            lambda i: self._update_minibatch(ts, self._minibatch(batch, i)), idx)
+
     def rollout_grad_steps(self, n: int, repeat: int, batch_size: int) -> int:
         """``repeat`` passes of ``minibatch_shape``'s minibatches."""
         return repeat * self.minibatch_shape(n, batch_size)[0]
@@ -332,6 +341,5 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
 
     def _passes(self, ts: TrainState, batch: Batch, perm: torch.Tensor) -> Batch:
         """One update per minibatch of ``perm``, in order; the averaged stats."""
-        stats = [self._update_minibatch(ts, self._minibatch(batch, idx)) for r in range(perm.shape[0])
-                 for idx in perm[r]]
+        stats = [self._minibatch_step(ts, batch, idx) for r in range(perm.shape[0]) for idx in perm[r]]
         return self._mean_stats(stats, perm.shape[0] * perm.shape[1])

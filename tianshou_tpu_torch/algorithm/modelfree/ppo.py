@@ -92,7 +92,7 @@ class PPO(A2C):
         for r in range(perm.shape[0]):
             for idx in perm[r]:
                 snapshot.take()
-                s = self._update_minibatch(ts, self._minibatch(batch, idx))
+                s = self._minibatch_step(ts, batch, idx)
                 stopped = stopped | (s.approx_kl > threshold)
                 snapshot.restore_where(stopped)
                 s.kl_stop = stopped.to(torch.float32)

@@ -14,7 +14,12 @@ of a ``tianshou_tpu.models.recurrent`` net (``RecurrentQNet``,
 ``ContinuousCritic``, ``EnsembleCritic``, ``DiscreteActor``,
 ``DiscreteCritic``, BCQ's ``Perturbation`` and ``VAE``) with numpy leaves (``{"params": {...}}`` or the inner
 ``"params"`` dict) and returns a ``state_dict`` for its counterpart in
-:mod:`tianshou_tpu_torch.models`. It needs no flax:
+:mod:`tianshou_tpu_torch.models`. :func:`module_params_from_flax` picks the
+converter by the torch module's class (a ``ModuleDict`` key by key),
+:func:`train_state_from_flax` carries a whole JAX train state's ``params``
+and ``target_params`` into a port train state built by the same algorithm
+(a multi-agent one agent by agent), and :func:`marl_params_from_flax` maps
+the multi-agent ``{"agent{i}": params}``. It needs no flax:
 
 - conv kernels ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
 - Dense kernels ``[in, out]`` -> ``[out, in]``;
@@ -33,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 __all__ = [
     "actor_critic_params_from_flax", "c51net_params_from_flax", "continuous_actor_det_params_from_flax",
@@ -43,7 +49,7 @@ __all__ = [
     "iqn_params_from_flax", "fraction_params_from_flax", "rainbow_net_params_from_flax",
     "branching_net_params_from_flax", "icm_params_from_flax", "masked_qnet_params_from_flax",
     "dict_obs_net_params_from_flax", "recurrent_params_from_flax", "perturbation_params_from_flax",
-    "vae_params_from_flax",
+    "vae_params_from_flax", "module_params_from_flax", "marl_params_from_flax", "train_state_from_flax",
 ]
 
 
@@ -321,4 +327,84 @@ def recurrent_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     for name in ("head", "mu", "sigma"):
         if name in p:
             out.update(_dense_params(p[name], name))
+    return out
+
+
+_NET_CONVERTERS = {
+    **_ACTOR_CRITIC_CONVERTERS,
+    "MLP": net_params_from_flax,
+    "Net": net_params_from_flax,
+    "DuelingNet": net_params_from_flax,
+    "ImplicitQuantileNetwork": iqn_params_from_flax,
+    "FractionProposalNetwork": fraction_params_from_flax,
+    "RainbowNet": rainbow_net_params_from_flax,
+    "BranchingNet": branching_net_params_from_flax,
+    "IntrinsicCuriosityModule": icm_params_from_flax,
+    "MaskedQNet": masked_qnet_params_from_flax,
+}
+
+
+def module_params_from_flax(tree: dict, module) -> dict[str, torch.Tensor]:
+    """``state_dict`` of the torch ``module`` from the JAX parameters of its
+    counterpart: a net through the converter of its class; a ``ModuleDict``
+    key by key from the dict of the same keys (an ICM wrapper's
+    ``"wrapped"`` from every key but ``"icm"``, as the JAX wrapper merges
+    them), with ``log_alpha`` and ``log_cql_alpha`` where it holds them."""
+    if not isinstance(module, nn.ModuleDict):
+        return _NET_CONVERTERS[type(module).__name__](tree)
+    out: dict[str, torch.Tensor] = {}
+    for name, net in module.items():
+        if name == "wrapped":
+            sub = _model_params({k: v for k, v in tree.items() if k != "icm"}, net)
+        else:
+            sub = module_params_from_flax(tree[name], net)
+        out.update({f"{name}.{k}": v for k, v in sub.items()})
+    for name in ("log_alpha", "log_cql_alpha"):
+        if hasattr(module, name):
+            out[name] = _t(tree[name])
+    return out
+
+
+def _model_params(params: dict, module) -> dict[str, torch.Tensor]:
+    """A train state's ``model`` (or ``target``) from the JAX ``params`` (or
+    ``target_params``): a single net sits under ``"model"`` there."""
+    if isinstance(module, nn.ModuleDict):
+        return module_params_from_flax(params, module)
+    return module_params_from_flax(params["model"], module)
+
+
+def train_state_from_flax(jax_ts: Any, ts: Any) -> Any:
+    """Load a JAX train state's ``params`` and ``target_params`` into the
+    port train state ``ts`` of the same algorithm, in place (a multi-agent
+    dict of train states agent by agent); returns ``ts``. The optimizer
+    state, step and hyper-parameters stay the port's own (fresh at
+    ``init``, as the JAX ones are)."""
+    if isinstance(ts, dict):
+        for k, sub in ts.items():
+            train_state_from_flax(jax_ts[k], sub)
+        return ts
+    if len(ts.model.state_dict()):
+        ts.model.load_state_dict(_model_params(jax_ts.params, ts.model))
+    if ts.target is not None:
+        ts.target.load_state_dict(_model_params(jax_ts.target_params, ts.target))
+    return ts
+
+
+def marl_params_from_flax(params: dict, algorithms) -> dict[str, dict[str, torch.Tensor]]:
+    """``{"agent{i}": state_dict}`` of each agent's train state ``model``
+    from the JAX multi-agent ``{"agent{i}": params}`` (the agents' JAX
+    ``params`` dicts), each through the converter of the port agent's nets:
+    a Q-learning agent's ``model`` (``masked_qnet_params_from_flax``, ...),
+    an actor-critic agent's ``actor`` and ``critic``
+    (``actor_critic_params_from_flax``); a parameterless agent maps to ``{}``."""
+    out = {}
+    for i, algo in enumerate(algorithms):
+        p = params[f"agent{i}"]
+        if getattr(algo, "model", None) is not None:
+            out[f"agent{i}"] = _model_params(p, algo.model)
+        elif getattr(algo, "actor", None) is not None:
+            nets = {"actor": algo.actor, **({"critic": algo.critic} if getattr(algo, "critic", None) is not None else {})}
+            out[f"agent{i}"] = actor_critic_params_from_flax(p, nn.ModuleDict(nets))
+        else:
+            out[f"agent{i}"] = {}
     return out

@@ -39,9 +39,13 @@ and per state it closes over (train state, buffer state, collect state, the
 test collector's episode state, the rollout it updates from, generator), so
 a second ``run`` on the same states replays what the first captured; the
 on-policy update reads the collect graph's static rollout, so it is built
-again once, when the collect chunk's capture replaces its eager output. All
-graphs of a trainer share one memory pool, and train and test programs never
-run at the same time. A replay does only device work, so whatever the JAX
+again once, when the collect chunk's capture replaces its eager output. A
+rollout update of more than :attr:`OnPolicyTrainer.STEP_GRAPHS_ABOVE`
+gradient steps runs eagerly instead, each minibatch step a replayed graph of
+one step (:class:`~tianshou_tpu_torch.utils.graph.StepGraphs`), from the
+first rollout on. All
+other graphs of a trainer share one memory pool, and train and test programs
+never run at the same time. A replay does only device work, so whatever the JAX
 package does on the host after a jitted call (trace lines,
 ``on_episode_done_hook``, logger writes) runs here after the replay. On the
 CPU the same code runs eagerly. The random prefill stays eager. An offline
@@ -73,7 +77,7 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.collector import CollectStats, DeviceCollector, EpisodeState
 from tianshou_tpu_torch.env.wrappers import extract_pooled_rms
 from tianshou_tpu_torch.utils.determinism import TraceLogger, trace_param_hash
-from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+from tianshou_tpu_torch.utils.graph import Graphed, GraphPool, StepGraphs
 from tianshou_tpu_torch.utils.print import DataclassPPrintMixin
 from tianshou_tpu_torch.utils.progress import progress_bar
 from tianshou_tpu_torch.utils.statistics import MovAvg
@@ -171,6 +175,13 @@ def _flat_scalars(stats: Batch, prefix: str = "") -> dict[str, np.ndarray]:
         elif v.numel() and v.dtype != torch.bool:
             out[name] = v.detach().cpu().numpy()
     return out
+
+
+def _stack_stats(stats: list[Batch]) -> Batch:
+    """The stats of consecutive updates stacked on a leading axis; a nested
+    Batch (a multi-agent update's per-agent stats) key by key."""
+    return Batch({k: _stack_stats([s[k] for s in stats]) if isinstance(v, Batch) else torch.stack([s[k] for s in stats])
+                  for k, v in stats[0].items()})
 
 
 class _TrainerBase:
@@ -406,9 +417,8 @@ class _ReplayUpdates:
     (``self.buffer``): the off-policy and the offline trainer."""
 
     def _updates(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
-        stats = [self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)[2]
-                 for _ in range(n_updates)]
-        return Batch({k: torch.stack([s[k] for s in stats]) for k in stats[0].keys()})
+        return _stack_stats([self.algo.update(ts, self.buffer, buf_state, generator, self.params.batch_size)[2]
+                             for _ in range(n_updates)])
 
     def update_burst(self, ts, buf_state, generator: torch.Generator, n_updates: int) -> Batch:
         """``n_updates`` gradient steps in place as one program (the JAX
@@ -521,12 +531,26 @@ class OnPolicyTrainer(_TrainerBase):
     collect chunk keeps it (``keep_rollout=True``) and
     :meth:`update_rollout` reads it where the chunk wrote it."""
 
+    #: the most gradient steps a rollout's update takes as one program; above it the update runs eagerly and each
+    #: minibatch step replays a graph of one step (:class:`StepGraphs`): a graph of the whole update would hold
+    #: kernels x steps nodes (``mujoco_ppo_hl.py``: about 190 x 20,480) and take the eager run's host time again to
+    #: capture
+    STEP_GRAPHS_ABOVE = 1_000
+    #: the last step-graph update's :class:`StepGraphs`, whose graphs are gone, for its counts
+    step_graphs: StepGraphs | None = None
+
     def update_rollout(self, ts, rollout: Batch, generator: torch.Generator) -> Batch:
         """``algo.update_rollout`` over ``rollout`` in place as one program
-        (the JAX package's jitted ``update_rollout``); returns the averaged
-        stats, the program's static output."""
+        (the JAX package's jitted ``update_rollout``), or, above
+        :attr:`STEP_GRAPHS_ABOVE` gradient steps, eagerly with step graphs;
+        returns the averaged stats, the program's static output."""
         p = self.params
         repeat, batch_size = p.update_step_num_repetitions, p.batch_size
+        if self.algo.rollout_grad_steps(rollout.rew.shape[0] * rollout.rew.shape[1], repeat,
+                                        batch_size) > self.STEP_GRAPHS_ABOVE:
+            self.step_graphs = StepGraphs(generator.device, (generator,))
+            with self.step_graphs:
+                return self.algo.update_rollout(ts, rollout, generator, repeat, batch_size)[1]
         return self._program(
             ("update_rollout", repeat, batch_size), (ts, rollout, generator), generator,
             lambda: self.algo.update_rollout(ts, rollout, generator, repeat, batch_size)[1],

@@ -26,6 +26,8 @@ updates in place, as the port's buffers and train states are), wrapped in a
   (:mod:`tianshou_tpu_torch.ops.kernels.counters`); during capture nothing
   launches, so the capture's increments are taken back out and added again
   on every replay.
+- **Step graphs** (:class:`StepGraphs`): a loop too long for one graph
+  runs eagerly, and each of its steps replays a graph of one step.
 - On the CPU a call runs the function eagerly. On the card a capture that
   fails raises; nothing falls back to the eager function.
 """
@@ -40,8 +42,9 @@ from typing import Any
 import torch
 
 from tianshou_tpu_torch.ops.kernels import counters
+from tianshou_tpu_torch.utils.tree import tree_map
 
-__all__ = ["GraphPool", "Graphed"]
+__all__ = ["GraphPool", "Graphed", "StepGraphs", "graphed_step"]
 
 
 class GraphPool:
@@ -129,3 +132,68 @@ class Graphed:
         self.capture_s = time.perf_counter() - t0
         self.launches = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
         self.graph, self.out = graph, out
+
+
+#: the open :class:`StepGraphs` blocks, innermost last
+_ACTIVE: list[StepGraphs] = []
+
+
+class StepGraphs:
+    """The steps of an eager loop, each a replay of a graph of one step.
+
+    An on-policy update over a long rollout (``mujoco_ppo_hl.py``: 20,480
+    minibatch steps of about 190 kernels each) is too long for one graph: its
+    capture would take as much host time as the eager run, and the graph
+    would hold millions of nodes. Inside ``with StepGraphs(device, generators):``
+    the loop runs eagerly and each :func:`graphed_step` call replays a graph
+    of its step: ``fn(slot)`` over a static index slot, refilled before every
+    call, run eagerly at the first call and captured at the second (a
+    :class:`Graphed`). A step is held per ``owner`` while the objects it
+    closes over (``key``, compared by identity) stay the same; another key
+    captures anew. The step's output is cloned, since the next replay
+    overwrites it. Each step graph has a memory pool of its own: the caching
+    allocator takes no capture into a pool whose graphs have all been freed,
+    and a step's graph is freed when its key changes and when the block ends.
+    ``captures`` and ``replays`` count the block's graphs.
+    """
+
+    def __init__(self, device: str | torch.device, generators: Sequence[torch.Generator] = ()) -> None:
+        self.device, self.generators = torch.device(device), tuple(generators)
+        self._held: dict[int, tuple[tuple, torch.Tensor, Graphed]] = {}
+        self.captures = self.replays = 0
+
+    def __enter__(self) -> StepGraphs:
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _ACTIVE.remove(self)
+        for _, _, program in self._held.values():
+            self._drop(program)
+        self._held.clear()
+
+    def _drop(self, program: Graphed) -> None:
+        program.pool.graphs.remove(program)  # no cycle keeps the graph alive after this
+        self.captures += program.graph is not None
+        self.replays += program.replays
+
+    def step(self, owner: Any, key: tuple, fn: Callable[[torch.Tensor], Any], idx: torch.Tensor) -> Any:
+        """``fn(idx)``, replayed from ``owner``'s graph where ``key`` is unchanged."""
+        full = (owner, *key)
+        held = self._held.get(id(owner))
+        if held is None or len(held[0]) != len(full) or any(a is not b for a, b in zip(held[0], full)):
+            if held is not None:
+                self._drop(held[2])
+            slot = idx.clone()
+            program = Graphed(lambda: fn(slot), GraphPool(self.device), self.generators,
+                              name=f"{type(owner).__name__} step")
+            held = self._held[id(owner)] = (full, slot, program)
+        _, slot, program = held
+        slot.copy_(idx)
+        return tree_map(torch.clone, program())
+
+
+def graphed_step(owner: Any, key: tuple, fn: Callable[[torch.Tensor], Any], idx: torch.Tensor) -> Any:
+    """``fn(idx)``: inside a :class:`StepGraphs` block its replayed graph
+    (see :meth:`StepGraphs.step`), elsewhere run as it is."""
+    return _ACTIVE[-1].step(owner, key, fn, idx) if _ACTIVE else fn(idx)

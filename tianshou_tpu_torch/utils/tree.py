@@ -1,4 +1,5 @@
-"""Leaf-wise map over nested tensor containers (the port's ``jax.tree.map``).
+"""Leaf-wise map over nested tensor containers (the port's ``jax.tree.map``),
+and the leaves in order (``jax.tree.leaves``).
 
 Handles ``Batch``, ``dict``, ``list``, ``tuple`` and ``NamedTuple`` nodes,
 ``None`` (passed through) and tensor leaves.
@@ -11,7 +12,7 @@ from typing import Any
 
 from tianshou_tpu_torch.data.batch import Batch
 
-__all__ = ["tree_map"]
+__all__ = ["tree_leaves", "tree_map"]
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
@@ -27,3 +28,10 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
