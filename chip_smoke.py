@@ -261,6 +261,19 @@ Phases, each of which fails the run:
    one graph against eager, bit for bit; ``examples/box2d/acrobot_dualdqn.py``'s setup for one epoch cut from 10,000
    steps to 2,000. No kernel. The phases 45-50 print their total time.
 
+51. ``dp_dqn_pixels``: ``parallel/mesh.py:make_dp_offpolicy_train_step`` at world size 1 on a one-rank NCCL group over
+   the DQN pixel pipeline of phase 5 at full width: ``DP_CHUNKS`` chunks (410 updates each) held bit-identical, every
+   tensor of the train state, rings, collect state and stats, to ``OffPolicyTrainer.megastep`` from a copy of the same
+   state and generator; exactly 2 ``gather_rows`` per update; the eager wall per chunk beside the program's.
+52. ``dp_ppo_halfcheetah``: ``make_dp_train_step`` at world size 1 over ``bench_mujoco_ppo``'s PPO (HalfCheetah,
+   E = 2,048, T = 32, 4 passes of batch 16,384): ``DP_PPO_CALLS`` rollouts with their updates bit-identical to
+   ``OnPolicyTrainer``'s two programs; one ``physics_fused`` launch per vector step; the walls side by side. The card
+   runs the mesh at world size 1 only: NCCL puts no two ranks on one GPU (the multi-rank runs are CPU tests).
+53. ``seeded_eval``: ``evaluation/launcher.py``'s ``run_seeded_experiments`` over seeds 0 and 1 of phase 48's builder
+   (its launch counts as phase 48 checks them), then ``PoolExpLauncher(max_workers=2)`` under ``spawn`` on the card
+   with the same seeds (best rewards equal) and an experiment made to fail (reported, the rest run), then
+   ``eval_results``. The phases 51-53 print their total time.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -5136,6 +5149,246 @@ def classic_envs_phase(torch):
     return launches, lines
 
 
+# ---------------------------------------------------------------------------
+# the mesh programs at world size 1 on NCCL, and the multi-seed launchers (phases 51-53)
+# ---------------------------------------------------------------------------
+DP_CHUNKS = 2                        # dp_dqn_pixels: chunks of the pixel pipeline through each program
+DP_PPO_T, DP_PPO_CALLS = 32, 2       # dp_ppo_halfcheetah: bench_mujoco_ppo's rollout, and rollouts per program
+SEEDED = (0, 1)                      # seeded_eval: the seeds of hl_dqn_cartpole_per's builder run
+
+
+def _time_call(torch, fn):
+    """``fn()`` and its wall in ms, the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_of_one(torch):
+    """A one-rank NCCL group and its 1-D mesh (``make_mesh(1)`` in a process that never called ``initialize``)."""
+    import torch.distributed as dist
+
+    from tianshou_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, device=DEV)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"the mesh's group is {dist.get_backend()} of {dist.get_world_size()} ranks, not NCCL of 1")
+    return mesh
+
+
+def _group_down():
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _differing(torch, pairs) -> int:
+    return sum(not torch.equal(a, b) for a, b in pairs)
+
+
+def dp_dqn_pixels_phase(torch):
+    """Phase 51: ``make_dp_offpolicy_train_step`` at world size 1 on NCCL over the ``bench.py`` DQN pixel pipeline at
+    full width (``build_pipeline(torch, "dqn")``: E = 256, the uint8 rings, ``DQNet(6)``, batch 32, T = 16, 410 updates
+    a chunk). From one prefilled state and generator state, deep copies run ``DP_CHUNKS`` chunks through
+    ``OffPolicyTrainer.megastep`` (eager warm-up, then capture and replay) and through the mesh step, eagerly; every
+    tensor of the train state, the optimizer, the rings, the collect state and the stats, and the generator, must be
+    bit-identical (cuDNN deterministic), and ``gather_rows`` must run exactly twice per update of the mesh step.
+    Returns ({kernel: launches} of the mesh step, lines)."""
+    import copy
+
+    from tianshou_tpu_torch.parallel.mesh import make_dp_offpolicy_train_step
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    algo, ts, buffer, bs, coll = build_pipeline(torch, "dqn")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, T, random=True)  # a prefill chunk: 16 rows per env to sample from
+    n_updates = max(1, round(0.1 * T * E))
+    sides = {}
+    for side in ("trainer", "mesh"):
+        s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, bs=s_bs, cstate=s_cs, gen=s_gen, walls=[], stats=[])
+    del ts, bs, cstate
+    tr, md = sides["trainer"], sides["mesh"]
+    trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
+        batch_size=BATCH, collection_step_num_env_steps=T, fused_megastep=True, verbose=False))
+    for _ in range(DP_CHUNKS):
+        (_, burst), ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], T,
+                                                                   n_updates))
+        tr["walls"].append(ms)
+        tr["stats"].append(burst.map(torch.clone))
+    mesh = _mesh_of_one(torch)
+    step = make_dp_offpolicy_train_step(algo, coll, buffer, mesh, T, n_updates, BATCH)
+    _zero_launches()
+    for _ in range(DP_CHUNKS):
+        out, ms = _time_call(torch, lambda: step(md["ts"], md["cstate"], md["bs"], md["gen"]))
+        md["walls"].append(ms)
+        md["stats"].append(out[4].map(torch.clone))
+    launches = _read_launches()
+    _group_down()
+    pairs = [(a, b) for x, y in zip(tr["stats"], md["stats"]) for k in x.keys() for a, b in [(x[k], y[k])]]
+    pairs += list(zip(tr["ts"].model.state_dict().values(), md["ts"].model.state_dict().values()))
+    pairs += list(zip(tr["ts"].target.state_dict().values(), md["ts"].target.state_dict().values()))
+    pairs += list(zip(_optimizer_state(tr["ts"]), _optimizer_state(md["ts"])))
+    pairs += [(tr["ts"].step, md["ts"].step), *zip(tr["ts"].hparams.values(), md["ts"].hparams.values())]
+    pairs += [(getattr(tr["bs"], k), getattr(md["bs"], k)) for k in ("cursor", "size", "last_idx")]
+    pairs += list(zip(tr["bs"].data.values(), md["bs"].data.values()))
+    pairs += list(zip(_leaves(tr["cstate"]), _leaves(md["cstate"])))
+    pairs += [(tr["gen"].get_state(), md["gen"].get_state())]
+    differ = _differing(torch, pairs)
+    updates = DP_CHUNKS * n_updates
+    _, replay_ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], T,
+                                                              n_updates))
+    torch.backends.cudnn.deterministic = deterministic
+    expect = {"gather_rows": 2 * updates, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
+    if differ or int(md["ts"].step) != updates:
+        raise AssertionError(f"dp_dqn_pixels: {differ} of {len(pairs)} tensors differ from OffPolicyTrainer.megastep, "
+                             f"step {int(md['ts'].step)} of {updates}")
+    if launches != expect:
+        raise AssertionError(f"dp_dqn_pixels: launches {launches}, expected {expect}")
+    return launches, [
+        f"dp_dqn_pixels: make_dp_offpolicy_train_step at world size 1 on NCCL, E={E}, rings uint8 "
+        f"{tuple(md['bs'].data.obs.shape)}, {DP_CHUNKS} chunks of T={T} and {n_updates} updates of batch {BATCH}: "
+        f"{len(pairs)} tensors (stats, weights, target, Adam, counters, rings, collect state, generator) bit-identical "
+        f"to OffPolicyTrainer.megastep; gather_rows {launches['gather_rows']} = 2 per update",
+        f"dp_dqn_pixels: wall per chunk: the mesh step, eager, {md['walls'][0]:.1f} / {md['walls'][1]:.1f} ms; the "
+        f"trainer's megastep {tr['walls'][0]:.1f} (eager warm-up) / {tr['walls'][1]:.1f} (capture and replay) / "
+        f"{replay_ms:.1f} ms (replay)",
+    ]
+
+
+def dp_ppo_halfcheetah_phase(torch):
+    """Phase 52: ``make_dp_train_step`` at world size 1 on NCCL over ``build_ppo(torch, "HalfCheetah", 2048)``
+    (``bench_mujoco_ppo``: T = 32, 4 passes of batch 16,384). From one state and generator state, deep copies run
+    ``DP_PPO_CALLS`` rollouts with their updates through ``OnPolicyTrainer``'s ``collect_chunk`` and
+    ``update_rollout`` programs and through the mesh step, eagerly: the collect states (the normalization statistics
+    included), weights, Adam's state, the return statistics, the stats and the generator bit-identical, and
+    ``physics_fused`` exactly once per vector step of the mesh step. Returns ({kernel: launches}, lines)."""
+    import copy
+
+    from tianshou_tpu_torch.parallel.mesh import make_dp_train_step
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    algo, ts, coll = build_ppo(torch, "HalfCheetah", PPO_E)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    sides = {}
+    for side in ("trainer", "mesh"):
+        s_ts, s_cs = copy.deepcopy((ts, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, cstate=s_cs, gen=s_gen, walls=[], stats=[])
+    del ts, cstate
+    tr, md = sides["trainer"], sides["mesh"]
+    trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+        batch_size=PPO_BATCH, collection_step_num_env_steps=DP_PPO_T, update_step_num_repetitions=PPO_REPEAT,
+        verbose=False))
+
+    def trainer_call():
+        out = trainer.collect_chunk(tr["ts"], tr["cstate"], None, tr["gen"], DP_PPO_T, keep_rollout=True)
+        return trainer.update_rollout(tr["ts"], out.rollout, tr["gen"])
+
+    for _ in range(DP_PPO_CALLS):
+        stats, ms = _time_call(torch, trainer_call)
+        tr["walls"].append(ms)
+        tr["stats"].append(stats.map(torch.clone))
+    mesh = _mesh_of_one(torch)
+    step = make_dp_train_step(algo, coll, mesh, DP_PPO_T, PPO_REPEAT, PPO_BATCH)
+    _zero_launches()
+    for _ in range(DP_PPO_CALLS):
+        out, ms = _time_call(torch, lambda: step(md["ts"], md["cstate"], md["gen"]))
+        md["walls"].append(ms)
+        md["stats"].append(out[2].map(torch.clone))
+    launches = _read_launches()
+    _group_down()
+    pairs = [(x[k], y[k]) for x, y in zip(tr["stats"], md["stats"]) for k in x.keys()]
+    pairs += list(zip(_onpolicy_tensors(torch, tr["ts"], tr["cstate"]), _onpolicy_tensors(torch, md["ts"], md["cstate"])))
+    pairs += [(tr["gen"].get_state(), md["gen"].get_state())]
+    differ = _differing(torch, pairs)
+    replay_ms = [_time_call(torch, trainer_call)[1] for _ in range(2)]  # the update's capture, then both replayed
+    n_grad = algo.rollout_grad_steps(PPO_E * DP_PPO_T, PPO_REPEAT, PPO_BATCH)
+    expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": DP_PPO_CALLS * DP_PPO_T}
+    if differ or int(md["ts"].step) != DP_PPO_CALLS * n_grad:
+        raise AssertionError(f"dp_ppo_halfcheetah: {differ} of {len(pairs)} tensors differ from the trainer's programs, "
+                             f"step {int(md['ts'].step)}")
+    if launches != expect:
+        raise AssertionError(f"dp_ppo_halfcheetah: launches {launches}, expected {expect}")
+    return launches, [
+        f"dp_ppo_halfcheetah: make_dp_train_step at world size 1 on NCCL, NormObs(HalfCheetah) E={PPO_E}, "
+        f"{DP_PPO_CALLS} rollouts of T={DP_PPO_T} each with {n_grad} minibatch steps ({PPO_REPEAT} passes of batch "
+        f"{PPO_BATCH}): {len(pairs)} tensors (stats, weights, Adam, return and normalization statistics, collect state, "
+        f"generator) bit-identical to OnPolicyTrainer's collect_chunk and update_rollout; physics_fused "
+        f"{launches['physics_fused']} = 1 per vector step",
+        f"dp_ppo_halfcheetah: wall per rollout and update: the mesh step, eager, {md['walls'][0]:.1f} / "
+        f"{md['walls'][1]:.1f} ms; the trainer's programs {tr['walls'][0]:.1f} (eager warm-up) / {tr['walls'][1]:.1f} "
+        f"(collect captured, update rebuilt for the captured rollout) / {replay_ms[0]:.1f} (update captured) / "
+        f"{replay_ms[1]:.1f} ms (both replayed)",
+    ]
+
+
+def _seeded_builder(seed: int, env_factory=_cartpole):
+    """``hl_dqn_cartpole_per``'s experiment builder at ``seed`` (module-level factories: the pool pickles it)."""
+    from tianshou_tpu_torch.highlevel.config import ExperimentConfig, OffPolicyTrainingConfig
+    from tianshou_tpu_torch.highlevel.experiment import DQNExperimentBuilder
+
+    training = OffPolicyTrainingConfig(max_epochs=1, epoch_num_steps=400, buffer_size=2000, num_train_envs=4,
+                                       num_test_envs=4, start_timesteps=100, test_step_num_episodes=2, batch_size=32)
+    return (DQNExperimentBuilder(env_factory, ExperimentConfig(seed=seed, persistence_enabled=False), training)
+            .with_dqn_params(eps_training=0.3).with_buffer_factory(_per_buffer))
+
+
+def _broken_env():
+    raise RuntimeError("an env factory made to fail")
+
+
+def seeded_eval_phase(torch):
+    """Phase 53: ``run_seeded_experiments`` over seeds ``SEEDED`` of ``hl_dqn_cartpole_per``'s builder on the card
+    (one descent per update, one tree update per update and per vector step), then ``PoolExpLauncher(max_workers=2)``
+    under ``spawn`` with the same two experiments and one whose env factory raises: each seed's best reward equal to
+    the sequential run's, the failing one in ``failures`` with its traceback; then ``eval_results`` over the scores.
+    The launch counts are the sequential runs' (the pool's run in its own processes). Returns ({kernel: launches},
+    lines)."""
+    from tianshou_tpu_torch.evaluation.launcher import PoolExpLauncher, run_seeded_experiments
+    from tianshou_tpu_torch.evaluation.rliable_evaluation import eval_results
+
+    _zero_launches()
+    seq, seq_ms = _time_call(torch, lambda: run_seeded_experiments(_seeded_builder, SEEDED, "seeded_eval", device=DEV))
+    launches = _read_launches()
+    if seq.failures or len(seq.successes) != len(SEEDED):
+        raise AssertionError(f"seeded_eval: sequential failures {seq.failures}")
+    results = [r for _, r in seq.successes]
+    n_train = _seeded_builder(0)._training.num_train_envs
+    grads = sum(r.gradient_step for r in results)
+    expect = {"gather_rows": 0, "prefix_sum_idx": grads,
+              "tree_update": grads + sum(r.env_step // n_train for r in results), "physics_fused": 0}
+    if launches != expect or grads == 0:
+        raise AssertionError(f"seeded_eval: launches {launches}, expected {expect}")
+    exps = [(_seeded_builder(s).build(), name) for s, (name, _) in zip(SEEDED, seq.successes)]
+    broken = (_seeded_builder(SEEDED[0], _broken_env).build(), "seeded_eval/broken")
+    pool, pool_ms = _time_call(torch, lambda: PoolExpLauncher(max_workers=2, device=DEV).launch(exps + [broken]))
+    got = {name: r.best_reward for name, r in pool.successes}
+    want = {name: r.best_reward for name, r in seq.successes}
+    if got != want:
+        raise AssertionError(f"seeded_eval: the pool's best rewards {got} differ from the sequential run's {want}")
+    if [n for n, _ in pool.failures] != ["seeded_eval/broken"] or "made to fail" not in pool.failures[0][1]:
+        raise AssertionError(f"seeded_eval: pool failures {[n for n, _ in pool.failures]}")
+    summary = eval_results(np.array([r.best_reward for r in results]))
+    return launches, [
+        f"seeded_eval: run_seeded_experiments over seeds {list(SEEDED)} of hl_dqn_cartpole_per's builder in "
+        f"{seq_ms / 1e3:.2f} s: best rewards {[r.best_reward for r in results]}, {grads} updates; launches {launches}",
+        f"seeded_eval: PoolExpLauncher(max_workers=2) under spawn, the same seeds and one experiment made to fail, in "
+        f"{pool_ms / 1e3:.2f} s: best rewards equal to the sequential run's; the failing one reported "
+        f"({pool.failures[0][1].strip().splitlines()[-1]}); eval_results: IQM {summary.iqm:.2f}, mean {summary.mean:.2f}, "
+        f"median {summary.median:.2f}, 95% CI [{summary.ci_low:.2f}, {summary.ci_high:.2f}] over {summary.n_runs} runs",
+    ]
+
+
 def bs_example(torch, env):
     """A one-row transition of ``env``'s shapes, for ``offpolicy_graph_check``."""
     from tianshou_tpu_torch.env.core import Discrete
@@ -5320,6 +5573,14 @@ def main() -> int:
         print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     print(f"the high-level, multi-agent and classic-env phases (45-50): {time.perf_counter() - t_slice:.1f} s [{smi}]",
           flush=True)
+    t_slice = time.perf_counter()
+    paths = [("dp_dqn_pixels", dp_dqn_pixels_phase), ("dp_ppo_halfcheetah", dp_ppo_halfcheetah_phase),
+             ("seeded_eval", seeded_eval_phase)]
+    for name, path in paths:
+        t0 = time.perf_counter()
+        by_path[name], lines = path(torch)  # raises unless bit-identical to the trainer's programs, or on a launch count
+        print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    print(f"the mesh and multi-seed phases (51-53): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

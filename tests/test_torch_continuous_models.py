@@ -213,7 +213,7 @@ def test_gaussian_noise_matches_jax():
 
 def test_ou_noise_matches_jax():
     jn, tn = jnoise.OUNoise(sigma=0.3, theta=0.15, dt=1e-2, x0=0.2), OUNoise(sigma=0.3, theta=0.15, dt=1e-2, x0=0.2)
-    jx, tx = jn.init((4, 2)), tn.init((4, 2))
+    jx, tx = jn.init((4, 2)), tn.init((4, 2), device="cpu")
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     for i in range(5):  # a carried state over five steps
         key = jax.random.key(10 + i)
@@ -225,6 +225,19 @@ def test_ou_noise_matches_jax():
                                np.asarray(jn.sample(key, (3,))), **NET)
     g1, g2 = torch.Generator().manual_seed(1), torch.Generator().manual_seed(1)
     assert torch.equal(tn.step(tx, g1), tn.step_from_noise(tx, torch.randn(tx.shape, generator=g2)))
+
+
+def test_noise_entry_points_default_to_the_card():
+    """With no device, ``sample`` draws on the generator's device and ``OUNoise.init`` asks for the card."""
+    g = torch.Generator().manual_seed(3)
+    for noise in (GaussianNoise(sigma=0.1), OUNoise()):
+        assert noise.sample(g, (2, 3)).device == g.device
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            OUNoise().init((2,))
+    else:
+        assert OUNoise().init((2,)).device.type == "cuda"
+    assert OUNoise(x0=0.5).init((2,), device="cpu").eq(0.5).all()
 
 
 @pytest.mark.parametrize("tau", [0.005, 0.3, 1.0])

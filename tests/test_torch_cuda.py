@@ -1191,3 +1191,46 @@ def test_step_graphs_match_the_eager_update_on_cuda(recompute, monkeypatch):
         assert all(torch.equal(st[k], est[k]) for k in st)
     # the KL guard (with recomputed advantages here) takes back the step of a minibatch past its bound
     assert int(ts.step) == int(ets.step) and (recompute or int(ts.step) == 2 * 3 * 8)
+
+
+@pytest.mark.cuda
+def test_mesh_offpolicy_step_at_world_size_1_matches_the_trainer_megastep_on_cuda():
+    """``make_dp_offpolicy_train_step`` on a one-rank NCCL group (``make_mesh(1)`` in a process that never joined a
+    group) over CartPole DQN: two chunks of 10 steps and 10 updates from copies of one prefilled state and one
+    generator state give the bits of ``OffPolicyTrainer.megastep`` (eager warm-up, then capture and replay)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tianshou_tpu_torch.parallel.mesh import make_dp_offpolicy_train_step, make_mesh
+    from tianshou_tpu_torch.utils.tree import tree_leaves
+
+    _needs_cuda()
+    trainer, ts, bs, _ = _cartpole_trainer()
+    coll = trainer.train_collector
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, 10, random=True)
+    sides = []
+    for _ in range(2):
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides.append((*copy.deepcopy((ts, bs, cstate)), s_gen))
+    (t_ts, t_bs, t_cs, t_gen), (m_ts, m_bs, m_cs, m_gen) = sides
+    t_stats = [trainer.megastep(t_ts, t_cs, t_bs, t_gen, 10, 10)[1].map(torch.clone) for _ in range(2)]
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        step = make_dp_offpolicy_train_step(trainer.algo, coll, trainer.buffer, mesh, 10, 10, 64)
+        m_stats = [step(m_ts, m_cs, m_bs, m_gen)[4].map(torch.clone) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(t_stats, m_stats):
+        assert all(torch.equal(a[k], b[k]) for k in a.keys())
+    pairs = list(zip(t_ts.model.state_dict().values(), m_ts.model.state_dict().values()))
+    pairs += list(zip(t_ts.target.state_dict().values(), m_ts.target.state_dict().values()))
+    pairs += [(t_ts.step, m_ts.step), (t_bs.cursor, m_bs.cursor), (t_bs.size, m_bs.size),
+              *zip(t_bs.data.values(), m_bs.data.values()), (t_gen.get_state(), m_gen.get_state())]
+    pairs += list(zip(tree_leaves(t_cs), tree_leaves(m_cs)))
+    assert all(torch.equal(a, b) for a, b in pairs) and int(m_ts.step) == 20

@@ -3,9 +3,10 @@
 ``scripts/seed_spread.py``, imports ``jax``,
 ``flax``, ``optax`` or the JAX package ``tianshou_tpu`` (read from each
 file's syntax tree, imports inside functions included). Nor do they import
-``cloudpickle``, ``gymnasium``, ``pettingzoo`` or ``h5py``, which a GPU host
-need not have, apart from the functions of ``LAZY``, which import one when
-they are called; ``chip_smoke.py`` imports none of them, nor TensorBoard."""
+``cloudpickle``, ``gymnasium``, ``pettingzoo``, ``h5py``, TensorBoard or
+``matplotlib``, which a GPU host need not have, apart from the functions of
+``LAZY``, which import one when they are called; ``chip_smoke.py`` imports
+none of them, nor ``tensorboardX`` or ``wandb``."""
 
 import ast
 import pathlib
@@ -16,13 +17,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "tianshou_tpu_torch").rglob("*.py"))
 FILES += ["chip_smoke.py", "scripts/torch_port_profile.py", "scripts/seed_spread.py"]
 BANNED = {"jax", "jaxlib", "flax", "optax", "tianshou_tpu"}
-HOST_BANNED = {"cloudpickle", "gymnasium", "gym", "pettingzoo", "h5py"}
+HOST_BANNED = {"cloudpickle", "gymnasium", "gym", "pettingzoo", "h5py", "tensorboard", "matplotlib"}
 #: functions that import a host-only library when called: {file: {function name: the libraries}}
 LAZY = {
     "tianshou_tpu_torch/env/atari.py": {"make_atari_env": {"gymnasium"}},
     "tianshou_tpu_torch/env/pettingzoo_env.py": {"__init__": {"pettingzoo"}},
+    "tianshou_tpu_torch/evaluation/rliable_evaluation.py": {"from_log_dir": {"tensorboard"},
+                                                           "plot_iqm_curve": {"matplotlib"}},
     "tianshou_tpu_torch/highlevel/env.py": {"_make": {"gymnasium"}, "make": {"gymnasium"}},
     "tianshou_tpu_torch/highlevel/experiment.py": {"save": {"cloudpickle"}},
+    "tianshou_tpu_torch/utils/logger/tensorboard.py": {"restore_logged_data": {"tensorboard"}},
     "tianshou_tpu_torch/utils/persistence.py": {name: {"h5py"} for name in (
         "_read_tree", "save_buffer_hdf5", "load_buffer_hdf5", "load_d4rl_hdf5")},
 }
@@ -58,7 +62,7 @@ def test_port_file_imports_no_gymnasium_or_cloudpickle(path):
 
 def test_chip_smoke_imports_no_host_only_library():
     """The card's machine has none of these: the script imports none, lazily or not."""
-    banned = HOST_BANNED | {"tensorboard", "tensorboardX", "wandb"}
+    banned = HOST_BANNED | {"tensorboardX", "wandb"}
     assert not imported_roots((ROOT / "chip_smoke.py").read_text()) & banned
 
 

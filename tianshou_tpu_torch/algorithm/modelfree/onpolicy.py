@@ -51,6 +51,7 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env.core import Discrete, Space
 from tianshou_tpu_torch.models.distributions import Categorical, Normal
 from tianshou_tpu_torch.ops.returns import gae_advantages, mc_return_to_go
+from tianshou_tpu_torch.parallel.mesh import active_data_parallel
 from tianshou_tpu_torch.utils.device import resolve_device
 from tianshou_tpu_torch.utils.graph import graphed_step
 from tianshou_tpu_torch.utils.tree import tree_leaves
@@ -256,7 +257,9 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
             return ts
         x = batch.pop("unnorm_returns")
         m, v, c = ts.extra["ret_mean"], ts.extra["ret_var"], ts.extra["ret_count"]
-        bm, bv, bc = x.mean(), x.var(correction=0), float(x.shape[0])
+        dp = active_data_parallel()  # inside a mesh step: the whole rollout's statistics, over every rank
+        bm, bv = (x.mean(), x.var(correction=0)) if dp is None else dp.moments(x)
+        bc = float(x.shape[0] if dp is None else dp.rows(x.shape[0]))
         delta = bm - m
         tot = c + bc
         new_mean = m + delta * bc / tot
@@ -278,7 +281,8 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         loss.backward()
         self.optim.step(ts.optim)
         ts.step += 1
-        return stats.map(torch.Tensor.detach)
+        dp = active_data_parallel()  # inside a mesh step: the whole minibatch's stats, the KL guard's too
+        return stats.map(torch.Tensor.detach) if dp is None else dp.reduce_stats(stats.map(torch.Tensor.detach))
 
     def _minibatch_step(self, ts: TrainState, batch: Batch, idx: torch.Tensor) -> Batch:
         """:meth:`_update_minibatch` on rows ``idx`` of ``batch``; inside a
@@ -307,10 +311,22 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
         return keys.argsort(dim=1)[:, : n_mb * mb_size].reshape(repeat, n_mb, mb_size)
 
     def _minibatch(self, batch: Batch, idx: torch.Tensor) -> Batch:
-        mb = batch[idx]
+        """Rows ``idx`` of ``batch``; inside a mesh step this rank's share of
+        the global rows, fetched from the ranks that hold them, and normalised
+        by the whole minibatch's statistics."""
+        dp = active_data_parallel()
+        mb = batch[idx] if dp is None else dp.rollout_rows(batch, idx)
         if self.advantage_normalization:
-            mb.adv = (mb.adv - mb.adv.mean()) / (mb.adv.std(correction=0) + 1e-8)
+            mean, std = (mb.adv.mean(), mb.adv.std(correction=0)) if dp is None else dp.mean_std(mb.adv)
+            mb.adv = (mb.adv - mean) / (std + 1e-8)
         return mb
+
+    @staticmethod
+    def _rows(batch: Batch) -> int:
+        """The processed batch's row count; inside a mesh step, every rank's."""
+        dp = active_data_parallel()
+        n = batch.rew.shape[0]
+        return n if dp is None else dp.rows(n)
 
     @staticmethod
     def _mean_stats(stats: list[Batch], n_grad_steps: int) -> Batch:
@@ -336,7 +352,7 @@ class OnPolicyActorCritic(OnPolicyAlgorithm):
                               perm: torch.Tensor | None = None) -> tuple[TrainState, Batch]:
         """The ``repeat`` x minibatch loop over an already processed batch."""
         if perm is None:
-            perm = self.minibatch_indices(batch.rew.shape[0], repeat, batch_size, generator, batch.rew.device)
+            perm = self.minibatch_indices(self._rows(batch), repeat, batch_size, generator, batch.rew.device)
         return ts, self._passes(ts, batch, perm)
 
     def _passes(self, ts: TrainState, batch: Batch, perm: torch.Tensor) -> Batch:

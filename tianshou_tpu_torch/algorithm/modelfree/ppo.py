@@ -60,7 +60,7 @@ class PPO(A2C):
         batch = self.process_rollout(ts, rollout)
         self.update_return_stats(ts, batch)
         if perm is None:
-            perm = self.minibatch_indices(batch.rew.shape[0], repeat, batch_size, generator, batch.rew.device)
+            perm = self.minibatch_indices(self._rows(batch), repeat, batch_size, generator, batch.rew.device)
         stopped = torch.zeros((), dtype=torch.bool, device=batch.rew.device)
         stats = Batch()
         for r in range(perm.shape[0]):

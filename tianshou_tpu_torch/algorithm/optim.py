@@ -34,6 +34,8 @@ from collections.abc import Callable, Iterable
 
 import torch
 
+from tianshou_tpu_torch.parallel.mesh import active_data_parallel
+
 __all__ = ["RMSprop", "SGD", "AdamOptimizerFactory", "LinearLRSchedule", "OptimizerFactory", "RMSpropOptimizerFactory",
            "SGDOptimizerFactory", "clip_by_global_norm_", "init_adam_state", "linear_lr_schedule"]
 
@@ -183,6 +185,11 @@ class OptimizerFactory:
         return lr(torch.zeros((), dtype=torch.float32, device=params[0].device)) if callable(lr) else lr
 
     def step(self, opt: torch.optim.Optimizer) -> None:
+        """Clip and step ``opt``; inside a mesh step the gradients are first
+        averaged over the data-parallel ranks, so the clip reads the reduced ones."""
+        dp = active_data_parallel()
+        if dp is not None:
+            dp.average_grads([p for group in opt.param_groups for p in group["params"]])
         if callable(self.lr):
             lr = self.lr(opt.state[opt.param_groups[0]["params"][0]]["step"])
             for group in opt.param_groups:

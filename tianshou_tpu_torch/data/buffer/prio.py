@@ -35,6 +35,11 @@ class PrioState:
 
 
 class PrioritizedReplayBuffer(ReplayBuffer):
+    #: maps the flat indices an add wrote to the tree's leaves: ``None`` where the tree covers just this ring; a
+    #: rank's part of a ring split over ranks (``parallel/mesh.py:shard_buffer``) keeps the whole tree and maps its
+    #: writes to every rank's written leaves, so that every rank writes the same tree
+    leaf_map = None
+
     def __init__(
         self,
         size: int,
@@ -69,8 +74,9 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         _, info = ReplayBuffer.add(self, state.base, transitions, mask)
         # new samples get max priority (reference prio.py:46 init_weight);
         # masked-out envs carry -1 indices, which the segtree drops
-        prio = (state.max_prio**self.alpha).expand(info.indices.shape)
-        self.segtree.update(state.tree, info.indices, prio)
+        leaves = info.indices if self.leaf_map is None else self.leaf_map(info.indices)
+        prio = (state.max_prio**self.alpha).expand(leaves.shape)
+        self.segtree.update(state.tree, leaves, prio)
         return state, info
 
     # ------------------------------------------------------------------

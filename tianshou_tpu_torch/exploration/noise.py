@@ -15,10 +15,15 @@ import math
 
 import torch
 
+from tianshou_tpu_torch.utils.device import resolve_device
+
 __all__ = ["GaussianNoise", "OUNoise"]
 
 
-def _normal(shape: tuple[int, ...], generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
+def _normal(shape: tuple[int, ...], generator: torch.Generator,
+            device: torch.device | str | None) -> torch.Tensor:
+    """Standard normals on ``device``, or on the generator's device when none is given."""
+    device = generator.device if device is None else device
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
 
@@ -31,7 +36,7 @@ class GaussianNoise:
         return self.mu + self.sigma * eps
 
     def sample(self, generator: torch.Generator, shape: tuple[int, ...],
-               device: torch.device | str = "cpu") -> torch.Tensor:
+               device: torch.device | str | None = None) -> torch.Tensor:
         return self.from_noise(_normal(shape, generator, device))
 
 
@@ -45,8 +50,9 @@ class OUNoise:
     dt: float = 1e-2
     x0: float = 0.0
 
-    def init(self, shape: tuple[int, ...], device: torch.device | str = "cpu") -> torch.Tensor:
-        return torch.full(shape, self.x0, dtype=torch.float32, device=device)
+    def init(self, shape: tuple[int, ...], device: torch.device | str | None = None) -> torch.Tensor:
+        """The start state ``x0``; ``device=None`` means the card (raises without one)."""
+        return torch.full(shape, self.x0, dtype=torch.float32, device=resolve_device(device))
 
     def step_from_noise(self, x: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         """One step driven by the standard normals ``eps``: ``dw = eps * sqrt(dt)``."""
@@ -60,6 +66,6 @@ class OUNoise:
         return self.step_from_noise(torch.full_like(eps, self.x0), eps)
 
     def sample(self, generator: torch.Generator, shape: tuple[int, ...],
-               device: torch.device | str = "cpu") -> torch.Tensor:
-        """Stateless fallback: one OU step from ``x0``."""
+               device: torch.device | str | None = None) -> torch.Tensor:
+        """Stateless fallback: one OU step from ``x0``, on the generator's device by default."""
         return self.from_noise(_normal(shape, generator, device))
