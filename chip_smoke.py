@@ -5347,11 +5347,18 @@ def _broken_env():
     raise RuntimeError("an env factory made to fail")
 
 
+def _run_summary(torch, result) -> tuple:
+    """A run's best reward, env steps, gradient steps and trained weights (on the host)."""
+    return (result.best_reward, result.env_step, result.gradient_step,
+            [p.detach().cpu() for p in result.train_state.model.parameters()])
+
+
 def seeded_eval_phase(torch):
     """Phase 53: ``run_seeded_experiments`` over seeds ``SEEDED`` of ``hl_dqn_cartpole_per``'s builder on the card
     (one descent per update, one tree update per update and per vector step), then ``PoolExpLauncher(max_workers=2)``
-    under ``spawn`` with the same two experiments and one whose env factory raises: each seed's best reward equal to
-    the sequential run's, the failing one in ``failures`` with its traceback; then ``eval_results`` over the scores.
+    under ``spawn`` with the same two experiments and one whose env factory raises: each seed's best reward, env and
+    gradient steps and trained weights equal to the sequential run's (bit for bit), the two seeds' weights different,
+    the failing one in ``failures`` with its traceback; then ``eval_results`` over the scores.
     The launch counts are the sequential runs' (the pool's run in its own processes). Returns ({kernel: launches},
     lines)."""
     from tianshou_tpu_torch.evaluation.launcher import PoolExpLauncher, run_seeded_experiments
@@ -5372,10 +5379,16 @@ def seeded_eval_phase(torch):
     exps = [(_seeded_builder(s).build(), name) for s, (name, _) in zip(SEEDED, seq.successes)]
     broken = (_seeded_builder(SEEDED[0], _broken_env).build(), "seeded_eval/broken")
     pool, pool_ms = _time_call(torch, lambda: PoolExpLauncher(max_workers=2, device=DEV).launch(exps + [broken]))
-    got = {name: r.best_reward for name, r in pool.successes}
-    want = {name: r.best_reward for name, r in seq.successes}
-    if got != want:
-        raise AssertionError(f"seeded_eval: the pool's best rewards {got} differ from the sequential run's {want}")
+    got = {name: _run_summary(torch, r) for name, r in pool.successes}
+    want = {name: _run_summary(torch, r) for name, r in seq.successes}
+    if got.keys() != want.keys() or any(got[n][:3] != want[n][:3] or _differing(torch, zip(got[n][3], want[n][3]))
+                                        for n in want):
+        raise AssertionError(f"seeded_eval: the pool's runs {({n: g[:3] for n, g in got.items()})} differ from the "
+                             f"sequential runs' {({n: w[:3] for n, w in want.items()})} (best reward, env steps, "
+                             "gradient steps, weights)")
+    first, second = want.values()
+    if not _differing(torch, zip(first[3], second[3])):
+        raise AssertionError("seeded_eval: seeds 0 and 1 trained to the same weights")
     if [n for n, _ in pool.failures] != ["seeded_eval/broken"] or "made to fail" not in pool.failures[0][1]:
         raise AssertionError(f"seeded_eval: pool failures {[n for n, _ in pool.failures]}")
     summary = eval_results(np.array([r.best_reward for r in results]))
@@ -5383,7 +5396,8 @@ def seeded_eval_phase(torch):
         f"seeded_eval: run_seeded_experiments over seeds {list(SEEDED)} of hl_dqn_cartpole_per's builder in "
         f"{seq_ms / 1e3:.2f} s: best rewards {[r.best_reward for r in results]}, {grads} updates; launches {launches}",
         f"seeded_eval: PoolExpLauncher(max_workers=2) under spawn, the same seeds and one experiment made to fail, in "
-        f"{pool_ms / 1e3:.2f} s: best rewards equal to the sequential run's; the failing one reported "
+        f"{pool_ms / 1e3:.2f} s: best rewards, env and gradient steps and {len(first[3])} weight tensors a seed "
+        f"bit-identical to the sequential runs', the seeds' weights different; the failing one reported "
         f"({pool.failures[0][1].strip().splitlines()[-1]}); eval_results: IQM {summary.iqm:.2f}, mean {summary.mean:.2f}, "
         f"median {summary.median:.2f}, 95% CI [{summary.ci_low:.2f}, {summary.ci_high:.2f}] over {summary.n_runs} runs",
     ]

@@ -7,7 +7,8 @@ group of ``WORLD`` ranks at ``RDZV`` (a ``file://`` URL), runs every check of
 
 - ``distributed``: the twin of ``tests/distributed_worker.py``;
 - ``mesh2``: the on-policy step (PPO, CartPole), and the off-policy step (DQN,
-  CartPole) over a uniform and a prioritized ring, at world size 2;
+  CartPole) over a uniform and a prioritized ring, at world size 2, and the
+  on-policy step's refusal of a minibatch that does not split over the ranks;
 - ``mesh4``: the tensor-parallel on-policy step on a 2 x 2 mesh.
 
 The test process computes the one-process composition from the same setups
@@ -278,6 +279,19 @@ def _offpolicy_rank(mesh, rank: int, world: int, prio: bool) -> dict:
     return rec
 
 
+def _minibatch_guard(mesh) -> str:
+    """The error of an on-policy step whose minibatch does not split over the
+    ranks: 13 envs a rank, 5 steps and batch_size 64 (minibatches of 65 rows)."""
+    from tianshou_tpu_torch.parallel.mesh import make_dp_train_step
+
+    env, algo = ppo()
+    try:
+        make_dp_train_step(algo, collector(env, 13, algo, None), mesh, 5, 1, ON_BATCH)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
 def run_mesh2(rdzv: str, world: int, rank: int) -> dict:
     from tianshou_tpu_torch.parallel.distributed import initialize
     from tianshou_tpu_torch.parallel.mesh import make_mesh
@@ -286,7 +300,8 @@ def run_mesh2(rdzv: str, world: int, rank: int) -> dict:
     mesh = make_mesh(world)
     return {"onpolicy": _onpolicy_rank(mesh, rank, world, ON_REPEAT),
             "uniform": _offpolicy_rank(mesh, rank, world, prio=False),
-            "prio": _offpolicy_rank(mesh, rank, world, prio=True)}
+            "prio": _offpolicy_rank(mesh, rank, world, prio=True),
+            "guard": _minibatch_guard(mesh)}
 
 
 def run_mesh4(rdzv: str, world: int, rank: int) -> dict:

@@ -19,9 +19,9 @@ update generator. The one-process programs compared against are the ones
 - world 4, a 2 x 2 mesh: ``shard_params_tp`` makes every 64x64 weight a
   ``DTensor`` with ``Shard(0)`` on ``mp``, and one ``tp_axis="mp"`` step
   matches the one-process run.
-- against JAX: ``shard_params_tp`` picks the leaves JAX's placement rule
-  picks (``tianshou_tpu/parallel/mesh.py:58``), mapped through
-  ``models/convert.py``. A JAX mesh run cannot be held against the port's
+- against JAX: the port's placement rule picks the leaves that JAX's
+  ``shard_params_tp`` shards on a (dp, mp) mesh of host devices, mapped
+  through ``models/convert.py``. A JAX mesh run cannot be held against the port's
   directly: JAX's keys cannot be handed through ``make_dp_*``, whose draws
   come from torch generators.
 """
@@ -35,6 +35,7 @@ import torch
 from tests import _torch_mesh_worker as W
 from tests._torch_threads import one_intra_op_thread  # noqa: F401
 from tianshou_tpu.models import discrete as jdisc
+from tianshou_tpu.parallel import mesh as jmesh
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax
 from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
 from tianshou_tpu_torch.parallel.mesh import tp_sharded
@@ -126,17 +127,24 @@ def test_offpolicy_step_matches_the_one_process_updates(world2, kind):
         np.testing.assert_allclose(a["tree"].numpy(), refs[kind]["tree"].numpy(), **MESH_TOL)
 
 
+def test_onpolicy_step_refuses_a_minibatch_that_does_not_split(world2):
+    """2 x 13 envs, 5 steps and batch_size 64 make minibatches of 65 rows: the step is refused when it is made."""
+    ranks, _ = world2
+    for rec in ranks:
+        assert "a minibatch of 65 rows" in rec["guard"], rec["guard"]
+
+
 # ---------------------------------------------------------------------------
 # world 1, in this process
 # ---------------------------------------------------------------------------
 def test_world_size_1_steps_are_the_one_process_programs_bit_for_bit():
     """``make_mesh(1)`` in a process with no group makes a one-rank gloo group; through it the on-policy step and the
     prioritized off-policy step, with no ``update_generator``, give the bits of the plain programs (the collect, then
-    ``update_rollout`` or the updates, on one generator): the gradient is all-reduced and divided by 1.0, and the
-    other collectives, each the identity at one rank, are skipped."""
+    ``update_rollout`` or the updates, on one generator): every collective of the multi-rank program runs at one rank
+    (the rows routed, the stats reduced, the prioritized ring's leaves gathered through ``shard_buffer``)."""
     import torch.distributed as dist
 
-    from tianshou_tpu_torch.parallel.mesh import make_dp_offpolicy_train_step, make_dp_train_step, make_mesh
+    from tianshou_tpu_torch.parallel.mesh import make_dp_offpolicy_train_step, make_dp_train_step, make_mesh, shard_buffer
 
     assert not dist.is_initialized()
     mesh = make_mesh(1, device="cpu")
@@ -154,7 +162,8 @@ def test_world_size_1_steps_are_the_one_process_programs_bit_for_bit():
                 stats = algo.update_rollout(ts, out.rollout, g, W.ON_REPEAT, W.ON_BATCH)[1]
             env, dqn = W.dqn()
             d_ts, buffer = dqn.init("cpu"), W.ring(prio=True)
-            d_coll, bs, d_g = W.collector(env, W.OFF_E, dqn, buffer), buffer.init(W.example(), "cpu"), W.rank_generator(0, 200)
+            local = shard_buffer(buffer, mesh) if mesh_step else buffer
+            d_coll, bs, d_g = W.collector(env, W.OFF_E, dqn, local), local.init(W.example(), "cpu"), W.rank_generator(0, 200)
             d_cs = d_coll.reset(d_g)
             if mesh_step:
                 ustats = make_dp_offpolicy_train_step(dqn, d_coll, buffer, mesh, W.OFF_T, W.OFF_UPDATES,
@@ -191,15 +200,17 @@ def test_tp_step_shards_the_64x64_weights_and_matches_the_one_process_run(world4
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("mp", [2, 4])
 def test_shard_params_tp_picks_jax_leaves(mp):
-    """JAX shards a flax kernel ``[in, out]`` whose ``shape[1] % mp == 0``; each
-    flax leaf is filled with its own number, carried over, and the port's
-    rule must pick the parameters that hold a picked leaf's number."""
+    """Each flax leaf is filled with its own number and placed by JAX's
+    ``shard_params_tp`` on a (dp, mp) mesh of host devices; the leaves it
+    shards on ``mp`` are carried over, and the port's rule must pick the
+    parameters that hold a sharded leaf's number."""
     key, obs = jax.random.key(0), jnp.zeros((1, 4))
     jparams = {"actor": jax.eval_shape(jdisc.DiscreteActor((64, 64), 2).init, key, obs),
                "critic": jax.eval_shape(jdisc.DiscreteCritic((64, 64)).init, key, obs)}
     leaves, treedef = jax.tree.flatten(jparams)
     marked = jax.tree.unflatten(treedef, [np.full(x.shape, i + 1, np.float32) for i, x in enumerate(leaves)])
-    jax_picks = {i + 1 for i, x in enumerate(leaves) if x.ndim == 2 and x.shape[1] % mp == 0}
+    placed = jax.tree.leaves(jmesh.shard_params_tp(marked, jmesh.make_mesh_2d(4, mp=mp), "mp"))
+    jax_picks = {int(x.reshape(-1)[0]) for x in placed if "mp" in tuple(x.sharding.spec)}
     model = torch.nn.ModuleDict({"actor": DiscreteActor((64, 64), 2, input_dim=4),
                                  "critic": DiscreteCritic((64, 64), input_dim=4)})
     converted = actor_critic_params_from_flax(marked, model)

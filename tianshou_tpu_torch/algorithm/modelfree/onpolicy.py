@@ -51,7 +51,7 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env.core import Discrete, Space
 from tianshou_tpu_torch.models.distributions import Categorical, Normal
 from tianshou_tpu_torch.ops.returns import gae_advantages, mc_return_to_go
-from tianshou_tpu_torch.parallel.mesh import active_data_parallel
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 from tianshou_tpu_torch.utils.device import resolve_device
 from tianshou_tpu_torch.utils.graph import graphed_step
 from tianshou_tpu_torch.utils.tree import tree_leaves

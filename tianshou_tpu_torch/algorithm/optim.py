@@ -34,7 +34,7 @@ from collections.abc import Callable, Iterable
 
 import torch
 
-from tianshou_tpu_torch.parallel.mesh import active_data_parallel
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 
 __all__ = ["RMSprop", "SGD", "AdamOptimizerFactory", "LinearLRSchedule", "OptimizerFactory", "RMSpropOptimizerFactory",
            "SGDOptimizerFactory", "clip_by_global_norm_", "init_adam_state", "linear_lr_schedule"]

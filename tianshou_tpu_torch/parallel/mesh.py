@@ -24,11 +24,11 @@ out where one process would have computed over the whole batch:
   return statistics' Welford merge, the stats a step returns) are reduced
   over the ranks; per-env state (``NormObs``, GAE) stays local.
 
-At world size 1 the gradient is still all-reduced and divided by 1.0, and
-the other collectives, each the identity there, are skipped, so a step is the
-trainer's program call for call and bit for bit.
-The hooks in the algorithm code read :func:`active_data_parallel`, which a
-step sets while it updates.
+At world size 1 every collective runs and copies or divides by 1.0; only the
+moments of a batch are taken as one process takes them, so a step gives the
+trainer's program bit for bit. The hooks in the algorithm code read
+``utils/data_parallel.py:active_data_parallel``, which a step sets while it
+updates.
 
 ``tp_axis`` (tensor parallelism, :func:`shard_params_tp`): every 2-D weight
 whose output dimension divides by the ``mp`` axis is a ``DTensor`` sharded on
@@ -41,10 +41,9 @@ only.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import functools
-from collections.abc import Callable, Iterator
+from collections.abc import Callable
 from typing import Any
 
 import torch
@@ -57,12 +56,12 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.base import BufferState, ReplayBuffer
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.parallel.distributed import mesh_device_type
+from tianshou_tpu_torch.utils.data_parallel import activated
 from tianshou_tpu_torch.utils.device import resolve_device
 from tianshou_tpu_torch.utils.tree import tree_map
 
 __all__ = [
     "DataParallel",
-    "active_data_parallel",
     "make_mesh",
     "make_mesh_2d",
     "replicate",
@@ -200,14 +199,8 @@ def shard_params_tp(model: nn.Module, mesh: DeviceMesh, axis_name: str = "mp", o
 # ---------------------------------------------------------------------------
 # the data-parallel group of a step
 # ---------------------------------------------------------------------------
-_ACTIVE: list[DataParallel] = []
 #: one tensor gathered from every rank into one (its name since torch 2.11)
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
-
-def active_data_parallel() -> DataParallel | None:
-    """The data-parallel group of the mesh step that is updating, if any."""
-    return _ACTIVE[-1] if _ACTIVE else None
 
 
 class DataParallel:
@@ -221,14 +214,6 @@ class DataParallel:
         self.world = sub.size()
         self.rank = sub.get_local_rank()
         self.rollout_envs = rollout_envs
-
-    @contextlib.contextmanager
-    def active(self) -> Iterator[DataParallel]:
-        _ACTIVE.append(self)
-        try:
-            yield self
-        finally:
-            _ACTIVE.pop()
 
     # -- reductions ----------------------------------------------------
     @torch.no_grad()
@@ -271,8 +256,6 @@ class DataParallel:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` concatenated on dim 0, in rank order."""
-        if self.world == 1:
-            return x
         out = x.new_empty((self.world * x.shape[0], *x.shape[1:]))
         _all_gather_single(out, x.contiguous(), group=self.group)
         return out
@@ -281,8 +264,6 @@ class DataParallel:
         """A step's stats as one process would report them: 0-d floating
         stats averaged over the ranks (one collective), per-row stats
         gathered in rank order, the rest as they are."""
-        if self.world == 1:
-            return stats
         by_dtype: dict[torch.dtype, list[str]] = {}
         for k, v in stats.items():
             if torch.is_tensor(v) and v.dim() == 0 and v.is_floating_point():
@@ -307,8 +288,6 @@ class DataParallel:
         sees them (right where ``owner`` is this rank); each row's bytes, every
         field side by side, go to rank ``p // (B/W)`` in one ``all_to_all``."""
         rows = fn()
-        if self.world == 1:
-            return rows
         B = owner.shape[0]
         per = B // self.world
         mine = owner[self.rank * per:(self.rank + 1) * per]
@@ -352,11 +331,8 @@ def shard_buffer(buffer: ReplayBuffer, mesh: DeviceMesh, axis_name: str = "dp") 
     """This rank's part of ``buffer``: the rings of its ``E/W`` envs, with
     ``buffer``'s capacity per ring. A prioritized buffer keeps its sum tree
     over every rank's rows: each add writes all ranks' new rows at their
-    global leaves, so every rank holds the same tree. At world size 1 this is
-    ``buffer`` itself."""
+    global leaves, so every rank holds the same tree."""
     dp = DataParallel(mesh, axis_name)
-    if dp.world == 1:
-        return buffer
     if buffer.num_envs % dp.world:
         raise ValueError(f"{buffer.num_envs} env rings do not split over {dp.world} ranks")
     local = copy.copy(buffer)
@@ -383,7 +359,7 @@ class _ShardedRing:
 
     def sample_indices(self, state, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         dp = self._dp
-        if isinstance(self, PrioritizedReplayBuffer) or dp.world == 1:  # the tree, or the one ring, is global
+        if isinstance(self, PrioritizedReplayBuffer):  # the tree is global
             return super().sample_indices(state, generator, batch_size)
         if self.sample_avail and self.stack_num > 1:
             raise NotImplementedError("sample_avail over a ring split across ranks")
@@ -462,17 +438,20 @@ def make_dp_train_step(algo, collector, mesh: DeviceMesh, n_steps: int, repeat: 
     The analogue of the reference's ``DataParallelNet`` (net/common.py:473).
     """
     dp = DataParallel(mesh, axis_name, rollout_envs=collector.venv.num_envs)
-    if batch_size % dp.world:
-        raise ValueError(f"batch_size {batch_size} does not split over {dp.world} ranks")
     if dp.world > 1 and not _minibatch_family(algo):
         raise NotImplementedError(f"a multi-rank step of {type(algo).__name__}: only the minibatch-gradient "
                                   "family (PPO, A2C, REINFORCE) reduces its batch statistics over the ranks")
+    rows = dp.rows(n_steps * collector.venv.num_envs)
+    mb_size = algo.minibatch_shape(rows, batch_size)[1] if dp.world > 1 else 0
+    if mb_size % dp.world:
+        raise ValueError(f"a minibatch of {mb_size} rows ({rows} rollout rows over batch_size {batch_size}) does not "
+                         f"split over {dp.world} ranks")
     if tp_axis is not None and tp_axis not in mesh.mesh_dim_names:
         raise ValueError(f"the mesh has no axis {tp_axis!r}")
 
     def step(ts, cstate, generator: torch.Generator, update_generator: torch.Generator | None = None):
         out = collector.rollout(ts, cstate, None, generator, n_steps, keep_rollout=True)
-        with dp.active():
+        with activated(dp):
             ts, stats = algo.update_rollout(ts, out.rollout, generator if update_generator is None else update_generator,
                                             repeat, batch_size)
         return ts, cstate, stats
@@ -512,7 +491,7 @@ def make_dp_offpolicy_train_step(algo, collector, buffer: ReplayBuffer, mesh: De
     def step(ts, cstate, buf_state, generator: torch.Generator, update_generator: torch.Generator | None = None):
         gen_u = generator if update_generator is None else update_generator
         out = collector.rollout(ts, cstate, buf_state, generator, n_steps)
-        with dp.active():
+        with activated(dp):
             stats = [dp.reduce_stats(algo.update(ts, ring, buf_state, gen_u, batch_size)[2]) for _ in range(n_updates)]
         return ts, cstate, buf_state, out, _stack(stats)
 
