@@ -115,7 +115,7 @@ Phases, each of which fails the run:
    collect, update and test graphs; it must reach reward 195 within 20 epochs.
 14. The MuJoCo example path (``examples/mujoco/mujoco_ppo.py`` defaults on HalfCheetah: 16 envs,
    rollouts of 128, 10 passes of batch 64, the linear rate decay, ``target_kl`` 0.015, the PPO init,
-   ``NormObs``, 10 test episodes), cut to 1 epoch of 100,000 steps: finite test returns, the pooled
+   ``NormObs``, 10 test episodes), cut to 1 epoch of 50,000 steps: finite test returns, the pooled
    train statistics at every handoff to the test envs, the rate after the run the schedule's.
 
 15. Continuous graph phase: ``OffPolicyTrainer``'s collect chunk and update burst as CUDA graphs against
@@ -128,7 +128,7 @@ Phases, each of which fails the run:
    HalfCheetah, ``mujoco_td3.py``'s on Ant over prioritized replay (alpha 0.6, beta 0.4) and
    ``mujoco_redq.py``'s on HalfCheetah (32 envs, T 4, 128 updates per megastep of batch 256, a 1 M-row
    replay, 256x256 nets, the random prefill, ``fused_megastep``, 10 test episodes), each cut to one
-   epoch (10,000, 5,000 and 5,000 steps): exactly one ``physics_fused`` launch per vector step, prefill
+   epoch of 5,000 steps (SAC's cut from 10,000): exactly one ``physics_fused`` launch per vector step, prefill
    and test included; with PER one descent per update, one tree update per update and per collect
    step, and an exactly consistent tree; then the megastep graph replayed alone for its wall and device
    time.
@@ -148,7 +148,7 @@ Phases, each of which fails the run:
    step, train and test; every stat finite; the first update's relative conjugate-gradient residual;
    TRPO's step fractions and the share of updates accepted; the update graph replayed alone.
 20. The gSDE example path (``mujoco_ppo.py --sde``: ``sigma_init`` -2.0, the example path's other
-   defaults) cut to 1 epoch: one ``physics_fused`` launch per vector step; after every collect chunk
+   defaults) cut to 1 epoch of 50,000 steps: one ``physics_fused`` launch per vector step; after every collect chunk
    each env's carried count the steps since the chunk's start or its last episode end; an eager check
    that the noise stays bit-unchanged between resamples.
 21. TRPO CartPole (``tests/test_trust_region.py:26-55``): 16 + 10 envs, T 128, batch 1,024, at most 15
@@ -272,7 +272,14 @@ Phases, each of which fails the run:
 53. ``seeded_eval``: ``evaluation/launcher.py``'s ``run_seeded_experiments`` over seeds 0 and 1 of phase 48's builder
    (its launch counts as phase 48 checks them), then ``PoolExpLauncher(max_workers=2)`` under ``spawn`` on the card
    with the same seeds (best rewards equal) and an experiment made to fail (reported, the rest run), then
-   ``eval_results``. The phases 51-53 print their total time.
+   ``eval_results``.
+54. ``dp_trpo_halfcheetah``: ``make_dp_train_step`` at world size 1 over TRPO at the trust-region path's configuration
+   (``TR_E`` envs, T = ``TR_T``, one minibatch of the rollout): ``DP_TR_CALLS`` rollouts with their updates
+   bit-identical to ``OnPolicyTrainer``'s two programs; one ``physics_fused`` launch per vector step.
+55. ``dp_sac_halfcheetah``: ``make_dp_offpolicy_train_step`` at world size 1 over SAC at the off-policy path's widths
+   (``OFF_E`` envs, batch 256, 256x256): ``DP_SAC_CHUNKS`` chunks bit-identical to ``OffPolicyTrainer.megastep``, so the
+   per-row noise drawn through the global-draw rule is the one-process draw; one ``physics_fused`` launch per vector
+   step. The phases 51-55 print their total time.
 
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
@@ -335,8 +342,8 @@ PPO_PATHS = (("HalfCheetah", 32), ("Ant", 16))  # (task, rollout steps)
 # PPO on CartPole (tests/test_onpolicy.py:17-53): 16 train envs, T 128, repeat 10, batch 256, epochs of 10,000 steps
 PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 256, 20, 10000
 PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
-# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs to 1
-MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 100_000
+# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs of 100,000 steps to 1 of 50,000
+MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 50_000
 
 # the continuous off-policy paths: examples/mujoco/mujoco_{sac,td3,redq}.py's defaults (32 envs, T 4, one update
 # per env step, batch 256, a 1 M-row replay, 256x256 nets, 10 test episodes), the depth cut to one epoch
@@ -344,9 +351,9 @@ OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 2
 # sac_humanoid: examples/mujoco/mujoco_sac.py --task Humanoid's defaults (as OFF_PATHS), the random prefill cut from
 # 10,000 steps to HUM_SAC_PREFILL and the epoch from 20,000 to HUM_SAC_EPOCH; the test phase's 10 episodes as eager
 # chunks of HUM_TEST_CHUNK steps (a 128-step test chunk warmed up eagerly on the plain route would take minutes)
-HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 512, 1_024, 32
+HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 256, 512, 32
 OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
-    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 10_000, False),
+    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 5_000, False),
     "td3_ant_per": ("Ant", "td3", 25_000, 5_000, True),
     "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 5_000, False),
     "sac_humanoid": ("Humanoid", "sac", HUM_SAC_PREFILL, HUM_SAC_EPOCH, False),  # the plain route: no kernel
@@ -5150,10 +5157,12 @@ def classic_envs_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# the mesh programs at world size 1 on NCCL, and the multi-seed launchers (phases 51-53)
+# the mesh programs at world size 1 on NCCL, and the multi-seed launchers (phases 51-55)
 # ---------------------------------------------------------------------------
 DP_CHUNKS = 2                        # dp_dqn_pixels: chunks of the pixel pipeline through each program
 DP_PPO_T, DP_PPO_CALLS = 32, 2       # dp_ppo_halfcheetah: bench_mujoco_ppo's rollout, and rollouts per program
+DP_TR_CALLS = 2                      # dp_trpo_halfcheetah: rollouts (T = TR_T) through each program
+DP_SAC_CHUNKS, DP_SAC_PREFILL = 2, 16  # dp_sac_halfcheetah: chunks through each program, random prefill steps
 SEEDED = (0, 1)                      # seeded_eval: the seeds of hl_dqn_cartpole_per's builder run
 
 
@@ -5329,6 +5338,153 @@ def dp_ppo_halfcheetah_phase(torch):
         f"{md['walls'][1]:.1f} ms; the trainer's programs {tr['walls'][0]:.1f} (eager warm-up) / {tr['walls'][1]:.1f} "
         f"(collect captured, update rebuilt for the captured rollout) / {replay_ms[0]:.1f} (update captured) / "
         f"{replay_ms[1]:.1f} ms (both replayed)",
+    ]
+
+
+def dp_trpo_halfcheetah_phase(torch):
+    """Phase 54: ``make_dp_train_step`` at world size 1 on NCCL over TRPO on ``NormObs(HalfCheetah())`` at the
+    trust-region path's configuration (``build_trust_region``: E = ``TR_E``, T = ``TR_T``, one minibatch of the
+    rollout's rows, ``TR_CRITIC_ITERS`` critic steps, ten conjugate-gradient iterations and the line search). From one
+    state and generator state, deep copies run ``DP_TR_CALLS`` rollouts with their updates through
+    ``OnPolicyTrainer``'s ``collect_chunk`` and ``update_rollout`` programs and through the mesh step, eagerly (its
+    gradient, Fisher products and line search averaged over the one rank): every state tensor, the stats and the
+    generator bit-identical, and ``physics_fused`` exactly once per vector step of the mesh step. Returns ({kernel:
+    launches}, lines)."""
+    import copy
+
+    from tianshou_tpu_torch.parallel.mesh import make_dp_train_step
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+
+    algo, ts, coll = build_trust_region(torch, "trpo", TR_E)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    sides = {}
+    for side in ("trainer", "mesh"):
+        s_ts, s_cs = copy.deepcopy((ts, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, cstate=s_cs, gen=s_gen, walls=[], stats=[])
+    del ts, cstate
+    tr, md = sides["trainer"], sides["mesh"]
+    trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+        batch_size=TR_BATCH, collection_step_num_env_steps=TR_T, update_step_num_repetitions=1, verbose=False))
+
+    def trainer_call():
+        out = trainer.collect_chunk(tr["ts"], tr["cstate"], None, tr["gen"], TR_T, keep_rollout=True)
+        return trainer.update_rollout(tr["ts"], out.rollout, tr["gen"])
+
+    for _ in range(DP_TR_CALLS):
+        stats, ms = _time_call(torch, trainer_call)
+        tr["walls"].append(ms)
+        tr["stats"].append(stats.map(torch.clone))
+    mesh = _mesh_of_one(torch)
+    step = make_dp_train_step(algo, coll, mesh, TR_T, 1, TR_BATCH)
+    _zero_launches()
+    for _ in range(DP_TR_CALLS):
+        out, ms = _time_call(torch, lambda: step(md["ts"], md["cstate"], md["gen"]))
+        md["walls"].append(ms)
+        md["stats"].append(out[2].map(torch.clone))
+    launches = _read_launches()
+    _group_down()
+    pairs = [(x[k], y[k]) for x, y in zip(tr["stats"], md["stats"]) for k in x.keys()]
+    pairs += list(zip(_onpolicy_tensors(torch, tr["ts"], tr["cstate"]), _onpolicy_tensors(torch, md["ts"], md["cstate"])))
+    pairs += [(tr["gen"].get_state(), md["gen"].get_state())]
+    differ = _differing(torch, pairs)
+    replay_ms = [_time_call(torch, trainer_call)[1] for _ in range(2)]  # the update's capture, then both replayed
+    expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": DP_TR_CALLS * TR_T}
+    if differ or int(md["ts"].step) != DP_TR_CALLS:
+        raise AssertionError(f"dp_trpo_halfcheetah: {differ} of {len(pairs)} tensors differ from the trainer's "
+                             f"programs, step {int(md['ts'].step)}")
+    if launches != expect:
+        raise AssertionError(f"dp_trpo_halfcheetah: launches {launches}, expected {expect}")
+    accepted = [float(s.accepted) for s in md["stats"]]
+    return launches, [
+        f"dp_trpo_halfcheetah: make_dp_train_step at world size 1 on NCCL, TRPO on NormObs(HalfCheetah) E={TR_E}, "
+        f"{DP_TR_CALLS} rollouts of T={TR_T} each with one update of {TR_E * TR_T} rows ({algo.cg_iters} conjugate-"
+        f"gradient iterations, {algo.max_backtracks} line-search candidates, {TR_CRITIC_ITERS} critic steps; accepted "
+        f"{accepted}): {len(pairs)} tensors (stats, weights, Adam, normalization statistics, collect state, generator) "
+        f"bit-identical to OnPolicyTrainer's collect_chunk and update_rollout; physics_fused {launches['physics_fused']} "
+        f"= 1 per vector step",
+        f"dp_trpo_halfcheetah: wall per rollout and update: the mesh step, eager, {md['walls'][0]:.1f} / "
+        f"{md['walls'][1]:.1f} ms; the trainer's programs {tr['walls'][0]:.1f} (eager warm-up) / {tr['walls'][1]:.1f} "
+        f"(collect captured, update rebuilt for the captured rollout) / {replay_ms[0]:.1f} (update captured) / "
+        f"{replay_ms[1]:.1f} ms (both replayed)",
+    ]
+
+
+def dp_sac_halfcheetah_phase(torch):
+    """Phase 55: ``make_dp_offpolicy_train_step`` at world size 1 on NCCL over SAC on HalfCheetah at the off-policy
+    path's widths (``examples/mujoco/mujoco_sac.py``: ``OFF_E`` envs, T = ``OFF_T``, one update per env step, batch
+    ``OFF_BATCH``, 256x256 nets, alpha 0.2, the ``OFF_BUFFER``-row replay). From one state after a random prefill of
+    ``DP_SAC_PREFILL`` steps, deep copies run ``DP_SAC_CHUNKS`` chunks through ``OffPolicyTrainer.megastep`` (eager
+    warm-up, then capture and replay) and through the mesh step, eagerly: every weight, target, Adam state, the rings,
+    the collect state, the stats and the generator bit-identical, which at world size 1 shows that the target and actor
+    noise drawn by the global-draw rule is the one-process draw; ``physics_fused`` exactly once per vector step of the
+    mesh step. Returns ({kernel: launches}, lines)."""
+    import copy
+
+    from tianshou_tpu_torch.data.collector import DeviceCollector
+    from tianshou_tpu_torch.env.core import VectorDeviceEnv
+    from tianshou_tpu_torch.env.mujoco import make
+    from tianshou_tpu_torch.parallel.mesh import make_dp_offpolicy_train_step
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    torch.manual_seed(SEED)
+    env = make("HalfCheetah")
+    algo = make_offpolicy(torch, "sac", env, OFF_HID, **OFF_ALGOS["sac"])
+    ts = algo.init("cuda")
+    buffer, bs = offpolicy_buffer(torch, env, OFF_BUFFER, OFF_E)
+    coll = DeviceCollector(VectorDeviceEnv(env, OFF_E, device="cuda"), algo, buffer)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    coll.collect(ts, cstate, bs, gen, DP_SAC_PREFILL, random=True)
+    n_updates = OFF_T * OFF_E  # one update per env step
+    sides = {}
+    for side in ("trainer", "mesh"):
+        s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
+        s_gen = torch.Generator(device="cuda")
+        s_gen.set_state(gen.get_state())
+        sides[side] = dict(ts=s_ts, bs=s_bs, cstate=s_cs, gen=s_gen, walls=[], stats=[])
+    del ts, bs, cstate
+    tr, md = sides["trainer"], sides["mesh"]
+    trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
+        batch_size=OFF_BATCH, collection_step_num_env_steps=OFF_T, fused_megastep=True, verbose=False))
+    for _ in range(DP_SAC_CHUNKS):
+        (_, burst), ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], OFF_T,
+                                                                   n_updates))
+        tr["walls"].append(ms)
+        tr["stats"].append(burst.map(torch.clone))
+    mesh = _mesh_of_one(torch)
+    step = make_dp_offpolicy_train_step(algo, coll, buffer, mesh, OFF_T, n_updates, OFF_BATCH)
+    _zero_launches()
+    for _ in range(DP_SAC_CHUNKS):
+        out, ms = _time_call(torch, lambda: step(md["ts"], md["cstate"], md["bs"], md["gen"]))
+        md["walls"].append(ms)
+        md["stats"].append(out[4].map(torch.clone))
+    launches = _read_launches()
+    _group_down()
+    pairs = [(x[k], y[k]) for x, y in zip(tr["stats"], md["stats"]) for k in x.keys()]
+    pairs += list(zip(_offpolicy_state_tensors(tr["ts"], tr["bs"], tr["cstate"]),
+                      _offpolicy_state_tensors(md["ts"], md["bs"], md["cstate"])))
+    pairs += [(tr["gen"].get_state(), md["gen"].get_state())]
+    differ = _differing(torch, pairs)
+    updates = DP_SAC_CHUNKS * n_updates
+    _, replay_ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], OFF_T,
+                                                              n_updates))
+    expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": DP_SAC_CHUNKS * OFF_T}
+    if differ or int(md["ts"].step) != updates:
+        raise AssertionError(f"dp_sac_halfcheetah: {differ} of {len(pairs)} tensors differ from "
+                             f"OffPolicyTrainer.megastep, step {int(md['ts'].step)} of {updates}")
+    if launches != expect:
+        raise AssertionError(f"dp_sac_halfcheetah: launches {launches}, expected {expect}")
+    return launches, [
+        f"dp_sac_halfcheetah: make_dp_offpolicy_train_step at world size 1 on NCCL, SAC on HalfCheetah E={OFF_E}, nets "
+        f"{OFF_HID}, a {OFF_BUFFER}-row replay, {DP_SAC_CHUNKS} chunks of T={OFF_T} and {n_updates} updates of batch "
+        f"{OFF_BATCH}: {len(pairs)} tensors (stats, weights, targets, Adam, counters, rings, collect state, generator) "
+        f"bit-identical to OffPolicyTrainer.megastep; physics_fused {launches['physics_fused']} = 1 per vector step",
+        f"dp_sac_halfcheetah: wall per chunk: the mesh step, eager, {md['walls'][0]:.1f} / {md['walls'][1]:.1f} ms; the "
+        f"trainer's megastep {tr['walls'][0]:.1f} (eager warm-up) / {tr['walls'][1]:.1f} (capture and replay) / "
+        f"{replay_ms:.1f} ms (replay)",
     ]
 
 
@@ -5589,12 +5745,13 @@ def main() -> int:
           flush=True)
     t_slice = time.perf_counter()
     paths = [("dp_dqn_pixels", dp_dqn_pixels_phase), ("dp_ppo_halfcheetah", dp_ppo_halfcheetah_phase),
-             ("seeded_eval", seeded_eval_phase)]
+             ("seeded_eval", seeded_eval_phase), ("dp_trpo_halfcheetah", dp_trpo_halfcheetah_phase),
+             ("dp_sac_halfcheetah", dp_sac_halfcheetah_phase)]
     for name, path in paths:
         t0 = time.perf_counter()
         by_path[name], lines = path(torch)  # raises unless bit-identical to the trainer's programs, or on a launch count
         print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
-    print(f"the mesh and multi-seed phases (51-53): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
+    print(f"the mesh and multi-seed phases (51-55): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

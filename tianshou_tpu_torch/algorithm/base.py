@@ -24,13 +24,16 @@ from the generator it is given. A :class:`Draws` in the generator's place
 hands the numbers over instead, so that tests can give both packages JAX's
 draws: the JAX update splits its key into k1 (the sample), k2 (preprocess)
 and k3 (the gradient step), and the test computes each draw from its key.
+A draw of one number per batch row goes through :func:`uniform`,
+:func:`standard_normal` or :func:`randint`, which inside a mesh step draw the
+global batch's numbers and keep this rank's rows (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from collections.abc import Iterable
+from collections.abc import Callable, Iterable
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -41,10 +44,11 @@ from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFa
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env.core import Box, Discrete, MultiDiscrete, Space
 from tianshou_tpu_torch.ops.returns import nstep_returns, value_mask
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 
 __all__ = ["ActOut", "Algorithm", "Draws", "OfflineAlgorithm", "OffPolicyAlgorithm", "OnPolicyAlgorithm", "Snapshot",
-           "TrainState", "optimizer_tensors", "polyak_update", "standard_normal", "sync_target", "uniform",
-           "weighted_mean"]
+           "TrainState", "optimizer_tensors", "polyak_update", "randint", "standard_normal", "sync_target",
+           "uniform", "weighted_mean"]
 
 
 @dataclasses.dataclass
@@ -117,21 +121,46 @@ class Draws:
     psrl_rew: torch.Tensor | None = None
 
 
+def _per_row(source: torch.Generator | Draws, field: str, shape: tuple[int, ...],
+             draw: Callable[[tuple[int, ...]], torch.Tensor]) -> torch.Tensor:
+    """A per-row draw of ``shape`` ``[b, ...]``: ``draw(shape)``, or the ``field``
+    of handed :class:`Draws`. Inside a mesh step (an active
+    ``DataParallel``, whose ``b`` rows are this rank's positions of a global
+    batch) the global ``[dp.rows(b), ...]`` tensor is drawn from the
+    generator every rank holds alike, and this rank keeps its positions: each
+    row gets the number one process gives it, and the generator advances as
+    one process advances it. A handed ``Draws`` field is the one-process
+    draw, of which the rank keeps its positions too."""
+    dp = active_data_parallel()
+    if isinstance(source, Draws):
+        whole = getattr(source, field)
+    else:
+        whole = draw(shape if dp is None else (dp.rows(shape[0]), *shape[1:]))
+    return whole if dp is None else dp.my_positions(whole)
+
+
 def uniform(source: torch.Generator | Draws, field: str, shape: tuple[int, ...],
             device: torch.device | str) -> torch.Tensor:
-    """float32 uniforms in ``[0, 1)`` of ``shape`` on ``device``: drawn from the
-    generator ``source``, or the ``field`` of handed :class:`Draws`."""
-    if isinstance(source, Draws):
-        return getattr(source, field).to(device=device, dtype=torch.float32)
-    return torch.rand(shape, generator=source, device=device)
+    """float32 uniforms in ``[0, 1)`` of ``shape`` (``[b, ...]``, one row per
+    batch row) on ``device``, drawn as :func:`_per_row` says."""
+    out = _per_row(source, field, shape, lambda s: torch.rand(s, generator=source, device=device))
+    return out.to(device=device, dtype=torch.float32)
 
 
 def standard_normal(source: torch.Generator | Draws, field: str, like: torch.Tensor) -> torch.Tensor:
-    """Standard normals of ``like``'s shape, dtype and device: drawn from the
-    generator ``source``, or the ``field`` of handed :class:`Draws`."""
-    if isinstance(source, Draws):
-        return getattr(source, field).to(device=like.device, dtype=like.dtype)
-    return torch.randn(like.shape, generator=source, device=like.device, dtype=like.dtype)
+    """Standard normals of ``like``'s shape (``[b, ...]``, one row per batch
+    row), dtype and device, drawn as :func:`_per_row` says."""
+    out = _per_row(source, field, tuple(like.shape),
+                   lambda s: torch.randn(s, generator=source, device=like.device, dtype=like.dtype))
+    return out.to(device=like.device, dtype=like.dtype)
+
+
+def randint(source: torch.Generator | Draws, field: str, high: int, shape: tuple[int, ...],
+            device: torch.device | str) -> torch.Tensor:
+    """int64 integers in ``[0, high)`` of ``shape`` (``[b, ...]``, one row per
+    batch row) on ``device``, drawn as :func:`_per_row` says."""
+    out = _per_row(source, field, shape, lambda s: torch.randint(0, high, s, generator=source, device=device))
+    return out.to(device=device, dtype=torch.int64)
 
 
 def weighted_mean(elem: torch.Tensor, weight: torch.Tensor | None) -> torch.Tensor:

@@ -30,7 +30,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algorithm.base import Draws, TrainState, standard_normal
+from tianshou_tpu_torch.algorithm.base import Draws, TrainState, standard_normal, uniform
 from tianshou_tpu_torch.algorithm.modelfree.sac import SAC
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory, init_adam_state
 from tianshou_tpu_torch.data.batch import Batch
@@ -98,10 +98,9 @@ class CQL(SAC):
         self._minimize(ts, a_loss, "actor")
         # the candidate actions of the penalty, from the stepped actor
         with torch.no_grad():
-            if isinstance(generator, Draws):
-                rand_act = generator.cql_rand.to(device=batch.obs.device, dtype=torch.float32)
-            else:
-                rand_act = torch.rand((B * R, A), generator=generator, device=batch.obs.device) * 2.0 - 1.0
+            rand_act = uniform(generator, "cql_rand", (B * R, A), batch.obs.device)
+            if not isinstance(generator, Draws):  # handed draws are the actions in [-1, 1) themselves
+                rand_act = rand_act * 2.0 - 1.0
             cur_act, cur_logp = self._candidates(ts, batch.obs, generator, "cql_cur")
             next_act, next_logp = self._candidates(ts, batch.obs_next, generator, "cql_next")
             obs_rep = batch.obs.repeat_interleave(R, dim=0)

@@ -26,10 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.algorithm.base import Draws, TrainState
+from tianshou_tpu_torch.algorithm.base import Draws, TrainState, randint
 from tianshou_tpu_torch.algorithm.modelfree.ppo import PPO
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory, init_adam_state
 from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 
 __all__ = ["GAIL"]
 
@@ -66,10 +67,17 @@ class GAIL(PPO):
 
     def _disc_step(self, ts: TrainState, obs: torch.Tensor, act: torch.Tensor, ei: torch.Tensor,
                    pi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One discriminator step (reference gail.py:214); returns (loss, accuracy)."""
+        """One discriminator step (reference gail.py:214) on expert rows ``ei``
+        and rollout rows ``pi``; returns (loss, accuracy). Inside a mesh step
+        ``ei`` and ``pi`` are this rank's positions of the global batch: the
+        expert data is whole on every rank, and each policy row comes from the
+        rank that collected it."""
         disc, opt = ts.model["disc"], ts.optim["disc"]
+        dp = active_data_parallel()
+        pol = Batch(obs=obs, act=act)
+        pol = pol[pi] if dp is None else dp.rollout_rows(pol, dp.all_gather(pi))
         d_exp = disc(self.expert_obs[ei], self.expert_act[ei])
-        d_pol = disc(obs[pi], act[pi])
+        d_pol = disc(pol.obs, pol.act)
         loss = F.softplus(-d_exp).mean() + F.softplus(d_pol).mean()  # BCE: expert -> 1, policy -> 0
         acc = ((d_exp > 0).to(torch.float32).mean() + (d_pol < 0).to(torch.float32).mean()) / 2.0
         opt.zero_grad(set_to_none=True)
@@ -79,23 +87,33 @@ class GAIL(PPO):
 
     def update_rollout(self, ts: TrainState, rollout: Batch, generator: torch.Generator | Draws | None, repeat: int,
                        batch_size: int, perm: torch.Tensor | None = None) -> tuple[TrainState, Batch]:
+        """The discriminator's steps, the adversarial reward and PPO's update,
+        in place. Inside a mesh step each rank takes its ``batch_size / W``
+        positions of every discriminator batch and the stats are the whole
+        batch's."""
         T, E = rollout.rew.shape
         obs = rollout.obs.reshape(T * E, *rollout.obs.shape[2:])
         act = rollout.act.reshape(T * E, *rollout.act.shape[2:])
         dev = obs.device
+        dp = active_data_parallel()
+        if dp is not None and batch_size % dp.world:
+            raise ValueError(f"a discriminator batch of {batch_size} rows does not split over {dp.world} ranks")
+        b, n_rows = (batch_size, T * E) if dp is None else (batch_size // dp.world, dp.rows(T * E))
         steps = []
         for i in range(self.disc_update_num):
-            if isinstance(generator, Draws):
-                ei, pi = generator.expert_indices[i].to(dev), generator.policy_indices[i].to(dev)
-            else:
-                ei = torch.randint(0, self.expert_obs.shape[0], (batch_size,), generator=generator, device=dev)
-                pi = torch.randint(0, T * E, (batch_size,), generator=generator, device=dev)
+            src = generator
+            if isinstance(generator, Draws):  # step i's handed rows
+                src = dataclasses.replace(generator, expert_indices=generator.expert_indices[i],
+                                          policy_indices=generator.policy_indices[i])
+            ei = randint(src, "expert_indices", self.expert_obs.shape[0], (b,), dev)
+            pi = randint(src, "policy_indices", n_rows, (b,), dev)
             steps.append(self._disc_step(ts, obs, act, ei, pi))
         with torch.no_grad():  # the adversarial reward (reference gail.py:188)
             rollout = rollout.copy()
             rollout.rew = F.softplus(ts.model["disc"](obs, act)).reshape(T, E)
         _, stats = super().update_rollout(dataclasses.replace(ts, optim=ts.optim["ac"]), rollout, generator, repeat,
                                           batch_size, perm)
-        stats.disc_loss = torch.stack([s[0] for s in steps]).mean()
-        stats.disc_acc = torch.stack([s[1] for s in steps]).mean()
+        disc = Batch(disc_loss=torch.stack([s[0] for s in steps]).mean(),
+                     disc_acc=torch.stack([s[1] for s in steps]).mean())
+        stats.update(disc if dp is None else dp.reduce_stats(disc))
         return ts, stats

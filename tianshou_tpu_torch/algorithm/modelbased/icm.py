@@ -31,6 +31,7 @@ from torch import nn
 from tianshou_tpu_torch.algorithm.base import ActOut, Draws, OffPolicyAlgorithm, OnPolicyAlgorithm, TrainState
 from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory, OptimizerFactory, init_adam_state
 from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 from tianshou_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ICMOffPolicyWrapper", "ICMOnPolicyWrapper"]
@@ -126,7 +127,8 @@ class ICMOffPolicyWrapper(_ICMMixin, OffPolicyAlgorithm):
 class ICMOnPolicyWrapper(_ICMMixin, OnPolicyAlgorithm):
     """The bonus of the ICM net as it is before the update is added to the
     rollout's rewards; the ICM step follows the wrapped update over the whole
-    rollout."""
+    rollout (inside a mesh step, each rank's rows: the optimizer's hook
+    averages the gradients, and the losses reported are the whole rollout's)."""
 
     def __init__(self, wrapped: OnPolicyAlgorithm, model: nn.Module, optim: OptimizerFactory | None = None,
                  lr_scale: float = 1.0, reward_scale: float = 0.01, forward_loss_weight: float = 0.2) -> None:
@@ -147,5 +149,7 @@ class ICMOnPolicyWrapper(_ICMMixin, OnPolicyAlgorithm):
         rollout = rollout.copy()
         rollout.rew = rollout.rew + self._intrinsic(ts, obs, act, obs_next).reshape(T, E)
         _, stats = self.wrapped.update_rollout(self.inner(ts), rollout, generator, repeat, batch_size, perm)
-        stats.update(self._icm_update(ts, obs, act, obs_next))
+        icm = self._icm_update(ts, obs, act, obs_next)
+        dp = active_data_parallel()  # inside a mesh step: the ICM losses over every rank's rows
+        stats.update(icm if dp is None else dp.reduce_stats(icm))
         return ts, stats

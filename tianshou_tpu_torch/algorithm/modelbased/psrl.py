@@ -14,6 +14,9 @@ that the trainer's graph captures the whole update. The observation's first
 entry is the state index. Acting reads the policy table. The draws come from
 the generator, or from :class:`tianshou_tpu_torch.algorithm.base.Draws`
 (``psrl_trans``, ``psrl_rew``): torch's gamma sampler cannot reproduce JAX's.
+Inside a mesh step every rank gathers the whole rollout and adds it to the
+counts in one process's row order, so the posterior, its draw from the
+generator every rank holds alike, and the policy are the same on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from tianshou_tpu_torch.algorithm.base import ActOut, Draws, OnPolicyAlgorithm, TrainState
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env.core import Discrete
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 from tianshou_tpu_torch.utils.device import resolve_device
 
 __all__ = ["PSRL"]
@@ -108,6 +112,10 @@ class PSRL(OnPolicyAlgorithm):
                        batch_size: int, perm: torch.Tensor | None = None) -> tuple[TrainState, Batch]:
         """The rollout's counts, a posterior sample and value iteration, in
         place; ``repeat``, ``batch_size`` and ``perm`` are unused."""
+        dp = active_data_parallel()
+        if dp is not None:  # inside a mesh step: every rank counts the whole rollout, in one process's row order
+            rollout = Batch(obs=rollout.obs, act=rollout.act, rew=rollout.rew, terminated=rollout.terminated,
+                            truncated=rollout.truncated, obs_next=rollout.obs_next).map(dp.whole_rollout)
         T, E = rollout.rew.shape
         x = ts.extra
         s = self._obs_to_state(rollout.obs.reshape(T * E, -1))

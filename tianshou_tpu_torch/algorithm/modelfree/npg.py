@@ -17,7 +17,11 @@ Fisher-vector product is a double backward: the KL's gradient is taken once
 with ``create_graph=True``, and each product is the gradient of ``grad · v``
 through that graph. The conjugate gradient is a fixed-count loop on flat
 tensors with no host read, so the whole ``update_rollout`` is one CUDA graph
-on the card. Both sides compute the same products in other orders, so the
+on the card. Inside a mesh step every rank holds its share of the minibatch:
+the surrogate's gradient, each Fisher-vector product and the reported
+objective are averaged over the ranks, so every rank solves the same system
+and takes the same step; the critic's gradients go through the optimizer's
+hook. Both sides compute the same products in other orders, so the
 ten iterations can differ from JAX's by float32 rounding;
 ``tests/test_torch_trust_region.py`` states the tolerance it measured.
 """
@@ -32,6 +36,7 @@ from torch import nn
 from tianshou_tpu_torch.algorithm.base import TrainState
 from tianshou_tpu_torch.algorithm.modelfree.onpolicy import OnPolicyActorCritic
 from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.utils.data_parallel import active_data_parallel
 
 __all__ = ["NPG", "conjugate_gradient"]
 
@@ -57,6 +62,17 @@ def conjugate_gradient(mvp: Callable[[torch.Tensor], torch.Tensor], b: torch.Ten
 
 def _flat(tensors) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _ranks_mean(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``xs`` as they are; inside a mesh step each one's mean over the ranks,
+    in one collective (a mean over this rank's rows becomes the whole
+    minibatch's)."""
+    dp = active_data_parallel()
+    if dp is None:
+        return xs
+    flat = dp.average(torch.cat([x.reshape(-1) for x in xs]))
+    return tuple(v.view_as(x) for v, x in zip(flat.split([x.numel() for x in xs]), xs))
 
 
 class NPG(OnPolicyActorCritic):
@@ -97,16 +113,16 @@ class NPG(OnPolicyActorCritic):
         objective and ``s · (F + damping I) s``."""
         params = list(actor.parameters())
         obj = self._actor_objective(actor, mb)
-        g = _flat(torch.autograd.grad(obj, params))
+        g, obj_all = _ranks_mean(_flat(torch.autograd.grad(obj, params)), obj.detach())
         grad_kl = _flat(torch.autograd.grad(self._kl_to_old(actor, mb), params, create_graph=True))
 
         def fvp(v: torch.Tensor) -> torch.Tensor:
             hv = torch.autograd.grad(grad_kl @ v, params, retain_graph=True)
-            return _flat(hv) + self.damping * v
+            return _ranks_mean(_flat(hv))[0] + self.damping * v
 
         s = conjugate_gradient(fvp, g, self.cg_iters)
         shs = s @ fvp(s)
-        return s, obj.detach(), shs.detach()
+        return s, obj_all, shs.detach()
 
     @torch.no_grad()
     def _set_actor(self, actor: nn.Module, flat: torch.Tensor) -> None:
@@ -125,11 +141,22 @@ class NPG(OnPolicyActorCritic):
         # the fixed step along the natural direction (reference npg.py:170)
         with torch.no_grad():
             self._set_actor(actor, _flat(actor.parameters()) + self.trust_region_size * s)
-        vf_loss = self._critic_steps(ts, mb)
-        with torch.no_grad():
-            kl = self._kl_to_old(actor, mb)
+        vf_loss, kl = self._critic_steps_and_kl(ts, mb)
         ts.step += 1
         return Batch(loss=-obj, actor_objective=obj, vf_loss=vf_loss, kl=kl)
+
+    def _critic_steps_and_kl(self, ts: TrainState, mb: Batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """The critic's steps after the actor's, then the stepped actor's KL
+        from the rollout's policy: ``(mean critic loss, kl)``, the whole
+        minibatch's inside a mesh step."""
+        vf_loss = self._critic_steps(ts, mb)
+        with torch.no_grad():
+            kl = self._kl_to_old(ts.model["actor"], mb)
+        dp = active_data_parallel()
+        if dp is None:
+            return vf_loss, kl
+        out = dp.reduce_stats(Batch(vf_loss=vf_loss, kl=kl))
+        return out.vf_loss, out.kl
 
     def _critic_steps(self, ts: TrainState, mb: Batch) -> torch.Tensor:
         """``optim_critic_iters`` steps of the train state's optimizer on the

@@ -10,6 +10,9 @@ surrogate is taken, none if no fraction does. As in the JAX package, every
 candidate is evaluated and the choice is a select on the device, so the
 search has no host branch and a CUDA graph captures it. The fractions are
 float32 powers computed once on the CPU, the bits ``jax.lax.pow`` gives.
+Inside a mesh step each candidate's objective and KL are the whole
+minibatch's (averaged over the ranks in one collective), so every rank
+selects the same fraction.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from tianshou_tpu_torch.algorithm.base import TrainState
-from tianshou_tpu_torch.algorithm.modelfree.npg import NPG, _flat
+from tianshou_tpu_torch.algorithm.modelfree.npg import NPG, _flat, _ranks_mean
 from tianshou_tpu_torch.data.batch import Batch
 
 __all__ = ["TRPO"]
@@ -51,15 +54,12 @@ class TRPO(NPG):
             done = torch.zeros((), dtype=torch.bool, device=flat.device)
             for i in range(self.max_backtracks):
                 params = self._unflatten(actor, flat + fracs[i] * full_step)
-                obj = self._actor_objective(actor, mb, params)
-                kl = self._kl_to_old(actor, mb, params)
+                obj, kl = _ranks_mean(self._actor_objective(actor, mb, params), self._kl_to_old(actor, mb, params))
                 ok = (kl <= self.max_kl) & (obj > obj_old) & ~done
                 best = torch.where(ok, fracs[i], best)
                 done = done | ok
             self._set_actor(actor, flat + best * full_step)
-        vf_loss = self._critic_steps(ts, mb)
-        with torch.no_grad():
-            kl = self._kl_to_old(actor, mb)
+        vf_loss, kl = self._critic_steps_and_kl(ts, mb)
         ts.step += 1
         return Batch(loss=-obj_old, actor_objective=obj_old, vf_loss=vf_loss, kl=kl, step_frac=best,
                      accepted=done.to(torch.float32))

@@ -19,7 +19,10 @@ sampled slot plus the drawn offset: the same indices, with no dependent walk.
 The two uniform draws per sample (the offset and the relabel coin) come from
 the update's generator (in a CUDA graph, the one it registered) or from
 :class:`tianshou_tpu_torch.algorithm.base.Draws` (``her_offset``,
-``her_relabel``), which tests fill with JAX's draws. Observations are
+``her_relabel``), which tests fill with JAX's draws. Split over the ranks of
+a mesh step, the rank that holds a sampled row makes its plan
+(:meth:`HERReplayBuffer.relabelled`) from the global batch's uniforms
+(:meth:`HERReplayBuffer.plan_draws`). Observations are
 goal-structured ``Batch``\\ es with ``observation``, ``achieved_goal`` and
 ``desired_goal``.
 """
@@ -55,22 +58,40 @@ class HERReplayBuffer(ReplayBuffer):
         ``her_relabel``) for the n-step chain, which ``preprocess`` pops."""
         rows = generator.indices if isinstance(generator, Draws) else generator
         idx = self._indices(state, rows, batch_size)
+        return self.relabelled(state, idx, *self.plan_draws(generator, idx.shape[0], idx.device), drop_keys), idx
+
+    @staticmethod
+    def plan_draws(generator: torch.Generator | Draws, b: int,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The relabel plan's uniforms for ``b`` sampled rows: the offset into
+        the episode's remaining steps and the relabel coin, ``[b]`` each."""
+        return uniform(generator, "her_offset", (b,), device), uniform(generator, "her_relabel", (b,), device)
+
+    def relabelled(self, state: BufferState, idx: torch.Tensor, u_off: torch.Tensor, u_mask: torch.Tensor,
+                   drop_keys: tuple[str, ...] = ()) -> Batch:
+        """The rows at ``idx`` relabelled by the plan of the uniforms
+        ``u_off`` and ``u_mask``, the plan carried as ``her_new_goal`` and
+        ``her_relabel``."""
         batch = self.get(state, idx, drop_keys=drop_keys)
-        new_goal, relabel = self.relabel_plan(state, idx, generator)
+        new_goal, relabel = self.plan_from(state, idx, u_off, u_mask)
         batch = self.apply_relabel(batch, new_goal, relabel)
         batch.her_new_goal = new_goal
         batch.her_relabel = relabel
-        return batch, idx
+        return batch
 
     def relabel_plan(self, state: BufferState, idx: torch.Tensor,
                      generator: torch.Generator | Draws) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per sampled index: ``(new goal [B, ...goal], relabel [B] bool)``.
-        One decision covers the index's whole forward chain, as the
-        reference's episode-wide rewrite does (her.py:100)."""
-        B, H, C = idx.shape[0], self.horizon, self.capacity
+        """Per sampled index: ``(new goal [B, ...goal], relabel [B] bool)``,
+        the plan of :meth:`plan_draws`' uniforms."""
+        return self.plan_from(state, idx, *self.plan_draws(generator, idx.shape[0], idx.device))
+
+    def plan_from(self, state: BufferState, idx: torch.Tensor, u_off: torch.Tensor,
+                  u_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The plan of given uniforms ``[B]``. One decision covers the index's
+        whole forward chain, as the reference's episode-wide rewrite does
+        (her.py:100)."""
+        H, C = self.horizon, self.capacity
         dev = idx.device
-        u_off = uniform(generator, "her_offset", (B,), dev)
-        u_mask = uniform(generator, "her_relabel", (B,), dev)
         env, slot = self._split(idx)
         # step j of the chain moves past slot + j unless that slot ends an episode or is the env's newest row
         steps = (slot[:, None] + torch.arange(H - 1, device=dev)) % C  # [B, H-1]

@@ -9,9 +9,16 @@ slice of the envs (and of the replay ring), and the collectives are written
 out where one process would have computed over the whole batch:
 
 - **Draws.** A rank's envs draw from that rank's own generator (policy
-  samples, exploration, env steps, resets); the update draws (the minibatch
-  permutation, the replay sample) come from an ``update_generator`` that every
-  rank holds in the same state, so every rank draws the same global indices.
+  samples, exploration, env steps, resets); the update draws come from an
+  ``update_generator`` that every rank holds in the same state. A global
+  draw (the minibatch permutation, the replay sample, REDQ's ensemble subset,
+  PSRL's posterior) is the same on every rank. A per-row draw of a ``[b,
+  ...]`` tensor (TD3's target smoothing, SAC's and REDQ's action noise,
+  IQN's fractions, HER's relabel plan, GAIL's discriminator rows) draws the
+  global ``[W*b, ...]`` tensor and keeps this rank's positions of it
+  (``algorithm/base.py:uniform``, ``standard_normal``, ``randint``): every
+  row gets the number one process gives it, and the generator advances as
+  one process advances it.
 - **Rows.** A minibatch holds global row indices. Each rank computes the loss
   on its ``B/W`` positions of it, fetched from the ranks that own the rows
   (one ``all_to_all`` per read, a row's fields packed together); the rollout
@@ -22,7 +29,15 @@ out where one process would have computed over the whole batch:
   clip, so every rank takes the same step and the parameters stay the same.
 - **Batch statistics** (the advantage normalisation of a minibatch, the
   return statistics' Welford merge, the stats a step returns) are reduced
-  over the ranks; per-env state (``NormObs``, GAE) stays local.
+  over the ranks; per-env state (``NormObs``, GAE) stays local. NPG and TRPO
+  average the surrogate's gradient, each Fisher-vector product and the line
+  search's objective and KL over the ranks; PSRL counts the whole rollout on
+  every rank.
+
+The on-policy step takes every on-policy algorithm (PPO, A2C, REINFORCE,
+NPG, TRPO, GAIL, the ICM wrapper, PSRL, the multi-agent dispatcher); the
+off-policy step every off-policy algorithm, over a uniform, a prioritized, a
+relabelling (HER) or a ``sample_avail`` ring.
 
 At world size 1 every collective runs and copies or divides by 1.0; only the
 moments of a batch are taken as one process takes them, so a step gives the
@@ -52,6 +67,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
+from tianshou_tpu_torch.algorithm.base import Draws
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.base import BufferState, ReplayBuffer
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer
@@ -234,9 +250,7 @@ class DataParallel:
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the ranks of equal-sized ``x``: their pieces' means, summed and divided by the world size."""
-        m = x.mean().reshape(1)
-        dist.all_reduce(m, group=self.group)
-        return (m / self.world).reshape(())
+        return self.average(x.mean())
 
     def moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``(mean, variance)`` over the ranks' equal-sized pieces of ``x``,
@@ -254,11 +268,26 @@ class DataParallel:
         mean, var = self.moments(x)
         return mean, var.sqrt()
 
+    def average(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (one shape on every rank) summed over the ranks and divided by the world size."""
+        out = x.detach().reshape(-1).clone()
+        dist.all_reduce(out, group=self.group)
+        return out.div_(float(self.world)).view_as(x)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` concatenated on dim 0, in rank order."""
+        if x.dtype == torch.bool:
+            return self.all_gather(x.view(torch.uint8)).view(torch.bool)
         out = x.new_empty((self.world * x.shape[0], *x.shape[1:]))
         _all_gather_single(out, x.contiguous(), group=self.group)
         return out
+
+    def whole_rollout(self, x: torch.Tensor) -> torch.Tensor:
+        """The global time-major ``[T, E, ...]`` rollout tensor from every
+        rank's ``[T, E/W, ...]``, the envs in rank order."""
+        T, E_r = x.shape[:2]
+        parts = self.all_gather(x).reshape(self.world, T, E_r, *x.shape[2:])
+        return parts.transpose(0, 1).reshape(T, self.world * E_r, *x.shape[2:])
 
     def reduce_stats(self, stats: Batch) -> Batch:
         """A step's stats as one process would report them: 0-d floating
@@ -293,7 +322,7 @@ class DataParallel:
         mine = owner[self.rank * per:(self.rank + 1) * per]
         leaves: list[torch.Tensor] = []
         tree_map(leaves.append, rows)
-        packed = torch.cat([v.contiguous().reshape(B, -1).view(torch.uint8) for v in leaves], dim=1)
+        packed = torch.cat([v.reshape(-1).view(torch.uint8).reshape(B, -1) for v in leaves], dim=1)
         recv = torch.empty_like(packed)
         dist.all_to_all_single(recv, packed, group=self.group)
         got = recv.reshape(self.world, per, -1)[mine, torch.arange(per, device=owner.device)]
@@ -349,9 +378,12 @@ class _ShardedRing:
     address the global ``[E, C]`` layout, sampling draws over every rank's
     rows, and each read runs where the row lives (:meth:`DataParallel.route`);
     a prioritized ring's writeback gathers every rank's new priorities, so
-    every rank writes the same tree."""
+    every rank writes the same tree. A relabelling (HER) ring's plan is made
+    by the rank that holds the sampled row, from the global draw, since an
+    episode's future rows lie in its env's ring."""
 
     _dp: DataParallel
+    _local: ReplayBuffer  # the rank's own ring, which reads its rows
     _per_rank: int  # rows of one rank's rings
 
     def _owner(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -361,42 +393,58 @@ class _ShardedRing:
         dp = self._dp
         if isinstance(self, PrioritizedReplayBuffer):  # the tree is global
             return super().sample_indices(state, generator, batch_size)
-        if self.sample_avail and self.stack_num > 1:
-            raise NotImplementedError("sample_avail over a ring split across ranks")
-        whole = copy.copy(self)
+        if self.sample_avail and self.stack_num > 1:  # every rank's mask in rank order: the whole ring's
+            ok = dp.all_gather(self._local._avail_mask(state))
+            return torch.multinomial(ok.to(torch.float32), batch_size, replacement=True, generator=generator)
+        whole = copy.copy(self._local)
         whole.num_envs = self.num_envs * dp.world
         cursor, size, last_idx = dp.all_gather(torch.stack([state.cursor, state.size, state.last_idx], dim=1)).unbind(1)
         view = BufferState(data=Batch(), cursor=cursor, size=size, last_idx=last_idx)
         return ReplayBuffer.sample_indices(whole, view, generator, batch_size)
 
-    def sample(self, state, generator: torch.Generator | torch.Tensor, batch_size: int,
+    def sample(self, state, generator: torch.Generator | Draws | torch.Tensor, batch_size: int,
                drop_keys: tuple[str, ...] = ()) -> tuple[Batch, torch.Tensor]:
-        idx = self._indices(state, generator, batch_size)  # [B], the same on every rank
+        dp = self._dp
+        rows = generator.indices if isinstance(generator, Draws) else generator
+        idx = self._indices(state, rows, batch_size)  # [B], the same on every rank
         owner, local = self._owner(idx)
-        batch = self._dp.route(owner, lambda: self._local_cls.get(self, state, local, drop_keys=drop_keys))
+        if getattr(self, "relabels_on_sample", False):  # the plan's global uniforms, each rank's positions gathered
+            u_off, u_mask = (dp.all_gather(u) for u in self.plan_draws(generator, batch_size // dp.world, idx.device))
+            batch = dp.route(owner, lambda: self._local.relabelled(state, local, u_off, u_mask, drop_keys))
+        else:
+            batch = dp.route(owner, lambda: self._local.get(state, local, drop_keys=drop_keys))
         if isinstance(self, PrioritizedReplayBuffer):
-            batch.weight = self._dp.my_positions(self.get_weight(state, idx))
-        return batch, self._dp.my_positions(idx)
+            batch.weight = dp.my_positions(self.get_weight(state, idx))
+        return batch, dp.my_positions(idx)
 
     def get(self, state, flat_idx: torch.Tensor, stack_num=None, keys=None, drop_keys=()) -> Batch:
         owner, local = self._owner(self._dp.all_gather(flat_idx))
-        return self._dp.route(owner, lambda: self._local_cls.get(self, state, local, stack_num, keys=keys,
-                                                                 drop_keys=drop_keys))
+        return self._dp.route(owner, lambda: self._local.get(state, local, stack_num, keys=keys, drop_keys=drop_keys))
 
-    def n_step_gather(self, state, flat_idx: torch.Tensor, n: int):
+    def _chain(self, flat_idx: torch.Tensor, gather: Callable) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """An n-step chain per row of ``flat_idx``, walked where the row lives:
+        ``gather(local indices)`` gives the owner's ``(rews [n, B], ends [n,
+        B], terminal index)`` for every global position."""
         owner, local = self._owner(self._dp.all_gather(flat_idx))
         offset = self._dp.rank * self._per_rank
 
         def here() -> Batch:
-            rews, ends, term = self._local_cls.n_step_gather(self, state, local, n)
+            rews, ends, term = gather(local)
             return Batch(rews=rews.T, ends=ends.T, term=term + offset)
 
         out = self._dp.route(owner, here)
         return out.rews.T, out.ends.T, out.term
 
+    def n_step_gather(self, state, flat_idx: torch.Tensor, n: int):
+        return self._chain(flat_idx, lambda local: self._local.n_step_gather(state, local, n))
+
+    def n_step_gather_relabeled(self, state, flat_idx: torch.Tensor, n: int, new_goal: torch.Tensor,
+                                relabel: torch.Tensor):
+        goal, rel = self._dp.all_gather(new_goal), self._dp.all_gather(relabel)
+        return self._chain(flat_idx, lambda local: self._local.n_step_gather_relabeled(state, local, n, goal, rel))
+
     def update_weight(self, state, flat_idx: torch.Tensor, td_error: torch.Tensor):
-        return self._local_cls.update_weight(self, state, self._dp.all_gather(flat_idx),
-                                             self._dp.all_gather(td_error.detach()))
+        return self._local.update_weight(state, self._dp.all_gather(flat_idx), self._dp.all_gather(td_error.detach()))
 
 
 def _sharded_ring(local: ReplayBuffer, dp: DataParallel) -> ReplayBuffer:
@@ -404,7 +452,7 @@ def _sharded_ring(local: ReplayBuffer, dp: DataParallel) -> ReplayBuffer:
     view_cls = type(f"Sharded{cls.__name__}", (_ShardedRing, cls), {})
     view = object.__new__(view_cls)
     view.__dict__.update(local.__dict__)
-    view._dp, view._per_rank, view._local_cls = dp, local.num_envs * local.capacity, cls
+    view._dp, view._per_rank, view._local = dp, local.num_envs * local.capacity, local
     return view
 
 
@@ -415,20 +463,23 @@ def _stack(stats: list[Batch]) -> Batch:
     return tree_map(lambda *xs: torch.stack(xs), *stats)
 
 
-def _minibatch_family(algo) -> bool:
-    """An on-policy algorithm whose update is minibatch gradient steps
-    through the hooks (PPO, A2C, REINFORCE)."""
-    from tianshou_tpu_torch.algorithm.modelfree.onpolicy import OnPolicyActorCritic
-
-    return isinstance(algo, OnPolicyActorCritic) and \
-        type(algo)._update_minibatch is OnPolicyActorCritic._update_minibatch
+def _minibatch_loops(algo) -> list:
+    """The algorithms whose minibatch loops an ``update_rollout`` of ``algo``
+    runs: ``algo`` itself, a wrapper's inner algorithm, each agent of a
+    dispatcher (none for PSRL)."""
+    if hasattr(algo, "algorithms"):
+        return [a for agent in algo.algorithms for a in _minibatch_loops(agent)]
+    if hasattr(algo, "wrapped"):
+        return _minibatch_loops(algo.wrapped)
+    return [algo] if hasattr(algo, "minibatch_shape") else []
 
 
 def make_dp_train_step(algo, collector, mesh: DeviceMesh, n_steps: int, repeat: int, batch_size: int,
                        axis_name: str = "dp", tp_axis: str | None = None):
     """One data-parallel on-policy megastep: a collect of ``n_steps`` on this
     rank's envs (``collector`` holds its ``E/W``), then ``update_rollout``
-    over the global ``[T, E]`` rollout.
+    over the global ``[T, E]`` rollout, for any on-policy algorithm (the
+    module docstring says how each family reduces over the ranks).
 
     Returns ``step(ts, cstate, generator, update_generator=None) -> (ts,
     cstate, stats)``; ``generator`` is this rank's, ``update_generator`` the
@@ -438,14 +489,12 @@ def make_dp_train_step(algo, collector, mesh: DeviceMesh, n_steps: int, repeat: 
     The analogue of the reference's ``DataParallelNet`` (net/common.py:473).
     """
     dp = DataParallel(mesh, axis_name, rollout_envs=collector.venv.num_envs)
-    if dp.world > 1 and not _minibatch_family(algo):
-        raise NotImplementedError(f"a multi-rank step of {type(algo).__name__}: only the minibatch-gradient "
-                                  "family (PPO, A2C, REINFORCE) reduces its batch statistics over the ranks")
     rows = dp.rows(n_steps * collector.venv.num_envs)
-    mb_size = algo.minibatch_shape(rows, batch_size)[1] if dp.world > 1 else 0
-    if mb_size % dp.world:
-        raise ValueError(f"a minibatch of {mb_size} rows ({rows} rollout rows over batch_size {batch_size}) does not "
-                         f"split over {dp.world} ranks")
+    for loop in _minibatch_loops(algo):
+        mb_size = loop.minibatch_shape(rows, batch_size)[1]
+        if mb_size % dp.world:
+            raise ValueError(f"a minibatch of {mb_size} rows ({rows} rollout rows over batch_size {batch_size}) does "
+                             f"not split over {dp.world} ranks")
     if tp_axis is not None and tp_axis not in mesh.mesh_dim_names:
         raise ValueError(f"the mesh has no axis {tp_axis!r}")
 
@@ -469,13 +518,16 @@ def make_dp_offpolicy_train_step(algo, collector, buffer: ReplayBuffer, mesh: De
     this rank's ``E/W`` envs and ``shard_buffer(buffer, mesh)``, and the
     buffer state is that shard's. Writes during the collect are rank-local;
     sample indices are drawn over the global ``[E, C]`` layout from
-    ``update_generator``, the owners gather the rows (n-step chains never
-    leave one env's ring) and hand each rank its ``B/W`` of them. Returns
-    ``step(ts, cstate, buf_state, generator, update_generator=None) -> (ts,
-    cstate, buf_state, collect output, stacked update stats)``. An update's
-    other draws (target or actor noise) also come from ``update_generator``,
-    the same numbers on every rank for its own rows. A ring that relabels on
-    sample (HER) or samples through ``sample_avail`` is not split.
+    ``update_generator`` (through every rank's ``sample_avail`` mask where the
+    ring has one), the owners gather the rows (n-step chains and HER's
+    future goals never leave one env's ring) and hand each rank its ``B/W``
+    of them. Returns ``step(ts, cstate, buf_state, generator,
+    update_generator=None) -> (ts, cstate, buf_state, collect output, stacked
+    update stats)``. An update's per-row draws (target or actor noise, IQN's
+    fractions, HER's relabel plan) are the global batch's draw from
+    ``update_generator``, of which each rank keeps its rows' numbers: the
+    numbers one process draws for them. The JAX step has no ``tp_axis``, and
+    neither has this one.
     """
     dp = DataParallel(mesh, axis_name)
     local = collector.buffer
@@ -484,8 +536,6 @@ def make_dp_offpolicy_train_step(algo, collector, buffer: ReplayBuffer, mesh: De
                          f"the buffer's ({buffer.num_envs} x {buffer.capacity}): give it shard_buffer(buffer, mesh)")
     if batch_size % dp.world:
         raise ValueError(f"batch_size {batch_size} does not split over {dp.world} ranks")
-    if getattr(local, "relabels_on_sample", False):
-        raise NotImplementedError("a relabelling (HER) ring split across ranks")
     ring = _sharded_ring(local, dp)
 
     def step(ts, cstate, buf_state, generator: torch.Generator, update_generator: torch.Generator | None = None):
