@@ -115,7 +115,7 @@ Phases, each of which fails the run:
    collect, update and test graphs; it must reach reward 195 within 20 epochs.
 14. The MuJoCo example path (``examples/mujoco/mujoco_ppo.py`` defaults on HalfCheetah: 16 envs,
    rollouts of 128, 10 passes of batch 64, the linear rate decay, ``target_kl`` 0.015, the PPO init,
-   ``NormObs``, 10 test episodes), cut to 1 epoch of 50,000 steps: finite test returns, the pooled
+   ``NormObs``, 10 test episodes), cut to 1 epoch of 25,000 steps: finite test returns, the pooled
    train statistics at every handoff to the test envs, the rate after the run the schedule's.
 
 15. Continuous graph phase: ``OffPolicyTrainer``'s collect chunk and update burst as CUDA graphs against
@@ -128,7 +128,7 @@ Phases, each of which fails the run:
    HalfCheetah, ``mujoco_td3.py``'s on Ant over prioritized replay (alpha 0.6, beta 0.4) and
    ``mujoco_redq.py``'s on HalfCheetah (32 envs, T 4, 128 updates per megastep of batch 256, a 1 M-row
    replay, 256x256 nets, the random prefill, ``fused_megastep``, 10 test episodes), each cut to one
-   epoch of 5,000 steps (SAC's cut from 10,000): exactly one ``physics_fused`` launch per vector step, prefill
+   epoch of 2,500 steps: exactly one ``physics_fused`` launch per vector step, prefill
    and test included; with PER one descent per update, one tree update per update and per collect
    step, and an exactly consistent tree; then the megastep graph replayed alone for its wall and device
    time.
@@ -148,7 +148,7 @@ Phases, each of which fails the run:
    step, train and test; every stat finite; the first update's relative conjugate-gradient residual;
    TRPO's step fractions and the share of updates accepted; the update graph replayed alone.
 20. The gSDE example path (``mujoco_ppo.py --sde``: ``sigma_init`` -2.0, the example path's other
-   defaults) cut to 1 epoch of 50,000 steps: one ``physics_fused`` launch per vector step; after every collect chunk
+   defaults) cut to 1 epoch of 25,000 steps: one ``physics_fused`` launch per vector step; after every collect chunk
    each env's carried count the steps since the chunk's start or its last episode end; an eager check
    that the noise stays bit-unchanged between resamples.
 21. TRPO CartPole (``tests/test_trust_region.py:26-55``): 16 + 10 envs, T 128, batch 1,024, at most 15
@@ -281,6 +281,14 @@ Phases, each of which fails the run:
    per-row noise drawn through the global-draw rule is the one-process draw; one ``physics_fused`` launch per vector
    step. The phases 51-55 print their total time.
 
+56. ``examples``: two port example scripts through their own ``main`` on the card (``EX_SCRIPTS``):
+   ``examples_torch/atari/atari_rainbow.py`` on the catch game (a prioritized replay; the depth cut to
+   ``EX_RAINBOW_PREFILL`` prefill steps and one epoch of ``EX_RAINBOW_EPOCH``) and ``examples_torch/mujoco/mujoco_sac.py``
+   on HalfCheetah (``EX_SAC_PREFILL`` and ``EX_SAC_EPOCH``). Counters zeroed and read around each ``main``:
+   ``gather_rows`` 2, ``prefix_sum_idx`` 1 and ``tree_update`` 1 per update and ``tree_update`` 1 per collect step
+   (Rainbow; the final tree through ``_check_tree``), ``physics_fused`` 1 per vector step (SAC, prefill and test
+   included); each script's summary line.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -342,8 +350,9 @@ PPO_PATHS = (("HalfCheetah", 32), ("Ant", 16))  # (task, rollout steps)
 # PPO on CartPole (tests/test_onpolicy.py:17-53): 16 train envs, T 128, repeat 10, batch 256, epochs of 10,000 steps
 PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 256, 20, 10000
 PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
-# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs of 100,000 steps to 1 of 50,000
-MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 50_000
+# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs of 100,000 steps to 1 of 25,000 (13
+# rollouts of 2,048 rows: past HalfCheetah's 1,000-step episode end, which the gSDE carry check needs)
+MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 25_000
 
 # the continuous off-policy paths: examples/mujoco/mujoco_{sac,td3,redq}.py's defaults (32 envs, T 4, one update
 # per env step, batch 256, a 1 M-row replay, 256x256 nets, 10 test episodes), the depth cut to one epoch
@@ -353,9 +362,9 @@ OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 2
 # chunks of HUM_TEST_CHUNK steps (a 128-step test chunk warmed up eagerly on the plain route would take minutes)
 HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 256, 512, 32
 OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
-    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 5_000, False),
-    "td3_ant_per": ("Ant", "td3", 25_000, 5_000, True),
-    "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 5_000, False),
+    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 2_500, False),
+    "td3_ant_per": ("Ant", "td3", 25_000, 2_500, True),
+    "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 2_500, False),
     "sac_humanoid": ("Humanoid", "sac", HUM_SAC_PREFILL, HUM_SAC_EPOCH, False),  # the plain route: no kernel
 }
 OFF_ALGOS = {"sac": dict(lr=1e-3, alpha=0.2), "td3": dict(lr=3e-4), "redq": dict(lr=1e-3, alpha="auto")}
@@ -4622,7 +4631,7 @@ def modelbased_path(torch, name: str, pendulum=None) -> tuple[dict, list[str]]:
 # examples/mujoco/mujoco_sac_hl.py: 16 + 10 envs, a 1 M-row replay, batch 256, one update per env step, 256x256 nets,
 # T 10 (OffPolicyTrainingConfig's default); the random prefill cut from 10,000 steps and the epoch from 20,000
 HL_SAC_E, HL_SAC_TEST_E, HL_SAC_BUFFER, HL_SAC_BATCH, HL_SAC_HID = 16, 10, 1_000_000, 256, (256, 256)
-HL_SAC_PREFILL, HL_SAC_EPOCH = 1_024, 2_048
+HL_SAC_PREFILL, HL_SAC_EPOCH = 1_024, 1_024
 # examples/mujoco/mujoco_ppo_hl.py: 64 + 10 envs, rollouts of 2,048 steps per env, 10 passes of batch 64; the epoch
 # cut from 20,000 steps to 4,096 (one rollout)
 HL_PPO_E, HL_PPO_TEST_E, HL_PPO_T, HL_PPO_REPEAT, HL_PPO_BATCH, HL_PPO_EPOCH = 64, 10, 2_048, 10, 64, 4_096
@@ -5567,6 +5576,71 @@ def bs_example(torch, env):
     return _vector_example(torch, torch.zeros(env.observation_space.shape), act)
 
 
+# ---------------------------------------------------------------------------
+# the example entry points (examples_torch/), through their own main
+# ---------------------------------------------------------------------------
+# examples_torch/atari/atari_rainbow.py on the catch game and examples_torch/mujoco/mujoco_sac.py on HalfCheetah at
+# their defaults, the depth cut: one epoch of EX_RAINBOW_EPOCH steps after a prefill of EX_RAINBOW_PREFILL (from 20
+# epochs of 20,000 after 2,000), and one of EX_SAC_EPOCH after EX_SAC_PREFILL (from 50 epochs of 20,000 after 10,000)
+EX_RAINBOW_PREFILL, EX_RAINBOW_EPOCH, EX_SAC_PREFILL, EX_SAC_EPOCH = 400, 2_000, 256, 1_024
+EX_SCRIPTS = {  # name: (module, arguments after --device cuda)
+    "examples_rainbow": ("examples_torch.atari.atari_rainbow",
+                         ["--epochs", "1", "--epoch-num-steps", str(EX_RAINBOW_EPOCH), "--start-steps",
+                          str(EX_RAINBOW_PREFILL)]),
+    "examples_sac": ("examples_torch.mujoco.mujoco_sac",
+                     ["--task", "HalfCheetah", "--epochs", "1", "--epoch-num-steps", str(EX_SAC_EPOCH), "--start-steps",
+                      str(EX_SAC_PREFILL)]),
+}
+
+
+def examples_phase(torch) -> tuple[dict, list[str]]:
+    """Phase 56: two port scripts through their own ``main([...])`` on the card (``EX_SCRIPTS``), their output
+    printed as it comes. Counters are zeroed just before and read just after each ``main``:
+    ``atari_rainbow.py`` (the catch game, a prioritized uint8 replay of 100,000 frames over 16 envs, noisy dueling
+    C51) must launch ``gather_rows`` 2 and ``prefix_sum_idx`` 1 per update, ``tree_update`` 1 per update and 1 per
+    collect step (prefill included), no ``physics_fused``, and end with a tree that ``_check_tree`` passes;
+    ``mujoco_sac.py`` (HalfCheetah, 32 envs, one megastep graph per chunk) must launch ``physics_fused`` once per
+    vector step, prefill and test phase included, and nothing else. Both must end with finite test returns and
+    finite weights, on the card. Returns ({name: {kernel: launches}}, lines)."""
+    import importlib
+
+    by_name, lines = {}, []
+    for name, (module, argv) in EX_SCRIPTS.items():
+        main_fn = importlib.import_module(module).main
+        t0 = time.perf_counter()
+        with _Recording() as rec:
+            _zero_launches()
+            res = main_fn(["--device", DEV, *argv])
+            launches = _read_launches()
+        wall = time.perf_counter() - t0
+        (trainer,) = rec.trainers
+        envs = trainer.train_collector.venv.num_envs
+        vector_steps = res.env_step // envs
+        params = list(res.train_state.model.parameters())
+        if not all(p.device.type == torch.device(DEV).type and bool(torch.isfinite(p).all()) for p in params):
+            raise AssertionError(f"{name}: a weight is off the card or not finite")
+        if len(rec.tests) != 1 or not np.isfinite(rec.tests[0].returns).all() or not np.isfinite(res.best_reward):
+            raise AssertionError(f"{name}: test phases {[s.returns for s in rec.tests]}, best {res.best_reward}")
+        n_upd = res.gradient_step
+        if name == "examples_rainbow":
+            expect = {"gather_rows": 2 * n_upd, "prefix_sum_idx": n_upd, "tree_update": n_upd + vector_steps,
+                      "physics_fused": 0}
+            tree = _check_tree(torch, trainer.buffer, res.buf_state, torch.Generator(device=DEV).manual_seed(SEED),
+                               trainer.params.batch_size)
+        else:
+            test_steps = rec.tests[0].n_collected_steps // trainer.test_collector.venv.num_envs
+            expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": vector_steps + test_steps}
+            tree = f"{vector_steps} train and {test_steps} test vector steps"
+        if launches != expect or n_upd == 0:
+            raise AssertionError(f"{name}: kernel launches {launches} for {n_upd} updates and {vector_steps} vector "
+                                 f"steps, expected {expect}")
+        by_name[name] = launches
+        lines.append(f"{name}: {module}.main({argv}) in {wall:.1f} s: best_reward {res.best_reward:.2f}, "
+                     f"env_steps {res.env_step}, updates {n_upd}, test returns mean "
+                     f"{float(np.mean(rec.tests[0].returns)):.2f}; launches {launches}; {tree}")
+    return by_name, lines
+
+
 def main() -> int:
     import torch
 
@@ -5752,6 +5826,10 @@ def main() -> int:
         by_path[name], lines = path(torch)  # raises unless bit-identical to the trainer's programs, or on a launch count
         print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     print(f"the mesh and multi-seed phases (51-55): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    launches, lines = examples_phase(torch)  # raises on a launch count, a tree or a non-finite result
+    by_path.update(launches)
+    print("\n".join(lines), f"\nthe examples phase (56): {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -1,0 +1,44 @@
+"""FQF on Atari pixels, the port of ``examples/atari/atari_fqf.py`` (32
+learned fractions, entropy coef 10, RMSprop fraction optimizer).
+
+    python examples_torch/atari/atari_fqf.py [--device cpu]
+"""
+
+if __package__ in (None, ""):  # run as a file: put the repo root on the path
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+from examples_torch.atari._runner import build_parser as _build_parser
+from examples_torch.atari._runner import n_actions, run_offpolicy
+from examples_torch.common import setup
+from tianshou_tpu_torch.algorithm.optim import AdamOptimizerFactory
+from tianshou_tpu_torch.env.core import Discrete
+from tianshou_tpu_torch.algorithm.modelfree.fqf import FQF
+from tianshou_tpu_torch.models.atari import ImplicitQuantileAtariNet
+
+
+def build_parser():
+    return _build_parser(lr=5e-5)
+
+
+def make_algo(args, n: int):
+    return FQF(
+        model=ImplicitQuantileAtariNet(action_dim=n),
+        action_space=Discrete(n),
+        optim=AdamOptimizerFactory(lr=args.lr),
+        num_fractions=32, ent_coef=10.0,
+        gamma=0.99, n_step_return_horizon=3, target_update_freq=500,
+        eps_training=1.0, eps_inference=0.005,
+    )
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    setup(args.device, args.seed)  # raises without a GPU unless --device cpu; seeds the nets' weights
+    return run_offpolicy(args, make_algo(args, n_actions(args)))
+
+
+if __name__ == "__main__":
+    main()

@@ -324,6 +324,9 @@ CASES: dict[str, Case] = {
 }
 #: the cases whose per-row noise each rank records (the draw fault of a rank's rows getting rank 0's numbers)
 NOISE_CASES = ("sac", "td3")
+#: the cases run again on a (dp 1, mp 2) mesh under ``tp_axis="mp"``: every weight the placement rule picks a
+#: ``DTensor`` split over the two ranks, so that the natural-gradient step runs over sharded weights
+TP_CASES = ("npg", "trpo")
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +445,27 @@ def rank_run(name: str, mesh, rank: int, world: int) -> dict:
     return {"ts": state_record(ts), "stats": plain(dict(stats)), "ring": ring_record(bs), "noise": noise}
 
 
+def tp_run(name: str, world: int) -> dict:
+    """Case ``name`` through its on-policy mesh step under ``tp_axis="mp"`` on a (1, ``world``) mesh: one
+    data-parallel slice, the whole envs on every rank, the weights placed by ``shard_params_tp``."""
+    from torch.distributed.tensor import DTensor
+
+    from tianshou_tpu_torch.parallel.mesh import make_dp_train_step, make_mesh_2d, shard_params_tp
+
+    case = CASES[name]
+    base, useed = _seeds(name)
+    mesh = make_mesh_2d(world, mp=world)
+    env, algo = case.build()
+    ts = algo.init("cpu")
+    shard_params_tp(ts.model, mesh, "mp", optim=ts.optim)
+    sharded = [n for n, p in ts.model.named_parameters() if isinstance(p, DTensor) and not p.placements[-1].is_replicate()]
+    g = rank_generator(0, base)
+    coll, cstate = collector(case, env, algo, case.envs, None, 0, g)
+    step = make_dp_train_step(algo, coll, mesh, case.steps, case.repeat, case.batch, tp_axis="mp")
+    ts, _, stats = step(ts, cstate, g, update_generator(useed))
+    return {"ts": state_record(ts), "stats": plain(dict(stats)), "sharded": sharded}
+
+
 def reference(name: str, slices: int = WORLD) -> dict:
     """Case ``name`` in one process: each slice collected in turn with its
     rank's generator, then the update with the update generator over the
@@ -549,6 +573,12 @@ def main(rdzv: str, world: int, rank: int, out_dir: str) -> None:
         except Exception:  # noqa: BLE001  (the case's test reports it; the other cases still run)
             record[name] = {"error": traceback.format_exc()}
             dist.barrier()  # a rank that raised before a collective meets the other again here
+    for name in TP_CASES:
+        try:
+            record[f"{name}_tp"] = tp_run(name, world)
+        except Exception:  # noqa: BLE001
+            record[f"{name}_tp"] = {"error": traceback.format_exc()}
+            dist.barrier()
     torch.save(record, f"{out_dir}/families_rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()

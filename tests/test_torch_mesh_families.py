@@ -30,6 +30,12 @@ and its update. Each case holds:
 
 SAC's and TD3's per-row noise (target smoothing, the actor's sample) that
 each rank's rows used is bit-equal to those rows of the one-process draw.
+
+NPG and TRPO also run under ``tp_axis="mp"`` on a (dp 1, mp 2) mesh of the
+two ranks (``W.TP_CASES``): every weight that ``shard_params_tp``'s rule picks
+is a ``DTensor`` split over the ranks, the flat natural-gradient step runs
+over them, and the gathered train state is held to the one-process update
+of the whole envs at the same tolerance.
 """
 
 import numpy as np
@@ -47,7 +53,8 @@ CASES = list(W.CASES)
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The world-2 ranks' records, this process's one-process references,
-    and the world-size-1 runs (a one-rank gloo group made here)."""
+    the world-size-1 runs (a one-rank gloo group made here) and the
+    one-process references of the tensor-parallel cases (one slice)."""
     import torch.distributed as dist
 
     from tianshou_tpu_torch.parallel.mesh import make_mesh
@@ -56,13 +63,14 @@ def runs(tmp_path_factory):
     procs = W.spawn(tmp)
     torch.set_num_threads(1)
     refs = {name: W.reference(name) for name in CASES}
+    tp_refs = {name: W.reference(name, slices=1) for name in W.TP_CASES}
     assert not dist.is_initialized()
     mesh = make_mesh(1, device="cpu")
     try:
         ones = {name: W.world_one(name, mesh) for name in CASES}
     finally:
         dist.destroy_process_group()
-    return W.collect(procs, tmp), refs, ones
+    return W.collect(procs, tmp), refs, ones, tp_refs
 
 
 def _ranks(runs, name):
@@ -102,9 +110,7 @@ def test_ranks_hold_bit_identical_train_states(runs, name):
     _assert_equal(a["ts"], b["ts"], f"{name}: rank 0 against rank 1")
 
 
-@pytest.mark.parametrize("name", CASES)
-def test_mesh_step_matches_the_one_process_update(runs, name):
-    got, want = _ranks(runs, name)[0], runs[1][name]
+def _assert_close_to_reference(got: dict, want: dict, name: str) -> None:
     assert _steps(got["ts"]) == _steps(want["ts"]) and all(s > 0 for s in _steps(got["ts"]))
     gp, wp = _flat_params(got["ts"]), _flat_params(want["ts"])
     assert gp.keys() == wp.keys()
@@ -115,6 +121,12 @@ def test_mesh_step_matches_the_one_process_update(runs, name):
     for k, w in want["stats"].items():
         if torch.is_tensor(w) and w.is_floating_point():
             np.testing.assert_allclose(got["stats"][k].numpy(), w.numpy(), **MESH_TOL, err_msg=f"{name}: {k}")
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_mesh_step_matches_the_one_process_update(runs, name):
+    got, want = _ranks(runs, name)[0], runs[1][name]
+    _assert_close_to_reference(got, want, name)
     if "rings" in want:  # each rank's ring is its slice of the one-process collect
         for r, rec in enumerate(_ranks(runs, name)):
             _assert_equal(rec["ring"], want["rings"][r], f"{name}: rank {r} ring")
@@ -139,3 +151,14 @@ def test_each_rank_draws_its_rows_of_the_one_process_noise(runs, name):
             rows = whole[r * per:(r + 1) * per]
             assert torch.equal(got, rows), (f"{name}: rank {r}'s draw {i} ({field}) is not its rows of the one-process "
                                             f"draw: largest difference {float((got - rows).abs().max())}")
+
+
+@pytest.mark.parametrize("name", W.TP_CASES)
+def test_tp_axis_step_of_the_natural_gradient_matches_the_one_process_update(runs, name):
+    """NPG's and TRPO's flat natural-gradient step over ``DTensor`` weights (the JAX step partitions any
+    algorithm under ``tp_axis``, ``tianshou_tpu/parallel/mesh.py:84-118``)."""
+    ranks = _ranks(runs, f"{name}_tp")
+    for r, rec in enumerate(ranks):
+        assert rec["sharded"], f"rank {r}: no weight was split over the model-parallel axis"
+    _assert_equal(ranks[0]["ts"], ranks[1]["ts"], f"{name}_tp: rank 0 against rank 1")
+    _assert_close_to_reference(ranks[0], runs[3][name], f"{name}_tp")

@@ -21,7 +21,9 @@ on the card. Inside a mesh step every rank holds its share of the minibatch:
 the surrogate's gradient, each Fisher-vector product and the reported
 objective are averaged over the ranks, so every rank solves the same system
 and takes the same step; the critic's gradients go through the optimizer's
-hook. Both sides compute the same products in other orders, so the
+hook. Under tensor parallelism (``shard_params_tp``) an actor weight may be a
+``DTensor``: the flat vectors hold each weight whole (gathered), and a step
+is written back into each rank's shard. Both sides compute the same products in other orders, so the
 ten iterations can differ from JAX's by float32 rounding;
 ``tests/test_torch_trust_region.py`` states the tolerance it measured.
 """
@@ -29,6 +31,8 @@ ten iterations can differ from JAX's by float32 rounding;
 from __future__ import annotations
 
 from collections.abc import Callable
+
+import sys
 
 import torch
 from torch import nn
@@ -60,8 +64,39 @@ def conjugate_gradient(mvp: Callable[[torch.Tensor], torch.Tensor], b: torch.Ten
     return x
 
 
+def _is_dtensor(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a tensor-parallel ``DTensor``. ``torch.distributed.tensor`` is looked up, not imported: a
+    ``DTensor`` exists only where it was loaded, and importing it takes about 1.5 s of every process's start."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor-parallel ``DTensor`` gathered to its whole value (differentiably)."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _placed(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (whole) placed as the parameter ``like``: a ``DTensor`` of its placements, or as it is."""
+    if _is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(value, like.device_mesh, like.placements)
+    return value
+
+
+def _copy(dst: list, src: list) -> None:
+    """``dst[i] <- src[i]``: one foreach copy, or one copy each where a ``DTensor`` is among them (no foreach
+    copy is registered for ``DTensor``)."""
+    if any(_is_dtensor(t) for t in dst):
+        for d, v in zip(dst, src):
+            d.copy_(v)
+    else:
+        torch._foreach_copy_(dst, src)
+
+
 def _flat(tensors) -> torch.Tensor:
-    return torch.cat([t.reshape(-1) for t in tensors])
+    return torch.cat([_whole(t).reshape(-1) for t in tensors])
 
 
 def _ranks_mean(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -128,11 +163,11 @@ class NPG(OnPolicyActorCritic):
     def _set_actor(self, actor: nn.Module, flat: torch.Tensor) -> None:
         """Write the flat vector into the actor's parameters."""
         params = list(actor.parameters())
-        torch._foreach_copy_(params, [v.view_as(p) for v, p in zip(flat.split([p.numel() for p in params]), params)])
+        _copy(params, list(self._unflatten(actor, flat).values()))
 
     def _unflatten(self, actor: nn.Module, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         names, params = zip(*actor.named_parameters())
-        return {n: v.view_as(p) for n, v, p in zip(names, flat.split([p.numel() for p in params]), params)}
+        return {n: _placed(v.view(p.shape), p) for n, v, p in zip(names, flat.split([p.numel() for p in params]), params)}
 
     # ------------------------------------------------------------------
     def _update_minibatch(self, ts: TrainState, mb: Batch) -> Batch:
@@ -175,7 +210,7 @@ class NPG(OnPolicyActorCritic):
                 p.grad = torch.zeros_like(p)
             self.optim.step(ts.optim)
             with torch.no_grad():
-                torch._foreach_copy_(actor, kept)
+                _copy(actor, kept)
             losses.append(loss.detach())
         return torch.stack(losses).mean()
 
