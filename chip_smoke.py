@@ -128,7 +128,7 @@ Phases, each of which fails the run:
    HalfCheetah, ``mujoco_td3.py``'s on Ant over prioritized replay (alpha 0.6, beta 0.4) and
    ``mujoco_redq.py``'s on HalfCheetah (32 envs, T 4, 128 updates per megastep of batch 256, a 1 M-row
    replay, 256x256 nets, the random prefill, ``fused_megastep``, 10 test episodes), each cut to one
-   epoch of 2,500 steps: exactly one ``physics_fused`` launch per vector step, prefill
+   epoch of 1,250 steps: exactly one ``physics_fused`` launch per vector step, prefill
    and test included; with PER one descent per update, one tree update per update and per collect
    step, and an exactly consistent tree; then the megastep graph replayed alone for its wall and device
    time.
@@ -177,7 +177,7 @@ Phases, each of which fails the run:
    from one generator state, bit-identical (IQN's fractions and discrete SAC's actions come from the graph's
    registered generator), every optimizer's state (FQF's Adam and RMSprop, discrete SAC's four Adams) too.
 29. Distributional pixel paths: ``main_path`` (phase 5) with the algorithm and net of each of
-   ``examples/atari/atari_{qrdqn,iqn,fqf,sac}.py`` at bench.py's widths and the DQN path's depth
+   ``examples/atari/atari_{qrdqn,iqn,fqf,sac}.py`` at bench.py's widths and ``DIST_CHUNKS`` (2) chunks a run
    (``build_pipeline``): QRDQN over ``QRDQNet(6, 200)`` at lr 5e-5, IQN over ``ImplicitQuantileAtariNet(6)``
    with 32/8/8 fractions at 5e-5, FQF over the same net with 32 fractions and ``ent_coef`` 10 at 5e-5,
    discrete SAC with ``DQNet`` actor and twin critics at 1e-4 and automatic alpha; n = 3, target sync every
@@ -281,13 +281,17 @@ Phases, each of which fails the run:
    per-row noise drawn through the global-draw rule is the one-process draw; one ``physics_fused`` launch per vector
    step. The phases 51-55 print their total time.
 
-56. ``examples``: two port example scripts through their own ``main`` on the card (``EX_SCRIPTS``):
+56. ``examples``: four port example scripts through their own ``main`` on the card (``EX_SCRIPTS``):
    ``examples_torch/atari/atari_rainbow.py`` on the catch game (a prioritized replay; the depth cut to
-   ``EX_RAINBOW_PREFILL`` prefill steps and one epoch of ``EX_RAINBOW_EPOCH``) and ``examples_torch/mujoco/mujoco_sac.py``
-   on HalfCheetah (``EX_SAC_PREFILL`` and ``EX_SAC_EPOCH``). Counters zeroed and read around each ``main``:
+   ``EX_RAINBOW_PREFILL`` prefill steps and one epoch of ``EX_RAINBOW_EPOCH``), ``examples_torch/mujoco/mujoco_sac.py``
+   on HalfCheetah (``EX_SAC_PREFILL`` and ``EX_SAC_EPOCH``), and ``examples_torch/vizdoom/vizdoom_c51.py`` and
+   ``vizdoom_ppo.py`` on SyntheticDoom's 40x60 frames (``EX_DOOM_*``). Counters zeroed and read around each ``main``:
    ``gather_rows`` 2, ``prefix_sum_idx`` 1 and ``tree_update`` 1 per update and ``tree_update`` 1 per collect step
    (Rainbow; the final tree through ``_check_tree``), ``physics_fused`` 1 per vector step (SAC, prefill and test
-   included); each script's summary line.
+   included), ``gather_rows`` 2 per update and nothing else (ViZDoom C51; then one gather on its ring held against
+   ``src[idx]`` and ``SyntheticDoom._obs`` on the card against the CPU), no kernel (ViZDoom PPO); each script's
+   summary line with its wall and launches beside the card's name and power limit. The kernel phase (3) also holds
+   and times ``gather_rows`` at the ViZDoom ring's 256 rows of 2,400 bytes.
 
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
@@ -326,6 +330,10 @@ PHYS_PATHS = (("HalfCheetah", 64), ("Ant", 16))  # (task, vector steps)
 PHYS_TASKS = ("HalfCheetah", "Hopper", "Walker2d", "Ant", "Swimmer", "Reacher")
 ROLLOUT_CHECKS = (16, 32, 64)
 
+# the ViZDoom C51 script's obs ring (examples_torch/vizdoom/vizdoom_c51.py): 100,000 frames of 40*60*1 B, and the rows
+# of one stacked gather (batch 64 x stack 4)
+DOOM_RING, DOOM_ROW, DOOM_ROWS = 100_000, 40 * 60, 256
+
 # the pixel paths' test phase (examples/atari/atari_dqn.py: test_num 10, eps_test 0.005)
 TEST_E, TEST_EPS, TEST_EPISODES, TEST_CHUNK = 10, 0.005, 10, 128
 
@@ -362,9 +370,9 @@ OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 2
 # chunks of HUM_TEST_CHUNK steps (a 128-step test chunk warmed up eagerly on the plain route would take minutes)
 HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 256, 512, 32
 OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
-    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 2_500, False),
-    "td3_ant_per": ("Ant", "td3", 25_000, 2_500, True),
-    "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 2_500, False),
+    "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 1_250, False),
+    "td3_ant_per": ("Ant", "td3", 25_000, 1_250, True),
+    "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 1_250, False),
     "sac_humanoid": ("Humanoid", "sac", HUM_SAC_PREFILL, HUM_SAC_EPOCH, False),  # the plain route: no kernel
 }
 OFF_ALGOS = {"sac": dict(lr=1e-3, alpha=0.2), "td3": dict(lr=3e-4), "redq": dict(lr=1e-3, alpha="auto")}
@@ -401,6 +409,7 @@ IP_PREFILL, IP_EPOCHS, IP_EPOCH_STEPS, IP_THRESHOLD = 2_000, 12, 5_000, 1000.0
 
 # the distributional and discrete Q family on the pixel pipeline (examples/atari/atari_{qrdqn,iqn,fqf,sac}.py)
 DIST_KINDS = ("qrdqn", "iqn", "fqf", "discrete_sac")
+DIST_CHUNKS = 2  # training chunks per run of their paths (the DQN path runs CHUNKS = 3)
 # their time to score (tests/test_distributional.py:run, :89-107): 10 train and 10 test envs, a 20,000-row replay,
 # epochs of 5,000 steps, batch 64, T 10, 0.1 updates per env step, a 1,000-step prefill, eps 0.3 annealed to 0.1
 DIST_SCORE = {"fqf_cartpole": 195.0, "bdqn_pendulum": -250.0}  # name: threshold
@@ -534,6 +543,10 @@ def gather_phase(torch, gather) -> tuple[list[dict], list[str]]:
     ring8 = torch.randn(20_000, 2, device="cuda", generator=g).view(torch.uint8)
     idx8 = torch.randint(0, 20_000, (256,), device="cuda", generator=g)
     cases.append(("uint8[20000,8] (float32[20000,2]) x 256 rows", ring8, idx8))
+    # the ViZDoom C51 script's ring: 16 envs x 6,250 slots of 40*60*1 B, 64 samples x 4 frames per gather
+    doom = torch.randint(0, 256, (DOOM_RING, DOOM_ROW), dtype=torch.uint8, device="cuda", generator=g)
+    doom_idx = torch.randint(0, DOOM_RING, (DOOM_ROWS,), device="cuda", generator=g)
+    cases.append((f"uint8[{DOOM_RING},{DOOM_ROW}] x {DOOM_ROWS} rows (the ViZDoom ring)", doom, doom_idx))
     for width in (16, 2032, 2064, 7057):  # around the 16-byte chunk and the block's edge
         edge = torch.randint(0, 256, (300, width), dtype=torch.uint8, device="cuda", generator=g)
         cases.append((f"uint8[300,{width}] x 200 rows", edge, torch.randint(-2, 302, (200,), device="cuda", generator=g)))
@@ -571,6 +584,16 @@ def gather_phase(torch, gather) -> tuple[list[dict], list[str]]:
     lines.append(f"gather_rows 256 rows x 8 B (the recurrent path's stacked gather), device us (CUDA graph): kernel "
                  f"{kern * 1e3:.3f} plain {plain * 1e3:.3f} library(src[idx]) {lib * 1e3:.3f} bound {bound * 1e3:.4f}; "
                  f"eager us per call: kernel {kern_e * 1e3:.2f}")
+    kern, _ = _time_ms(lambda: gather.gather_rows(doom, doom_idx))
+    plain, _ = _time_ms(lambda: gather.gather_rows_reference(doom, doom_idx))
+    lib, _ = _time_ms(lambda: doom[doom_idx])
+    bound = (2 * DOOM_ROWS * DOOM_ROW + doom_idx.numel() * doom_idx.element_size()) / H100_HBM_BYTES_PER_S * 1e3
+    doom_record = {"shape": f"uint8[{DOOM_RING},{DOOM_ROW}] x {DOOM_ROWS} rows", "ms": kern, "plain_ms": plain,
+                   "library_ms": lib, "bound_ms": bound}
+    lines.append(f"gather_rows {DOOM_ROWS} rows x {DOOM_ROW} B (the ViZDoom C51 ring, [{DOOM_RING}, {DOOM_ROW}]), "
+                 f"device us (CUDA graph): kernel {kern * 1e3:.3f} plain {plain * 1e3:.3f} library(src[idx]) "
+                 f"{lib * 1e3:.3f} bound {bound * 1e3:.3f} (kernel at {bound / kern:.3f} of the bound's rate, "
+                 f"{kern / lib:.3f} of the library's time)")
     if gather.launch_count() == count:
         raise AssertionError("the timed gather_rows calls did not launch the kernel")
     kern, plain, lib, bound = timings[128]  # 32 samples x 4 frames on the main path
@@ -579,7 +602,7 @@ def gather_phase(torch, gather) -> tuple[list[dict], list[str]]:
         "source": "tianshou_tpu_torch/ops/kernels/csrc/gather.cu",
         "replaces": "tianshou_tpu/ops/pallas/gather.py:79",
         "max_abs_err": max_err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
-        "bound_by": "bytes", "library_ms": lib,
+        "bound_by": "bytes", "library_ms": lib, "vizdoom": doom_record,
     }
     return [record], lines
 
@@ -950,10 +973,10 @@ def _graph_report(pool, replays_per_chunk: float) -> str:
             f"graph pool {pool.memory_bytes() / 2**20:.1f} MiB of device memory")
 
 
-def main_path(torch, kind: str, fused: bool = False):
+def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS):
     """Train the pipeline of ``kind`` through the graphed trainer (with ``fused`` as ONE graph per
-    chunk): a first ``run`` of the random prefill and ``CHUNKS`` chunks (the first chunk of each
-    program its eager warm-up, the second its capture), then a second ``run`` of ``CHUNKS`` chunks
+    chunk): a first ``run`` of the random prefill and ``chunks`` chunks (the first chunk of each
+    program its eager warm-up, the second its capture), then a second ``run`` of ``chunks`` chunks
     that only replays, and that is timed. Returns (second result, {kernel: launches} over both runs,
     report lines)."""
     from tianshou_tpu_torch.data.buffer.prio import PrioState
@@ -971,7 +994,7 @@ def main_path(torch, kind: str, fused: bool = False):
 
     # one epoch per run, so one test phase at the end of each run
     params = OffPolicyTrainerParams(
-        max_epochs=1, epoch_num_steps=CHUNKS * T * E, batch_size=BATCH,
+        max_epochs=1, epoch_num_steps=chunks * T * E, batch_size=BATCH,
         collection_step_num_env_steps=T, update_per_step=0.1, start_steps=T * E, verbose=False,
         fused_megastep=fused, test_step_num_episodes=TEST_EPISODES, compute_score_fn=score,
     )
@@ -994,7 +1017,7 @@ def main_path(torch, kind: str, fused: bool = False):
         raise AssertionError(f"{name} path: the second run built programs anew")
     if len(train_graphs) != (1 if fused else 2) or len(graphs) != len(train_graphs) + 1:
         raise AssertionError(f"{name} path: programs {[g.name for g in graphs]}")
-    replays_per_chunk = (sum(g.replays for g in train_graphs) - replays) / CHUNKS
+    replays_per_chunk = (sum(g.replays for g in train_graphs) - replays) / chunks
     if replays_per_chunk != len(train_graphs):
         raise AssertionError(f"{name} path: {replays_per_chunk} graph replays per chunk of the second run")
     _check_tests(f"{name} path", tests, 2)
@@ -1018,11 +1041,11 @@ def main_path(torch, kind: str, fused: bool = False):
     if all(torch.equal(a, b) for a, b in zip(init_params, ts.model.parameters())):
         raise AssertionError(f"{name} path: training left the parameters unchanged")
     n_updates = max(1, round(0.1 * T * E))
-    expect_updates = 2 * CHUNKS * n_updates
+    expect_updates = 2 * chunks * n_updates
     if res.gradient_step != expect_updates or int(ts.step) != expect_updates:
         raise AssertionError(f"{name} path: {res.gradient_step} updates ({int(ts.step)} on the device), "
                              f"expected {expect_updates}")
-    collect_steps = (2 * CHUNKS + 1) * T  # the prefill chunk and the training chunks, one add per step
+    collect_steps = (2 * chunks + 1) * T  # the prefill chunk and the training chunks, one add per step
     if bs.size.min().item() != min(SLOTS, collect_steps):
         raise AssertionError(f"{name} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
     prio = isinstance(state, PrioState)
@@ -1032,19 +1055,19 @@ def main_path(torch, kind: str, fused: bool = False):
         raise AssertionError(f"{name} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
     train_s = res.timing["collect"] + res.timing["update"]
     lines.append(
-        f"{name} path: E={E} T={T} chunks={CHUNKS}+{CHUNKS} updates={res.gradient_step} batch={BATCH} "
+        f"{name} path: E={E} T={T} chunks={chunks}+{chunks} updates={res.gradient_step} batch={BATCH} "
         f"ring uint8 {tuple(bs.data.obs.shape)} x2 ({bs.data.obs.numel() / 1e9:.3f} GB each)"
     )
     lines.append(
         f"{name} path, first run (prefill, then the eager warm-up chunk and the capture chunk): "
-        f"{(first.timing['collect'] + first.timing['update']) / CHUNKS * 1e3:.1f} ms per chunk, "
+        f"{(first.timing['collect'] + first.timing['update']) / chunks * 1e3:.1f} ms per chunk, "
         f"prefill {first.timing['prefill'] * 1e3:.1f} ms"
     )
     what = "collect + update as one graph" if fused else (
-        f"collect {res.timing['collect'] / CHUNKS * 1e3:.1f} ms, update {res.timing['update'] / CHUNKS * 1e3:.1f} ms")
+        f"collect {res.timing['collect'] / chunks * 1e3:.1f} ms, update {res.timing['update'] / chunks * 1e3:.1f} ms")
     lines.append(
-        f"{name} path, second run (graph replays only): env_steps_per_s {CHUNKS * T * E / train_s:.1f} "
-        f"ms_per_chunk {train_s / CHUNKS * 1e3:.1f} ({what}) = {train_s / (CHUNKS * n_updates) * 1e3:.3f} ms per update "
+        f"{name} path, second run (graph replays only): env_steps_per_s {chunks * T * E / train_s:.1f} "
+        f"ms_per_chunk {train_s / chunks * 1e3:.1f} ({what}) = {train_s / (chunks * n_updates) * 1e3:.3f} ms per update "
         f"(collect included); {_graph_report(trainer.graph_pool, replays_per_chunk)}; "
         f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches['gather_rows']} "
         f"sumtree_launches {launches['prefix_sum_idx']} tree_update_launches {launches['tree_update']}"
@@ -1064,13 +1087,19 @@ def main_path(torch, kind: str, fused: bool = False):
     return res, launches, lines
 
 
+TRACE_TRIES = 3  # traced replays of a burst, until one trace holds every kernel (the tracer can drop records)
+
+
 def _trace_burst(torch, trainer, ts, state, gen, n_updates: int) -> str:
     """One update burst of a pixel path replayed (its graph already captured) between CUDA events, then
     once under ``torch.profiler`` (device activity only): device ms per update, kernels per update, the
     ``gather_rows`` kernels (exactly 2 per update, or it raises) and their share of busy time, and the
     idle share: the traced busy time against the untraced replay's time, and against the traced span
-    from the first kernel's start to the last kernel's end, which the tracer stretches. Returns a report
-    line."""
+    from the first kernel's start to the last kernel's end, which the tracer stretches. A trace that
+    lacks gathers is taken again, up to ``TRACE_TRIES`` traces, and the line says so: CUPTI can drop
+    activity records (one trace of 100 discrete BCQ updates held 58,317 of the 58,590 kernels that every
+    other trace of the same replay holds, and 198 of its 200 gathers, while the launch counters saw every
+    one); it raises when no trace holds 2 gathers per update. Returns a report line."""
     from torch.profiler import ProfilerActivity, profile
 
     graph = next(g for g in trainer.graph_pool.graphs if g.name.startswith("update_burst"))
@@ -1080,26 +1109,33 @@ def _trace_burst(torch, trainer, ts, state, gen, n_updates: int) -> str:
     trainer.update_burst(ts, state, gen, n_updates)
     b.record()
     b.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.update_burst(ts, state, gen, n_updates)
-        torch.cuda.synchronize()
-    if graph.replays != replays + 2:
-        raise AssertionError(f"the traced update burst was not a replay of the captured graph ({graph.replays - replays})")
-    busy = kernels = gathers = gather_us = 0.0
-    first, last = float("inf"), float("-inf")
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
-            us = e.duration_ns() / 1e3
-            busy, kernels = busy + us, kernels + 1
-            first, last = min(first, e.start_ns()), max(last, e.start_ns() + e.duration_ns())
-            if "gather_spread_kernel" in e.name() or "gather_bytes_kernel" in e.name():  # csrc/gather.cu
-                gathers, gather_us = gathers + 1, gather_us + us
+    short = []  # (kernels, gathers) of each trace that lacked gathers
+    for tries in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.update_burst(ts, state, gen, n_updates)
+            torch.cuda.synchronize()
+        if graph.replays != replays + 1 + tries:
+            raise AssertionError(f"the traced update burst was not a replay of the captured graph "
+                                 f"({graph.replays - replays})")
+        busy = kernels = gathers = gather_us = 0.0
+        first, last = float("inf"), float("-inf")
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+                us = e.duration_ns() / 1e3
+                busy, kernels = busy + us, kernels + 1
+                first, last = min(first, e.start_ns()), max(last, e.start_ns() + e.duration_ns())
+                if "gather_spread_kernel" in e.name() or "gather_bytes_kernel" in e.name():  # csrc/gather.cu
+                    gathers, gather_us = gathers + 1, gather_us + us
+        if kernels > 0 and gathers == 2 * n_updates:
+            break
+        short.append((int(kernels), int(gathers)))
+    else:
+        raise AssertionError(f"the traced update burst shows (kernels, gather_rows) {short} in {TRACE_TRIES} traces "
+                             f"for {n_updates} updates")
     span = max(last - first, 1) / 1e3
-    if kernels == 0 or gathers != 2 * n_updates:
-        raise AssertionError(f"the traced update burst shows {kernels} kernels, {gathers} of gather_rows for "
-                             f"{n_updates} updates")
+    retraced = f" (traced again after traces that held (kernels, gathers) {short})" if short else ""
     untraced = a.elapsed_time(b)
-    return (f"one replayed update burst of {n_updates} updates: {untraced:.3f} ms between CUDA events "
+    return (f"one replayed update burst of {n_updates} updates{retraced}: {untraced:.3f} ms between CUDA events "
             f"({untraced / n_updates:.4f} ms per update); traced: device busy {busy / 1e3:.3f} ms, idle share "
             f"{1 - busy / 1e3 / untraced:.4f} against the untraced replay (a tracer's gaps widen: "
             f"{1 - busy / span:.4f} of the traced span of {span / 1e3:.3f} ms); kernels per update {kernels / n_updates:.1f}, "
@@ -5581,37 +5617,84 @@ def bs_example(torch, env):
 # ---------------------------------------------------------------------------
 # examples_torch/atari/atari_rainbow.py on the catch game and examples_torch/mujoco/mujoco_sac.py on HalfCheetah at
 # their defaults, the depth cut: one epoch of EX_RAINBOW_EPOCH steps after a prefill of EX_RAINBOW_PREFILL (from 20
-# epochs of 20,000 after 2,000), and one of EX_SAC_EPOCH after EX_SAC_PREFILL (from 50 epochs of 20,000 after 10,000)
+# epochs of 20,000 after 2,000), and one of EX_SAC_EPOCH after EX_SAC_PREFILL (from 50 epochs of 20,000 after 10,000);
+# examples_torch/vizdoom/vizdoom_{c51,ppo}.py on SyntheticDoom at their defaults, one epoch of EX_DOOM_C51_EPOCH steps
+# after a prefill of EX_DOOM_C51_PREFILL (from 20 epochs of 20,000 after 2,000: the script takes no option for the
+# prefill, so its ``train`` gets ``start_steps`` through functools.partial) and one of EX_DOOM_PPO_EPOCH, two
+# collects of 2,048 steps (from 20 epochs of 20,000)
 EX_RAINBOW_PREFILL, EX_RAINBOW_EPOCH, EX_SAC_PREFILL, EX_SAC_EPOCH = 400, 2_000, 256, 1_024
-EX_SCRIPTS = {  # name: (module, arguments after --device cuda)
+EX_DOOM_C51_PREFILL, EX_DOOM_C51_EPOCH, EX_DOOM_PPO_EPOCH = 512, 3_000, 4_096
+EX_SCRIPTS = {  # name: (module, arguments after --device cuda, train's cut keywords)
     "examples_rainbow": ("examples_torch.atari.atari_rainbow",
                          ["--epochs", "1", "--epoch-num-steps", str(EX_RAINBOW_EPOCH), "--start-steps",
-                          str(EX_RAINBOW_PREFILL)]),
+                          str(EX_RAINBOW_PREFILL)], {}),
     "examples_sac": ("examples_torch.mujoco.mujoco_sac",
                      ["--task", "HalfCheetah", "--epochs", "1", "--epoch-num-steps", str(EX_SAC_EPOCH), "--start-steps",
-                      str(EX_SAC_PREFILL)]),
+                      str(EX_SAC_PREFILL)], {}),
+    "examples_doom_c51": ("examples_torch.vizdoom.vizdoom_c51",
+                          ["--epochs", "1", "--epoch-num-steps", str(EX_DOOM_C51_EPOCH)],
+                          {"start_steps": EX_DOOM_C51_PREFILL}),
+    "examples_doom_ppo": ("examples_torch.vizdoom.vizdoom_ppo", ["--epochs", "1", "--epoch-num-steps",
+                                                                  str(EX_DOOM_PPO_EPOCH)], {}),
 }
 
 
-def examples_phase(torch) -> tuple[dict, list[str]]:
-    """Phase 56: two port scripts through their own ``main([...])`` on the card (``EX_SCRIPTS``), their output
+def _doom_checks(torch, res) -> str:
+    """The ViZDoom scripts' two extra checks: one ``gather_rows`` call on the C51 run's own ring (``[100000, 2400]``
+    bytes, 256 rows) bit-exact against ``src[idx]``; ``SyntheticDoom._obs`` on the card over every heading x target
+    x dist in [0, 30], bit-equal to the same call on the CPU. Their launches are not the path's."""
+    from examples_torch.vizdoom.env import SyntheticDoom, _DoomState
+    from tianshou_tpu_torch.ops.kernels import gather
+
+    ring = res.buf_state.data["obs"]  # [16, 6250, 40, 60, 1]
+    src = ring.reshape(ring.shape[0] * ring.shape[1], -1)
+    if tuple(src.shape) != (DOOM_RING, DOOM_ROW):
+        raise AssertionError(f"the ViZDoom ring is {tuple(src.shape)}, expected {(DOOM_RING, DOOM_ROW)}")
+    idx = torch.randint(0, DOOM_RING, (DOOM_ROWS,), device=DEV, generator=torch.Generator(device=DEV).manual_seed(SEED))
+    if not torch.equal(gather.gather_rows(src, idx), src[idx]):
+        raise AssertionError("gather_rows on the ViZDoom ring differs from src[idx]")
+    n = SyntheticDoom.n_headings
+    grid = torch.stack(torch.meshgrid(torch.arange(n), torch.arange(n), torch.arange(31), indexing="ij")).reshape(3, -1)
+    states = [_DoomState(*grid.to(device=dev, dtype=torch.int32), torch.zeros(grid.shape[1], dtype=torch.int32,
+                                                                              device=dev)) for dev in (DEV, "cpu")]
+    card, cpu = (SyntheticDoom()._obs(s) for s in states)
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError("SyntheticDoom._obs on the card differs from the CPU's")
+    lit = int(src.count_nonzero())
+    return (f"gather_rows on the run's ring uint8[{DOOM_RING},{DOOM_ROW}] x {DOOM_ROWS} rows bit-exact against "
+            f"src[idx] ({lit} lit bytes in the ring); SyntheticDoom._obs on the card bit-equal to the CPU's over "
+            f"{grid.shape[1]} states")
+
+
+def examples_phase(torch, smi: str = "") -> tuple[dict, list[str]]:
+    """Phase 56: four port scripts through their own ``main([...])`` on the card (``EX_SCRIPTS``), their output
     printed as it comes. Counters are zeroed just before and read just after each ``main``:
     ``atari_rainbow.py`` (the catch game, a prioritized uint8 replay of 100,000 frames over 16 envs, noisy dueling
     C51) must launch ``gather_rows`` 2 and ``prefix_sum_idx`` 1 per update, ``tree_update`` 1 per update and 1 per
     collect step (prefill included), no ``physics_fused``, and end with a tree that ``_check_tree`` passes;
     ``mujoco_sac.py`` (HalfCheetah, 32 envs, one megastep graph per chunk) must launch ``physics_fused`` once per
-    vector step, prefill and test phase included, and nothing else. Both must end with finite test returns and
-    finite weights, on the card. Returns ({name: {kernel: launches}}, lines)."""
+    vector step, prefill and test phase included, and nothing else; ``vizdoom_c51.py`` (SyntheticDoom, a uint8 replay
+    of 100,000 frames of 40x60 over 16 envs, C51) ``gather_rows`` 2 per update and nothing else, then
+    :func:`_doom_checks`; ``vizdoom_ppo.py`` (PPO over NatureCNN actor and critic at 40x60) no kernel. Each must end
+    with finite test returns and finite weights, on the card. Returns ({name: {kernel: launches}}, lines)."""
+    import functools
     import importlib
 
     by_name, lines = {}, []
-    for name, (module, argv) in EX_SCRIPTS.items():
-        main_fn = importlib.import_module(module).main
+    for name, (module, argv, cut) in EX_SCRIPTS.items():
+        script = importlib.import_module(module)
+        train = script.train if cut else None
+        if cut:
+            script.train = functools.partial(train, **cut)
         t0 = time.perf_counter()
-        with _Recording() as rec:
-            _zero_launches()
-            res = main_fn(["--device", DEV, *argv])
-            launches = _read_launches()
+        try:
+            with _Recording() as rec:
+                _zero_launches()
+                res = script.main(["--device", DEV, *argv])
+                launches = _read_launches()
+        finally:
+            if cut:
+                script.train = train
         wall = time.perf_counter() - t0
         (trainer,) = rec.trainers
         envs = trainer.train_collector.venv.num_envs
@@ -5622,22 +5705,29 @@ def examples_phase(torch) -> tuple[dict, list[str]]:
         if len(rec.tests) != 1 or not np.isfinite(rec.tests[0].returns).all() or not np.isfinite(res.best_reward):
             raise AssertionError(f"{name}: test phases {[s.returns for s in rec.tests]}, best {res.best_reward}")
         n_upd = res.gradient_step
+        none = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
         if name == "examples_rainbow":
             expect = {"gather_rows": 2 * n_upd, "prefix_sum_idx": n_upd, "tree_update": n_upd + vector_steps,
                       "physics_fused": 0}
             tree = _check_tree(torch, trainer.buffer, res.buf_state, torch.Generator(device=DEV).manual_seed(SEED),
                                trainer.params.batch_size)
-        else:
+        elif name == "examples_sac":
             test_steps = rec.tests[0].n_collected_steps // trainer.test_collector.venv.num_envs
-            expect = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": vector_steps + test_steps}
+            expect = {**none, "physics_fused": vector_steps + test_steps}
             tree = f"{vector_steps} train and {test_steps} test vector steps"
+        elif name == "examples_doom_c51":
+            expect = {**none, "gather_rows": 2 * n_upd}
+            tree = _doom_checks(torch, res) if launches == expect else ""
+        else:
+            expect = dict(none)
+            tree = f"{vector_steps} train vector steps of {envs} envs, {n_upd} gradient steps"
         if launches != expect or n_upd == 0:
             raise AssertionError(f"{name}: kernel launches {launches} for {n_upd} updates and {vector_steps} vector "
                                  f"steps, expected {expect}")
         by_name[name] = launches
-        lines.append(f"{name}: {module}.main({argv}) in {wall:.1f} s: best_reward {res.best_reward:.2f}, "
-                     f"env_steps {res.env_step}, updates {n_upd}, test returns mean "
-                     f"{float(np.mean(rec.tests[0].returns)):.2f}; launches {launches}; {tree}")
+        lines.append(f"{name}: {module}.main({argv}){f' with train{cut}' if cut else ''} in {wall:.1f} s: best_reward "
+                     f"{res.best_reward:.2f}, env_steps {res.env_step}, updates {n_upd}, test returns mean "
+                     f"{float(np.mean(rec.tests[0].returns)):.2f}; launches {launches}; {tree} [{smi}]")
     return by_name, lines
 
 
@@ -5763,7 +5853,7 @@ def main() -> int:
     for kind in DIST_KINDS:
         t0 = time.perf_counter()
         # raises unless the gather kernel ran exactly twice per update
-        _, by_path[kind], lines = main_path(torch, kind)
+        _, by_path[kind], lines = main_path(torch, kind, chunks=DIST_CHUNKS)
         print("\n".join(lines), f"\n{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for name in DIST_SCORE:
         t0 = time.perf_counter()
@@ -5827,7 +5917,7 @@ def main() -> int:
         print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     print(f"the mesh and multi-seed phases (51-55): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
     t0 = time.perf_counter()
-    launches, lines = examples_phase(torch)  # raises on a launch count, a tree or a non-finite result
+    launches, lines = examples_phase(torch, smi)  # raises on a launch count, a tree or a non-finite result
     by_path.update(launches)
     print("\n".join(lines), f"\nthe examples phase (56): {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for record in records:

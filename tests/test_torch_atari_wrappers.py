@@ -29,6 +29,7 @@ from tianshou_tpu_torch.env.atari import (
     make_atari_env,
     wrap_deepmind,
 )
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 class _FakeALE:

@@ -17,6 +17,7 @@ from tianshou_tpu.data.batch import Batch as JBatch
 from tianshou_tpu.data.batch import alloc_by_keys_diff as j_alloc
 from tianshou_tpu.data.batch import create_value as j_create
 from tianshou_tpu_torch.data.batch import Batch, alloc_by_keys_diff, create_value
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _np(v):

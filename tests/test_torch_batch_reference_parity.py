@@ -15,6 +15,7 @@ import torch
 
 from tianshou_tpu.data.batch import Batch as JBatch
 from tianshou_tpu_torch.data.batch import Batch
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _np(v):

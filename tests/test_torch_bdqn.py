@@ -34,6 +34,7 @@ from tianshou_tpu_torch.env.classic.cartpole import CartPole
 from tianshou_tpu_torch.models import mlp as tm
 from tianshou_tpu_torch.models.convert import branching_net_params_from_flax, dict_obs_net_params_from_flax, \
     net_params_from_flax
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 OBS, K, A, E, C, B = 3, 2, 5, 4, 16, 24
 TOL = dict(rtol=1e-4, atol=1e-5)

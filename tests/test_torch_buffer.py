@@ -31,6 +31,7 @@ from tianshou_tpu.data.batch import Batch as JBatch
 from tianshou_tpu.data.buffer.base import VectorReplayBuffer as JVRB
 from tianshou_tpu_torch.data.batch import Batch as TBatch
 from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer as TVRB
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, SIZE, STEPS, STACK, HW = 3, 21, 12, 4, (6, 6, 1)
 

@@ -19,6 +19,7 @@ from tianshou_tpu.data.buffer.base import ReplayBuffer as JReplayBuffer
 from tianshou_tpu.data.buffer.base import VectorReplayBuffer as JVectorReplayBuffer
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.base import ReplayBuffer, VectorReplayBuffer
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _tr(B, xp, obs, act, rew, term, trunc=False, obs_next=None):

@@ -18,6 +18,7 @@ from tianshou_tpu.data.batch import Batch as JBatch
 from tianshou_tpu.data.buffer.cached import CachedReplayBuffer as JCached
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.cached import CachedReplayBuffer
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _example(B, xp, shape=()):

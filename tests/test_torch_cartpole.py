@@ -22,6 +22,7 @@ from tianshou_tpu.env.classic.cartpole import CartPole as JCartPole
 from tianshou_tpu.env.classic.cartpole import CartPoleState as JState
 from tianshou_tpu_torch.env.classic.cartpole import CartPole, CartPoleState
 from tianshou_tpu_torch.env.core import VectorDeviceEnv
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 N = 64
 TOL = dict(rtol=1e-6, atol=1e-6)

@@ -41,6 +41,7 @@ from tianshou_tpu_torch.env.testing import MoveToRightEnv
 from tianshou_tpu_torch.trainer import trainer as trainer_module
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
 from tianshou_tpu_torch.utils.determinism import TraceLoggerContext
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 class JAlwaysRight(JAlgorithm):

@@ -42,6 +42,7 @@ from tianshou_tpu_torch.models.convert import (
 )
 from tianshou_tpu_torch.models.distributions import TanhNormal
 from tianshou_tpu_torch.models.mlp import EnsembleLinear
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 NET = dict(rtol=1e-5, atol=1e-6)
 LOGP = dict(rtol=0, atol=1e-5)

@@ -62,6 +62,7 @@ from tianshou_tpu_torch.env.classic.pendulum import Pendulum
 from tianshou_tpu_torch.exploration.noise import GaussianNoise
 from tianshou_tpu_torch.models import continuous
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 OBS, A, HID, E, C, B, N, M = 5, 2, (16, 16), 4, 16, 12, 4, 2
 TOL = dict(rtol=0, atol=1e-5)

@@ -27,6 +27,7 @@ from tianshou_tpu_torch.models.continuous import (
     ContinuousCritic,
 )
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.slow
 HID = (128, 128)

@@ -14,6 +14,7 @@ import torch
 from tianshou_tpu_torch.ops.kernels import gather as tg
 from tianshou_tpu_torch.ops.kernels import sumtree as tsum
 from tianshou_tpu_torch.ops.segtree import SegmentTree
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.cuda

@@ -37,6 +37,7 @@ from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
 from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax
 from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 OBS, A, E, C, B = 5, 3, 4, 16, 24
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -70,6 +70,7 @@ from tianshou_tpu_torch.models.convert import (
     rainbow_net_params_from_flax,
 )
 from tianshou_tpu_torch.models.mlp import Net
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 A, HW, FEAT, E, STACK, C = 4, 36, 32, 3, 4, 8
 K, NF, S, KT, KO = 8, 6, 7, 5, 3  # quantiles, FQF fractions, IQN samples (update, target, online)

@@ -28,6 +28,7 @@ from tianshou_tpu_torch.env.wrappers import ContinuousToDiscrete
 from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic, ImplicitQuantileNetwork
 from tianshou_tpu_torch.models.mlp import BranchingNet, Net
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 COMMON = dict(gamma=0.95, n_step_return_horizon=3, target_update_freq=320, eps_training=0.3)
 

@@ -44,6 +44,7 @@ from tianshou_tpu_torch.models.atari import DQNet
 from tianshou_tpu_torch.models.convert import dqnet_params_from_flax
 from tianshou_tpu_torch.ops.kernels import gather
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 A, HW, FEAT, E, STACK = 4, 36, 32, 3, 4
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -19,6 +19,7 @@ from tianshou_tpu_torch.env.classic.cartpole import CartPole
 from tianshou_tpu_torch.env.core import VectorDeviceEnv
 from tianshou_tpu_torch.models.mlp import Net
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def run_dqn(buffer, fused_megastep=False, seed=0):

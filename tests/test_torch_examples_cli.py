@@ -2,7 +2,7 @@
 (``examples/``): their command lines, their imports and the Atari catch game.
 
 - CLI parity, one case per ported script (every script of ``examples/``
-  but the earlier benchmark's folder and ViZDoom's): the namespace the JAX script's own
+  but the earlier benchmark's folder): the namespace the JAX script's own
   parser gives for no arguments (its ``__main__`` run by ``runpy`` while
   ``argparse.ArgumentParser.parse_args`` is patched here to record
   ``parse_args([])`` and stop) against the port's ``build_parser()``: the same
@@ -38,7 +38,7 @@ REPO = Path(__file__).resolve().parents[1]
 JAX_EXAMPLES = REPO / "examples"
 PORT = REPO / "examples_torch"
 
-#: the JAX example scripts the port has, relative to examples/ (all but benchmark/ and vizdoom/)
+#: the JAX example scripts the port has, relative to examples/ (all but benchmark/)
 SCRIPTS = (
     [f"atari/atari_{a}.py" for a in ("dqn", "c51", "qrdqn", "iqn", "fqf", "rainbow", "sac", "ppo")]
     + [f"mujoco/mujoco_{a}.py" for a in ("sac", "td3", "ppo", "ddpg", "redq", "reinforce", "a2c", "npg", "trpo")]
@@ -49,15 +49,16 @@ SCRIPTS = (
                                    "discrete_bcq_cartpole", "discrete_cql_cartpole", "discrete_crr_cartpole", "d4rl_bcq")]
     + ["inverse/irl_gail.py", "modelbased/psrl.py", "marl/tictactoe_selfplay.py", "marl/pettingzoo_tictactoe_dqn.py"]
     + [f"box2d/{s}.py" for s in ("acrobot_dualdqn", "mcc_sac", "lunarlander_dqn", "bipedal_sac", "bipedal_bdq")]
+    + ["vizdoom/vizdoom_c51.py", "vizdoom/vizdoom_ppo.py"]
 )
 #: the folders of examples/ that the port mirrors
-FOLDERS = ("atari", "mujoco", "discrete", "continuous", "offline", "inverse", "modelbased", "marl", "box2d")
+FOLDERS = ("atari", "mujoco", "discrete", "continuous", "offline", "inverse", "modelbased", "marl", "box2d", "vizdoom")
 #: the command line both parsers see where ``[]`` would not parse (a required positional)
 ARGV = {"mujoco/plotter.py": ["log/seed0"]}
 #: scripts that run nothing on a device, and so take no --device
 HOST_ONLY = {"mujoco/plotter.py"}
 #: the JAX examples' sibling modules, imported by bare name from the script's folder
-SIBLINGS = ("_runner", "_hl", "_gather")
+SIBLINGS = ("_runner", "_hl", "_gather", "env")
 
 
 def port_module(rel: str):
@@ -94,15 +95,17 @@ def jax_namespace(rel: str, monkeypatch) -> dict | None:
 
 def test_the_slice_covers_every_script_of_its_groups():
     folders = {p.name for p in JAX_EXAMPLES.iterdir() if p.is_dir() and not p.name.startswith(("_", "."))}
-    assert folders - set(FOLDERS) == {"benchmark", "vizdoom"}
+    assert folders - set(FOLDERS) == {"benchmark"}
     for folder in FOLDERS:
-        jax_scripts = {f"{folder}/{p.name}" for p in (JAX_EXAMPLES / folder).glob("*.py") if not p.name.startswith("_")}
+        jax_scripts = {f"{folder}/{p.name}" for p in (JAX_EXAMPLES / folder).glob("*.py")
+                       if not p.name.startswith("_") and p.stem not in SIBLINGS}
         assert jax_scripts <= set(SCRIPTS), jax_scripts - set(SCRIPTS)
     for rel in SCRIPTS:
         assert (PORT / rel).is_file(), rel
     for folder in FOLDERS:
-        for sibling in (JAX_EXAMPLES / folder).glob("_*.py"):
-            assert (PORT / folder / sibling.name).is_file(), sibling
+        for sibling in (JAX_EXAMPLES / folder).glob("*.py"):
+            if sibling.name.startswith("_") or sibling.stem in SIBLINGS:
+                assert (PORT / folder / sibling.name).is_file(), sibling
 
 
 @pytest.mark.parametrize("rel", SCRIPTS)

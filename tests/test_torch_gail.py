@@ -32,6 +32,7 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.models import continuous, discrete
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 OBS, A, T, E, N_EXP, DISC_N, REPEAT, BS = 3, 1, 8, 4, 20, 2, 2, 8
 N = T * E

@@ -15,6 +15,7 @@ import torch
 
 from tianshou_tpu.ops.pallas.gather import gather_rows_auto
 from tianshou_tpu_torch.ops.kernels import gather as tg
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _src(rng, shape, dtype):

@@ -48,6 +48,7 @@ from tianshou_tpu_torch.models.convert import dqnet_params_from_flax
 from tianshou_tpu_torch.ops.kernels import counters
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
 from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 A, HW, FEAT, E, STACK, ATOMS, CAP = 4, 36, 32, 3, 4, 11, 16
 TOL = dict(rtol=1e-4, atol=1e-5)

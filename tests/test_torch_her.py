@@ -42,6 +42,7 @@ from tianshou_tpu_torch.env.classic.goal_reach import GoalReach
 from tianshou_tpu_torch.exploration.noise import GaussianNoise
 from tianshou_tpu_torch.models.convert import mlp_params_from_flax
 from tianshou_tpu_torch.models.mlp import MLP
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, C, B = 3, 12, 16
 TOL = dict(rtol=0, atol=1e-5)

@@ -50,6 +50,7 @@ from tianshou_tpu_torch.env.core import Discrete
 from tianshou_tpu_torch.env.venvs import DummyVectorEnv, SubprocVectorEnv, VectorEnvNormObs
 from tianshou_tpu_torch.models.mlp import Net
 from tianshou_tpu_torch.trainer.trainer import HostOffPolicyTrainer, HostOnPolicyTrainer, OffPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 WAIT = 60.0
 

@@ -36,6 +36,7 @@ from tianshou_tpu_torch.env.finite import FiniteDummyVectorEnv, FiniteSubprocVec
 from tianshou_tpu_torch.env.shmem import ShmemVectorEnv
 from tianshou_tpu_torch.env.venvs import DummyVectorEnv, SubprocVectorEnv, VectorEnvNormObs
 from tianshou_tpu_torch.utils.statistics import RunningMeanStd
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 WAIT = 60.0  # seconds any test waits for one worker's reply
 

@@ -51,6 +51,7 @@ from tianshou_tpu_torch.env.classic.nchain import NChain, NChainState
 from tianshou_tpu_torch.models import discrete
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax, icm_params_from_flax, net_params_from_flax
 from tianshou_tpu_torch.models.mlp import Net
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 OBS, ACT, E, C, B, T = 4, 2, 4, 16, 12, 8
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -56,6 +56,7 @@ from tianshou_tpu_torch.models.convert import (
     perturbation_params_from_flax,
     vae_params_from_flax,
 )
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 OBS, E, C, B, HID, LATENT, N_DEC, R = 3, 4, 16, 12, (16, 16), 2, 5, 4
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -60,6 +60,7 @@ from tianshou_tpu_torch.models.atari import DQNet, QRDQNet
 from tianshou_tpu_torch.models.convert import dqnet_params_from_flax, mlp_params_from_flax, net_params_from_flax
 from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
 from tianshou_tpu_torch.models.mlp import Net
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 A, HW, FEAT, STACK, E, C, B, K = 4, 36, 32, 4, 3, 8, 8, 6   # pixel ring: actions, frame side, trunk width, ...
 OBS, CA, CE, CC = 4, 2, 4, 16                                # CartPole rows: width, actions, rings, slots

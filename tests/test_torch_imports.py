@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``tianshou_tpu_torch``, nor
-``chip_smoke.py``, ``scripts/torch_port_profile.py`` or
-``scripts/seed_spread.py``, imports ``jax``,
+``chip_smoke.py``, ``scripts/torch_port_profile.py``,
+``scripts/seed_spread.py`` or ``examples_torch/vizdoom/*.py``, imports ``jax``,
 ``flax``, ``optax`` or the JAX package ``tianshou_tpu`` (read from each
 file's syntax tree, imports inside functions included). Nor do they import
 ``cloudpickle``, ``gymnasium``, ``pettingzoo``, ``h5py``, TensorBoard or
@@ -12,10 +12,12 @@ import ast
 import pathlib
 
 import pytest
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "tianshou_tpu_torch").rglob("*.py"))
 FILES += ["chip_smoke.py", "scripts/torch_port_profile.py", "scripts/seed_spread.py"]
+FILES += sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "examples_torch" / "vizdoom").glob("*.py"))
 BANNED = {"jax", "jaxlib", "flax", "optax", "tianshou_tpu"}
 HOST_BANNED = {"cloudpickle", "gymnasium", "gym", "pettingzoo", "h5py", "tensorboard", "matplotlib"}
 #: functions that import a host-only library when called: {file: {function name: the libraries}}

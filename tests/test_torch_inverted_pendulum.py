@@ -28,6 +28,7 @@ from tianshou_tpu.env.classic.inverted_pendulum import InvertedDoublePendulum as
 from tianshou_tpu.env.classic.inverted_pendulum import InvertedPendulum as JIP
 from tianshou_tpu_torch.env.classic.inverted_pendulum import InvertedDoublePendulum, InvertedPendulum, PendState
 from tianshou_tpu_torch.env.core import VectorDeviceEnv
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E = 16
 PAIRS = {"InvertedPendulum": (JIP, InvertedPendulum), "InvertedDoublePendulum": (JIDP, InvertedDoublePendulum)}

@@ -30,6 +30,7 @@ from tianshou_tpu_torch.utils.logger import BaseLogger, CurveLogger, DataScope, 
 from tianshou_tpu_torch.utils.logger.tensorboard import TensorboardLogger
 from tianshou_tpu_torch.utils.print import DataclassPPrintMixin
 from tianshou_tpu_torch.utils.progress import progress_bar
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def test_sequence_summary():

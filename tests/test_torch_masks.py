@@ -29,6 +29,7 @@ from tianshou_tpu_torch.algorithm.modelfree.dqn import DQN
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.models.distributions import MaskedCategorical
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 B, D, N = 16, 5, 6
 

@@ -37,6 +37,7 @@ from tianshou_tpu_torch.data.buffer.base import VectorReplayBuffer
 from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.models import mlp
 from tianshou_tpu_torch.models.convert import net_params_from_flax
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, D = 16, 6

@@ -22,6 +22,7 @@ from tianshou_tpu.models.atari import DQNet as JDQNet
 from tianshou_tpu.models.atari import NatureCNN as JNatureCNN
 from tianshou_tpu_torch.models.atari import DQNet, NatureCNN, same_pads
 from tianshou_tpu_torch.models.convert import dqnet_params_from_flax, nature_cnn_params_from_flax
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 

@@ -13,6 +13,7 @@ import torch
 from tianshou_tpu.env.mujoco import make as jax_make
 from tianshou_tpu_torch.env.core import Box, VectorDeviceEnv
 from tianshou_tpu_torch.env.mujoco import REGISTRY, make as torch_make
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 TASKS = sorted(REGISTRY)
 E = 3

@@ -43,6 +43,7 @@ from tianshou_tpu_torch.env import wrappers as tw
 from tianshou_tpu_torch.env.core import VectorDeviceEnv
 from tianshou_tpu_torch.env.mujoco import make
 from tianshou_tpu_torch.env.testing import MoveToRightEnv
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ATOL = dict(rtol=0, atol=1e-6)
 

@@ -50,6 +50,7 @@ from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
 from tianshou_tpu_torch.models.mlp import Net
 from tianshou_tpu_torch.trainer.trainer import OfflineTrainer, OfflineTrainerParams
 from tianshou_tpu_torch.utils.logger.base import BaseLogger
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, C, STEPS, E_TEST = 2, 16, 12, 3
 COMMON = dict(max_epochs=3, update_step_num_gradient_steps_per_epoch=5, batch_size=8, test_step_num_episodes=4,

@@ -52,6 +52,7 @@ from tianshou_tpu_torch.trainer.trainer import (
     OnPolicyTrainer,
     OnPolicyTrainerParams,
 )
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.slow
 DEV = "cpu"

@@ -19,6 +19,7 @@ from tianshou_tpu_torch.env.classic.cartpole import CartPole
 from tianshou_tpu_torch.env.core import VectorDeviceEnv
 from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
 from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def run_onpolicy(algo, max_epochs=20, repetitions=10, batch_size=256, T=128, stop=195, seed=0):

@@ -27,6 +27,7 @@ from tianshou_tpu.models.distributions import Categorical as JCategorical
 from tianshou_tpu.models.distributions import Normal as JNormal
 from tianshou_tpu_torch.models import continuous, convert, discrete
 from tianshou_tpu_torch.models.distributions import Categorical, Normal
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ATOL = dict(rtol=0, atol=1e-6)
 B, D, A = 16, 7, 3

@@ -43,6 +43,7 @@ from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
 from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
 from tianshou_tpu_torch.utils.logger.base import BaseLogger
 from tianshou_tpu_torch.utils.logger.tensorboard import TensorboardLogger
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E_TRAIN, E_TEST, T, REPEAT, BATCH = 4, 3, 32, 2, 64
 ALGO = dict(eps_clip=0.2, ent_coef=0.01, deterministic_eval=True)

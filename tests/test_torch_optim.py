@@ -23,6 +23,7 @@ from tianshou_tpu.algorithm.optim import RMSpropOptimizerFactory as JRMSprop
 from tianshou_tpu.algorithm.optim import SGDOptimizerFactory as JSGD
 from tianshou_tpu.algorithm.optim import linear_lr_schedule as jlinear
 from tianshou_tpu_torch.algorithm.optim import RMSpropOptimizerFactory, SGDOptimizerFactory, linear_lr_schedule
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 STEPS = 6
 TOL = dict(rtol=1e-6, atol=2e-6)

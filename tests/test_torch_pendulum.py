@@ -20,6 +20,7 @@ import torch
 
 from tianshou_tpu.env.classic.pendulum import Pendulum as JPendulum
 from tianshou_tpu_torch.env.classic.pendulum import Pendulum, PendulumState
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, STEPS = 16, 200
 STEP_TOL = dict(rtol=0, atol=2e-6)

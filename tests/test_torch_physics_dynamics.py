@@ -23,6 +23,7 @@ from tianshou_tpu_torch.env.physics import linalg as tlin
 from tianshou_tpu_torch.env.physics.mjcf import load_mjcf as torch_load
 from tianshou_tpu_torch.env.physics.model import ARRAY_FIELDS, SCALAR_FIELDS, model_from_arrays
 from tianshou_tpu_torch.ops.kernels.physics_fused import TASK_ASSETS
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 # task -> (frame_skip, substeps, contact iterations, drop of the root height that puts spheres on the floor)
 CFG = {

@@ -23,6 +23,7 @@ from tianshou_tpu_torch.env.physics.dynamics import resolve_substeps
 from tianshou_tpu_torch.env.physics.model import FREE
 from tianshou_tpu_torch.ops.kernels import _build
 from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 Q_TOL = dict(rtol=2e-4, atol=2e-4)
 QD_TOL = dict(rtol=5e-3, atol=5e-3)

@@ -13,6 +13,7 @@ from tianshou_tpu.env.physics.mjcf import load_mjcf as jax_load
 from tianshou_tpu_torch.env.physics import mjcf as tmjcf
 from tianshou_tpu_torch.env.physics.model import ARRAY_FIELDS, SCALAR_FIELDS, model_from_arrays
 from tianshou_tpu_torch.ops.kernels.physics_fused import TASK_ASSETS
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 TASKS = sorted(TASK_ASSETS)
 

@@ -26,6 +26,7 @@ from tianshou_tpu_torch.env.mujoco import Humanoid, make as torch_make
 from tianshou_tpu_torch.env.physics import dynamics as tdyn
 from tianshou_tpu_torch.env.physics.mjcf import asset_path, load_mjcf as torch_load
 from tianshou_tpu_torch.env.physics.model import HINGE, SLIDE, Geom, Joint, Model
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 Q_TOL = dict(rtol=2e-4, atol=2e-4)  # the tolerances the JAX package holds its fused step to
 QD_TOL = dict(rtol=5e-3, atol=5e-3)

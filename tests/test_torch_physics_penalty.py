@@ -23,6 +23,7 @@ from tianshou_tpu.ops.pallas.physics_fused import fused_step as jax_fused_step
 from tianshou_tpu_torch.env.mujoco import make as torch_make
 from tianshou_tpu_torch.ops.kernels import _build
 from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 PENALTY = ("TT_PENALTY=1",)
 # task -> (root coordinate, drop) that puts contact spheres below the floor

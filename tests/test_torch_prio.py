@@ -23,6 +23,7 @@ from tianshou_tpu.data.buffer.prio import PrioState as JPrioState
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer.base import BufferState
 from tianshou_tpu_torch.data.buffer.prio import PrioritizedReplayBuffer, PrioritizedVectorReplayBuffer, PrioState
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, C = 3, 8
 RTOL = dict(rtol=1e-6, atol=0)

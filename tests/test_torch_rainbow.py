@@ -59,6 +59,7 @@ from tianshou_tpu_torch.models.convert import (
 from tianshou_tpu_torch.models.discrete import NoisyLinear, factorized_noise
 from tianshou_tpu_torch.ops.kernels import gather, sumtree
 from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 A, HW, FEAT, ATOMS, E, STACK, C = 4, 36, 32, 11, 3, 4, 8
 F32 = dict(rtol=1e-4, atol=1e-5)

@@ -41,6 +41,7 @@ from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.env.testing import MoveToRightEnv
 from tianshou_tpu_torch.models.convert import recurrent_params_from_flax
 from tianshou_tpu_torch.models.recurrent import RecurrentActorProb, RecurrentCritic, RecurrentQNet
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 H, O, A, L, E = 16, 3, 4, 4, 3
 NET_TOL = dict(rtol=0, atol=1e-6)

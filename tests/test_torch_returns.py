@@ -14,6 +14,7 @@ import torch
 
 from tianshou_tpu.ops import returns as jr
 from tianshou_tpu_torch.ops import returns as tr
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

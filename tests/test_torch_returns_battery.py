@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from tianshou_tpu_torch.ops.returns import gae_advantages, mc_return_to_go, nstep_returns, value_mask
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def t(x):

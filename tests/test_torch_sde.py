@@ -46,6 +46,7 @@ from tianshou_tpu_torch.data.collector import DeviceCollector
 from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.models import continuous
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 HID = (16, 16)
 

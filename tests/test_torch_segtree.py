@@ -19,6 +19,7 @@ from tianshou_tpu.ops.pallas.sumtree import pallas_prefix_sum_idx
 from tianshou_tpu.ops.segtree import SegmentTree as JSegmentTree
 from tianshou_tpu_torch.ops.kernels import sumtree as ts
 from tianshou_tpu_torch.ops.segtree import SegmentTree
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 SIZES = [1, 3, 8, 100, 1024]
 

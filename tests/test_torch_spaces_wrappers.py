@@ -30,6 +30,7 @@ from tianshou_tpu.env import wrappers as jwrappers
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.env import core as tcore
 from tianshou_tpu_torch.env import wrappers
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, STEPS = 6, 9
 LOW, HIGH = [-1.0, 0.0], [1.0, 2.5]

@@ -30,6 +30,7 @@ from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerP
 from tianshou_tpu_torch.utils import graph
 from tianshou_tpu_torch.utils.graph import StepGraphs, graphed_step
 from tianshou_tpu_torch.utils.tree import tree_leaves, tree_map
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E, T, REPEAT, BATCH = 4, 16, 2, 16
 ALGOS = {

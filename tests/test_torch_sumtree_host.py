@@ -21,6 +21,7 @@ import torch
 
 from tianshou_tpu_torch.ops.kernels import sumtree as ts
 from tianshou_tpu_torch.ops.segtree import SegmentTree
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 SRC = Path(ts.__file__).resolve().parent / "csrc" / "sumtree.cu"
 P = ctypes.c_void_p

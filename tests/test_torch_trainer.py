@@ -53,6 +53,7 @@ from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTraine
 from tianshou_tpu_torch.utils.determinism import trace_param_hash
 from tianshou_tpu_torch.utils.logger.base import BaseLogger
 from tianshou_tpu_torch.utils.logger.tensorboard import TensorboardLogger
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 E_TRAIN, E_TEST, T = 2, 3, 6
 ALGO = dict(gamma=0.9, n_step_return_horizon=2, target_update_freq=4, eps_training=0.5, eps_inference=0.05)

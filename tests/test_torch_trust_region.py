@@ -68,6 +68,7 @@ from tianshou_tpu_torch.models import continuous, discrete
 from tianshou_tpu_torch.models.convert import actor_critic_params_from_flax
 from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
 from tianshou_tpu_torch.utils.logger.base import BaseLogger
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ALGOS = {"npg": (JNPG, NPG), "trpo": (JTRPO, TRPO)}
 

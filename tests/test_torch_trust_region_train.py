@@ -22,6 +22,7 @@ from tianshou_tpu_torch.env.core import VectorDeviceEnv
 from tianshou_tpu_torch.models.continuous import ContinuousActorProbabilistic, ContinuousCritic
 from tianshou_tpu_torch.models.discrete import DiscreteActor, DiscreteCritic
 from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
+from tests._torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def run(algo, env, stop, max_epochs=15, epoch_steps=10000, T=128, batch_size=1024, repeat=1, n_train=16):

@@ -12,7 +12,8 @@ of a ``tianshou_tpu.models.recurrent`` net (``RecurrentQNet``,
 ``RecurrentActorProb``, ``RecurrentCritic``) or of an actor-critic net
 (``ContinuousActorProbabilistic``, ``ContinuousActorDeterministic``,
 ``ContinuousCritic``, ``EnsembleCritic``, ``DiscreteActor``,
-``DiscreteCritic``, BCQ's ``Perturbation`` and ``VAE``) with numpy leaves (``{"params": {...}}`` or the inner
+``DiscreteCritic``, BCQ's ``Perturbation`` and ``VAE``, the pixel actor and
+critic of the Atari and ViZDoom example scripts) with numpy leaves (``{"params": {...}}`` or the inner
 ``"params"`` dict) and returns a ``state_dict`` for its counterpart in
 :mod:`tianshou_tpu_torch.models`. :func:`module_params_from_flax` picks the
 converter by the torch module's class (a ``ModuleDict`` key by key),
@@ -45,6 +46,7 @@ __all__ = [
     "continuous_actor_prob_params_from_flax", "continuous_critic_params_from_flax", "discrete_actor_params_from_flax",
     "discrete_critic_params_from_flax", "ensemble_critic_params_from_flax",
     "dqnet_params_from_flax", "mlp_params_from_flax", "nature_cnn_params_from_flax", "net_params_from_flax",
+    "pixel_actor_params_from_flax", "pixel_critic_params_from_flax",
     "noisy_linear_params_from_flax", "rainbow_atari_params_from_flax", "qrdqnet_params_from_flax",
     "iqn_params_from_flax", "fraction_params_from_flax", "rainbow_net_params_from_flax",
     "branching_net_params_from_flax", "icm_params_from_flax", "masked_qnet_params_from_flax",
@@ -61,9 +63,12 @@ def _conv(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))), _t(p["bias"])
 
 
-def nature_cnn_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+def nature_cnn_params_from_flax(tree: dict, prefix: str = "",
+                                flat_hw: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """``state_dict`` entries of a ``NatureCNN`` from its flax parameter dict
-    (keys ``Conv_0..2`` and ``Dense_0``)."""
+    (keys ``Conv_0..2`` and ``Dense_0``). ``flat_hw`` is the last conv's map
+    (the torch net's ``flat_hw``: 5x8 for a 40x60 input); without it the map
+    must be square (11x11 for 84x84)."""
     out: dict[str, torch.Tensor] = {}
     c_out = 0
     for i in range(3):
@@ -72,26 +77,46 @@ def nature_cnn_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch
         c_out = w.shape[0]
     k = np.asarray(tree["Dense_0"]["kernel"])  # [H*W*C, F], rows in H, W, C order
     hw = k.shape[0] // c_out
-    h = math.isqrt(hw)
-    if h * h != hw:
-        raise ValueError(f"flatten width {k.shape[0]} is not a square map of {c_out} channels")
-    k = k.reshape(h, h, c_out, -1).transpose(2, 0, 1, 3).reshape(c_out * hw, -1)
+    if flat_hw is None:
+        h = math.isqrt(hw)
+        if h * h != hw:
+            raise ValueError(f"flatten width {k.shape[0]} is not a square map of {c_out} channels; give flat_hw")
+        flat_hw = (h, h)
+    if flat_hw[0] * flat_hw[1] != hw:
+        raise ValueError(f"flatten width {k.shape[0]} is not a {flat_hw} map of {c_out} channels")
+    k = k.reshape(*flat_hw, c_out, -1).transpose(2, 0, 1, 3).reshape(c_out * hw, -1)
     out[f"{prefix}fc.weight"] = _t(k.T)
     out[f"{prefix}fc.bias"] = _t(tree["Dense_0"]["bias"])
     return out
 
 
-def dqnet_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+def dqnet_params_from_flax(tree: dict, flat_hw: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """``state_dict`` of a torch ``DQNet`` (or ``C51Net``: the same scopes,
-    a wider head) from the flax net's parameter tree."""
+    a wider head) from the flax net's parameter tree; ``flat_hw`` as for
+    :func:`nature_cnn_params_from_flax`."""
     p = tree["params"] if "params" in tree else tree
-    out = nature_cnn_params_from_flax(p["NatureCNN_0"], prefix="cnn.")
+    out = nature_cnn_params_from_flax(p["NatureCNN_0"], prefix="cnn.", flat_hw=flat_hw)
     out["head.weight"] = _t(np.asarray(p["Dense_0"]["kernel"]).T)
     out["head.bias"] = _t(p["Dense_0"]["bias"])
     return out
 
 
 c51net_params_from_flax = qrdqnet_params_from_flax = dqnet_params_from_flax
+#: the pixel actor of the ViZDoom PPO script (``NatureCNN_0`` -> ``Dense_0``): a DQNet's scopes
+pixel_actor_params_from_flax = dqnet_params_from_flax
+
+
+def pixel_critic_params_from_flax(tree: dict, flat_hw: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a pixel critic over a NatureCNN: the ViZDoom PPO
+    script's (``NatureCNN_0`` and a bias-free ``w [F, 1]``, kept as it is)
+    or the Atari runner's (``NatureCNN_0`` and ``Dense_0`` -> ``head``)."""
+    p = _params(tree)
+    out = nature_cnn_params_from_flax(p["NatureCNN_0"], prefix="cnn.", flat_hw=flat_hw)
+    if "w" in p:
+        out["w"] = _t(p["w"])
+    else:
+        out.update(_dense_params(p["Dense_0"], "head"))
+    return out
 
 
 def noisy_linear_params_from_flax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -222,6 +247,18 @@ _ACTOR_CRITIC_CONVERTERS = {
 }
 
 
+#: the converters of nets over a NatureCNN, which read the torch net's map size (``cnn.flat_hw``)
+_PIXEL_CONVERTERS = {"PixelActor": pixel_actor_params_from_flax, "PixelCritic": pixel_critic_params_from_flax}
+
+
+def _convert_net(tree: dict, net) -> dict[str, torch.Tensor]:
+    """``state_dict`` of one net (not a ``ModuleDict``) through the converter of its class."""
+    cls = type(net).__name__
+    if cls in _PIXEL_CONVERTERS:
+        return _PIXEL_CONVERTERS[cls](tree, tuple(net.cnn.flat_hw))
+    return _NET_CONVERTERS[cls](tree)
+
+
 def actor_critic_params_from_flax(params: dict, model) -> dict[str, torch.Tensor]:
     """``state_dict`` of an actor-critic train state's ``model`` or
     ``target`` (a ``ModuleDict`` of ``actor``, ``critic``, ``critic2``, as
@@ -232,7 +269,7 @@ def actor_critic_params_from_flax(params: dict, model) -> dict[str, torch.Tensor
     model holds them."""
     out: dict[str, torch.Tensor] = {}
     for name, net in model.items():
-        for k, v in _ACTOR_CRITIC_CONVERTERS[type(net).__name__](params[name]).items():
+        for k, v in _convert_net(params[name], net).items():
             out[f"{name}.{k}"] = v
     for name in ("log_alpha", "log_cql_alpha"):
         if hasattr(model, name):
@@ -351,7 +388,7 @@ def module_params_from_flax(tree: dict, module) -> dict[str, torch.Tensor]:
     ``"wrapped"`` from every key but ``"icm"``, as the JAX wrapper merges
     them), with ``log_alpha`` and ``log_cql_alpha`` where it holds them."""
     if not isinstance(module, nn.ModuleDict):
-        return _NET_CONVERTERS[type(module).__name__](tree)
+        return _convert_net(tree, module)
     out: dict[str, torch.Tensor] = {}
     for name, net in module.items():
         if name == "wrapped":
