@@ -178,7 +178,8 @@ Phases, each of which fails the run:
    registered generator), every optimizer's state (FQF's Adam and RMSprop, discrete SAC's four Adams) too.
 29. Distributional pixel paths: ``main_path`` (phase 5) with the algorithm and net of each of
    ``examples/atari/atari_{qrdqn,iqn,fqf,sac}.py`` at bench.py's widths and ``DIST_CHUNKS`` (2) chunks a run
-   (``build_pipeline``): QRDQN over ``QRDQNet(6, 200)`` at lr 5e-5, IQN over ``ImplicitQuantileAtariNet(6)``
+   of ``DIST_T`` (8) env steps each, bursts of 205 updates (``build_pipeline``): QRDQN over ``QRDQNet(6, 200)``
+   at lr 5e-5, IQN over ``ImplicitQuantileAtariNet(6)``
    with 32/8/8 fractions at 5e-5, FQF over the same net with 32 fractions and ``ent_coef`` 10 at 5e-5,
    discrete SAC with ``DQNet`` actor and twin critics at 1e-4 and automatic alpha; n = 3, target sync every
    500 steps (polyak 0.005 for SAC). Exactly two ``gather_rows`` launches per update; after the checks one
@@ -281,17 +282,26 @@ Phases, each of which fails the run:
    per-row noise drawn through the global-draw rule is the one-process draw; one ``physics_fused`` launch per vector
    step. The phases 51-55 print their total time.
 
-56. ``examples``: four port example scripts through their own ``main`` on the card (``EX_SCRIPTS``):
-   ``examples_torch/atari/atari_rainbow.py`` on the catch game (a prioritized replay; the depth cut to
-   ``EX_RAINBOW_PREFILL`` prefill steps and one epoch of ``EX_RAINBOW_EPOCH``), ``examples_torch/mujoco/mujoco_sac.py``
-   on HalfCheetah (``EX_SAC_PREFILL`` and ``EX_SAC_EPOCH``), and ``examples_torch/vizdoom/vizdoom_c51.py`` and
-   ``vizdoom_ppo.py`` on SyntheticDoom's 40x60 frames (``EX_DOOM_*``). Counters zeroed and read around each ``main``:
-   ``gather_rows`` 2, ``prefix_sum_idx`` 1 and ``tree_update`` 1 per update and ``tree_update`` 1 per collect step
-   (Rainbow; the final tree through ``_check_tree``), ``physics_fused`` 1 per vector step (SAC, prefill and test
-   included), ``gather_rows`` 2 per update and nothing else (ViZDoom C51; then one gather on its ring held against
-   ``src[idx]`` and ``SyntheticDoom._obs`` on the card against the CPU), no kernel (ViZDoom PPO); each script's
-   summary line with its wall and launches beside the card's name and power limit. The kernel phase (3) also holds
-   and times ``gather_rows`` at the ViZDoom ring's 256 rows of 2,400 bytes.
+56. ``examples``: port example scripts through their own ``main`` on the card (``EX_SCRIPTS``, an ``ExRun``
+   each), at their defaults but for a depth cut (their options, else ``train``'s keywords, a helper of the module
+   bound to smaller sizes, or the trainers' parameters set at construction): ``examples_torch/atari/atari_rainbow.py``
+   on the catch game (a prioritized replay; ``EX_RAINBOW_PREFILL`` prefill steps and one epoch of
+   ``EX_RAINBOW_EPOCH``), ``examples_torch/mujoco/mujoco_sac.py`` on HalfCheetah (``EX_SAC_PREFILL`` and
+   ``EX_SAC_EPOCH``), and ``examples_torch/vizdoom/vizdoom_c51.py`` and ``vizdoom_ppo.py`` on SyntheticDoom's 40x60
+   frames (``EX_DOOM_*``); then one script per runner route that those four do not drive: ``atari_sac.py`` (uniform
+   pixel replay) and ``atari_ppo.py`` (``atari/_runner.py:run_onpolicy``), ``mujoco_trpo.py``
+   (``mujoco/_runner.py:run_onpolicy``) and ``mujoco_td3.py`` (``run_offpolicy``), ``mujoco_ppo_hl.py`` (the
+   Experiment API, its update as step graphs), ``ddpg_her_goalreach.py`` (the HER ring), ``discrete_cql_cartpole.py``
+   (``offline/_gather.py``, then ``OfflineTrainer``), ``dqn_cartpole.py --logdir`` (the TensorBoard logger), and
+   ``tictactoe_selfplay.py``, ``psrl.py``, ``irl_gail.py`` and ``acrobot_dualdqn.py`` (their own trainers).
+   Counters zeroed and read around each ``main``: ``gather_rows`` 2, ``prefix_sum_idx`` 1 and ``tree_update`` 1 per
+   update and ``tree_update`` 1 per collect step (Rainbow; the final tree through ``_check_tree``),
+   ``physics_fused`` 1 per vector step (the MuJoCo scripts, prefill and test included), ``gather_rows`` 2 per update
+   and nothing else (ViZDoom C51, then one gather on its ring held against ``src[idx]`` and ``SyntheticDoom._obs`` on
+   the card against the CPU; Atari SAC), no kernel (every other script); each run ends with a finite test phase per
+   trainer and finite weights on the card; each script's summary line with its wall and launches beside the card's
+   name and power limit. The kernel phase (3) also holds and times ``gather_rows`` at the ViZDoom ring's 256 rows of
+   2,400 bytes.
 
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
@@ -310,6 +320,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -410,6 +422,8 @@ IP_PREFILL, IP_EPOCHS, IP_EPOCH_STEPS, IP_THRESHOLD = 2_000, 12, 5_000, 1000.0
 # the distributional and discrete Q family on the pixel pipeline (examples/atari/atari_{qrdqn,iqn,fqf,sac}.py)
 DIST_KINDS = ("qrdqn", "iqn", "fqf", "discrete_sac")
 DIST_CHUNKS = 2  # training chunks per run of their paths (the DQN path runs CHUNKS = 3)
+DIST_T = 8  # env steps per chunk of their paths (the DQN path's T = 16): bursts of 205 updates, whose eager warm-up
+#             and capture take most of a path's time
 # their time to score (tests/test_distributional.py:run, :89-107): 10 train and 10 test envs, a 20,000-row replay,
 # epochs of 5,000 steps, batch 64, T 10, 0.1 updates per env step, a 1,000-step prefill, eps 0.3 annealed to 0.1
 DIST_SCORE = {"fqf_cartpole": 195.0, "bdqn_pendulum": -250.0}  # name: threshold
@@ -973,7 +987,7 @@ def _graph_report(pool, replays_per_chunk: float) -> str:
             f"graph pool {pool.memory_bytes() / 2**20:.1f} MiB of device memory")
 
 
-def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS):
+def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS, steps: int = T):
     """Train the pipeline of ``kind`` through the graphed trainer (with ``fused`` as ONE graph per
     chunk): a first ``run`` of the random prefill and ``chunks`` chunks (the first chunk of each
     program its eager warm-up, the second its capture), then a second ``run`` of ``chunks`` chunks
@@ -994,8 +1008,8 @@ def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS):
 
     # one epoch per run, so one test phase at the end of each run
     params = OffPolicyTrainerParams(
-        max_epochs=1, epoch_num_steps=chunks * T * E, batch_size=BATCH,
-        collection_step_num_env_steps=T, update_per_step=0.1, start_steps=T * E, verbose=False,
+        max_epochs=1, epoch_num_steps=chunks * steps * E, batch_size=BATCH,
+        collection_step_num_env_steps=steps, update_per_step=0.1, start_steps=steps * E, verbose=False,
         fused_megastep=fused, test_step_num_episodes=TEST_EPISODES, compute_score_fn=score,
     )
     trainer = OffPolicyTrainer(algo, coll, make_test_collector(algo), buffer, params)
@@ -1040,12 +1054,12 @@ def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS):
         raise AssertionError(f"{name} path: non-finite parameters after training")
     if all(torch.equal(a, b) for a, b in zip(init_params, ts.model.parameters())):
         raise AssertionError(f"{name} path: training left the parameters unchanged")
-    n_updates = max(1, round(0.1 * T * E))
+    n_updates = max(1, round(0.1 * steps * E))
     expect_updates = 2 * chunks * n_updates
     if res.gradient_step != expect_updates or int(ts.step) != expect_updates:
         raise AssertionError(f"{name} path: {res.gradient_step} updates ({int(ts.step)} on the device), "
                              f"expected {expect_updates}")
-    collect_steps = (2 * chunks + 1) * T  # the prefill chunk and the training chunks, one add per step
+    collect_steps = (2 * chunks + 1) * steps  # the prefill chunk and the training chunks, one add per step
     if bs.size.min().item() != min(SLOTS, collect_steps):
         raise AssertionError(f"{name} path: ring sizes {bs.size.min().item()}..{bs.size.max().item()} are off")
     prio = isinstance(state, PrioState)
@@ -1055,7 +1069,7 @@ def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS):
         raise AssertionError(f"{name} path: kernel launches {launches} for {res.gradient_step} updates, expected {expect}")
     train_s = res.timing["collect"] + res.timing["update"]
     lines.append(
-        f"{name} path: E={E} T={T} chunks={chunks}+{chunks} updates={res.gradient_step} batch={BATCH} "
+        f"{name} path: E={E} T={steps} chunks={chunks}+{chunks} updates={res.gradient_step} batch={BATCH} "
         f"ring uint8 {tuple(bs.data.obs.shape)} x2 ({bs.data.obs.numel() / 1e9:.3f} GB each)"
     )
     lines.append(
@@ -1066,7 +1080,7 @@ def main_path(torch, kind: str, fused: bool = False, chunks: int = CHUNKS):
     what = "collect + update as one graph" if fused else (
         f"collect {res.timing['collect'] / chunks * 1e3:.1f} ms, update {res.timing['update'] / chunks * 1e3:.1f} ms")
     lines.append(
-        f"{name} path, second run (graph replays only): env_steps_per_s {chunks * T * E / train_s:.1f} "
+        f"{name} path, second run (graph replays only): env_steps_per_s {chunks * steps * E / train_s:.1f} "
         f"ms_per_chunk {train_s / chunks * 1e3:.1f} ({what}) = {train_s / (chunks * n_updates) * 1e3:.3f} ms per update "
         f"(collect included); {_graph_report(trainer.graph_pool, replays_per_chunk)}; "
         f"loss_last_chunk_mean {float(loss.mean()):.5f} gather_launches {launches['gather_rows']} "
@@ -4702,9 +4716,16 @@ def _per_buffer(num_envs: int):
 
 class _Recording:
     """Records the trainers an ``Experiment`` builds and every test phase's stats, by wrapping the trainer
-    base's ``__init__`` and both ``_test`` methods for the ``with`` block (they still run as they were)."""
+    base's ``__init__`` and both ``_test`` methods for the ``with`` block (they still run as they were).
+    ``cut``: trainer parameters set at each trainer's construction (those its params have), a depth cut where a
+    script has no option for it."""
+
+    def __init__(self, cut: dict | None = None) -> None:
+        self.cut = cut or {}
 
     def __enter__(self):
+        import dataclasses
+
         from tianshou_tpu_torch.trainer import trainer as tm
 
         self.trainers, self.tests = [], []
@@ -4712,8 +4733,10 @@ class _Recording:
         self._saved += [(cls, "_test", cls._test) for cls in (tm._TrainerBase, tm._HostTrainerMixin)]
         init = tm._TrainerBase.__init__
 
-        def recording_init(trainer, *args, **kwargs):
-            init(trainer, *args, **kwargs)
+        def recording_init(trainer, algo, train_collector, test_collector, params):
+            fields = {f.name for f in dataclasses.fields(params)}
+            params = dataclasses.replace(params, **{k: v for k, v in self.cut.items() if k in fields})
+            init(trainer, algo, train_collector, test_collector, params)
             self.trainers.append(trainer)
 
         def recording(fn):
@@ -5615,27 +5638,83 @@ def bs_example(torch, env):
 # ---------------------------------------------------------------------------
 # the example entry points (examples_torch/), through their own main
 # ---------------------------------------------------------------------------
-# examples_torch/atari/atari_rainbow.py on the catch game and examples_torch/mujoco/mujoco_sac.py on HalfCheetah at
-# their defaults, the depth cut: one epoch of EX_RAINBOW_EPOCH steps after a prefill of EX_RAINBOW_PREFILL (from 20
-# epochs of 20,000 after 2,000), and one of EX_SAC_EPOCH after EX_SAC_PREFILL (from 50 epochs of 20,000 after 10,000);
-# examples_torch/vizdoom/vizdoom_{c51,ppo}.py on SyntheticDoom at their defaults, one epoch of EX_DOOM_C51_EPOCH steps
-# after a prefill of EX_DOOM_C51_PREFILL (from 20 epochs of 20,000 after 2,000: the script takes no option for the
-# prefill, so its ``train`` gets ``start_steps`` through functools.partial) and one of EX_DOOM_PPO_EPOCH, two
-# collects of 2,048 steps (from 20 epochs of 20,000)
+# Each script runs at its defaults but for the depth cut: its options where it takes them, else its ``train``'s
+# keywords (functools.partial), a helper of its module bound to smaller sizes, or its trainers' parameters set at
+# construction (``_Recording``'s cut). The first four: examples_torch/atari/atari_rainbow.py on the catch game, one
+# epoch of EX_RAINBOW_EPOCH steps after a prefill of EX_RAINBOW_PREFILL (from 20 epochs of 20,000 after 2,000);
+# examples_torch/mujoco/mujoco_sac.py, one of EX_SAC_EPOCH after EX_SAC_PREFILL (from 50 epochs of 20,000 after
+# 10,000); examples_torch/vizdoom/vizdoom_{c51,ppo}.py on SyntheticDoom, one epoch of EX_DOOM_C51_EPOCH steps after a
+# prefill of EX_DOOM_C51_PREFILL (from 20 epochs of 20,000 after 2,000; the prefill through ``train``) and one of
+# EX_DOOM_PPO_EPOCH, two collects of 2,048 steps (from 20 epochs of 20,000). Then one script per runner route that
+# those four do not drive: atari_sac.py (uniform pixel replay, discrete SAC) and atari_ppo.py (run_onpolicy, one
+# rollout of 16 x 128 steps, 4 passes of batch 32) on the catch game; mujoco_trpo.py (mujoco/_runner.py:run_onpolicy,
+# one natural-gradient update of 16 x 64 steps) and mujoco_td3.py (run_offpolicy) on HalfCheetah; mujoco_ppo_hl.py
+# (the Experiment API) over EX_HL_ENVS envs, one rollout of EX_HL_T steps a env (from 64 envs, rollouts of 2,048
+# steps a env and 10 epochs of 20,000; the rollout through onpolicy_training_config): 10 passes of batch 64 over its
+# 8,192 rows are 1,280 minibatch steps, past OnPolicyTrainer.STEP_GRAPHS_ABOVE, so step graphs;
+# ddpg_her_goalreach.py (the HER ring), discrete_cql_cartpole.py (offline/_gather.py, then OfflineTrainer),
+# dqn_cartpole.py with --logdir (the TensorBoard logger), and four that build their own: tictactoe_selfplay.py
+# (selfplay's prefill, rounds and evaluation cut), psrl.py, irl_gail.py and acrobot_dualdqn.py.
 EX_RAINBOW_PREFILL, EX_RAINBOW_EPOCH, EX_SAC_PREFILL, EX_SAC_EPOCH = 400, 2_000, 256, 1_024
 EX_DOOM_C51_PREFILL, EX_DOOM_C51_EPOCH, EX_DOOM_PPO_EPOCH = 512, 3_000, 4_096
-EX_SCRIPTS = {  # name: (module, arguments after --device cuda, train's cut keywords)
-    "examples_rainbow": ("examples_torch.atari.atari_rainbow",
-                         ["--epochs", "1", "--epoch-num-steps", str(EX_RAINBOW_EPOCH), "--start-steps",
-                          str(EX_RAINBOW_PREFILL)], {}),
-    "examples_sac": ("examples_torch.mujoco.mujoco_sac",
-                     ["--task", "HalfCheetah", "--epochs", "1", "--epoch-num-steps", str(EX_SAC_EPOCH), "--start-steps",
-                      str(EX_SAC_PREFILL)], {}),
-    "examples_doom_c51": ("examples_torch.vizdoom.vizdoom_c51",
-                          ["--epochs", "1", "--epoch-num-steps", str(EX_DOOM_C51_EPOCH)],
-                          {"start_steps": EX_DOOM_C51_PREFILL}),
-    "examples_doom_ppo": ("examples_torch.vizdoom.vizdoom_ppo", ["--epochs", "1", "--epoch-num-steps",
-                                                                  str(EX_DOOM_PPO_EPOCH)], {}),
+EX_HL_ENVS, EX_HL_T = 16, 512
+
+
+class ExRun(NamedTuple):
+    """One script's run in the ``examples`` phase: its module, its arguments after ``--device cuda``, the depth cut
+    where its options do not reach (``partials``: ``{attr of the module: keywords}``; ``trainer``: trainer parameters
+    set at construction), and the kernel launches expected (``launches``: ``rainbow``, 2 ``gather_rows`` per update
+    and the sum tree's; ``gather``, 2 ``gather_rows`` per update and nothing else; ``physics``, one ``physics_fused``
+    per train and test vector step and nothing else; ``none``)."""
+
+    module: str
+    argv: list[str]
+    launches: str = "none"
+    partials: dict = {}
+    trainer: dict = {}
+
+
+def _ex_atari(script: str, argv: list[str], launches: str = "none") -> ExRun:
+    return ExRun(f"examples_torch.atari.{script}", ["--epochs", "1", *argv], launches)
+
+
+EX_SCRIPTS = {
+    "examples_rainbow": _ex_atari("atari_rainbow", ["--epoch-num-steps", str(EX_RAINBOW_EPOCH), "--start-steps",
+                                                    str(EX_RAINBOW_PREFILL)], "rainbow"),
+    "examples_sac": ExRun("examples_torch.mujoco.mujoco_sac",
+                          ["--task", "HalfCheetah", "--epochs", "1", "--epoch-num-steps", str(EX_SAC_EPOCH),
+                           "--start-steps", str(EX_SAC_PREFILL)], "physics"),
+    "examples_doom_c51": ExRun("examples_torch.vizdoom.vizdoom_c51", ["--epochs", "1", "--epoch-num-steps",
+                                                                       str(EX_DOOM_C51_EPOCH)], "gather",
+                               {"train": {"start_steps": EX_DOOM_C51_PREFILL}}),
+    "examples_doom_ppo": ExRun("examples_torch.vizdoom.vizdoom_ppo", ["--epochs", "1", "--epoch-num-steps",
+                                                                       str(EX_DOOM_PPO_EPOCH)]),
+    "examples_atari_sac": _ex_atari("atari_sac", ["--epoch-num-steps", "500", "--start-steps", "256"], "gather"),
+    "examples_atari_ppo": _ex_atari("atari_ppo", ["--epoch-num-steps", "2048"]),
+    "examples_trpo": ExRun("examples_torch.mujoco.mujoco_trpo",
+                           ["--task", "HalfCheetah", "--epochs", "1", "--epoch-num-steps", "1024"], "physics"),
+    "examples_td3": ExRun("examples_torch.mujoco.mujoco_td3", ["--task", "HalfCheetah", "--epochs", "1",
+                                                               "--epoch-num-steps", "128", "--start-steps", "128"],
+                          "physics"),
+    "examples_ppo_hl": ExRun("examples_torch.mujoco.mujoco_ppo_hl",
+                             ["--epochs", "1", "--num-envs", str(EX_HL_ENVS), "--epoch-num-steps",
+                              str(EX_HL_T * EX_HL_ENVS)], "physics",
+                             {"onpolicy_training_config": {"collection_step_num_env_steps": EX_HL_T}}),
+    "examples_her_goalreach": ExRun("examples_torch.continuous.ddpg_her_goalreach", [],
+                                    trainer=dict(max_epochs=1, epoch_num_steps=2_000, start_steps=1_000)),
+    "examples_cql_cartpole": ExRun("examples_torch.offline.discrete_cql_cartpole", [],
+                                   partials={"gather_cartpole": {"dataset_size": 1_000}},
+                                   trainer=dict(max_epochs=1, epoch_num_steps=400, start_steps=200,
+                                                update_step_num_gradient_steps_per_epoch=100)),
+    # a trailing --logdir gets a temporary directory, removed after the run
+    "examples_dqn_cartpole_logger": ExRun("examples_torch.discrete.dqn_cartpole", ["--epochs", "1", "--logdir"],
+                                          trainer=dict(epoch_num_steps=1_000)),
+    "examples_selfplay": ExRun("examples_torch.marl.tictactoe_selfplay", [],
+                               partials={"selfplay": {"prefill": 500, "rounds": 20, "eval_episodes": 20}}),
+    "examples_psrl": ExRun("examples_torch.modelbased.psrl", ["--epochs", "1"]),
+    "examples_gail": ExRun("examples_torch.inverse.irl_gail", [], partials={"gather_pendulum": {"dataset_size": 1_000}},
+                           trainer=dict(max_epochs=1, epoch_num_steps=512, start_steps=256)),
+    "examples_acrobot": ExRun("examples_torch.box2d.acrobot_dualdqn", ["--epochs", "1", "--epoch-num-steps", "400"]),
 }
 
 
@@ -5666,68 +5745,115 @@ def _doom_checks(torch, res) -> str:
             f"{grid.shape[1]} states")
 
 
+def _ex_weights(torch, res) -> list:
+    """The float tensors of a script's train states (a trainer's result's, or self-play's ``(stats, states)``): the
+    nets' parameters and buffers, and the tensors a state keeps beside them (PSRL's posterior, which has no net)."""
+    states = res[1].values() if isinstance(res, tuple) else [res.train_state]
+    tensors = [t for ts in states for t in (*ts.model.state_dict().values(), *ts.extra.values())]
+    return [t for t in tensors if t.is_floating_point()]
+
+
 def examples_phase(torch, smi: str = "") -> tuple[dict, list[str]]:
-    """Phase 56: four port scripts through their own ``main([...])`` on the card (``EX_SCRIPTS``), their output
-    printed as it comes. Counters are zeroed just before and read just after each ``main``:
-    ``atari_rainbow.py`` (the catch game, a prioritized uint8 replay of 100,000 frames over 16 envs, noisy dueling
-    C51) must launch ``gather_rows`` 2 and ``prefix_sum_idx`` 1 per update, ``tree_update`` 1 per update and 1 per
-    collect step (prefill included), no ``physics_fused``, and end with a tree that ``_check_tree`` passes;
-    ``mujoco_sac.py`` (HalfCheetah, 32 envs, one megastep graph per chunk) must launch ``physics_fused`` once per
-    vector step, prefill and test phase included, and nothing else; ``vizdoom_c51.py`` (SyntheticDoom, a uint8 replay
-    of 100,000 frames of 40x60 over 16 envs, C51) ``gather_rows`` 2 per update and nothing else, then
-    :func:`_doom_checks`; ``vizdoom_ppo.py`` (PPO over NatureCNN actor and critic at 40x60) no kernel. Each must end
-    with finite test returns and finite weights, on the card. Returns ({name: {kernel: launches}}, lines)."""
+    """Phase 56: port scripts through their own ``main([...])`` on the card (``EX_SCRIPTS``), their output printed as
+    it comes. Counters are zeroed just before and read just after each ``main``, and must equal what the run's
+    ``ExRun.launches`` says for its updates and vector steps: ``atari_rainbow.py`` (the catch game, a prioritized
+    uint8 replay of 100,000 frames over 16 envs, noisy dueling C51) ``gather_rows`` 2 and ``prefix_sum_idx`` 1 per
+    update, ``tree_update`` 1 per update and 1 per collect step (prefill included), and a tree that ``_check_tree``
+    passes; ``mujoco_sac.py``, ``mujoco_trpo.py``, ``mujoco_td3.py`` and ``mujoco_ppo_hl.py`` (HalfCheetah)
+    ``physics_fused`` once per vector step, prefill and test phase included, and nothing else; ``vizdoom_c51.py``
+    (SyntheticDoom, a uint8 replay of 100,000 frames of 40x60) and ``atari_sac.py`` (a uniform uint8 replay)
+    ``gather_rows`` 2 per update and nothing else, then :func:`_doom_checks` on the doom run; every other script no
+    kernel. Each must end with one finite test phase per trainer it builds (self-play: finite returns of its
+    evaluation against the random policy) and finite weights on the card; ``mujoco_ppo_hl.py``'s update must run as
+    step graphs, ``dqn_cartpole.py --logdir`` must write its TensorBoard events. Returns
+    ({name: {kernel: launches}}, lines)."""
     import functools
     import importlib
+    import shutil
 
     by_name, lines = {}, []
-    for name, (module, argv, cut) in EX_SCRIPTS.items():
-        script = importlib.import_module(module)
-        train = script.train if cut else None
-        if cut:
-            script.train = functools.partial(train, **cut)
+    for name, run in EX_SCRIPTS.items():
+        script = importlib.import_module(run.module)
+        saved = {attr: getattr(script, attr) for attr in run.partials}
+        argv = list(run.argv)
+        logdir = tempfile.mkdtemp(prefix="tt_examples_") if argv[-1:] == ["--logdir"] else None
+        if logdir is not None:
+            argv.append(logdir)
+        for attr, keywords in run.partials.items():
+            setattr(script, attr, functools.partial(saved[attr], **keywords))
         t0 = time.perf_counter()
         try:
-            with _Recording() as rec:
+            with _Recording(run.trainer) as rec:
                 _zero_launches()
                 res = script.main(["--device", DEV, *argv])
                 launches = _read_launches()
+            wall = time.perf_counter() - t0
+            events = sum(1 for _ in Path(logdir).rglob("events.out.tfevents.*")) if logdir else 0
         finally:
-            if cut:
-                script.train = train
-        wall = time.perf_counter() - t0
-        (trainer,) = rec.trainers
-        envs = trainer.train_collector.venv.num_envs
-        vector_steps = res.env_step // envs
-        params = list(res.train_state.model.parameters())
-        if not all(p.device.type == torch.device(DEV).type and bool(torch.isfinite(p).all()) for p in params):
+            for attr, fn in saved.items():
+                setattr(script, attr, fn)
+            if logdir is not None:
+                shutil.rmtree(logdir, ignore_errors=True)
+        params = _ex_weights(torch, res)
+        if not params or not all(p.device.type == torch.device(DEV).type and bool(torch.isfinite(p).all())
+                                 for p in params):
             raise AssertionError(f"{name}: a weight is off the card or not finite")
-        if len(rec.tests) != 1 or not np.isfinite(rec.tests[0].returns).all() or not np.isfinite(res.best_reward):
-            raise AssertionError(f"{name}: test phases {[s.returns for s in rec.tests]}, best {res.best_reward}")
-        n_upd = res.gradient_step
         none = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
-        if name == "examples_rainbow":
+        if isinstance(res, tuple):  # self-play: no trainer, the evaluation's collect stats
+            stats = res[0]
+            if rec.trainers or len(stats.returns) != run.partials["selfplay"]["eval_episodes"] or not np.isfinite(
+                    stats.returns).all() or launches != none:
+                raise AssertionError(f"{name}: {len(stats.returns)} evaluation returns, launches {launches}")
+            by_name[name] = launches
+            n_upd = sum(int(ts.step) for ts in res[1].values())
+            lines.append(f"{name}: {run.module}.main({argv}) with {run.partials} in {wall:.1f} s: {n_upd} updates "
+                         f"of the two agents, win rate vs random {float((stats.returns > 0).mean()):.2f} over "
+                         f"{len(stats.returns)} games; launches {launches} [{smi}]")
+            continue
+        trainer = rec.trainers[-1]
+        if len(rec.tests) != len(rec.trainers) or not all(np.isfinite(t.returns).all() and len(t.returns)
+                                                          for t in rec.tests) or not np.isfinite(res.best_reward):
+            raise AssertionError(f"{name}: test phases {[s.returns for s in rec.tests]} of {len(rec.trainers)} "
+                                 f"trainers, best {res.best_reward}")
+        envs = trainer.train_collector.venv.num_envs if trainer.train_collector is not None else 0
+        vector_steps = res.env_step // envs if envs else 0
+        n_upd = res.gradient_step
+        test_steps = rec.tests[-1].n_collected_steps // trainer.test_collector.venv.num_envs
+        detail = f"{vector_steps} train vector steps of {envs} envs, {n_upd} gradient steps"
+        if run.launches == "rainbow":
             expect = {"gather_rows": 2 * n_upd, "prefix_sum_idx": n_upd, "tree_update": n_upd + vector_steps,
                       "physics_fused": 0}
-            tree = _check_tree(torch, trainer.buffer, res.buf_state, torch.Generator(device=DEV).manual_seed(SEED),
-                               trainer.params.batch_size)
-        elif name == "examples_sac":
-            test_steps = rec.tests[0].n_collected_steps // trainer.test_collector.venv.num_envs
+            detail = _check_tree(torch, trainer.buffer, res.buf_state, torch.Generator(device=DEV).manual_seed(SEED),
+                                 trainer.params.batch_size)
+        elif run.launches == "physics":
             expect = {**none, "physics_fused": vector_steps + test_steps}
-            tree = f"{vector_steps} train and {test_steps} test vector steps"
-        elif name == "examples_doom_c51":
+            detail = f"{vector_steps} train and {test_steps} test vector steps, {n_upd} gradient steps"
+        elif run.launches == "gather":
             expect = {**none, "gather_rows": 2 * n_upd}
-            tree = _doom_checks(torch, res) if launches == expect else ""
+            if name == "examples_doom_c51" and launches == expect:
+                detail = _doom_checks(torch, res)
         else:
             expect = dict(none)
-            tree = f"{vector_steps} train vector steps of {envs} envs, {n_upd} gradient steps"
         if launches != expect or n_upd == 0:
             raise AssertionError(f"{name}: kernel launches {launches} for {n_upd} updates and {vector_steps} vector "
                                  f"steps, expected {expect}")
+        if name == "examples_ppo_hl":
+            graphs = trainer.step_graphs
+            if graphs is None or graphs.replays == 0:
+                raise AssertionError(f"{name}: the rollout update ran no step graph")
+            detail += f"; the update as step graphs: {graphs.captures} captures, {graphs.replays} replays"
+        if logdir is not None:
+            if events == 0:
+                raise AssertionError(f"{name}: the logger wrote no event file under --logdir")
+            detail += f"; {events} TensorBoard event file(s) under --logdir"
+        if len(rec.trainers) > 1:
+            detail += f"; trainers {[type(t).__name__ for t in rec.trainers]}"
         by_name[name] = launches
-        lines.append(f"{name}: {module}.main({argv}){f' with train{cut}' if cut else ''} in {wall:.1f} s: best_reward "
-                     f"{res.best_reward:.2f}, env_steps {res.env_step}, updates {n_upd}, test returns mean "
-                     f"{float(np.mean(rec.tests[0].returns)):.2f}; launches {launches}; {tree} [{smi}]")
+        cut = "".join(f" with {attr}{kw}" for attr, kw in run.partials.items())
+        cut += f" with trainer params {run.trainer}" if run.trainer else ""
+        lines.append(f"{name}: {run.module}.main({argv}){cut} in {wall:.1f} s: best_reward {res.best_reward:.2f}, "
+                     f"env_steps {res.env_step}, updates {n_upd}, test returns mean "
+                     f"{float(np.mean(rec.tests[-1].returns)):.2f}; launches {launches}; {detail} [{smi}]")
     return by_name, lines
 
 
@@ -5853,7 +5979,7 @@ def main() -> int:
     for kind in DIST_KINDS:
         t0 = time.perf_counter()
         # raises unless the gather kernel ran exactly twice per update
-        _, by_path[kind], lines = main_path(torch, kind, chunks=DIST_CHUNKS)
+        _, by_path[kind], lines = main_path(torch, kind, chunks=DIST_CHUNKS, steps=DIST_T)
         print("\n".join(lines), f"\n{kind} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for name in DIST_SCORE:
         t0 = time.perf_counter()

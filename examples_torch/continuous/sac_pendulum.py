@@ -57,7 +57,7 @@ def main(argv=None):
         collection_step_num_env_steps=8, update_per_step=0.5,
         start_steps=2000, start_random=False, stop_fn=lambda r: r >= -250,
     )).run(ts, buf_state, gen)
-    print(f"best_reward={res.best_reward:.1f} alpha={float(res.train_state.model.log_alpha.exp()):.3f}", flush=True)
+    print(f"best_reward={res.best_reward:.1f} alpha={float(res.train_state.model.log_alpha.detach().exp()):.3f}", flush=True)
     return res
 
 

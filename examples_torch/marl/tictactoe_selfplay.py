@@ -46,9 +46,10 @@ def make_dqn():
                target_update_freq=200, eps_training=0.2)
 
 
-def selfplay(make_env, device, generator):
-    """The self-play run on 8 envs of ``make_env``: a 500-step prefill, then 200 rounds of 64 steps and one
-    update of batch 64; then trained agent 0 against the mask-aware random policy over 100 episodes.
+def selfplay(make_env, device, generator, prefill: int = 500, rounds: int = 200, eval_episodes: int = 100):
+    """The self-play run on 8 envs of ``make_env``: a ``prefill``-step prefill, then ``rounds`` rounds of 64
+    steps and one update of batch 64; then trained agent 0 against the mask-aware random policy over
+    ``eval_episodes`` episodes (the JAX script's 500, 200 and 100 by default).
     Returns (the collect stats of the evaluation, the train states)."""
     obs0 = Batch(agent_id=torch.tensor(0, dtype=torch.int32), obs=torch.zeros(3, 3, 2),
                  mask=torch.ones(9, dtype=torch.bool))
@@ -63,8 +64,8 @@ def selfplay(make_env, device, generator):
         coll.buf_state = buffer.init(Batch(obs=obs0, act=torch.tensor(0), rew=torch.zeros(2),
                                            terminated=torch.tensor(False), truncated=torch.tensor(False),
                                            obs_next=obs0.map(torch.clone)), device=device)
-        coll.collect(ts, generator, n_step=500)
-        for _ in range(200):
+        coll.collect(ts, generator, n_step=prefill)
+        for _ in range(rounds):
             coll.collect(ts, generator, n_step=64)
             marl.update(ts, buffer, coll.buf_state, generator, 64)
 
@@ -74,7 +75,7 @@ def selfplay(make_env, device, generator):
         ets = {"agent0": ts["agent0"], "agent1": eval_marl.algorithms[1].init(device)}
         ec = HostCollector(eval_envs, eval_marl, None, device=device)
         ec.reset(seed=1)
-        stats = ec.collect(ets, generator, n_episode=100, training=False)
+        stats = ec.collect(ets, generator, n_episode=eval_episodes, training=False)
     finally:
         envs.close()
         eval_envs.close()

@@ -214,6 +214,22 @@ class TPix(tcore.Env):
                              terminated=t >= 5, truncated=torch.zeros_like(t, dtype=torch.bool), info=Batch())
 
 
+def _first_difference(compared, tact, jact) -> str:
+    """Where the two rollouts first part, for a failure's message: the first compared field that differs, its
+    first differing index (``[T, E]`` outputs: step, env; ring fields: env, slot) and both values, with the
+    actions each ring holds for that env (the greedy actions, from which every other field follows)."""
+    for name, got, want in compared:
+        if got.shape != want.shape:
+            return f"first difference: {name} shapes {got.shape} (port) and {want.shape} (JAX)"
+        bad = np.argwhere(got != want)
+        if len(bad):
+            i = tuple(int(x) for x in bad[0])
+            env = i[1] if name in ("done", "ep_ret", "ep_len") else i[0]
+            return (f"first difference: {name}[{i}] is {got[i].tolist()} (port) and {want[i].tolist()} (JAX); "
+                    f"env {env}'s ring actions {tact[env].tolist()} (port) and {jact[env].tolist()} (JAX)")
+    return "no field differs"
+
+
 def test_collector_rollout_stores_identical_rings():
     jalgo, jts, talgo, tts = _algos()
     jb, js, tb, ts = _buffers(C=8)
@@ -236,15 +252,17 @@ def test_collector_rollout_stores_identical_rings():
 
     jc, js, jout = jcoll.collect(jts, jc, js, jax.random.key(1), 12, training=True)
     tc, ts, tout = tcoll.collect(tts, tc, ts, torch.Generator(), 12, training=True)
-    for k in ("done", "ep_ret", "ep_len"):
-        np.testing.assert_array_equal(tout[k].numpy(), np.asarray(jout[k]), err_msg=k)
+    compared = ([(k, tout[k].numpy(), np.asarray(jout[k])) for k in ("done", "ep_ret", "ep_len")]
+                + [(f"ring {k}", ts.data[k].numpy(), np.asarray(js.data[k]).astype(ts.data[k].numpy().dtype))
+                   for k in js.data.keys()]
+                + [(f, getattr(ts, f).numpy(), np.asarray(getattr(js, f))) for f in ("cursor", "size", "last_idx")]
+                + [("obs", tc.obs.numpy(), np.asarray(jc.obs))])
+    where = _first_difference(compared, ts.data["act"].numpy(), np.asarray(js.data["act"]))
+    for k, got, want in compared[:3]:
+        np.testing.assert_array_equal(got, want, err_msg=f"{k}; {where}")
     assert int(np.asarray(jout.done).sum()) >= 3  # auto-reset ran
-    for k in js.data.keys():
-        np.testing.assert_array_equal(ts.data[k].numpy(), np.asarray(js.data[k]).astype(ts.data[k].numpy().dtype),
-                                      err_msg=k)
-    for f in ("cursor", "size", "last_idx"):
-        np.testing.assert_array_equal(getattr(ts, f).numpy(), np.asarray(getattr(js, f)))
-    np.testing.assert_array_equal(tc.obs.numpy(), np.asarray(jc.obs))
+    for k, got, want in compared[3:]:
+        np.testing.assert_array_equal(got, want, err_msg=f"{k}; {where}")
 
 
 def test_off_policy_trainer_runs_the_update_cadence_on_cpu():

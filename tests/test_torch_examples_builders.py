@@ -2,7 +2,9 @@
 one script per runner: ``atari_rainbow`` and ``atari_ppo`` (``atari/_runner.py``),
 ``mujoco_sac`` and ``mujoco_ppo`` (their own ``train``), ``mujoco_trpo``
 (``mujoco/_runner.py``), ``mujoco_sac_hl`` (``mujoco/_hl.py``),
-``dqn_cartpole`` and ``cql_pendulum`` (``offline/_gather.py``).
+``dqn_cartpole`` and ``cql_pendulum`` (``offline/_gather.py``). ``tests/test_torch_examples_builders_{atari,
+mujoco,misc}.py`` hold every other script that builds a trainer the same way, through the helpers here
+(``check_atari_script``, ``check_trained_script``, ``check_hl_script``).
 
 Each side's ``__main__`` runs at its defaults (the JAX script through
 ``runpy``, the port's through ``main(["--device", "cpu"])``) while the
@@ -50,11 +52,11 @@ def _capture(monkeypatch, owner, name: str):
     monkeypatch.setattr(owner, name, record)
 
 
-def run_jax_script(rel: str, monkeypatch, patch):
-    """Run ``examples/<rel>``'s ``__main__`` with no arguments; ``patch(siblings)`` installs the captures
-    (``siblings``: the script folder's ``_runner`` / ``_hl``, imported first). Returns the capture."""
+def run_jax_script(rel: str, monkeypatch, patch, argv=()):
+    """Run ``examples/<rel>``'s ``__main__`` with ``argv`` (none by default); ``patch(siblings)`` installs the
+    captures (``siblings``: the script folder's ``_runner`` / ``_hl``, imported first). Returns the capture."""
     path = REPO / "examples" / rel
-    monkeypatch.setattr(sys, "argv", [str(path)])
+    monkeypatch.setattr(sys, "argv", [str(path), *argv])
     monkeypatch.syspath_prepend(str(path.parent))
     for name in SIBLINGS:
         monkeypatch.delitem(sys.modules, name, raising=False)
@@ -135,6 +137,11 @@ def assert_same_buffer(jbuf, tbuf):
 REWARD_GRID = np.linspace(-2000.0, 2000.0, 16001)
 
 
+def _num_envs(venv) -> int:
+    """A device vector env's ``num_envs``, a host vector env's length."""
+    return venv.num_envs if hasattr(venv, "num_envs") else len(venv)
+
+
 def assert_same_trainers(jtrainer_obj, ttrainer_obj):
     assert type(ttrainer_obj).__name__ == type(jtrainer_obj).__name__
     assert_same_trainer_params(ttrainer_obj.params, jtrainer_obj.params)
@@ -145,8 +152,10 @@ def assert_same_trainers(jtrainer_obj, ttrainer_obj):
         jc, tc = getattr(jtrainer_obj, name, None), getattr(ttrainer_obj, name, None)
         assert (jc is None) == (tc is None), name
         if jc is not None:
-            assert tc.venv.num_envs == jc.venv.num_envs, name
-            assert type(tc.venv.env).__name__ == type(jc.venv.env).__name__, name
+            assert type(tc).__name__ == type(jc).__name__, name
+            assert _num_envs(tc.venv) == _num_envs(jc.venv), name
+            if hasattr(jc.venv, "env"):  # a device vector env: the env it steps
+                assert type(tc.venv.env).__name__ == type(jc.venv.env).__name__, name
     if getattr(jtrainer_obj, "buffer", None) is not None:
         assert_same_buffer(jtrainer_obj.buffer, ttrainer_obj.buffer)
 
@@ -164,7 +173,12 @@ ATARI = {"atari_rainbow": ("run_offpolicy", "OffPolicyTrainer"), "atari_ppo": ("
 
 @pytest.mark.parametrize("script", list(ATARI))
 def test_atari_scripts_build_the_jax_algorithm_and_trainer(script, monkeypatch):
-    runner_fn, trainer_cls = ATARI[script]
+    check_atari_script(script, *ATARI[script], monkeypatch)
+
+
+def check_atari_script(script: str, runner_fn: str, trainer_cls: str, monkeypatch):
+    """``atari/<script>.py`` in both packages through its runner's ``runner_fn``: the parsed options, the
+    algorithm and its nets, then the trainer of class ``trainer_cls`` that each runner assembles."""
     rel = f"atari/{script}.py"
     jargs, jkw = run_jax_script(rel, monkeypatch, lambda s: _capture(monkeypatch, s["_runner"], runner_fn))
     abstract_jax_init(monkeypatch, type(jargs[1]))
@@ -218,21 +232,39 @@ TRAINED = {  # script: (its trainer's class, the JAX algorithm's module and clas
 @pytest.mark.parametrize("rel", list(TRAINED))
 def test_scripts_build_the_jax_algorithm_and_trainer(rel, monkeypatch):
     trainer_cls, module, cls = TRAINED[rel]
-    abstract_jax_init(monkeypatch, getattr(importlib.import_module(f"tianshou_tpu.algorithm.modelfree.{module}"), cls))
+    check_trained_script(rel, trainer_cls, f"tianshou_tpu.algorithm.modelfree.{module}:{cls}", monkeypatch)
+
+
+def check_trained_script(rel: str, trainer_cls: str, jalgo: str, monkeypatch, argv=()):
+    """``<rel>`` in both packages with the ``run`` of their trainer class ``trainer_cls`` captured, the JAX
+    algorithm class ``jalgo`` (``module:Class``) initialized abstractly; ``argv`` after both scripts' names (and
+    after the port's ``--device cpu``). Returns the two trainers and their train states."""
+    module, cls = jalgo.split(":")
+    abstract_jax_init(monkeypatch, getattr(importlib.import_module(module), cls))
     _capture(monkeypatch, getattr(jtrainer, trainer_cls), "run")
-    (jt, jts, *_), _ = run_jax_script(rel, monkeypatch, lambda s: None)
+    (jt, jts, *_), _ = run_jax_script(rel, monkeypatch, lambda s: None, argv)
     _capture(monkeypatch, getattr(ttrainer, trainer_cls), "run")
-    (tt, tts, *_), _ = run_port_script(rel)
+    (tt, tts, *_), _ = run_port_script(rel, ("--device", "cpu", *argv))
     assert_same_hyperparameters(jt.algo, tt.algo)
     assert_same_net_fields(jt.algo, tt.algo)
     assert_same_nets(jts, tts)
     assert_same_trainers(jt, tt)
+    return (jt, jts), (tt, tts)
 
 
 def test_the_high_level_sac_script_builds_the_jax_experiment(monkeypatch, tmp_path):
+    from tianshou_tpu.algorithm.modelfree.sac import SAC
+
+    check_hl_script("mujoco/mujoco_sac_hl.py", "OffPolicyTrainer", SAC, monkeypatch, tmp_path)
+
+
+def check_hl_script(rel: str, trainer_cls: str, jalgo_cls, monkeypatch, tmp_path):
+    """``mujoco/<rel>`` in both packages through ``mujoco/_hl.py:run``: the parsed options, the builder's class,
+    the training config, the params and every ``with_*`` factory; then the algorithm (JAX class ``jalgo_cls``),
+    its nets and the trainer of class ``trainer_cls`` that each builder's experiment assembles."""
     monkeypatch.chdir(tmp_path)  # the experiment's persistence writes under ./log
-    rel = "mujoco/mujoco_sac_hl.py"
-    (jns, jbuilder_cls, jtraining), jkw = run_jax_script(rel, monkeypatch, lambda s: _capture(monkeypatch, s["_hl"], "run"))
+    (jns, jbuilder_cls, jtraining), jkw = run_jax_script(rel, monkeypatch,
+                                                         lambda s: _capture(monkeypatch, s["_hl"], "run"))
     tmod = port_module(rel)
     _capture(monkeypatch, tmod, "run")
     (tns, tbuilder_cls, ttraining), tkw = run_port_script(rel)
@@ -242,23 +274,23 @@ def test_the_high_level_sac_script_builds_the_jax_experiment(monkeypatch, tmp_pa
     assert dataclasses.asdict(ttraining) == dataclasses.asdict(jtraining)
     assert set(tkw) == set(jkw)
     assert dataclasses.asdict(tkw["params"]) == dataclasses.asdict(jkw["params"])
-    for key in ("with_actor_factory", "with_critic_factory"):
+    factories = [key for key in jkw if key.startswith("with_")]
+    for key in factories:
         assert vars(tkw[key]) == vars(jkw[key]), key
     # the builders' algorithms and the trainers their experiments assemble
     from examples_torch.mujoco import _hl as thl
     from tianshou_tpu.env.mujoco import make as jmake
-    from tianshou_tpu.algorithm.modelfree.sac import SAC as jalgo_cls
     from tianshou_tpu.highlevel.config import ExperimentConfig as JExperimentConfig
 
     abstract_jax_init(monkeypatch, jalgo_cls)
     jb = jbuilder_cls(lambda: jmake(jns.task), JExperimentConfig(seed=jns.seed, watch=jns.watch), jtraining)
     jb.with_params(jkw["params"])
-    for key in ("with_actor_factory", "with_critic_factory"):
+    for key in factories:
         getattr(jb, key)(jkw[key])
     tb = thl.build(tns, tbuilder_cls, ttraining, tkw["params"], **{k: v for k, v in tkw.items() if k != "params"})
     recorded = []
     for trainer_mod in (jtrainer, ttrainer):
-        monkeypatch.setattr(trainer_mod.OffPolicyTrainer, "run",
+        monkeypatch.setattr(getattr(trainer_mod, trainer_cls), "run",
                             lambda self, ts, *a: (recorded.append((self, ts)), (_ for _ in ()).throw(_Captured())))
     with pytest.raises(_Captured):
         jb.build().run("recorded")

@@ -55,6 +55,23 @@ def test_tensorboard_logger(tmp_path):
     assert TensorboardLogger(log_dir=str(tmp_path / "fresh")).restore_data() == (0, 0, 0)
 
 
+def test_tensorboard_logger_reads_back_its_event_files(tmp_path, monkeypatch):
+    """The logger writes through ``torch.utils.tensorboard``, which needs only the ``tensorboard`` package: the
+    scalars read back from its event files, and the counters from its sidecar."""
+    import sys
+
+    pytest.importorskip("tensorboard")
+    monkeypatch.setitem(sys.modules, "tensorflow", None)  # TensorBoard's own stand-in; TensorFlow's import is slow
+    lg = TensorboardLogger(log_dir=str(tmp_path), test_interval=1)
+    assert type(lg.writer).__module__.startswith("torch.utils.tensorboard") and lg.log_dir == str(tmp_path)
+    for step, reward in ((0, 1.5), (100, 2.5), (200, -3.0)):
+        lg.log_test_data({"test/reward": reward}, step=step)
+    lg.save_data(epoch=3, env_step=200, gradient_step=20)
+    lg.writer.close()
+    assert lg.restore_logged_data()["test/reward"] == [(0, 1.5), (100, 2.5), (200, -3.0)]
+    assert TensorboardLogger(log_dir=str(tmp_path)).restore_data() == (3, 200, 20)
+
+
 def _recorder(base, **intervals):
     class Recorder(base):
         def __init__(self):

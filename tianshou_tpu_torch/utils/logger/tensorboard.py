@@ -1,7 +1,9 @@
 """TensorBoard logger (port of ``tianshou_tpu/utils/logger/tensorboard.py``;
-reference tianshou/utils/logger/tensorboard.py:17) on tensorboardX, with the
-checkpoint counters in a JSON sidecar so that ``restore_data`` does not parse
-event files. tensorboardX (and tensorboard, for ``restore_logged_data``) is
+reference tianshou/utils/logger/tensorboard.py:17) on PyTorch's own
+``torch.utils.tensorboard``, which needs only the ``tensorboard`` package and
+writes the event files that the JAX package's tensorboardX writer writes, with
+the checkpoint counters in a JSON sidecar so that ``restore_data`` does not
+parse event files. The writer (and tensorboard, for ``restore_logged_data``) is
 imported when it is needed, never when this module is imported."""
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ class TensorboardLogger(BaseLogger):
     ) -> None:
         super().__init__(train_interval, test_interval, update_interval, info_interval)
         if writer is None:
-            from tensorboardX import SummaryWriter
+            from torch.utils.tensorboard import SummaryWriter
 
             writer = SummaryWriter(log_dir)
         self.writer = writer
-        self.log_dir = log_dir or writer.logdir
+        self.log_dir = log_dir or writer.log_dir
         self._meta_path = os.path.join(self.log_dir, "checkpoint_meta.json")
 
     def write(self, step_type: str, step: int, data: dict) -> None:
