@@ -263,9 +263,10 @@ Phases, each of which fails the run:
    steps to 2,000. No kernel. The phases 45-50 print their total time.
 
 51. ``dp_dqn_pixels``: ``parallel/mesh.py:make_dp_offpolicy_train_step`` at world size 1 on a one-rank NCCL group over
-   the DQN pixel pipeline of phase 5 at full width: ``DP_CHUNKS`` chunks (410 updates each) held bit-identical, every
-   tensor of the train state, rings, collect state and stats, to ``OffPolicyTrainer.megastep`` from a copy of the same
-   state and generator; exactly 2 ``gather_rows`` per update; the eager wall per chunk beside the program's.
+   the DQN pixel pipeline of phase 5 at full width: ``DP_CHUNKS`` chunks of ``DP_T`` env steps (205 updates each) held
+   bit-identical, every tensor of the train state, rings, collect state and stats, to ``OffPolicyTrainer.megastep``
+   from a copy of the same state and generator; exactly 2 ``gather_rows`` per update; the eager wall per chunk beside
+   the program's.
 52. ``dp_ppo_halfcheetah``: ``make_dp_train_step`` at world size 1 over ``bench_mujoco_ppo``'s PPO (HalfCheetah,
    E = 2,048, T = 32, 4 passes of batch 16,384): ``DP_PPO_CALLS`` rollouts with their updates bit-identical to
    ``OnPolicyTrainer``'s two programs; one ``physics_fused`` launch per vector step; the walls side by side. The card
@@ -303,6 +304,22 @@ Phases, each of which fails the run:
    name and power limit. The kernel phase (3) also holds and times ``gather_rows`` at the ViZDoom ring's 256 rows of
    2,400 bytes.
 
+57. ``update_burst_pixels`` (``bench.py:186-232`` ``bench_atari_update_burst``; runs after phase 5's paths): the pixel
+   pipeline of phase 5 at its widths, prefilled by ``UB_PREFILL`` collect steps at eps 0.05, then
+   ``OffPolicyTrainer.update_burst`` of ``UB_UPDATES`` DQN updates of batch ``UB_BATCH`` as one CUDA graph (eager
+   warm-up, capture, ``UB_ITERS`` timed replays) against the same updates run eagerly from one state and generator
+   state: sampled indices bit-identical, losses, weights, target and Adam state within ``GRAPH_ATOL``; exactly 2
+   ``gather_rows`` per update, each of 4 x ``UB_BATCH`` rows of 7,056 B, and one such gather bit-exact against
+   ``src[idx]`` and timed beside it and its byte bound; grad steps/s, device ms per grad step, samples/s, the traced
+   kernels per update, and the CNN's achieved TFLOP/s by ``bench.py``'s count beside the dense bf16 peak of the H100
+   SXM data sheet.
+58. ``ppo_halfcheetah_16k`` (``bench.py:359-362`` ``mujoco_ppo_16k``; runs after phase 12's paths): ``ppo_path`` at
+   E = 16,384, T = 16, 4 passes of batch 65,536 and 2 timed replays, nothing cut, with phase 12's checks and one
+   graph for the whole update (16 gradient steps, under ``OnPolicyTrainer.STEP_GRAPHS_ABOVE``); then
+   ``physics_at_scale``: one vector step at E = 16,384 against the plain version (near home every env inside ``q``
+   2e-4 / ``qd`` 5e-3; on the path's own state at least 99.5%), and the kernel's time there beside its first 2,048
+   rows' and its operations bound.
+
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
 
@@ -327,6 +344,7 @@ import numpy as np
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores, same sheet
+H100_BF16_OPS_PER_S = 989e12    # bf16 on the tensor cores, dense (1,979 with sparsity), same sheet, at 700 W
 
 # the main path's widths and depth (bench.py's pixel pipeline)
 E = 256        # envs
@@ -367,6 +385,13 @@ OPG_E, OPG_T, OPG_REPEAT, OPG_BATCH, OPG_TOTAL, OPG_TARGET_KL = 64, 16, 3, 256, 
 # the PPO physics paths (bench.py:bench_mujoco_ppo: E 2048, T 32, repeat 4, batch 16384, iters 4); Ant at T = 16
 PPO_E, PPO_REPEAT, PPO_BATCH, PPO_ITERS = 2048, 4, 16384, 4
 PPO_PATHS = (("HalfCheetah", 32), ("Ant", 16))  # (task, rollout steps)
+# bench.py:359-362 mujoco_ppo_16k, "the north-star configuration": bench_mujoco_ppo at E 16384, T 16, batch 65536,
+# iters 2 (nothing cut)
+PPO16K_E, PPO16K_T, PPO16K_BATCH, PPO16K_ITERS = 16384, 16, 65536, 2
+# bench.py:186-232 bench_atari_update_burst: the pixel pipeline, a prefill of 64 collect steps at eps 0.05, then
+# bursts of 64 DQN updates of batch 1024 (iters 4); bench.py:221-224 counts 18.7 MFLOP a frame for the NatureCNN's
+# forward and four forwards' worth per sample (the online and the target forward, the backward twice a forward)
+UB_PREFILL, UB_BATCH, UB_UPDATES, UB_ITERS, UB_FWD_FLOP = 64, 1024, 64, 4, 18.7e6
 # PPO on CartPole (tests/test_onpolicy.py:17-53): 16 train envs, T 128, repeat 10, batch 256, epochs of 10,000 steps
 PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 256, 20, 10000
 PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
@@ -412,7 +437,7 @@ PEN_SCALE = 0.3
 PEN_PATH = ("HalfCheetah", 64)
 # Humanoid on the plain route (dynamics.step, no kernel in either package): E 2048, the depth cut from 64 vector
 # steps to HUM_T
-HUM_T = 4
+HUM_T = 2
 # InvertedPendulum SAC (tests/test_mujoco_table.py:41-53 and its _run): 8 train and 10 test envs, 128x128 nets, lr
 # 3e-4, alpha "auto", a 100,000-row replay, batch 256, T 8, 0.5 updates per env step, a prefill of 2,000 steps with
 # the policy's own actions, at most 12 epochs of 5,000 steps; it must reach the table's 1,000
@@ -1190,17 +1215,7 @@ def graph_phase(torch, kind: str) -> list[str]:
         sides[side] = dict(ts=s_ts, bs=s_bs, cstate=s_cs, gen=s_gen, outs=[], stats=[])
     del ts, bs, cstate
     for side, sd in sides.items():
-        # the sampled indices, logged on the device in order: a replay writes the next rows too
-        log = torch.full((GRAPH_CALLS * GRAPH_K, BATCH), -1, dtype=torch.int64, device="cuda")
-        row = torch.zeros((), dtype=torch.int64, device="cuda")
-
-        def logging_sampler(*args, log=log, row=row):
-            idx = sample_indices(*args)
-            log.index_copy_(0, row.view(1), idx.unsqueeze(0))
-            row.add_(1)
-            return idx
-
-        buffer.sample_indices = logging_sampler
+        buffer.sample_indices, log = _logged(torch, sample_indices, (GRAPH_CALLS * GRAPH_K, BATCH))
         trainer = None
         if side == "graph":
             trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
@@ -1275,6 +1290,168 @@ def graph_phase(torch, kind: str) -> list[str]:
         f"{worst:.3e} (tolerance {GRAPH_ATOL}); launches {sd['launches']} as eager; replays and capture s "
         f"{ {n: (r, round(c, 3)) for n, (r, c) in sd['graphs'].items()} }; pool {sd['pool_mib']:.1f} MiB"
     ]
+
+
+def _logged(torch, fn, shape: tuple[int, ...], device: str = "cuda"):
+    """``fn`` wrapped so that each of its results is written into the next row of a log of ``shape`` on ``device``
+    (-1 where nothing was written), in order and without a host sync: a graph's replays write the next rows too.
+    Returns (the wrapped ``fn``, the log). The row counter lives in the wrapper: a graph that captured it must not
+    be replayed once the wrapper is gone."""
+    log = torch.full(shape, -1, dtype=torch.int64, device=device)
+    row = torch.zeros((), dtype=torch.int64, device=device)
+
+    def logging(*args):
+        out = fn(*args)
+        log.index_copy_(0, row.view(1), out.unsqueeze(0))
+        row.add_(1)
+        return out
+
+    return logging, log
+
+
+def update_burst_pixels_path(torch, smi: str):
+    """Phase 57: ``bench.py:bench_atari_update_burst`` in the port. The pixel pipeline of phase 5 at its widths
+    (``build_pipeline(torch, "dqn")``: E = 256, the uint8 rings of 256 x 512 frames), prefilled by ``UB_PREFILL``
+    collect steps at eps 0.05; then ``OffPolicyTrainer.update_burst`` of ``UB_UPDATES`` DQN updates of batch
+    ``UB_BATCH`` as one CUDA graph: an eager warm-up, a capture, ``UB_ITERS`` timed replays. cuDNN is held to
+    deterministic algorithms (the timed replays too), so that from one state and one generator state the graph's
+    bursts and the eager loop (``algo.update`` on a deep copy of the train state, as many updates) sample
+    bit-identical indices (logged on the device, two small kernels per update) and agree on losses, weights,
+    target and Adam's state within ``GRAPH_ATOL``. Counters zeroed just before and read just after the graph's
+    calls: ``gather_rows`` exactly twice per update, every call at ``UB_BATCH`` x 4 rows of 7,056 B; one such
+    gather on the run's own ring and rows bit-exact against ``src[idx]`` and timed beside it and its byte bound;
+    one replayed burst traced. Returns ({kernel: launches}, lines, the gather's numbers at that shape)."""
+    import copy
+
+    from tianshou_tpu_torch.data.buffer import base as buffer_base
+    from tianshou_tpu_torch.ops.kernels import gather
+    from tianshou_tpu_torch.trainer.trainer import OffPolicyTrainer, OffPolicyTrainerParams
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    algo, ts, buffer, bs, coll = build_pipeline(torch, "dqn")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cstate = coll.reset(gen)
+    t0 = time.perf_counter()
+    coll.collect(ts, cstate, bs, gen, UB_PREFILL)  # the policy at eps_training 0.05, as bench.py's prefill scan
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    init = [p.detach().clone() for p in ts.model.parameters()]
+    e_ts = copy.deepcopy(ts)
+    e_gen = torch.Generator(device="cuda")
+    e_gen.set_state(gen.get_state())
+    calls = 2 + UB_ITERS
+    n = calls * UB_UPDATES
+    shapes, first = set(), []  # (rows, row bytes) of every gather run or captured; the first gather's (src, rows)
+    real_gather, sample_indices = buffer_base.gather_rows, buffer.sample_indices
+
+    def recording_gather(src, idx):
+        shapes.add((idx.shape[0], src.shape[1] * src.element_size()))
+        if not first:
+            first.append((src, idx.clone()))
+        return real_gather(src, idx)
+
+    buffer_base.gather_rows = recording_gather
+    try:
+        # rows for the bursts the trace below replays too; the graph writes them through the logger's counter,
+        # which ``g_sampler`` keeps alive while the graph replays
+        g_sampler, g_log = _logged(torch, sample_indices, (n + (1 + TRACE_TRIES) * UB_UPDATES, UB_BATCH))
+        buffer.sample_indices = g_sampler
+        trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(batch_size=UB_BATCH, verbose=False))
+        walls, dev_ms, g_stats = [], [], []
+        _zero_launches()
+        for _ in range(calls):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            stats = trainer.update_burst(ts, bs, gen, UB_UPDATES)
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            dev_ms.append(a.elapsed_time(b))
+            g_stats.append({k: v.clone() for k, v in stats.items()})
+        launches = _read_launches()
+        buffer.sample_indices, e_log = _logged(torch, sample_indices, (n, UB_BATCH))
+        t0 = time.perf_counter()
+        e_stats = [algo.update(e_ts, buffer, bs, e_gen, UB_BATCH)[2] for _ in range(n)]
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    finally:
+        buffer_base.gather_rows, buffer.sample_indices = real_gather, sample_indices
+    torch.backends.cudnn.deterministic = deterministic
+
+    burst = trainer.graph_pool.graphs[0]
+    if len(trainer.graph_pool.graphs) != 1 or burst.replays != calls - 1:
+        raise AssertionError(f"update_burst_pixels: programs {[(g.name, g.replays) for g in trainer.graph_pool.graphs]}")
+    expect = {"gather_rows": 2 * n, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
+    if launches != expect or burst.launches != {"gather_rows": 2 * UB_UPDATES}:
+        raise AssertionError(f"update_burst_pixels: launches {launches} ({burst.launches} a replay) for {n} updates, "
+                             f"expected {expect}")
+    row_bytes = 84 * 84
+    if shapes != {(4 * UB_BATCH, row_bytes)}:
+        raise AssertionError(f"update_burst_pixels: gathers of (rows, row bytes) {sorted(shapes)}, expected "
+                             f"{(4 * UB_BATCH, row_bytes)} only")
+    if int((e_log < 0).sum()) or not torch.equal(g_log[:n], e_log):
+        raise AssertionError("update_burst_pixels: the graph's sampled indices differ from the eager loop's")
+    if torch.equal(g_log[n - 2 * UB_UPDATES:n - UB_UPDATES], g_log[n - UB_UPDATES:n]):
+        raise AssertionError("update_burst_pixels: two replays drew the same indices")
+    worst = 0.0
+    for call in range(calls):
+        for k, v in g_stats[call].items():
+            want = torch.stack([s[k] for s in e_stats[call * UB_UPDATES:(call + 1) * UB_UPDATES]])
+            worst = max(worst, float((v.double() - want.double()).abs().max()))
+    for a, b in ((ts.model, e_ts.model), (ts.target, e_ts.target)):
+        for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    for x, y in zip(_optimizer_state(ts), _optimizer_state(e_ts)):
+        worst = max(worst, float((x.detach().double() - y.detach().double()).abs().max()))
+    if worst > GRAPH_ATOL or not int(ts.step) == int(e_ts.step) == n:
+        raise AssertionError(f"update_burst_pixels: graph against eager max |diff| {worst:.3e} (tolerance {GRAPH_ATOL}), "
+                             f"steps {int(ts.step)} / {int(e_ts.step)} of {n}")
+    if not all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()) \
+            or not bool(torch.isfinite(g_stats[-1]["loss"]).all()):
+        raise AssertionError("update_burst_pixels: a non-finite weight or loss")
+    if all(torch.equal(a, b) for a, b in zip(init, ts.model.parameters())):
+        raise AssertionError("update_burst_pixels: training left the weights unchanged")
+
+    # one gather at the burst's shape, on the run's own ring and rows, against src[idx]
+    src, idx = first[0]
+    got = gather.gather_rows(src, idx)
+    if not torch.equal(got, src[idx]) or not torch.equal(got, gather.gather_rows_reference(src, idx)):
+        raise AssertionError(f"gather_rows of {idx.numel()} rows of {row_bytes} B differs from src[idx]")
+    kern, kern_e = _time_ms(lambda: gather.gather_rows(src, idx))
+    plain = _time_ms(lambda: gather.gather_rows_reference(src, idx))[0]
+    library = _time_ms(lambda: src[idx])[0]
+    bound = (2 * idx.numel() * row_bytes + idx.numel() * idx.element_size()) / H100_HBM_BYTES_PER_S * 1e3
+    gather_rec = {"shape": f"uint8{list(src.shape)} x {idx.numel()} rows", "ms": kern, "eager_ms": kern_e,
+                  "plain_ms": plain, "library_ms": library, "bound_ms": bound, "bound_by": "bytes"}
+    trace = _trace_burst(torch, trainer, ts, bs, gen, UB_UPDATES)
+
+    wall, dev = statistics.median(walls[2:]), statistics.median(dev_ms[2:])
+    tflops = UB_UPDATES * UB_BATCH * UB_FWD_FLOP * 4 / (dev / 1e3) / 1e12
+    return launches, [
+        f"update_burst_pixels path: E={E} ring uint8 {tuple(bs.data.obs.shape)} x2 ({bs.data.obs.numel() / 1e9:.3f} GB "
+        f"each), prefill {UB_PREFILL} steps at eps 0.05 in {prefill_s:.2f} s; bursts of {UB_UPDATES} updates of batch "
+        f"{UB_BATCH}, {calls} calls (eager warm-up {walls[0]:.2f} s, capture + replay {walls[1]:.2f} s, "
+        f"{UB_ITERS} timed replays); gather_rows {launches['gather_rows']} = 2 per update, each of "
+        f"{4 * UB_BATCH} rows of {row_bytes} B; cuDNN deterministic",
+        f"update_burst_pixels path, graph against eager ({n} updates, the eager loop {eager_s:.2f} s): sampled indices "
+        f"bit-identical; losses, weights, target and Adam state max |diff| {worst:.3e} (tolerance {GRAPH_ATOL})",
+        f"update_burst_pixels path, replays: grad_steps_per_s {UB_UPDATES / wall:.1f} device_ms_per_grad_step "
+        f"{dev / UB_UPDATES:.4f} (wall {wall / UB_UPDATES * 1e3:.4f}) samples_per_s {UB_UPDATES * UB_BATCH / wall:.1f}; "
+        f"achieved CNN {tflops:.2f} TFLOP/s by bench.py's count ({UB_FWD_FLOP / 1e6:g} MFLOP a frame x 4 per sample, "
+        f"over device time), {tflops * 1e12 / H100_BF16_OPS_PER_S:.4f} of the dense bf16 peak "
+        f"{H100_BF16_OPS_PER_S / 1e12:.0f} TFLOP/s (H100 SXM data sheet, 700 W); graph pool "
+        f"{trainer.graph_pool.memory_bytes() / 2**20:.1f} MiB; "
+        f"last loss {float(g_stats[-1]['loss'][-1]):.5f} [{smi}]",
+        f"update_burst_pixels path: " + trace,
+        f"update_burst_pixels path, gather_rows at the burst's shape ({gather_rec['shape']}, the run's first rows): "
+        f"bit-exact against src[idx]; kernel {kern * 1e3:.3f} us (CUDA graph) {kern_e * 1e3:.3f} (eager), plain "
+        f"{plain * 1e3:.3f}, src[idx] {library * 1e3:.3f}, bound {bound * 1e3:.3f} us (bytes: 2 x {idx.numel()} x "
+        f"{row_bytes} B + the indices over {H100_HBM_BYTES_PER_S / 1e12:.2f} TB/s), kernel at {bound / kern:.3f} of "
+        f"the bound's rate [{smi}]",
+    ], gather_rec
 
 
 def _optimizer_state(ts) -> list:
@@ -2059,16 +2236,7 @@ def onpolicy_graph_phase(torch) -> list[str]:
         sides[side] = dict(ts=s_ts, cstate=s_cs, gen=s_gen, outs=[], stats=[])
     del ts, cstate
     for side, sd in sides.items():
-        log = torch.full((GRAPH_CALLS, OPG_REPEAT, n_mb, OPG_T * OPG_E // n_mb), -1, dtype=torch.int64, device="cuda")
-        row = torch.zeros((), dtype=torch.int64, device="cuda")
-
-        def logging_draw(*args, log=log, row=row):
-            idx = draw(*args)
-            log.index_copy_(0, row.view(1), idx.unsqueeze(0))
-            row.add_(1)
-            return idx
-
-        algo.minibatch_indices = logging_draw
+        algo.minibatch_indices, log = _logged(torch, draw, (GRAPH_CALLS, OPG_REPEAT, n_mb, OPG_T * OPG_E // n_mb))
         trainer = None
         if side == "graph":
             trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
@@ -2140,35 +2308,44 @@ def onpolicy_graph_phase(torch) -> list[str]:
             f"pool {g['pool_mib']:.1f} MiB"]
 
 
-def ppo_path(torch, task: str, steps: int):
-    """``bench.py:bench_mujoco_ppo`` in the port: PPO on ``NormObs(task)`` at E = ``PPO_E``, one
+def ppo_path(torch, task: str, steps: int, num_envs: int = PPO_E, batch: int = PPO_BATCH, iters: int = PPO_ITERS,
+             name: str | None = None):
+    """``bench.py:bench_mujoco_ppo`` in the port: PPO on ``NormObs(task)`` at E = ``num_envs``, one
     program of ``steps`` collect steps (``keep_rollout=True``) and then ``update_rollout`` (``PPO_REPEAT``
-    passes, batch ``PPO_BATCH``) as ONE CUDA graph, called for an eager warm-up, a capture, then
-    ``PPO_ITERS`` timed replays. Then the collect and the update as two programs of their own, each
-    replayed ``PPO_ITERS`` times between CUDA events, for their device times apart. Returns
-    ({kernel: launches} over the six megasteps, report lines)."""
+    passes, minibatches of ``batch``) as ONE CUDA graph, called for an eager warm-up, a capture, then
+    ``iters`` timed replays. Then the collect and the update as ``OnPolicyTrainer``'s two programs, each
+    replayed ``iters`` times between CUDA events, for their device times apart; the update must take the
+    trainer's route of one graph (its gradient steps at most ``OnPolicyTrainer.STEP_GRAPHS_ABOVE``), which is
+    the route of the megastep's graph too. Returns ({kernel: launches} over the megasteps, report lines, (the
+    collector, its collect state) after the runs)."""
     import numpy as np
 
     from tianshou_tpu_torch.ops.kernels import gather, physics_fused, sumtree
+    from tianshou_tpu_torch.trainer.trainer import OnPolicyTrainer, OnPolicyTrainerParams
     from tianshou_tpu_torch.utils.graph import Graphed, GraphPool
 
-    name = f"ppo_{task.lower()}"
-    algo, ts, coll = build_ppo(torch, task, PPO_E)
+    name = name or f"ppo_{task.lower()}"
+    algo, ts, coll = build_ppo(torch, task, num_envs)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cstate = coll.reset(gen)
     count0 = cstate.env_state.rms.count.clone()
     init = [p.detach().clone() for p in ts.model.parameters()]
     pool = GraphPool("cuda")
+    n_mb = algo.minibatch_shape(steps * num_envs, batch)[0]
+    n_grad = algo.rollout_grad_steps(steps * num_envs, PPO_REPEAT, batch)
+    if n_grad > OnPolicyTrainer.STEP_GRAPHS_ABOVE:
+        raise AssertionError(f"{name} path: {n_grad} gradient steps a rollout, above the one-graph route's "
+                             f"{OnPolicyTrainer.STEP_GRAPHS_ABOVE}")
 
     def megastep():
         out = coll.rollout(ts, cstate, None, gen, steps, keep_rollout=True)
-        return out, algo.update_rollout(ts, out.rollout, gen, PPO_REPEAT, PPO_BATCH)[1]
+        return out, algo.update_rollout(ts, out.rollout, gen, PPO_REPEAT, batch)[1]
 
     program = Graphed(megastep, pool, (gen,), name="ppo_megastep")
     for module in (gather, sumtree, physics_fused):
         module.reset_launch_count()
     walls, device_ms = [], []
-    for call in range(2 + PPO_ITERS):
+    for call in range(2 + iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2179,7 +2356,7 @@ def ppo_path(torch, task: str, steps: int):
         walls.append(time.perf_counter() - t0)
         device_ms.append(a.elapsed_time(b))
     launches = _launches(gather, sumtree, physics_fused)
-    calls = 2 + PPO_ITERS
+    calls = 2 + iters
     if launches != {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": calls * steps}:
         raise AssertionError(f"{name} path: kernel launches {launches} for {calls} megasteps of {steps} steps")
     if program.replays != calls - 1 or program.launches != {"physics_fused": steps}:
@@ -2195,40 +2372,108 @@ def ppo_path(torch, task: str, steps: int):
         raise AssertionError(f"{name} path: a non-finite weight, statistic or loss")
     if all(torch.equal(a, b) for a, b in zip(init, ts.model.parameters())):
         raise AssertionError(f"{name} path: training left the weights unchanged")
-    n_mb = algo.minibatch_shape(steps * PPO_E, PPO_BATCH)[0]
-    if int(ts.step) != calls * PPO_REPEAT * n_mb or out.rollout.obs.shape != (steps, PPO_E, 17 if task == "HalfCheetah" else 27):
+    if int(ts.step) != calls * n_grad or out.rollout.obs.shape != (steps, num_envs, 17 if task == "HalfCheetah" else 27):
         raise AssertionError(f"{name} path: step {int(ts.step)}, rollout obs {tuple(out.rollout.obs.shape)}")
 
-    # the collect and the update apart, as two graphs over the same states
-    parts = {"collect": lambda: coll.rollout(ts, cstate, None, gen, steps, keep_rollout=True)}
-    held = parts["collect"]()
-    parts["update"] = lambda: algo.update_rollout(ts, held.rollout, gen, PPO_REPEAT, PPO_BATCH)[1]
+    # the collect and the update apart, as the trainer's two programs over the same states
+    trainer = OnPolicyTrainer(algo, coll, None, OnPolicyTrainerParams(
+        batch_size=batch, collection_step_num_env_steps=steps, update_step_num_repetitions=PPO_REPEAT, verbose=False))
+    held = coll.rollout(ts, cstate, None, gen, steps, keep_rollout=True)
+    parts = {"collect": lambda: trainer.collect_chunk(ts, cstate, None, gen, steps, keep_rollout=True),
+             "update": lambda: trainer.update_rollout(ts, held.rollout, gen)}
     apart = {}
     for part, fn in parts.items():
-        prog = Graphed(fn, pool, (gen,), name=f"ppo_{part}")
-        prog(), prog()
+        fn(), fn()  # the eager warm-up, then the capture and a replay
         times = []
-        for _ in range(PPO_ITERS):
+        for _ in range(iters):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            prog()
+            fn()
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
         apart[part] = statistics.median(times)
+    graphs = {g.name.split()[0]: g.replays for g in trainer.graph_pool.graphs}
+    if trainer.step_graphs is not None or graphs != {"collect_chunk": iters + 1, "update_rollout": iters + 1}:
+        raise AssertionError(f"{name} path: the trainer's programs {graphs}, step graphs {trainer.step_graphs}")
     wall = statistics.median(walls[2:])
     dev = statistics.median(device_ms[2:])
     lines = [
-        f"{name} path: NormObs({task}) E={PPO_E} T={steps} repeat={PPO_REPEAT} batch={PPO_BATCH} ({n_mb} minibatches "
-        f"of {steps * PPO_E // n_mb}); {calls} megasteps (eager warm-up, capture + replay, {PPO_ITERS} timed replays); "
+        f"{name} path: NormObs({task}) E={num_envs} T={steps} repeat={PPO_REPEAT} batch={batch} ({n_mb} minibatches "
+        f"of {steps * num_envs // n_mb}); {calls} megasteps (eager warm-up, capture + replay, {iters} timed replays); "
         f"physics_fused launches {launches['physics_fused']} ({steps} per megastep), no other kernel; rms.count "
-        f"{float(cstate.env_state.rms.count[0]):.4f} in every env (+{calls * steps})",
-        f"{name} path, graph replays: env_steps_per_s {steps * PPO_E / wall:.1f} ms_per_megastep {wall * 1e3:.3f} wall, "
-        f"{dev:.3f} device (eager warm-up {walls[0] * 1e3:.1f} ms); apart: collect {apart['collect']:.3f} ms, update "
-        f"{apart['update']:.3f} ms of device time; {_graph_report(pool, 1)}; last stats "
+        f"{float(cstate.env_state.rms.count[0]):.4f} in every env (+{calls * steps}); update route: one graph, every "
+        f"one of the {n_grad} minibatch steps inside the megastep's graph ({n_grad} <= OnPolicyTrainer."
+        f"STEP_GRAPHS_ABOVE {OnPolicyTrainer.STEP_GRAPHS_ABOVE}; the trainer's update_rollout took the same route)",
+        f"{name} path, graph replays: env_steps_per_s {steps * num_envs / wall:.1f} ms_per_megastep {wall * 1e3:.3f} "
+        f"wall, {dev:.3f} device (eager warm-up {walls[0] * 1e3:.1f} ms, capture + replay {walls[1] * 1e3:.1f} ms); "
+        f"apart: collect {apart['collect']:.3f} ms, update {apart['update']:.3f} ms of device time; "
+        f"{_graph_report(pool, 1)}, the trainer's {trainer.graph_pool.memory_bytes() / 2**20:.1f} MiB; last stats "
         f"{ {k: round(float(v), 5) for k, v in stats.items()} }",
     ]
-    return launches, lines
+    return launches, lines, (coll, cstate)
+
+
+def physics_at_scale(torch, coll, cstate, smi: str) -> tuple[dict, list[str]]:
+    """``physics_fused`` at the width of the PPO path that ``coll`` steps (phase 58): on a near-home state of that
+    many envs every env inside ``q`` ``Q_TOL`` / ``qd`` ``QD_TOL`` of the plain version (``dynamics.step``), and on
+    the path's own state (its last collect state, random actions) at least ``MIN_SHARE_INSIDE`` of the envs, every
+    output finite; then the kernel's device time per vector step on that state beside its first ``PHYS_E`` rows'
+    in the same run, and the bound by the operations of its envs' active rows (``physics_flops``). Returns (the
+    numbers, lines)."""
+    from tianshou_tpu_torch.env.physics import dynamics
+    from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+
+    env = coll.venv.env.env  # NormObs(task) -> the MuJoCo env
+    model, fs = env.model, env.frame_skip
+    n_sub = fs * dynamics.resolve_substeps(model, env.substeps)
+    E_, nu = coll.venv.num_envs, len(model.actuators)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    home = torch.as_tensor(model.qpos0, dtype=torch.float32, device="cuda")
+    near = (home + 0.03 * torch.randn(E_, model.nq, device="cuda", generator=g),
+            0.05 * torch.randn(E_, model.nq, device="cuda", generator=g))
+    own = (cstate.env_state.inner.q.contiguous(), cstate.env_state.inner.qd.contiguous())
+    lines, shares = [], {}
+    for what, (q, qd) in (("near home", near), ("the path's state", own)):
+        ctrl = torch.rand(E_, nu, device="cuda", generator=g) * 2 - 1
+        got = pf.fused_step(model, q, qd, ctrl, frame_skip=fs)
+        want = pf.fused_step_reference(model, q, qd, ctrl, frame_skip=fs)
+        if not all(bool(torch.isfinite(x).all()) for x in (*got, *want)):
+            raise AssertionError(f"physics_fused E={E_} {what}: a non-finite output")
+        ok = _inside(torch, got, want)
+        shares[what] = float(ok.double().mean())
+        if shares[what] < (1.0 if what == "near home" else MIN_SHARE_INSIDE):
+            raise AssertionError(f"physics_fused E={E_} {what}: {int((~ok).sum())} envs outside q {Q_TOL} qd {QD_TOL}")
+        lines.append(f"physics_fused {type(env).__name__} E={E_} {what}: {int((~ok).sum())} of {E_} envs outside q "
+                     f"{Q_TOL} qd {QD_TOL} (share inside {shares[what]:.5f}), max |dq| "
+                     f"{float((got[0] - want[0]).abs().max()):.3e} |dqd| {float((got[1] - want[1]).abs().max()):.3e}")
+    q, qd = own
+    ctrl = torch.rand(E_, nu, device="cuda", generator=g) * 2 - 1
+    kern, kern_e = _time_ms(lambda: pf.fused_step(model, q, qd, ctrl, frame_skip=fs), warmup=2, runs=8, per_graph=3)
+    sub = [t[:PHYS_E].contiguous() for t in (q, qd, ctrl)]
+    kern_2k = _time_ms(lambda: pf.fused_step(model, *sub, frame_skip=fs), warmup=2, runs=8, per_graph=3)[0]
+    contacts, limits = dynamics.active_rows(model, q)
+    flops = physics_flops(model, contacts, limits, n_sub)
+    by_ops = flops / H100_FP32_OPS_PER_S * 1e3
+    by_bytes = E_ * (4 * model.nq + nu) * 4 / H100_HBM_BYTES_PER_S * 1e3
+    bound = max(by_ops, by_bytes)
+    # the launch: blocks of envs_per_block teams; resident blocks per SM at most what threads and shared memory allow
+    info = pf.kernel_info(model)
+    blocks, threads = -(-E_ // info["envs_per_block"]), info["envs_per_block"] * info["team"]
+    resident = min(32, 2048 // threads, 232448 // (info["envs_per_block"] * info["shared_bytes_per_env"]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rec = {"envs": E_, "ms": kern, "eager_ms": kern_e, "ms_first_2048": kern_2k, "bound_ms": bound,
+           "bound_by": "operations" if by_ops >= by_bytes else "bytes", "gflop": flops / 1e9,
+           "share_inside": shares, "blocks": blocks, "min_waves": blocks / (sms * resident)}
+    lines.append(
+        f"physics_fused {type(env).__name__} E={E_} x {n_sub} substeps on the path's state, us per vector step: kernel "
+        f"{kern * 1e3:.2f} (CUDA graph) {kern_e * 1e3:.2f} (eager), its first {PHYS_E} rows {kern_2k * 1e3:.2f} in the "
+        f"same run; {blocks} blocks of {threads} threads, at least {rec['min_waves']:.2f} waves on {sms} SMs (at most "
+        f"{resident} resident blocks an SM by threads and shared memory); bound {bound * 1e3:.3f} us ({flops / 1e9:.3f} GFLOP over "
+        f"{H100_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s for active contacts per env {float(contacts.double().mean()):.2f}, "
+        f"limits {float(limits.double().mean()):.2f}; by bytes {by_bytes * 1e3:.3f}), kernel at {bound / kern:.4f} of "
+        f"the bound's rate [{smi}]")
+    return rec, lines
 
 
 def _rms_handoff_check(torch, trainer, name: str) -> list:
@@ -4173,16 +4418,7 @@ def offline_graph_check(torch, name: str, algo, buffer, bs, batch: int) -> str:
             s_ts = copy.deepcopy(ts)
             s_gen = torch.Generator(device=DEV)
             s_gen.set_state(gen.get_state())
-            log = torch.full((GRAPH_CALLS * GRAPH_K, batch), -1, dtype=torch.int64, device=DEV)
-            row = torch.zeros((), dtype=torch.int64, device=DEV)
-
-            def logging_sampler(*args, log=log, row=row):
-                idx = sample_indices(*args)
-                log.index_copy_(0, row.view(1), idx.unsqueeze(0))
-                row.add_(1)
-                return idx
-
-            buffer.sample_indices = logging_sampler
+            buffer.sample_indices, log = _logged(torch, sample_indices, (GRAPH_CALLS * GRAPH_K, batch), DEV)
             trainer = OfflineTrainer(algo, buffer, None, OfflineTrainerParams(batch_size=batch, verbose=False)) \
                 if side == "graph" else None
             before = counters.snapshot()
@@ -5227,7 +5463,8 @@ def classic_envs_phase(torch):
 # ---------------------------------------------------------------------------
 # the mesh programs at world size 1 on NCCL, and the multi-seed launchers (phases 51-55)
 # ---------------------------------------------------------------------------
-DP_CHUNKS = 2                        # dp_dqn_pixels: chunks of the pixel pipeline through each program
+DP_CHUNKS, DP_T = 2, 8               # dp_dqn_pixels: chunks of the pixel pipeline through each program, env steps a
+                                     # chunk (half the DQN path's T: a chunk's eager run leads the phase's time)
 DP_PPO_T, DP_PPO_CALLS = 32, 2       # dp_ppo_halfcheetah: bench_mujoco_ppo's rollout, and rollouts per program
 DP_TR_CALLS = 2                      # dp_trpo_halfcheetah: rollouts (T = TR_T) through each program
 DP_SAC_CHUNKS, DP_SAC_PREFILL = 2, 16  # dp_sac_halfcheetah: chunks through each program, random prefill steps
@@ -5267,9 +5504,9 @@ def _differing(torch, pairs) -> int:
 
 def dp_dqn_pixels_phase(torch):
     """Phase 51: ``make_dp_offpolicy_train_step`` at world size 1 on NCCL over the ``bench.py`` DQN pixel pipeline at
-    full width (``build_pipeline(torch, "dqn")``: E = 256, the uint8 rings, ``DQNet(6)``, batch 32, T = 16, 410 updates
-    a chunk). From one prefilled state and generator state, deep copies run ``DP_CHUNKS`` chunks through
-    ``OffPolicyTrainer.megastep`` (eager warm-up, then capture and replay) and through the mesh step, eagerly; every
+    full width (``build_pipeline(torch, "dqn")``: E = 256, the uint8 rings, ``DQNet(6)``, batch 32), in chunks of
+    T = ``DP_T`` env steps (205 updates a chunk). From one prefilled state and generator state, deep copies run
+    ``DP_CHUNKS`` chunks through ``OffPolicyTrainer.megastep`` (eager warm-up, then capture and replay) and through the mesh step, eagerly; every
     tensor of the train state, the optimizer, the rings, the collect state and the stats, and the generator, must be
     bit-identical (cuDNN deterministic), and ``gather_rows`` must run exactly twice per update of the mesh step.
     Returns ({kernel: launches} of the mesh step, lines)."""
@@ -5283,8 +5520,8 @@ def dp_dqn_pixels_phase(torch):
     algo, ts, buffer, bs, coll = build_pipeline(torch, "dqn")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cstate = coll.reset(gen)
-    coll.collect(ts, cstate, bs, gen, T, random=True)  # a prefill chunk: 16 rows per env to sample from
-    n_updates = max(1, round(0.1 * T * E))
+    coll.collect(ts, cstate, bs, gen, DP_T, random=True)  # a prefill chunk: DP_T rows per env to sample from
+    n_updates = max(1, round(0.1 * DP_T * E))
     sides = {}
     for side in ("trainer", "mesh"):
         s_ts, s_bs, s_cs = copy.deepcopy((ts, bs, cstate))
@@ -5294,14 +5531,14 @@ def dp_dqn_pixels_phase(torch):
     del ts, bs, cstate
     tr, md = sides["trainer"], sides["mesh"]
     trainer = OffPolicyTrainer(algo, coll, None, buffer, OffPolicyTrainerParams(
-        batch_size=BATCH, collection_step_num_env_steps=T, fused_megastep=True, verbose=False))
+        batch_size=BATCH, collection_step_num_env_steps=DP_T, fused_megastep=True, verbose=False))
     for _ in range(DP_CHUNKS):
-        (_, burst), ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], T,
+        (_, burst), ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], DP_T,
                                                                    n_updates))
         tr["walls"].append(ms)
         tr["stats"].append(burst.map(torch.clone))
     mesh = _mesh_of_one(torch)
-    step = make_dp_offpolicy_train_step(algo, coll, buffer, mesh, T, n_updates, BATCH)
+    step = make_dp_offpolicy_train_step(algo, coll, buffer, mesh, DP_T, n_updates, BATCH)
     _zero_launches()
     for _ in range(DP_CHUNKS):
         out, ms = _time_call(torch, lambda: step(md["ts"], md["cstate"], md["bs"], md["gen"]))
@@ -5320,7 +5557,7 @@ def dp_dqn_pixels_phase(torch):
     pairs += [(tr["gen"].get_state(), md["gen"].get_state())]
     differ = _differing(torch, pairs)
     updates = DP_CHUNKS * n_updates
-    _, replay_ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], T,
+    _, replay_ms = _time_call(torch, lambda: trainer.megastep(tr["ts"], tr["cstate"], tr["bs"], tr["gen"], DP_T,
                                                               n_updates))
     torch.backends.cudnn.deterministic = deterministic
     expect = {"gather_rows": 2 * updates, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": 0}
@@ -5331,7 +5568,7 @@ def dp_dqn_pixels_phase(torch):
         raise AssertionError(f"dp_dqn_pixels: launches {launches}, expected {expect}")
     return launches, [
         f"dp_dqn_pixels: make_dp_offpolicy_train_step at world size 1 on NCCL, E={E}, rings uint8 "
-        f"{tuple(md['bs'].data.obs.shape)}, {DP_CHUNKS} chunks of T={T} and {n_updates} updates of batch {BATCH}: "
+        f"{tuple(md['bs'].data.obs.shape)}, {DP_CHUNKS} chunks of T={DP_T} and {n_updates} updates of batch {BATCH}: "
         f"{len(pairs)} tensors (stats, weights, target, Adam, counters, rings, collect state, generator) bit-identical "
         f"to OffPolicyTrainer.megastep; gather_rows {launches['gather_rows']} = 2 per update",
         f"dp_dqn_pixels: wall per chunk: the mesh step, eager, {md['walls'][0]:.1f} / {md['walls'][1]:.1f} ms; the "
@@ -5921,6 +6158,10 @@ def main() -> int:
         # raises unless every kernel ran as often as it must
         _, by_path[name], lines = main_path(torch, kind, fused)
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    # bench.py's atari_update_burst: raises unless 2 gathers of 4 x batch rows per update and graph equals eager
+    by_path["update_burst_pixels"], lines, burst_gather = update_burst_pixels_path(torch, smi)
+    print("\n".join(lines), f"\nupdate_burst_pixels path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
     for prio in (False, True):
         t0 = time.perf_counter()
         name = "cartpole_per" if prio else "cartpole"
@@ -5943,8 +6184,16 @@ def main() -> int:
     for task, steps in PPO_PATHS:
         t0 = time.perf_counter()
         name = f"ppo_{task.lower()}"
-        by_path[name], lines = ppo_path(torch, task, steps)  # raises unless one launch per vector step
+        by_path[name], lines, _ = ppo_path(torch, task, steps)  # raises unless one launch per vector step
         print("\n".join(lines), f"\n{name} path phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    # bench.py's mujoco_ppo_16k: raises unless one launch per vector step, and on the kernel's check at that width
+    by_path["ppo_halfcheetah_16k"], lines, (coll, cstate) = ppo_path(
+        torch, "HalfCheetah", PPO16K_T, PPO16K_E, PPO16K_BATCH, PPO16K_ITERS, name="ppo_halfcheetah_16k")
+    at_scale, more = physics_at_scale(torch, coll, cstate, smi)
+    del coll, cstate
+    print("\n".join(lines + more), f"\nppo_halfcheetah_16k path phase: {time.perf_counter() - t0:.1f} s [{smi}]",
+          flush=True)
     for name, path in (("ppo_cartpole", ppo_cartpole_path), ("mujoco_example", mujoco_example_path)):
         t0 = time.perf_counter()
         by_path[name], lines = path(torch)  # raises below the threshold or on a failed check
@@ -6046,6 +6295,9 @@ def main() -> int:
     launches, lines = examples_phase(torch, smi)  # raises on a launch count, a tree or a non-finite result
     by_path.update(launches)
     print("\n".join(lines), f"\nthe examples phase (56): {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    by_name = {record["name"]: record for record in records}
+    by_name["gather_rows"]["update_burst"] = burst_gather  # the 4,096-row gathers of update_burst_pixels
+    by_name["physics_fused"]["ppo_16k"] = at_scale  # HalfCheetah at E = 16,384, on ppo_halfcheetah_16k's state
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

@@ -122,15 +122,15 @@ def make_rollout(discrete_act=False, seed=0):
     return JBatch(**{k: jnp.asarray(v) for k, v in d.items()}), Batch(**{k: t(v) for k, v in d.items()})
 
 
-def jax_perms(key, repeat, batch_size, recompute=False):
-    """The minibatch indices the JAX ``update_rollout`` draws from ``key``,
-    ``[repeat, n_mb, mb_size]``."""
-    n_mb = max(1, N // batch_size)
-    mb = N // n_mb
+def jax_perms(key, repeat, batch_size, recompute=False, n=N):
+    """The minibatch indices the JAX ``update_rollout`` draws from ``key``
+    over a rollout of ``n`` rows, ``[repeat, n_mb, mb_size]``."""
+    n_mb = max(1, n // batch_size)
+    mb = n // n_mb
 
     def perm(rkey):
         k_perm, _ = jax.random.split(rkey)
-        return np.asarray(jax.random.permutation(k_perm, N))[: n_mb * mb].reshape(n_mb, mb)
+        return np.asarray(jax.random.permutation(k_perm, n))[: n_mb * mb].reshape(n_mb, mb)
 
     if recompute:
         key, _ = jax.random.split(key)
