@@ -115,7 +115,7 @@ Phases, each of which fails the run:
    collect, update and test graphs; it must reach reward 195 within 20 epochs.
 14. The MuJoCo example path (``examples/mujoco/mujoco_ppo.py`` defaults on HalfCheetah: 16 envs,
    rollouts of 128, 10 passes of batch 64, the linear rate decay, ``target_kl`` 0.015, the PPO init,
-   ``NormObs``, 10 test episodes), cut to 1 epoch of 25,000 steps: finite test returns, the pooled
+   ``NormObs``, 10 test episodes), cut to 1 epoch of 16,384 steps: finite test returns, the pooled
    train statistics at every handoff to the test envs, the rate after the run the schedule's.
 
 15. Continuous graph phase: ``OffPolicyTrainer``'s collect chunk and update burst as CUDA graphs against
@@ -128,7 +128,7 @@ Phases, each of which fails the run:
    HalfCheetah, ``mujoco_td3.py``'s on Ant over prioritized replay (alpha 0.6, beta 0.4) and
    ``mujoco_redq.py``'s on HalfCheetah (32 envs, T 4, 128 updates per megastep of batch 256, a 1 M-row
    replay, 256x256 nets, the random prefill, ``fused_megastep``, 10 test episodes), each cut to one
-   epoch of 1,250 steps: exactly one ``physics_fused`` launch per vector step, prefill
+   epoch of 1,250 steps (and TD3's prefill from 25,000 steps to SAC's 10,000): exactly one ``physics_fused`` launch per vector step, prefill
    and test included; with PER one descent per update, one tree update per update and per collect
    step, and an exactly consistent tree; then the megastep graph replayed alone for its wall and device
    time.
@@ -148,7 +148,7 @@ Phases, each of which fails the run:
    step, train and test; every stat finite; the first update's relative conjugate-gradient residual;
    TRPO's step fractions and the share of updates accepted; the update graph replayed alone.
 20. The gSDE example path (``mujoco_ppo.py --sde``: ``sigma_init`` -2.0, the example path's other
-   defaults) cut to 1 epoch of 25,000 steps: one ``physics_fused`` launch per vector step; after every collect chunk
+   defaults) cut to 1 epoch of 16,384 steps: one ``physics_fused`` launch per vector step; after every collect chunk
    each env's carried count the steps since the chunk's start or its last episode end; an eager check
    that the noise stays bit-unchanged between resamples.
 21. TRPO CartPole (``tests/test_trust_region.py:26-55``): 16 + 10 envs, T 128, batch 1,024, at most 15
@@ -178,7 +178,7 @@ Phases, each of which fails the run:
    registered generator), every optimizer's state (FQF's Adam and RMSprop, discrete SAC's four Adams) too.
 29. Distributional pixel paths: ``main_path`` (phase 5) with the algorithm and net of each of
    ``examples/atari/atari_{qrdqn,iqn,fqf,sac}.py`` at bench.py's widths and ``DIST_CHUNKS`` (2) chunks a run
-   of ``DIST_T`` (8) env steps each, bursts of 205 updates (``build_pipeline``): QRDQN over ``QRDQNet(6, 200)``
+   of ``DIST_T`` (4) env steps each, bursts of 102 updates (``build_pipeline``): QRDQN over ``QRDQNet(6, 200)``
    at lr 5e-5, IQN over ``ImplicitQuantileAtariNet(6)``
    with 32/8/8 fractions at 5e-5, FQF over the same net with 32 fractions and ``ent_coef`` 10 at 5e-5,
    discrete SAC with ``DQNet`` actor and twin critics at 1e-4 and automatic alpha; n = 3, target sync every
@@ -263,7 +263,7 @@ Phases, each of which fails the run:
    steps to 2,000. No kernel. The phases 45-50 print their total time.
 
 51. ``dp_dqn_pixels``: ``parallel/mesh.py:make_dp_offpolicy_train_step`` at world size 1 on a one-rank NCCL group over
-   the DQN pixel pipeline of phase 5 at full width: ``DP_CHUNKS`` chunks of ``DP_T`` env steps (205 updates each) held
+   the DQN pixel pipeline of phase 5 at full width: ``DP_CHUNKS`` chunks of ``DP_T`` env steps (102 updates each) held
    bit-identical, every tensor of the train state, rings, collect state and stats, to ``OffPolicyTrainer.megastep``
    from a copy of the same state and generator; exactly 2 ``gather_rows`` per update; the eager wall per chunk beside
    the program's.
@@ -319,6 +319,23 @@ Phases, each of which fails the run:
    ``physics_at_scale``: one vector step at E = 16,384 against the plain version (near home every env inside ``q``
    2e-4 / ``qd`` 5e-3; on the path's own state at least 99.5%), and the kernel's time there beside its first 2,048
    rows' and its operations bound.
+
+59. ``seed_vmap_sac_halfcheetah`` (``examples_torch/benchmark/seed_vmap.py``, the seed-stacked multi-seed trainer;
+   runs after phase 56): ``run_multiseed("sac", "HalfCheetah", SV_SEEDS)`` at its widths (32 envs a seed, 256x256
+   nets, batch 256, T 4, one update per env step, a 1 M-row ring a seed, the 1,000-step test of 10 envs a seed), the
+   prefill cut from 10,000 steps a seed to ``SV_PREFILL`` and the epochs to one of ``SV_EPOCH``; then the one-seed
+   run of ``SV_SEEDS[1]`` at the same depth. Exactly one ``physics_fused`` launch per vector step over 96 train rows
+   or 30 test rows and nothing else; the megastep one program, one graph replay per megastep after its warm-up;
+   lane 1's train state and curve bit-equal to the one-seed run's; each run's megastep replayed alone; the kernel
+   over the stacked 96 rows against three launches over 32, rows bit-equal, timed as phase 3 times it.
+60. ``benchmark_throughput``: ``throughput.py``'s sweep (PPO CartPole at E = 64-4,096) through its ``main``, the timed
+   megasteps cut from 10 to ``BT_ITERS``. No kernel.
+61. ``benchmark_offpolicy``: ``offpolicy_throughput.py`` through its ``main`` (DQN CartPole at E = 1,024, separate
+   programs, then the fused megastep), the timed run cut from 40 chunks to ``BO_CHUNKS``; each mode's gradient steps
+   counted. No kernel.
+62. ``benchmark_host``: ``host_throughput.py``'s ``run`` over ``SubprocVectorEnv`` of its ``SleepyCartPole`` around
+   ``NumpyCartPole`` (no ``gymnasium`` here), sequential against pipelined. ``host_overlap.py``, ``run_benchmark.py``
+   and ``seed_queue.py`` run on the CPU only, as the phase's last line says. The phases 59-62 print their total time.
 
 Every path prints its env-steps/s, ms per update, graph replays per chunk, capture time and the
 device memory of its graph pool.
@@ -395,9 +412,10 @@ UB_PREFILL, UB_BATCH, UB_UPDATES, UB_ITERS, UB_FWD_FLOP = 64, 1024, 64, 4, 18.7e
 # PPO on CartPole (tests/test_onpolicy.py:17-53): 16 train envs, T 128, repeat 10, batch 256, epochs of 10,000 steps
 PCP_E, PCP_T, PCP_REPEAT, PCP_BATCH, PCP_EPOCHS, PCP_EPOCH_STEPS = 16, 128, 10, 256, 20, 10000
 PCP_REPLAYS = 5  # replays of each training graph, timed alone after the run
-# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs of 100,000 steps to 1 of 25,000 (13
-# rollouts of 2,048 rows: past HalfCheetah's 1,000-step episode end, which the gSDE carry check needs)
-MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 25_000
+# examples/mujoco/mujoco_ppo.py's defaults, the depth cut from 30 epochs of 100,000 steps to 1 of 16,384 (8
+# rollouts of 2,048 rows: 1,024 steps an env, past HalfCheetah's 1,000-step episode end, which the gSDE carry check
+# needs)
+MJ_E, MJ_T, MJ_REPEAT, MJ_BATCH, MJ_EPOCHS, MJ_EPOCH_STEPS = 16, 128, 10, 64, 1, 16_384
 
 # the continuous off-policy paths: examples/mujoco/mujoco_{sac,td3,redq}.py's defaults (32 envs, T 4, one update
 # per env step, batch 256, a 1 M-row replay, 256x256 nets, 10 test episodes), the depth cut to one epoch
@@ -405,10 +423,10 @@ OFF_E, OFF_T, OFF_BATCH, OFF_BUFFER, OFF_HID, OFF_TEST_E, OFF_REPLAYS = 32, 4, 2
 # sac_humanoid: examples/mujoco/mujoco_sac.py --task Humanoid's defaults (as OFF_PATHS), the random prefill cut from
 # 10,000 steps to HUM_SAC_PREFILL and the epoch from 20,000 to HUM_SAC_EPOCH; the test phase's 10 episodes as eager
 # chunks of HUM_TEST_CHUNK steps (a 128-step test chunk warmed up eagerly on the plain route would take minutes)
-HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 256, 512, 32
+HUM_SAC_PREFILL, HUM_SAC_EPOCH, HUM_TEST_CHUNK = 128, 512, 32
 OFF_PATHS = {  # name: (task, algorithm, random prefill steps, epoch steps (cut), prioritized replay)
     "sac_halfcheetah": ("HalfCheetah", "sac", 10_000, 1_250, False),
-    "td3_ant_per": ("Ant", "td3", 25_000, 1_250, True),
+    "td3_ant_per": ("Ant", "td3", 10_000, 1_250, True),  # the prefill cut from the script's 25,000
     "redq_halfcheetah": ("HalfCheetah", "redq", 10_000, 1_250, False),
     "sac_humanoid": ("Humanoid", "sac", HUM_SAC_PREFILL, HUM_SAC_EPOCH, False),  # the plain route: no kernel
 }
@@ -447,7 +465,7 @@ IP_PREFILL, IP_EPOCHS, IP_EPOCH_STEPS, IP_THRESHOLD = 2_000, 12, 5_000, 1000.0
 # the distributional and discrete Q family on the pixel pipeline (examples/atari/atari_{qrdqn,iqn,fqf,sac}.py)
 DIST_KINDS = ("qrdqn", "iqn", "fqf", "discrete_sac")
 DIST_CHUNKS = 2  # training chunks per run of their paths (the DQN path runs CHUNKS = 3)
-DIST_T = 8  # env steps per chunk of their paths (the DQN path's T = 16): bursts of 205 updates, whose eager warm-up
+DIST_T = 4  # env steps per chunk of their paths (the DQN path's T = 16): bursts of 102 updates, whose eager warm-up
 #             and capture take most of a path's time
 # their time to score (tests/test_distributional.py:run, :89-107): 10 train and 10 test envs, a 20,000-row replay,
 # epochs of 5,000 steps, batch 64, T 10, 0.1 updates per env step, a 1,000-step prefill, eps 0.3 annealed to 0.1
@@ -5463,7 +5481,7 @@ def classic_envs_phase(torch):
 # ---------------------------------------------------------------------------
 # the mesh programs at world size 1 on NCCL, and the multi-seed launchers (phases 51-55)
 # ---------------------------------------------------------------------------
-DP_CHUNKS, DP_T = 2, 8               # dp_dqn_pixels: chunks of the pixel pipeline through each program, env steps a
+DP_CHUNKS, DP_T = 2, 4               # dp_dqn_pixels: chunks of the pixel pipeline through each program, env steps a
                                      # chunk (half the DQN path's T: a chunk's eager run leads the phase's time)
 DP_PPO_T, DP_PPO_CALLS = 32, 2       # dp_ppo_halfcheetah: bench_mujoco_ppo's rollout, and rollouts per program
 DP_TR_CALLS = 2                      # dp_trpo_halfcheetah: rollouts (T = TR_T) through each program
@@ -5505,7 +5523,7 @@ def _differing(torch, pairs) -> int:
 def dp_dqn_pixels_phase(torch):
     """Phase 51: ``make_dp_offpolicy_train_step`` at world size 1 on NCCL over the ``bench.py`` DQN pixel pipeline at
     full width (``build_pipeline(torch, "dqn")``: E = 256, the uint8 rings, ``DQNet(6)``, batch 32), in chunks of
-    T = ``DP_T`` env steps (205 updates a chunk). From one prefilled state and generator state, deep copies run
+    T = ``DP_T`` env steps (102 updates a chunk). From one prefilled state and generator state, deep copies run
     ``DP_CHUNKS`` chunks through ``OffPolicyTrainer.megastep`` (eager warm-up, then capture and replay) and through the mesh step, eagerly; every
     tensor of the train state, the optimizer, the rings, the collect state and the stats, and the generator, must be
     bit-identical (cuDNN deterministic), and ``gather_rows`` must run exactly twice per update of the mesh step.
@@ -6094,6 +6112,234 @@ def examples_phase(torch, smi: str = "") -> tuple[dict, list[str]]:
     return by_name, lines
 
 
+# ---------------------------------------------------------------------------
+# the benchmark scripts of examples_torch/benchmark/ (phases 59-62)
+# ---------------------------------------------------------------------------
+# seed_vmap_sac_halfcheetah: seed_vmap.py's run_multiseed("sac", "HalfCheetah", SV_SEEDS) at its widths (32 envs a seed,
+# 256x256 nets, batch 256, T 4, one update per env step, a 1 M-row ring a seed, 10 test envs a seed over the 1,000-step
+# horizon), the random prefill cut from 10,000 steps a seed to SV_PREFILL and the epochs from 50 of 20,000 steps to one
+# of SV_EPOCH; then the one-seed run of SV_SEEDS[1] at the same depth
+SV_SEEDS, SV_PREFILL, SV_EPOCH, SV_REPLAYS = (0, 1, 2), 512, 1_024, 2
+BT_ITERS = 3        # benchmark_throughput: throughput.py's timed megasteps, cut from 10
+BO_CHUNKS = 4       # benchmark_offpolicy: offpolicy_throughput.py's timed run, cut from 40 chunks
+BH_ENVS, BH_STEPS, BH_ENV_MS = 8, 2_000, 2.0  # benchmark_host: host_throughput.py's envs and step cost, its 4,000 steps
+                                              # cut to 2,000
+
+
+def seed_vmap_phase(torch, smi: str) -> tuple[dict, dict, dict, list[str]]:
+    """Phase 59, ``seed_vmap_sac_halfcheetah``: ``examples_torch/benchmark/seed_vmap.py``'s ``run_multiseed`` over
+    ``SV_SEEDS`` (the seeds stacked on the env axis), then over ``SV_SEEDS[1]`` alone, at the same depth. Counters
+    zeroed just before and read just after each run: exactly one ``physics_fused`` launch per vector step (prefill,
+    megasteps, test) and nothing else, and every physics step the runs' Python took over ``S x 32`` train rows or
+    ``S x 10`` test rows; the megastep program called once per megastep, its first call eager and each later one one
+    graph replay; lane 1's saved train state (weights, targets, every optimizer tensor, the step) and its curve
+    bit-equal to the one-seed run's. Then each run's megastep replayed alone (``SV_REPLAYS``), and ``physics_fused``
+    timed on the stacked run's state: one launch over all 96 rows against three launches over each seed's 32 (a graph
+    of 20 calls, median of 60), the rows bit-equal, beside the bound of the 96 rows' active rows. Returns ({kernel:
+    launches} of the stacked run, the same of the one-seed run, the kernel's record, lines)."""
+    from examples_torch.benchmark import seed_vmap
+    from tianshou_tpu_torch.env.mujoco import base
+    from tianshou_tpu_torch.env.physics import dynamics
+    from tianshou_tpu_torch.ops.kernels import physics_fused as pf
+
+    rows, stacks = [], []
+    step = base.fused_step
+
+    def counted(model, q, *args, **kwargs):  # the runs' Python: eager calls and captures, never a replay
+        rows.append(int(q.shape[0]))
+        return step(model, q, *args, **kwargs)
+
+    class Kept(seed_vmap.SeedStack):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            stacks.append(self)
+
+    saved = (base.fused_step, seed_vmap.SeedStack)
+    base.fused_step, seed_vmap.SeedStack = counted, Kept
+    runs, lines = {}, []
+    try:
+        with tempfile.TemporaryDirectory(prefix="tt_seed_vmap_") as tmp:
+            for seeds in (SV_SEEDS, SV_SEEDS[1:2]):
+                rows.clear()
+                _zero_launches()
+                t0 = time.perf_counter()
+                res = seed_vmap.run_multiseed("sac", "HalfCheetah", list(seeds), epochs=1, epoch_num_steps=SV_EPOCH,
+                                              start_steps=SV_PREFILL, save_params=f"{tmp}/s{len(seeds)}.pt",
+                                              device=DEV)
+                wall = time.perf_counter() - t0
+                launches = _read_launches()
+                payload = torch.load(f"{tmp}/s{len(seeds)}.pt", map_location="cpu")
+                runs[len(seeds)] = (res, launches, list(rows), wall, payload, stacks[-1])
+    finally:
+        base.fused_step, seed_vmap.SeedStack = saved
+    for S, (res, launches, seen, wall, payload, stack) in runs.items():
+        E_, T_, horizon = stack.num_envs, stack.chunk_len, stack.env.max_episode_steps
+        prefill_chunks = -(-SV_PREFILL // (T_ * E_))
+        megasteps = -(-SV_EPOCH // (T_ * E_))
+        vector_steps = (prefill_chunks + megasteps) * T_ + horizon
+        want = {"gather_rows": 0, "prefix_sum_idx": 0, "tree_update": 0, "physics_fused": vector_steps}
+        if launches != want:
+            raise AssertionError(f"seed_vmap S={S}: launches {launches}, expected {want}")
+        if set(seen) != {S * E_, S * stack.test_envs}:
+            raise AssertionError(f"seed_vmap S={S}: physics steps over {sorted(set(seen))} rows")
+        progs = {g.name: g for g in stack.pool.graphs}
+        mega = progs["megastep"]
+        if (mega.calls, mega.replays, progs["prefill"].calls) != (megasteps, megasteps - 1, prefill_chunks):
+            raise AssertionError(f"seed_vmap S={S}: megastep {mega.calls} calls {mega.replays} replays, prefill "
+                                 f"{progs['prefill'].calls} calls")
+        if not all(np.isfinite(r["best_reward"]) for r in res) or [int(ts.step) for ts in stack.tss] != [
+                megasteps * stack.n_updates] * S:
+            raise AssertionError(f"seed_vmap S={S}: results {res}, steps {[int(ts.step) for ts in stack.tss]}")
+    (res3, _, _, wall3, pay3, stack3), (res1, _, _, wall1, pay1, stack1) = runs[len(SV_SEEDS)], runs[1]
+    got, want = ([x for x in _leaves(p) if isinstance(x, torch.Tensor)] for p in (pay3["tss"][1], pay1["tss"][0]))
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    if differ or len(got) != len(want) or len(want) < 20 or res3[1]["curve"] != res1[0]["curve"]:
+        raise AssertionError(f"seed_vmap: lane 1 differs from the one-seed run of seed {SV_SEEDS[1]}: tensors "
+                             f"{differ[:5]} of {len(want)}, curves {res3[1]['curve']} / {res1[0]['curve']}")
+    # the megastep replayed alone: steady agent-steps/s of S seeds and of one
+    steady = {}
+    for S, stack in ((len(SV_SEEDS), stack3), (1, stack1)):
+        walls = [_time_call(torch, stack.megastep)[1] for _ in range(SV_REPLAYS)]
+        steady[S] = (statistics.median(walls), S * stack.chunk_len * stack.num_envs / statistics.median(walls) * 1e3)
+    # physics_fused on the stacked run's state: one launch over every seed's rows against one per seed
+    env = stack3.env
+    model, fs = env.model, env.frame_skip
+    q, qd = stack3.cstate.env_state.q.contiguous(), stack3.cstate.env_state.qd.contiguous()
+    n, per = q.shape[0], stack3.num_envs
+    ctrl = torch.rand(n, len(model.actuators), device=DEV, generator=torch.Generator(device=DEV).manual_seed(4)) * 2 - 1
+    parts = [tuple(x[i * per:(i + 1) * per].contiguous() for x in (q, qd, ctrl)) for i in range(n // per)]
+    whole = pf.fused_step(model, q, qd, ctrl, frame_skip=fs)
+    apart = [pf.fused_step(model, *p, frame_skip=fs) for p in parts]
+    if not all(torch.equal(whole[k], torch.cat([a[k] for a in apart])) for k in (0, 1)):
+        raise AssertionError("physics_fused over the stacked rows differs from each seed's rows stepped alone")
+    kern, kern_e = _time_ms(lambda: pf.fused_step(model, q, qd, ctrl, frame_skip=fs))
+    three = _time_ms(lambda: [pf.fused_step(model, *p, frame_skip=fs) for p in parts])[0]
+    n_sub = fs * dynamics.resolve_substeps(model, env.substeps)
+    contacts, limits = dynamics.active_rows(model, q)
+    flops = physics_flops(model, contacts, limits, n_sub)
+    by_ops = flops / H100_FP32_OPS_PER_S * 1e3
+    by_bytes = n * (4 * model.nq + len(model.actuators)) * 4 / H100_HBM_BYTES_PER_S * 1e3
+    rec = {"rows": n, "ms": kern, "eager_ms": kern_e, "ms_per_seed_launches": three, "launches": len(parts),
+           "bound_ms": max(by_ops, by_bytes), "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+           "gflop": flops / 1e9}
+    mega3 = {g.name: g for g in stack3.pool.graphs}["megastep"]
+    lines += [
+        f"seed_vmap_sac_halfcheetah: run_multiseed('sac', 'HalfCheetah', {list(SV_SEEDS)}) at {per} envs a seed, T "
+        f"{stack3.chunk_len}, {stack3.n_updates} updates a seed per megastep of batch {stack3.batch_size}, prefill "
+        f"{SV_PREFILL} and one epoch of {SV_EPOCH} steps a seed, the {env.max_episode_steps}-step test: {wall3:.1f} s; best rewards {[round(r['best_reward'], 2) for r in res3]}; "
+        f"launches {runs[len(SV_SEEDS)][1]}, one physics_fused per vector step over {len(SV_SEEDS) * per} rows (train) "
+        f"and {len(SV_SEEDS) * stack3.test_envs} (test); megastep: {mega3.calls} calls, {mega3.replays} replays (one "
+        f"per megastep after its eager warm-up), capture {mega3.capture_s:.2f} s; {_graph_report(stack3.pool, 1)} "
+        f"[{smi}]",
+        f"seed_vmap_sac_halfcheetah: one-seed run of seed {SV_SEEDS[1]} at the same depth {wall1:.1f} s; lane 1 "
+        f"bit-equal to it ({len(want)} tensors of weights, targets and optimizer state, and the curve "
+        f"{res1[0]['curve']}); agent-steps/s over the whole run (warm-up and captures included) "
+        f"{res3[0]['agent_steps_per_s']:.1f} at S={len(SV_SEEDS)} against {res1[0]['agent_steps_per_s']:.1f} at S=1; "
+        f"a replayed megastep {steady[len(SV_SEEDS)][0]:.2f} ms at S={len(SV_SEEDS)} ({steady[len(SV_SEEDS)][1]:.1f} "
+        f"agent-steps/s) against {steady[1][0]:.2f} ms at S=1 ({steady[1][1]:.1f}), ratio "
+        f"{steady[len(SV_SEEDS)][1] / steady[1][1]:.3f} [{smi}]",
+        f"seed_vmap_sac_halfcheetah: physics_fused on the stacked state, us per vector step: one launch over {n} rows "
+        f"{kern * 1e3:.2f} (CUDA graph) {kern_e * 1e3:.2f} (eager) against {len(parts)} launches over {per} rows "
+        f"{three * 1e3:.2f}; rows bit-equal; bound {rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']} ({flops / 1e9:.4f} "
+        f"GFLOP), kernel at {rec['bound_ms'] / kern:.4f} of the bound's rate [{smi}]",
+    ]
+    return runs[len(SV_SEEDS)][1], runs[1][1], rec, lines
+
+
+def benchmark_throughput_phase(torch, smi: str) -> tuple[dict, list[str]]:
+    """Phase 60, ``benchmark_throughput``: ``examples_torch/benchmark/throughput.py`` through its ``main`` (PPO on
+    CartPole at each of its numbers of envs, collect and update one graph per megastep), the timed megasteps cut
+    from 10 to ``BT_ITERS``; no kernel of the port runs. Returns ({kernel: launches}, lines)."""
+    from examples_torch.benchmark import throughput
+
+    saved = throughput.ITERS
+    throughput.ITERS = BT_ITERS
+    t0 = time.perf_counter()
+    try:
+        _zero_launches()
+        rates = throughput.main(["--device", DEV])
+        launches = _read_launches()
+    finally:
+        throughput.ITERS = saved
+    if any(launches.values()) or list(rates) != list(throughput.ENVS) or not all(
+            np.isfinite(r) and r > 0 for r in rates.values()):
+        raise AssertionError(f"benchmark_throughput: rates {rates}, launches {launches}")
+    return launches, [f"benchmark_throughput: throughput.py main (PPO CartPole, T {throughput.T}, repeat "
+                      f"{throughput.REPEAT}, batch min({throughput.BATCH}, T*E), {throughput.WARMUP} warm-up and "
+                      f"{BT_ITERS} timed megasteps) in {time.perf_counter() - t0:.1f} s: env-steps/s "
+                      f"{ {E: round(r, 1) for E, r in rates.items()} }; no kernel [{smi}]"]
+
+
+def benchmark_offpolicy_phase(torch, smi: str) -> tuple[dict, list[str]]:
+    """Phase 61, ``benchmark_offpolicy``: ``examples_torch/benchmark/offpolicy_throughput.py`` through its ``main``
+    (DQN on CartPole at E = 1,024, T = 32, batch 1,024, separate collect and update programs, then the fused
+    megastep), the timed run cut from 40 chunks to ``BO_CHUNKS``: each mode's timed run exactly ``BO_CHUNKS`` chunks
+    of env steps and ``BO_CHUNKS`` x 328 gradient steps; no kernel. Returns ({kernel: launches}, lines)."""
+    from examples_torch.benchmark import offpolicy_throughput as op
+
+    saved = op.TIMED_CHUNKS
+    op.TIMED_CHUNKS = BO_CHUNKS
+    t0 = time.perf_counter()
+    try:
+        _zero_launches()
+        out = op.main(["--device", DEV])
+        launches = _read_launches()
+    finally:
+        op.TIMED_CHUNKS = saved
+    n_updates = max(1, round(0.01 * op.T * op.E))
+    for fused, run in out.items():
+        if (run["env_steps"], run["gradient_steps"]) != (BO_CHUNKS * op.T * op.E, BO_CHUNKS * n_updates):
+            raise AssertionError(f"benchmark_offpolicy fused={fused}: {run}")
+    if any(launches.values()):
+        raise AssertionError(f"benchmark_offpolicy: launches {launches}")
+    rates = {f"fused={f}": round(r["env_steps_per_s"], 1) for f, r in out.items()}
+    return launches, [f"benchmark_offpolicy: offpolicy_throughput.py main (DQN CartPole E {op.E}, T {op.T}, batch "
+                      f"1024, {n_updates} updates a chunk; warm-up {op.WARMUP_CHUNKS} chunks, timed {BO_CHUNKS}) in "
+                      f"{time.perf_counter() - t0:.1f} s: env-steps/s {rates}, each timed run "
+                      f"{BO_CHUNKS * n_updates} gradient steps; fused against separate "
+                      f"{out[True]['env_steps_per_s'] / out[False]['env_steps_per_s']:.3f}; no kernel [{smi}]"]
+
+
+def benchmark_host_phase(torch, smi: str) -> tuple[dict, list[str]]:
+    """Phase 62, ``benchmark_host``: ``examples_torch/benchmark/host_throughput.py``'s ``run`` with its DQN and its
+    envs and step cost (``BH_ENVS`` Subproc workers, ``BH_ENV_MS`` ms a step; ``BH_STEPS`` steps), over
+    ``NumpyCartPole`` (the card's machine has no ``gymnasium``) in its ``SleepyCartPole``: ``HostCollector`` against
+    ``PipelinedHostCollector``. ``host_overlap.py`` (real Gymnasium MuJoCo), ``run_benchmark.py`` and
+    ``seed_queue.py`` (subprocesses over scripts the card already runs; a ``"vmap"`` job's body is phase 59) run on
+    the CPU only. Returns ({kernel: launches}, lines)."""
+    from examples_torch.benchmark import host_throughput as ht
+    from examples_torch.common import setup
+    from tianshou_tpu_torch.data.host_collector import HostCollector
+    from tianshou_tpu_torch.data.pipelined_collector import PipelinedHostCollector
+    from tianshou_tpu_torch.env.venvs import SubprocVectorEnv
+
+    dev, _ = setup(DEV, 0)
+    algo = ht.make_algo()
+    ts = algo.init(dev)
+    rates = {}
+    t0 = time.perf_counter()
+    _zero_launches()
+    for name, cls in (("sequential", HostCollector), ("pipelined", PipelinedHostCollector)):
+        venv = SubprocVectorEnv([lambda: ht.SleepyCartPole(BH_ENV_MS, NumpyCartPole()) for _ in range(BH_ENVS)],
+                                recv_timeout=WAIT_S)
+        try:
+            rates[name] = ht.run(cls, venv, algo, ts, BH_STEPS, dev)
+        finally:
+            venv.close()
+    launches = _read_launches()
+    if any(launches.values()) or not all(r > 0 for r in rates.values()):
+        raise AssertionError(f"benchmark_host: rates {rates}, launches {launches}")
+    return launches, [
+        f"benchmark_host: host_throughput.run over SubprocVectorEnv of {BH_ENVS} SleepyCartPole({BH_ENV_MS} ms, "
+        f"NumpyCartPole), {BH_STEPS} steps, in {time.perf_counter() - t0:.1f} s: env-steps/s sequential "
+        f"{rates['sequential']:.1f}, pipelined {rates['pipelined']:.1f}, pipelined against sequential "
+        f"{rates['pipelined'] / rates['sequential']:.3f}; no kernel [{smi}]",
+        "benchmark_host: host_overlap.py runs on the CPU only (real Gymnasium MuJoCo: no gymnasium or mujoco on this "
+        "machine); run_benchmark.py and seed_queue.py on the CPU only (subprocesses over scripts this run drives; a "
+        "vmap job's body is seed_vmap_sac_halfcheetah)",
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -6295,9 +6541,21 @@ def main() -> int:
     launches, lines = examples_phase(torch, smi)  # raises on a launch count, a tree or a non-finite result
     by_path.update(launches)
     print("\n".join(lines), f"\nthe examples phase (56): {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    t_slice = time.perf_counter()
+    t0 = time.perf_counter()
+    # raises unless one launch per vector step over every seed's rows, one replay per megastep, lane 1 bit-equal
+    by_path["seed_vmap_sac_halfcheetah"], by_path["seed_vmap_one_seed"], seed_stack, lines = seed_vmap_phase(torch, smi)
+    print("\n".join(lines), f"\nseed_vmap_sac_halfcheetah phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    for name, phase in (("benchmark_throughput", benchmark_throughput_phase),
+                        ("benchmark_offpolicy", benchmark_offpolicy_phase), ("benchmark_host", benchmark_host_phase)):
+        t0 = time.perf_counter()
+        by_path[name], lines = phase(torch, smi)  # raises on a launch, a step count or a rate that is not positive
+        print("\n".join(lines), f"\n{name} phase: {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    print(f"the benchmark scripts' phases (59-62): {time.perf_counter() - t_slice:.1f} s [{smi}]", flush=True)
     by_name = {record["name"]: record for record in records}
     by_name["gather_rows"]["update_burst"] = burst_gather  # the 4,096-row gathers of update_burst_pixels
     by_name["physics_fused"]["ppo_16k"] = at_scale  # HalfCheetah at E = 16,384, on ppo_halfcheetah_16k's state
+    by_name["physics_fused"]["seed_stack"] = seed_stack  # 3 seeds' 32 envs in one launch, on seed_vmap's state
     for record in records:
         record["launches_by_path"] = {kind: n[record["name"]] for kind, n in by_path.items()}
         record["launches"] = sum(record["launches_by_path"].values())

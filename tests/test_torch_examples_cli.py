@@ -1,12 +1,13 @@
 """The port's example scripts (``examples_torch/``) against the JAX package's
 (``examples/``): their command lines, their imports and the Atari catch game.
 
-- CLI parity, one case per ported script (every script of ``examples/``
-  but the earlier benchmark's folder): the namespace the JAX script's own
+- CLI parity, one case per ported script (every script of ``examples/``): the namespace the JAX script's own
   parser gives for no arguments (its ``__main__`` run by ``runpy`` while
   ``argparse.ArgumentParser.parse_args`` is patched here to record
   ``parse_args([])`` and stop) against the port's ``build_parser()``: the same
-  keys and values, and ``device`` (default ``cuda``) as the only extra key.
+  keys and values, and ``device`` (default ``cuda``) as the only extra key;
+  ``PORT_DEFAULTS`` names the values where the port's default is its own
+  (``seed_queue.py``'s queue and results, the port's, not the JAX rounds').
   A JAX script without a parser gets a port parser of ``device`` alone.
 - No file under ``examples_torch/`` imports ``jax``, ``flax``, ``optax``,
   ``tianshou_tpu`` or anything of ``examples/``.
@@ -38,7 +39,7 @@ REPO = Path(__file__).resolve().parents[1]
 JAX_EXAMPLES = REPO / "examples"
 PORT = REPO / "examples_torch"
 
-#: the JAX example scripts the port has, relative to examples/ (all but benchmark/)
+#: the JAX example scripts the port has, relative to examples/
 SCRIPTS = (
     [f"atari/atari_{a}.py" for a in ("dqn", "c51", "qrdqn", "iqn", "fqf", "rainbow", "sac", "ppo")]
     + [f"mujoco/mujoco_{a}.py" for a in ("sac", "td3", "ppo", "ddpg", "redq", "reinforce", "a2c", "npg", "trpo")]
@@ -50,11 +51,17 @@ SCRIPTS = (
     + ["inverse/irl_gail.py", "modelbased/psrl.py", "marl/tictactoe_selfplay.py", "marl/pettingzoo_tictactoe_dqn.py"]
     + [f"box2d/{s}.py" for s in ("acrobot_dualdqn", "mcc_sac", "lunarlander_dqn", "bipedal_sac", "bipedal_bdq")]
     + ["vizdoom/vizdoom_c51.py", "vizdoom/vizdoom_ppo.py"]
+    + [f"benchmark/{s}.py" for s in ("seed_vmap", "seed_queue", "run_benchmark", "throughput", "offpolicy_throughput",
+                                     "host_throughput", "host_overlap")]
 )
 #: the folders of examples/ that the port mirrors
-FOLDERS = ("atari", "mujoco", "discrete", "continuous", "offline", "inverse", "modelbased", "marl", "box2d", "vizdoom")
+FOLDERS = ("atari", "mujoco", "discrete", "continuous", "offline", "inverse", "modelbased", "marl", "box2d", "vizdoom",
+           "benchmark")
 #: the command line both parsers see where ``[]`` would not parse (a required positional)
 ARGV = {"mujoco/plotter.py": ["log/seed0"]}
+#: the port's own defaults where the JAX script's name the JAX rounds' records: {script: {key: the port's value}}
+PORT_DEFAULTS = {"benchmark/seed_queue.py": {"queue": "examples_torch/benchmark/queue",
+                                             "results": "examples_torch/benchmark/results/seed_runs.jsonl"}}
 #: scripts that run nothing on a device, and so take no --device
 HOST_ONLY = {"mujoco/plotter.py"}
 #: the JAX examples' sibling modules, imported by bare name from the script's folder
@@ -95,7 +102,7 @@ def jax_namespace(rel: str, monkeypatch) -> dict | None:
 
 def test_the_slice_covers_every_script_of_its_groups():
     folders = {p.name for p in JAX_EXAMPLES.iterdir() if p.is_dir() and not p.name.startswith(("_", "."))}
-    assert folders - set(FOLDERS) == {"benchmark"}
+    assert folders - set(FOLDERS) == set()
     for folder in FOLDERS:
         jax_scripts = {f"{folder}/{p.name}" for p in (JAX_EXAMPLES / folder).glob("*.py")
                        if not p.name.startswith("_") and p.stem not in SIBLINGS}
@@ -120,6 +127,7 @@ def test_the_port_parser_gives_the_jax_defaults(rel, monkeypatch):
     extra = set(got) - set(want)
     assert extra == (set() if rel in HOST_ONLY else {"device"}), (rel, extra)
     assert set(want) <= set(got), (rel, set(want) - set(got))
+    want.update(PORT_DEFAULTS.get(rel, {}))
     for key, value in want.items():
         assert got[key] == value and type(got[key]) is type(value), (rel, key, got[key], value)
     if rel not in HOST_ONLY:

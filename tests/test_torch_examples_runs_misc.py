@@ -118,6 +118,14 @@ RUN_TABLES = {
 #: scripts run by a test of their own, not a table's: {script: the test}
 OWN_TESTS = {
     "mujoco/plotter.py": "tests/test_torch_examples_runs_mujoco.py::test_the_plotter_plots_a_multi_seed_log_directory",
+    "benchmark/seed_vmap.py": "tests/test_torch_benchmark_seed_vmap.py::test_main_trains_every_seed",
+    "benchmark/seed_queue.py": "tests/test_torch_benchmark_queue.py::test_the_queue_runs_every_kind_of_job",
+    "benchmark/run_benchmark.py": "tests/test_torch_benchmark_scripts.py::test_run_benchmark_runs_one_cell",
+    "benchmark/throughput.py": "tests/test_torch_benchmark_scripts.py::test_throughput_sweeps_through_its_main",
+    "benchmark/offpolicy_throughput.py":
+        "tests/test_torch_benchmark_scripts.py::test_offpolicy_throughput_runs_both_modes_through_its_main",
+    "benchmark/host_throughput.py": "tests/test_torch_benchmark_scripts.py::test_host_throughput_runs_both_collectors",
+    "benchmark/host_overlap.py": "tests/test_torch_benchmark_scripts.py::test_host_overlap_trains_in_three_modes",
 }
 
 
@@ -136,7 +144,7 @@ def test_every_script_runs_on_the_cpu_or_names_the_package_it_skips_on():
         for table in tables:
             covered |= set(getattr(mod, table))
     scripts = _scripts()
-    assert len(scripts) == 51
+    assert len(scripts) == 58
     assert scripts - covered == set(), sorted(scripts - covered)
     assert covered - scripts == set(), sorted(covered - scripts)
     for path, test in OWN_TESTS.items():
